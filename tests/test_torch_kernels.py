@@ -1,0 +1,114 @@
+"""The port's kernel modules against the JAX package, on the CPU.
+
+* ``repro_torch.kernels.quant.quantize`` gives the reference's q and
+  scales bit for bit (int8 and fp8);
+* the port's ``streamed_moe`` on CPU tensors (the kernel's plain version)
+  matches the Pallas kernel in interpret mode and the reference's
+  quantized oracle for every activation and weight format, with an odd
+  C; tolerances are the reference's own (``tests/test_quantization.py``
+  KERNEL_TOL): 2e-5 for fp32/int8/fp8, 2e-2 for bf16;
+* a CPU tensor never touches the kernel's launch counter, and the
+  wrapper refuses operands the kernel does not take.
+
+The CUDA kernel itself runs only on the card (``chip_smoke.py``).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import quant as jquant
+from repro.kernels import ref as jref
+from repro_torch.kernels import ops, quant, ref
+from repro_torch.kernels import streamed_moe as sm
+
+KERNEL_TOL = {"fp32": 2e-5, "int8": 2e-5, "fp8": 2e-5, "bf16": 2e-2}
+
+
+def _inputs(E=2, C=5, d=16, m=8, seed=0):
+    rng = np.random.default_rng(seed)
+    xe = rng.standard_normal((E, C, d)).astype(np.float32)
+    wg, wu = (rng.standard_normal((E, d, m)).astype(np.float32) * 0.3
+              for _ in range(2))
+    wd = rng.standard_normal((E, m, d)).astype(np.float32) * 0.3
+    return xe, wg, wu, wd
+
+
+def _q_bits(q: torch.Tensor) -> np.ndarray:
+    return q.view(torch.uint8).numpy() if q.dtype == torch.float8_e4m3fn \
+        else q.numpy()
+
+
+@pytest.mark.parametrize("wdt", ["int8", "fp8"])
+def test_quantize_bit_identical(wdt):
+    _, wg, _, wd = _inputs(E=3, d=40, m=24, seed=1)
+    wg[0, :, 3] = 0.0                                  # an all-zero channel
+    for w in (wg, wd):
+        jq, js = jquant.quantize(jnp.asarray(w), wdt)
+        q, s = quant.quantize(torch.from_numpy(w), wdt)
+        jq = np.asarray(jq)
+        jbits = jq.view(np.uint8) if wdt == "fp8" else jq
+        np.testing.assert_array_equal(_q_bits(q), jbits)
+        np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+        np.testing.assert_array_equal(
+            quant.fake_quant(torch.from_numpy(w), wdt).numpy(),
+            np.asarray(jquant.fake_quant(jnp.asarray(w), wdt)))
+
+
+@pytest.mark.parametrize("wdt", ["fp32", "bf16", "int8", "fp8"])
+@pytest.mark.parametrize("act", ["swiglu", "relu2", "gelu"])
+def test_plain_streamed_moe_matches_pallas_and_oracle(act, wdt):
+    xe, wg, wu, wd = _inputs()
+    wg = wg if act == "swiglu" else None
+    with jops.use_kernels(True):
+        pallas = np.asarray(jops.streamed_moe(
+            jnp.asarray(xe), None if wg is None else jnp.asarray(wg),
+            jnp.asarray(wu), jnp.asarray(wd), act, weight_dtype=wdt,
+            interpret=True))
+    oracle = np.asarray(jref.streamed_moe_quant_ref(
+        jnp.asarray(xe), None if wg is None else jnp.asarray(wg),
+        jnp.asarray(wu), jnp.asarray(wd), act, wdt))
+    t = [None if a is None else torch.from_numpy(a) for a in (xe, wg, wu, wd)]
+    before = sm.LAUNCHES
+    got = ops.streamed_moe(*t, act, weight_dtype=wdt)
+    assert sm.LAUNCHES == before            # CPU tensors: plain version only
+    assert got.dtype == torch.float32 and tuple(got.shape) == xe.shape
+    tol = KERNEL_TOL[wdt]
+    np.testing.assert_allclose(got.numpy(), pallas, rtol=tol, atol=tol)
+    np.testing.assert_allclose(got.numpy(), oracle, rtol=tol, atol=tol)
+    # the port's own oracle is the reference's oracle
+    mine = ref.streamed_moe_quant_ref(*t, act, wdt)
+    np.testing.assert_allclose(mine.numpy(), oracle, rtol=2e-6, atol=2e-6)
+
+
+@pytest.mark.parametrize("act", ["swiglu", "gelu"])
+def test_oracle_path_matches_reference_bf16_activations(act):
+    """``use_kernels(False)`` with bf16 activations and weights runs the
+    reference's einsum oracle in bf16 (rounding differs by framework)."""
+    xe, wg, wu, wd = _inputs(C=7)
+    j = [jnp.asarray(a, jnp.bfloat16) for a in (xe, wg, wu, wd)]
+    t = [torch.from_numpy(a).to(torch.bfloat16) for a in (xe, wg, wu, wd)]
+    want = np.asarray(jref.streamed_moe_ref(*j, act))
+    with ops.use_kernels(False):
+        got = ops.streamed_moe(*t, act)
+    np.testing.assert_allclose(got.numpy(), want, rtol=4e-2, atol=4e-2)
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take():
+    xe, wg, wu, wd = (torch.from_numpy(a) for a in _inputs())
+    with pytest.raises(ValueError):
+        sm.streamed_moe_kernel(xe, None, wu, wd, activation="swiglu")
+    with pytest.raises(ValueError):
+        sm.streamed_moe_kernel(xe, wg, wu, wd, activation="silu")
+    with pytest.raises(ValueError):
+        sm.streamed_moe_kernel(xe, wg, wu, wd.transpose(1, 2),
+                               activation="swiglu")
+    with pytest.raises(TypeError):
+        sm.streamed_moe_kernel(xe.double(), wg, wu, wd, activation="swiglu")
+    with pytest.raises(TypeError):
+        sm.streamed_moe_kernel(xe, wg, wu.bfloat16(), wd, activation="swiglu")
+    q, s = quant.quantize(wu, "int8")
+    with pytest.raises(ValueError):                    # scales missing
+        sm.streamed_moe_kernel(xe, None, q, quant.quantize(wd, "int8")[0],
+                               activation="relu2", s_u=s)
