@@ -38,11 +38,14 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
 ARCH = "granite-moe-1b-a400m"
-# kernel vs plain / oracle tolerance, max abs error over max |want|:
-# the reference's KERNEL_TOL (tests/test_quantization.py) for the fp32,
-# int8 and fp8 paths; bf16 rounds h before the down GEMM, as the Pallas
-# kernel does, so it is held at 3e-2 against the fp32 oracle.
-KERNEL_TOL = {"fp32": 2e-5, "int8": 2e-5, "fp8": 2e-5, "bf16": 3e-2}
+# Tolerances are max abs error over max |want|.  The plain version repeats
+# the kernel's arithmetic step for step (bf16 rounding of h included), so
+# the kernel is held to it at 1e-5 in every format.  Against the fp32
+# oracle: the reference's KERNEL_TOL (tests/test_quantization.py) for the
+# fp32, int8 and fp8 paths; bf16 rounds h before the down GEMM, as the
+# Pallas kernel does, so it is held at 3e-2 there.
+PLAIN_TOL = 1e-5
+ORACLE_TOL = {"fp32": 2e-5, "int8": 2e-5, "fp8": 2e-5, "bf16": 3e-2}
 # fp32 path parity: kernel path vs plain path prefill logits, max abs
 # error over max |logit| (both accumulate in fp32, in other orders)
 LOGIT_TOL = 1e-4
@@ -176,12 +179,12 @@ def phase_kernels():
         err_plain = (got - plain).abs().max().item()
         rel_plain = err_plain / plain.abs().max().item()
         rel_oracle = ((got - oracle).abs().max() / oracle.abs().max()).item()
-        tol = KERNEL_TOL[wdt]
+        tol = ORACLE_TOL[wdt]
         line = (f"streamed_moe E={E_} C={C_} d={d_} m={m_} {act} w={wdt} "
                 f"x={str(x_dtype)[6:]}: max_abs_err vs plain {err_plain:.3e} "
-                f"(rel {rel_plain:.3e}), rel vs oracle {rel_oracle:.3e}, "
-                f"tol {tol:g}")
-        if rel_plain > tol or rel_oracle > tol:
+                f"(rel {rel_plain:.3e}, tol {PLAIN_TOL:g}), rel vs oracle "
+                f"{rel_oracle:.3e} (tol {tol:g})")
+        if rel_plain > PLAIN_TOL or rel_oracle > tol:
             fail("kernels", line)
         if C_ == C:
             ms = median_ms(lambda: sm.streamed_moe_kernel(

@@ -7,8 +7,8 @@ kernel wrapper, which launches the CUDA kernel for CUDA tensors.
 ``use_kernels(False)`` routes to the reference's oracles instead; it is
 an explicit switch (``chip_smoke.py`` uses it for its comparison run),
 never a fallback.  The tiles are fixed in the kernel: the Hopper tile
-planner (the counterpart of ``core.autotune.kernel_opts_for``) is later
-work, so ``streamed_moe_autotuned`` takes no tile options yet.
+planner (the counterpart of ``core.autotune.kernel_opts_for``) and with
+it an autotuned entry point are later work.
 """
 from __future__ import annotations
 
@@ -61,8 +61,3 @@ def streamed_moe(xe, w_g, w_u, w_d, activation: str, weight_dtype=None):
                                quant.storage_cast(w_u, wdt),
                                quant.storage_cast(w_d, wdt),
                                activation=activation)
-
-
-def streamed_moe_autotuned(xe, w_g, w_u, w_d, activation: str):
-    """``streamed_moe`` at the kernel's fixed tiles (no planner yet)."""
-    return streamed_moe(xe, w_g, w_u, w_d, activation)

@@ -85,13 +85,13 @@ def run(args):
         cfg = cfg.replace(dtype="float32")
     params = api.init_params(cfg, seed=args.seed, device=device)
     if args.dry_run:
-        scfg = ServeConfig(max_batch=2, max_ctx=16, spec=spec, seed=args.seed)
+        scfg = ServeConfig(max_batch=2, max_ctx=16, spec=spec)
         prompts, max_new = [[1, 2, 3, 4]], 2
     else:
         scfg = ServeConfig(max_batch=args.max_batch,
                            max_ctx=args.prompt_len + args.max_new + 8,
                            buffering_slack=args.slack,
-                           theta_min=args.theta_min, spec=spec, seed=args.seed)
+                           theta_min=args.theta_min, spec=spec)
         rng = np.random.default_rng(args.seed)
         prompts = [rng.integers(0, cfg.vocab_size, size=args.prompt_len).tolist()
                    for _ in range(args.requests)]

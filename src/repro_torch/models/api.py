@@ -10,13 +10,10 @@ from repro_torch.device import resolve_device
 from . import transformer
 
 
-def init_params(cfg: ModelConfig, *, seed: int = 0, generator=None,
-                device=None):
-    """Random parameters from ``seed`` (or an explicit generator, which
-    must live on ``device``)."""
+def init_params(cfg: ModelConfig, *, seed: int = 0, device=None):
+    """Random parameters from ``seed``, drawn on ``device``."""
     device = resolve_device(device)
-    if generator is None:
-        generator = torch.Generator(device=device).manual_seed(seed)
+    generator = torch.Generator(device=device).manual_seed(seed)
     return transformer.init_lm(cfg, generator=generator, device=device)
 
 

@@ -38,20 +38,16 @@ from . import statepool
 
 @dataclass
 class ServeConfig:
+    """The engine's knobs.  Decoding is greedy, the capacity factor is
+    always drop-free (C = T*k, so no token is dropped because of who
+    shares the batch), the pool holds two full contexts per slot and the
+    deferral threshold follows from ``buffering_slack``."""
     max_batch: int = 8
     max_ctx: int = 256
     buffering_slack: float = 0.0
     theta_min: int = 2
-    n_threshold: Optional[int] = None   # default derived from slack
     page_size: int = 8
-    pool_pages: Optional[int] = None
-    # batching invariance: raise the capacity factor to the drop-free
-    # bound (C = T*k) so no token is dropped because of who shares the batch
-    drop_free: bool = True
     spec: Optional[object] = None       # ExecutionSpec, strategy name or dict
-    ema_decay: float = 0.8
-    temperature: float = 0.0            # 0 = greedy
-    seed: int = 0
 
     def __post_init__(self):
         from repro_torch.core.strategy import ExecutionSpec
@@ -89,7 +85,7 @@ class Engine:
         assert not cfg.is_encoder_decoder, "engine serves LM-family models"
         self.device = resolve_device(device)
         self.params = params
-        if scfg.drop_free and cfg.moe is not None \
+        if cfg.moe is not None \
                 and cfg.moe.capacity_factor < cfg.moe.num_experts:
             cfg = cfg.replace(moe=dataclasses.replace(
                 cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
@@ -98,8 +94,7 @@ class Engine:
         self.p, self.plan = transformer.cached_period_plan(cfg)
         self.L = cfg.num_layers
         pages_per_slot = -(-scfg.max_ctx // scfg.page_size)
-        num_pages = (scfg.pool_pages if scfg.pool_pages is not None
-                     else 2 * scfg.max_batch * pages_per_slot)
+        num_pages = 2 * scfg.max_batch * pages_per_slot
         self.caches = transformer.init_paged_caches(
             cfg, scfg.max_batch, num_pages, scfg.page_size, self.device)
         page_b, _ = statepool.state_bytes(self.caches)
@@ -113,12 +108,9 @@ class Engine:
         self.free_slots = deque(range(scfg.max_batch))
         self.policy = TokenBufferPolicy.from_slack(scfg.buffering_slack,
                                                    theta_min=scfg.theta_min)
-        if scfg.n_threshold is not None:
-            self.policy.n_threshold = scfg.n_threshold
         self._x = torch.zeros((scfg.max_batch, 1, cfg.d_model),
                               dtype=torch_dtype(cfg.dtype), device=self.device)
         self._rid = itertools.count()
-        self._rng = np.random.default_rng(scfg.seed)
         self.iterations = 0
         self.stats = {"deferrals": 0, "expert_loads": 0,
                       "expert_loads_saved": 0, "iterations": 0,
@@ -176,12 +168,8 @@ class Engine:
         return logits.float().cpu().numpy()
 
     def _sample(self, lf: np.ndarray) -> int:
-        lf = np.asarray(lf, np.float32)
-        if self.scfg.temperature <= 0:
-            return int(lf.argmax())
-        p = np.exp((lf - lf.max()) / self.scfg.temperature)
-        p /= p.sum()
-        return int(self._rng.choice(len(p), p=p))
+        """Greedy decoding."""
+        return int(np.asarray(lf, np.float32).argmax())
 
     # ------------------------------------------------------------------
     # one forward iteration (all active requests advance <= 1 token)
@@ -290,8 +278,7 @@ class Engine:
         when dynamic) and the Algorithm-2 deferral sweep.  Returns the
         rows that are not deferred."""
         tracker = self.load_trackers.setdefault(
-            layer, trajectory.LoadTracker(self.cfg.moe.num_experts,
-                                          decay=self.scfg.ema_decay))
+            layer, trajectory.LoadTracker(self.cfg.moe.num_experts))
         tracker.update(counts)
         rec = {"iter": self.iterations, "layer": layer, "phase": "decode",
                "counts": counts.copy(), "order": paired_load_order(counts),
