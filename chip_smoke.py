@@ -6,21 +6,35 @@
 Phases, each printing its result on its own line; any failure exits 1:
 
 1. environment: torch / CUDA versions and the card's name and power limit;
-2. build: every CUDA kernel from ``src/repro_torch/kernels/csrc`` with nvcc;
+2. build: every CUDA kernel from ``src/repro_torch/kernels/csrc``, one
+   nvcc per source, all at once;
 3. kernels: each kernel against its plain PyTorch version and the
-   reference oracle on the card, at the serving path's shape and at a
-   small odd shape, with CUDA-event median times and the byte bound;
+   reference oracle on the card, at its path's shapes and at small odd
+   ones, with CUDA-event median times, the bound, and for flash attention
+   the time of ``F.scaled_dot_product_attention`` on the same tensors;
 4. slice: ``repro_torch.launch.serve`` serves 4 requests x 16 tokens of
-   granite-moe-1b-a400m at full width in bf16; the kernel's launch count
-   must equal the number of MoE-layer expert calls;
+   granite-moe-1b-a400m at full width in bf16; the streamed_moe launch
+   count must equal the number of MoE-layer expert calls;
 5. path parity: the same path in fp32 with kernels and with
    ``use_kernels(False)`` — prefill logits and greedy tokens must agree;
 6. features: ``--schedule dynamic --slack 0.2`` and ``--weight-dtype fp8``;
-7. profile: the slice once more under ``torch.profiler`` — device kernel
-   time by name and the device's busy share of the wall time;
-8. summary: one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi``
-   name/power line, and the contract line
-   ``{"ok": true, "device": {"platform": "gpu", ...}}`` last.
+7. forward: ``api.loss_fn`` scores 2 x 2048 tokens of granite-moe-1b-a400m
+   at full width in bf16 through the flash and streamed_moe kernels (24
+   launches each), then the same batch in fp32 with kernels and with
+   ``use_kernels(False)``: losses within 1e-4, argmax agreement reported;
+8. mamba: ``api.loss_fn`` over 2 x 2048 tokens of mamba2-370m at full
+   width in bf16, then each layer's ``mamba2_block`` with the SSD kernel
+   (48 launches) against the plain path on the same activations, in bf16
+   (reported) and fp32 (within 2e-5);
+9. profile: the slice and both scoring losses once more under
+   ``torch.profiler`` — device kernel time by name and the device's busy
+   share of the wall time;
+10. summary: one ``{"kernels": [...]}`` JSON line with one entry per
+    kernel and path (``streamed_moe`` on the serve and the forward paths,
+    ``flash_attention`` on the forward path, ``ssd`` on the mamba path),
+    each with that path's launches and its shape's times and bound; the
+    ``nvidia-smi`` name/power line; and the contract line
+    ``{"ok": true, "device": {"platform": "gpu", ...}}`` last.
 
 Weights are random from seed 0.  JAX is never imported.
 """
@@ -52,10 +66,40 @@ LOGIT_TOL = 1e-4
 # a greedy token may differ only where the plain run's top-2 logit
 # margin is below this (the order of fp32 sums can flip such a tie)
 MARGIN_TOL = 1e-3
+# the scoring forward in fp32: the share of positions whose argmax may
+# differ where the plain run's top-2 margin is MARGIN_TOL or more (a
+# flipped top-k tie moves a token between capacity slots)
+ARGMAX_MISS = 1e-3
+# Flash attention.  fp32: max abs error over max |want| within 1e-5 of the
+# plain version.  bf16, element by element: the plain version repeats the
+# kernel's arithmetic, but its fp32 sums run in another order, so a rounding
+# of p or of the output may flip by one ulp; each element is held within
+# FLASH_BF16_ULPS bf16 ulps of the plain one (plus 1e-6), and at most
+# FLASH_FLIP_SHARE of the elements may differ at all.  Against the exact
+# fp32 attention, each element is held to the error the bf16 roundings can
+# make: p rounded (unit roundoff u = 2^-8 of p, so u * sum p|v| / l) and the
+# output rounded (u |o|), times FLASH_BOUND_SLACK for the fp32 sums.
+# Against the oracle: the reference's max-abs tolerances (tests/test_kernels.py).
+FLASH_PLAIN_TOL = 1e-5
+FLASH_BF16_ULPS = 2
+FLASH_FLIP_SHARE = 1e-2
+FLASH_BOUND_SLACK = 1.05
+FLASH_ORACLE_TOL = {"fp32": 2e-4, "bf16": 4e-2}
+# SSD: 1e-5 against its plain version, the reference's 2e-5 against the oracle
+SSD_PLAIN_TOL = 1e-5
+SSD_ORACLE_TOL = 2e-5
+# the scoring forward in fp32, kernels vs use_kernels(False): relative loss
+LOSS_TOL = 1e-4
+# the Mamba-2 block in fp32 with and without the SSD kernel, max abs error
+# over max |want|
+BLOCK_TOL = 2e-5
 # H100 SXM data-sheet peaks (dense): bytes/s and operations/s by type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bf16": 989e12, "fp32": 67e12, "int8": 1979e12, "fp8": 1979e12}
 WEIGHT_BYTES = {"fp32": 4, "bf16": 2, "int8": 1, "fp8": 1}
+# the scoring runs (phases 7 and 8): batch x sequence, random tokens
+SCORE_B, SCORE_S = 2, 2048
+MAMBA = "mamba2-370m"
 
 
 def log(phase, msg):
@@ -91,9 +135,36 @@ def streamed_moe_bound_ms(E, C, d, m, wdt, x_bytes, gated=True):
     scales = 0 if wdt not in ("int8", "fp8") else 4 * E * ((n_mats - 1) * m + d)
     moved = weights + scales + E * C * d * x_bytes + E * C * d * 4
     ops = 2 * E * C * d * m * n_mats
+    return _bound(moved, ops, wdt)
+
+
+def _bound(moved, ops, kind):
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[wdt] * 1e3
+    t_ops = ops / PEAK_OPS[kind] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def flash_bound_ms(B, Sq, Sk, H, hd, kind, elt):
+    """q, k, v read once and o written once, against the multiply-adds of
+    both products over the (query, key) pairs the causal mask keeps."""
+    pairs = Sq * (Sk - Sq) + Sq * (Sq + 1) // 2
+    return _bound(elt * B * H * hd * (2 * Sq + 2 * Sk), 4 * hd * pairs * B * H,
+                  kind)
+
+
+def ssd_bound_ms(b, nc, c, h, p, n):
+    """x, B, C and A_cumsum read once, Y_diag and the states written once
+    (fp32), against the fp32 multiply-adds over the causal (i >= j) pairs
+    and of the state product."""
+    cells = b * nc * h
+    pairs = c * (c + 1) // 2
+    moved = 4 * (cells * c * (2 * p + 2 * n) + cells * c + cells * p * n)
+    return _bound(moved, cells * (2 * pairs * (n + p) + 2 * c * n * p), "fp32")
+
+
+def rel_err(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
 
 
 # ---------------------------------------------------------------------------
@@ -157,13 +228,20 @@ def _stream_operands(wg, wu, wd, wdt):
 
 
 def phase_kernels():
+    return {"streamed_moe": _check_streamed_moe(), "flash_attention":
+            _check_flash(), "ssd": _check_ssd()}
+
+
+def _check_streamed_moe():
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels import streamed_moe as sm
-    main = None
+    paths = {}
     E, C, d, m = 32, 64, 1024, 512          # granite, 8 slot rows, top-8
+    C_SCORE = 1280                          # the scoring forward's capacity
     cases = [(E, C, d, m, "swiglu", wdt) for wdt in ("bf16", "fp32", "int8",
                                                      "fp8")]
+    cases += [(E, C_SCORE, d, m, "swiglu", "bf16")]
     cases += [(4, 37, 256, 96, act, wdt) for act in ("relu2", "gelu")
               for wdt in ("fp32", "bf16", "int8", "fp8")]
     for (E_, C_, d_, m_, act, wdt) in cases:
@@ -186,7 +264,7 @@ def phase_kernels():
                 f"{rel_oracle:.3e} (tol {tol:g})")
         if rel_plain > PLAIN_TOL or rel_oracle > tol:
             fail("kernels", line)
-        if C_ == C:
+        if C_ in (C, C_SCORE):
             ms = median_ms(lambda: sm.streamed_moe_kernel(
                 xe, *ws, activation=act, **scales))
             plain_ms = median_ms(lambda: ref.streamed_moe_plain(
@@ -196,10 +274,144 @@ def phase_kernels():
             line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                      f"bound {bound * 1e3:.1f} us ({by})")
             if wdt == "bf16":
-                main = dict(max_abs_err=err_plain, ms=ms, plain_ms=plain_ms,
-                            bound_ms=bound, bound_by=by)
+                paths["serve" if C_ == C else "forward"] = dict(
+                    max_abs_err=err_plain, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound, bound_by=by, library_ms=None)
         log("kernels", line)
-    return main
+    return paths
+
+
+def _flash_inputs(B, Sq, Sk, H, hd, dtype, seed=0):
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(B, s, H, hd, generator=g, device="cuda").to(dtype)
+            for s in (Sq, Sk, Sk)]
+
+
+def _bf16_elementwise(got, plain, q, k, v):
+    """The bf16 flash output held element by element (see FLASH_BF16_ULPS):
+    (largest difference from the plain version in ulps of the plain
+    element, share of elements that differ, largest error against the
+    exact fp32 attention over the bound the bf16 roundings allow)."""
+    import torch
+    from repro_torch.kernels import ref
+    got, plain = got.float(), plain.float()
+    diff = (got - plain).abs()
+    _, e = torch.frexp(plain)
+    ulp = torch.where(plain == 0, torch.zeros_like(plain),
+                      torch.ldexp(torch.ones_like(plain), e - 8))
+    ulps = ((diff - 1e-6).clamp(min=0) / ulp).nan_to_num(posinf=1e9).max()
+    flips = (diff > 0).float().mean()
+    qf, kf, vf = q.float(), k.float(), v.float()
+    exact = ref.flash_attention_ref(qf, kf, vf)
+    spread = ref.flash_attention_ref(qf, kf, vf.abs())     # sum p|v| / l
+    bound = 2.0 ** -8 * (exact.abs() + spread) + 1e-6
+    over = ((got - exact).abs() / bound).max()
+    return ulps.item(), flips.item(), over.item()
+
+
+def _check_flash():
+    """The scoring path's (2, 2048, 16, 64) in bf16 and fp32, odd S, and
+    Sk = 2 Sq; the bf16 path shape is the one the summary reports."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    B, S, H, hd = SCORE_B, SCORE_S, 16, 64
+    main = None
+    cases = [(B, S, S, H, hd, "bf16"), (B, S, S, H, hd, "fp32"),
+             (1, 17, 17, 3, 64, "fp32"), (2, 100, 100, 4, 64, "bf16"),
+             (1, 100, 200, 2, 64, "fp32"), (2, 64, 128, 4, 128, "bf16")]
+    for (B_, Sq, Sk, H_, hd_, kind) in cases:
+        dtype = torch.bfloat16 if kind == "bf16" else torch.float32
+        q, k, v = _flash_inputs(B_, Sq, Sk, H_, hd_, dtype)
+        got = fa.flash_attention_kernel(q, k, v)
+        torch.cuda.synchronize()
+        plain = ref.flash_attention_plain(q, k, v)
+        oracle = ref.flash_attention_ref(q, k, v)
+        if not torch.isfinite(got).all():
+            fail("kernels", f"flash non-finite output {(B_, Sq, Sk, H_, hd_)}")
+        err_plain = (got.float() - plain.float()).abs().max().item()
+        rel_plain, rel_oracle = rel_err(got, plain), rel_err(got, oracle)
+        line = (f"flash_attention B={B_} Sq={Sq} Sk={Sk} H={H_} hd={hd_} {kind}: "
+                f"max_abs_err vs plain {err_plain:.3e} (rel {rel_plain:.3e}")
+        if kind == "fp32":
+            bad = rel_plain > FLASH_PLAIN_TOL
+            line += f", tol {FLASH_PLAIN_TOL:g})"
+        else:
+            ulps, flips, over = _bf16_elementwise(got, plain, q, k, v)
+            bad = ulps > FLASH_BF16_ULPS or flips > FLASH_FLIP_SHARE or \
+                over > FLASH_BOUND_SLACK
+            line += (f"), per element: at most {ulps:.3f} ulps from plain "
+                     f"(tol {FLASH_BF16_ULPS}), share differing {flips:.3e} "
+                     f"(tol {FLASH_FLIP_SHARE:g}), error vs exact fp32 "
+                     f"{over:.3f} of the bf16 rounding bound (tol "
+                     f"{FLASH_BOUND_SLACK:g})")
+        line += (f"; rel vs oracle {rel_oracle:.3e} (tol "
+                 f"{FLASH_ORACLE_TOL[kind]:g})")
+        if bad or rel_oracle > FLASH_ORACLE_TOL[kind]:
+            fail("kernels", line)
+        if Sq == S:
+            ms = median_ms(lambda: fa.flash_attention_kernel(q, k, v))
+            plain_ms = median_ms(lambda: ref.flash_attention_plain(q, k, v),
+                                 reps=5, warmup=1)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True))
+            bound, by = flash_bound_ms(B_, Sq, Sk, H_, hd_, kind,
+                                       q.element_size())
+            line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                     f"sdpa {lib_ms:.4f} ms, bound {bound * 1e3:.1f} us ({by})")
+            if kind == "bf16":
+                main = dict(max_abs_err=err_plain, ms=ms, plain_ms=plain_ms,
+                            bound_ms=bound, bound_by=by, library_ms=lib_ms)
+        log("kernels", line)
+    return {"forward": main}
+
+
+def _check_ssd():
+    """mamba2-370m's (b, nc, c, h, p, n) = (2, 8, 256, 32, 64, 128), a
+    chunk of one partial tile (c = 32) and one whose last tile is partial
+    after a full one (c = 100); the first is the one the summary reports."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd
+    main = None
+    for shape in ((SCORE_B, SCORE_S // 256, 256, 32, 64, 128),
+                  (1, 3, 32, 3, 32, 16), (1, 2, 100, 3, 64, 16)):
+        b, nc, c, h, p, n = shape
+        g = torch.Generator(device="cuda").manual_seed(0)
+        kw = dict(generator=g, device="cuda")
+        xc = torch.randn(b, nc, c, h, p, **kw)
+        Bc, Cc = (torch.randn(b, nc, c, h, n, **kw) for _ in range(2))
+        Ac = -torch.rand(b, h, nc, c, **kw) * 0.1
+        Acum = torch.cumsum(Ac, -1)
+        got = ssd.ssd_intra_chunk_kernel(xc, Bc, Cc, Ac, Acum)
+        torch.cuda.synchronize()
+        plain = ref.ssd_intra_chunk_plain(xc, Bc, Cc, Acum)
+        oracle = ref.ssd_intra_chunk_ref(xc, Bc, Cc, Ac, Acum)
+        if not all(torch.isfinite(t).all() for t in got):
+            fail("kernels", f"ssd non-finite output {shape}")
+        err_plain = max((a - w).abs().max().item() for a, w in zip(got, plain))
+        rel_plain = max(rel_err(a, w) for a, w in zip(got, plain))
+        rel_oracle = max(rel_err(a, w) for a, w in zip(got, oracle))
+        line = (f"ssd_intra_chunk (b,nc,c,h,p,n)={shape}: max_abs_err vs plain "
+                f"{err_plain:.3e} (rel {rel_plain:.3e}, tol {SSD_PLAIN_TOL:g}), "
+                f"rel vs oracle {rel_oracle:.3e} (tol {SSD_ORACLE_TOL:g})")
+        if rel_plain > SSD_PLAIN_TOL or rel_oracle > SSD_ORACLE_TOL:
+            fail("kernels", line)
+        if main is None:
+            ms = median_ms(lambda: ssd.ssd_intra_chunk_kernel(xc, Bc, Cc, Ac,
+                                                              Acum))
+            plain_ms = median_ms(lambda: ref.ssd_intra_chunk_plain(xc, Bc, Cc,
+                                                                   Acum))
+            bound, by = ssd_bound_ms(*shape)
+            line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                     f"bound {bound * 1e3:.1f} us ({by})")
+            main = dict(max_abs_err=err_plain, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bound, bound_by=by, library_ms=None)
+        log("kernels", line)
+    return {"mamba": main}
 
 
 def _serve(argv):
@@ -212,27 +424,17 @@ def _n_moe(cfg):
 
 
 def _check_on_card(res, phase):
-    bad = [k for k, t in _leaves(res["params"]) if not t.is_cuda]
-    bad += [k for k, t in _leaves(res["engine"].caches) if not t.is_cuda]
+    from repro_torch.models.api import leaves
+    bad = [k for k, t in leaves(res["params"]) if not t.is_cuda]
+    bad += [k for k, t in leaves(res["engine"].caches) if not t.is_cuda]
     if bad:
         fail(phase, f"tensors on the CPU: {bad[:5]}")
-
-
-def _leaves(tree, prefix=""):
-    import torch
-    if isinstance(tree, torch.Tensor):
-        yield prefix, tree
-    elif isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from _leaves(v, f"{prefix}/{k}")
-    elif isinstance(tree, (tuple, list)):
-        for i, v in enumerate(tree):
-            yield from _leaves(v, f"{prefix}/{i}")
 
 
 def phase_slice(kernel_ms):
     import torch
     from repro_torch.kernels import streamed_moe as sm
+    from repro_torch.models.api import leaves
     torch.cuda.reset_peak_memory_stats()
     sm.LAUNCHES = 0
     res = _serve(["--requests", "4", "--prompt-len", "8", "--max-new", "16"])
@@ -249,7 +451,7 @@ def phase_slice(kernel_ms):
         fail("slice", f"streamed_moe launched {launches} times, want "
                       f"{expected} MoE-layer calls")
     _check_on_card(res, "slice")
-    n_params = sum(t.numel() for _, t in _leaves(res["params"]))
+    n_params = sum(t.numel() for _, t in leaves(res["params"]))
     tps = len(toks) / res["seconds"]
     log("slice", f"{ARCH} full width bf16 ({n_params / 1e9:.3f} B params, "
                  f"{cfg.num_layers} layers): 4 requests x 16 tokens = "
@@ -262,21 +464,196 @@ def phase_slice(kernel_ms):
     return launches
 
 
-def phase_profile():
-    """The slice once more under torch.profiler: device kernel time by
-    kernel name and the device's busy share of the wall time."""
+def _profile(label, fn):
+    """Run ``fn`` once under torch.profiler: device kernel time by kernel
+    name and the device's busy share of the wall time."""
+    import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        res = _serve(["--requests", "4", "--prompt-len", "8", "--max-new", "16"])
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA), reverse=True)
     busy = sum(ms for ms, _, _ in rows) / 1e3
-    log("profile", f"wall {res['seconds']:.3f}s, device kernel time "
-                   f"{busy:.3f}s, busy share {busy / res['seconds']:.3f}")
+    log("profile", f"{label}: wall {wall:.3f}s, device kernel time "
+                   f"{busy:.3f}s, busy share {busy / wall:.3f}")
     for ms, n, name in rows[:10]:
-        log("profile", f"{ms:9.2f} ms {n:6d} x {name[:100]}")
+        log("profile", f"{label}: {ms:9.2f} ms {n:6d} x {name[:100]}")
+
+
+def phase_profile():
+    """The slice and the two bf16 scoring losses once more under the
+    profiler."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    _profile("slice", lambda: _serve(["--requests", "4", "--prompt-len", "8",
+                                      "--max-new", "16"]))
+    for label, arch, kw in (("forward", ARCH, dict(spec="capacity",
+                                                   use_flash=True)),
+                            ("mamba", MAMBA, {})):
+        cfg = get_config(arch)
+        params = api.init_params(cfg, seed=0, device="cuda")
+        batch = _score_batch(cfg)
+        with torch.no_grad():
+            _profile(label, lambda: api.loss_fn(params, batch, cfg, **kw))
+        del params
+        torch.cuda.empty_cache()
+
+
+def _score_batch(cfg, seed=0):
+    """SCORE_B x SCORE_S random tokens; labels are the tokens shifted by
+    one, the last not scored (-1)."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (SCORE_B, SCORE_S), generator=g,
+                           device="cuda")
+    labels = torch.cat([tokens[:, 1:], torch.full((SCORE_B, 1), -1,
+                                                  device="cuda")], dim=1)
+    return {"tokens": tokens, "labels": labels}
+
+
+def phase_forward():
+    """Path A: the scoring forward of full-width granite with flash
+    attention and the capacity MoE (C = 1280 at T = 4096), bf16; then the
+    same batch in fp32 with kernels and with use_kernels(False)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import streamed_moe as sm
+    from repro_torch.models import api, transformer
+    cfg = get_config(ARCH)
+    params = api.init_params(cfg, seed=0, device="cuda")
+    batch = _score_batch(cfg)
+    n_attn = sum(1 for m in cfg.layer_kinds() if m == "attn")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES = sm.LAUNCHES = 0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        loss, m = api.loss_fn(params, batch, cfg, spec="capacity",
+                              use_flash=True)
+    loss = loss.item()
+    secs = time.perf_counter() - t0
+    launches = {"flash_attention": fa.LAUNCHES, "streamed_moe": sm.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    if launches != {"flash_attention": n_attn, "streamed_moe": _n_moe(cfg)}:
+        fail("forward", f"launches {launches}, want {n_attn} flash and "
+                        f"{_n_moe(cfg)} streamed_moe")
+    if not torch.isfinite(torch.tensor(loss)):
+        fail("forward", f"loss {loss}")
+    T = SCORE_B * SCORE_S
+    log("forward", f"{ARCH} full width bf16, {SCORE_B} x {SCORE_S} tokens "
+                   f"(MoE C = {cfg.moe.capacity_rows(T)}): loss {loss:.4f} (ce "
+                   f"{m['ce'].item():.4f}, aux {m['aux'].item():.4f}) in "
+                   f"{secs:.3f}s = {T / secs:.0f} scored tok/s; launches "
+                   f"{launches}; peak memory {peak / 2**30:.2f} GiB")
+    del params
+    torch.cuda.empty_cache()
+
+    cfg32 = cfg.replace(dtype="float32")
+    params = api.init_params(cfg32, seed=0, device="cuda")
+    out = {}
+    for kernels in (True, False):
+        with torch.no_grad(), ops.use_kernels(kernels):
+            loss32, _ = api.loss_fn(params, batch, cfg32, spec="capacity",
+                                    use_flash=True)
+            logits, _ = transformer.forward(params, batch["tokens"], cfg32,
+                                            spec="capacity", use_flash=True)
+            out[kernels] = (loss32.item(), logits)
+    (lk, zk), (lp, zp) = out[True], out[False]
+    rel = abs(lk - lp) / abs(lp)
+    top2 = zp.topk(2, dim=-1).values
+    differ = zk.argmax(-1) != zp.argmax(-1)
+    miss = (differ & (top2[..., 0] - top2[..., 1] >= MARGIN_TOL)).float() \
+        .mean().item()
+    line = (f"fp32 parity: loss {lk:.6f} with kernels, {lp:.6f} with "
+            f"use_kernels(False), rel {rel:.3e} (tol {LOSS_TOL:g}); argmax "
+            f"agrees at {1 - differ.float().mean().item():.4f} of {T} "
+            f"positions, differs where the plain top-2 margin is >= "
+            f"{MARGIN_TOL:g} at {miss:.4f} (tol {ARGMAX_MISS:g}); logits "
+            f"rel err {rel_err(zk, zp):.3e}")
+    if rel > LOSS_TOL or miss > ARGMAX_MISS:
+        fail("forward", line)
+    log("forward", line)
+    del params, out, zk, zp
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _mamba_layers(params, cfg, tokens):
+    """Each layer with the SSD kernel and without, on the activations that
+    reach it in the plain-path forward: the largest error of the layer's
+    output over the largest entry of what its block adds, across layers."""
+    import torch
+    from repro_torch.models import transformer
+    x = transformer._embed(params, tokens)
+    worst = 0.0
+    with torch.no_grad():
+        for layer, slot, mixer, ffn_kind in transformer.layer_slots(params,
+                                                                    cfg):
+            xk, xp = (transformer._apply_slot_full(
+                slot, x, cfg, mixer, ffn_kind, positions=None, spec=None,
+                layer=layer, use_flash=False, ssd_kernel=k)[0]
+                for k in (True, False))
+            if not torch.isfinite(xk).all():
+                fail("mamba", f"layer {layer}: non-finite block output")
+            worst = max(worst, rel_err(xk - x, xp - x))
+            x = xp
+    return worst
+
+
+def phase_mamba():
+    """Path B: the full-width mamba2-370m scoring loss (the plain SSD path,
+    as the reference's forward), then every layer's block with the SSD
+    kernel against the plain path, bf16 (reported) and fp32 (held)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd
+    from repro_torch.models import api
+    cfg = get_config(MAMBA)
+    params = api.init_params(cfg, seed=0, device="cuda")
+    batch = _score_batch(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ssd.LAUNCHES = 0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        loss, _ = api.loss_fn(params, batch, cfg)
+    loss = loss.item()
+    secs = time.perf_counter() - t0
+    bf16_err = _mamba_layers(params, cfg, batch["tokens"])
+    launches = ssd.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    if launches != cfg.num_layers:
+        fail("mamba", f"ssd launched {launches} times, want {cfg.num_layers}")
+    if not torch.isfinite(torch.tensor(loss)):
+        fail("mamba", f"loss {loss}")
+    T = SCORE_B * SCORE_S
+    log("mamba", f"{MAMBA} full width bf16, {SCORE_B} x {SCORE_S} tokens: "
+                 f"loss {loss:.4f} in {secs:.3f}s = {T / secs:.0f} scored "
+                 f"tok/s; per-layer blocks with the SSD kernel: {launches} "
+                 f"launches, bf16 rel err vs plain path {bf16_err:.3e}; peak "
+                 f"memory {peak / 2**30:.2f} GiB")
+    del params
+    torch.cuda.empty_cache()
+    cfg32 = cfg.replace(dtype="float32")
+    params = api.init_params(cfg32, seed=0, device="cuda")
+    err = _mamba_layers(params, cfg32, batch["tokens"])
+    line = (f"fp32: block with the SSD kernel vs without, worst layer rel err "
+            f"{err:.3e} (tol {BLOCK_TOL:g})")
+    if err > BLOCK_TOL:
+        fail("mamba", line)
+    log("mamba", line)
+    del params
+    torch.cuda.empty_cache()
+    return launches
 
 
 def phase_parity():
@@ -365,15 +742,24 @@ def phase_features():
         del res, eng
 
 
+SOURCES = {"streamed_moe": "src/repro/kernels/streamed_moe.py:201",
+           "flash_attention": "src/repro/kernels/flash_attention.py:81",
+           "ssd": "src/repro/kernels/ssd.py:51"}
+
+
 def main():
     try:
         card = phase_env()
         import torch
         phase_build()
-        main_k = phase_kernels()
-        launches = phase_slice(main_k["ms"])
+        rows = phase_kernels()
+        launches = {("streamed_moe", "serve"): phase_slice(
+            rows["streamed_moe"]["serve"]["ms"])}
         phase_parity()
         phase_features()
+        for k, n in phase_forward().items():
+            launches[k, "forward"] = n
+        launches["ssd", "mamba"] = phase_mamba()
         phase_profile()
         if "jax" in sys.modules:
             fail("summary", "jax was imported")
@@ -383,14 +769,11 @@ def main():
         traceback.print_exc()
         print("FAIL: a phase raised", flush=True)
         sys.exit(1)
-    print(json.dumps({"kernels": [{
-        "name": "streamed_moe", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/streamed_moe.cu",
-        "replaces": "src/repro/kernels/streamed_moe.py:201",
-        "launches": launches, "max_abs_err": main_k["max_abs_err"],
-        "ms": main_k["ms"], "plain_ms": main_k["plain_ms"],
-        "bound_ms": main_k["bound_ms"], "bound_by": main_k["bound_by"],
-        "library_ms": None}]}), flush=True)
+    print(json.dumps({"kernels": [dict(
+        name=name, path=path, route="cuda",
+        source=f"src/repro_torch/kernels/csrc/{name}.cu",
+        replaces=SOURCES[name], launches=n, **rows[name][path])
+        for (name, path), n in launches.items()]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

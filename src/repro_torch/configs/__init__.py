@@ -1,5 +1,5 @@
-from .base import (ModelConfig, MoEConfig, get_config, list_configs,
-                   moe_capacity_rows, register)
+from .base import (ModelConfig, MoEConfig, SSMConfig, get_config,
+                   list_configs, moe_capacity_rows, register)
 
 
 def reduced_config(name: str):
@@ -13,5 +13,5 @@ def reduced_config(name: str):
     raise KeyError(name)
 
 
-__all__ = ["ModelConfig", "MoEConfig", "get_config",
+__all__ = ["ModelConfig", "MoEConfig", "SSMConfig", "get_config",
            "list_configs", "moe_capacity_rows", "reduced_config", "register"]

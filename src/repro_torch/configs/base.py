@@ -40,6 +40,20 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-2 / SSD block configuration."""
+
+    d_state: int = 128
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64                 # SSD head dim (P)
+    n_groups: int = 1
+    chunk_size: int = 256              # SSD chunk length
+    dt_min: float = 0.001
+    dt_max: float = 0.1
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str                        # dense | moe | hybrid | ssm | audio | vlm
@@ -56,7 +70,7 @@ class ModelConfig:
     tie_embeddings: bool = False
     moe: Optional[MoEConfig] = None
     moe_every: int = 1
-    ssm: Optional[object] = None       # no SSM model is ported yet
+    ssm: Optional[SSMConfig] = None
     attn_every: int = 1
     encoder_layers: int = 0
     max_seq_len: int = 524_288
@@ -98,7 +112,6 @@ class ModelConfig:
         return tuple(kinds)
 
     def param_count(self) -> int:
-        """Parameters of the attention/FFN stack (no SSM layers here)."""
         d, hd = self.d_model, self.resolved_head_dim
         embed = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         attn = d * (self.num_heads * hd) + 2 * d * (self.num_kv_heads * hd) \
@@ -109,9 +122,17 @@ class ModelConfig:
             per_e = n_mats * d * self.moe.d_expert
             moe_ffn = self.moe.num_experts * per_e + d * self.moe.num_experts \
                 + self.moe.num_shared_experts * per_e
+        ssm_p = 0
+        if self.ssm is not None:
+            di = self.ssm.expand * d
+            nh = di // self.ssm.head_dim
+            gn = self.ssm.n_groups * self.ssm.d_state
+            # in_proj (z, x, B, C, dt) + conv + out_proj + A, D
+            ssm_p = d * (2 * di + 2 * gn + nh) + self.ssm.d_conv * (di + 2 * gn) \
+                + di * d + 2 * nh
         total = embed
-        for ffn in self.ffn_kinds():
-            total += attn + 2 * d
+        for mix, ffn in zip(self.layer_kinds(), self.ffn_kinds()):
+            total += (attn if mix == "attn" else ssm_p) + 2 * d
             total += moe_ffn if ffn == "moe" else (
                 n_mats * d * self.d_ff if ffn == "dense" else 0)
         return int(total)
@@ -129,7 +150,7 @@ def register(cfg: ModelConfig) -> ModelConfig:
 
 
 # ported architectures; the reference registers thirteen
-_ARCH_MODULES = ["granite_moe_1b"]
+_ARCH_MODULES = ["granite_moe_1b", "mamba2_370m"]
 _loaded = False
 
 

@@ -1,7 +1,8 @@
 """Hopper kernels of the port and their dispatch layer (``ops``).
 
-One kernel so far: ``streamed_moe`` (CUDA C++, ``csrc/streamed_moe.cu``,
-wrapped by the ``streamed_moe`` module), the port of the Pallas
-``repro.kernels.streamed_moe`` kernel.  The Pallas flash-attention and
-SSD kernels are not ported yet (ROADMAP queue B).
+Three CUDA C++ kernels, one for each Pallas kernel of ``repro.kernels``:
+``streamed_moe`` (``csrc/streamed_moe.cu``), ``flash_attention``
+(``csrc/flash_attention.cu``) and ``ssd`` (``csrc/ssd.cu``, the SSD
+intra-chunk terms), each wrapped by the module of the same name, with
+its plain PyTorch version and the reference's oracle in ``ref``.
 """

@@ -20,7 +20,7 @@ from pathlib import Path
 from typing import Dict, List, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("streamed_moe",)
+SOURCES = ("streamed_moe", "flash_attention", "ssd")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

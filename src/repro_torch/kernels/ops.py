@@ -1,9 +1,10 @@
-"""Dispatch layer for the expert FFN (port of ``repro.kernels.ops``).
+"""Dispatch layer for the kernels (port of ``repro.kernels.ops``).
 
-``streamed_moe`` is what the model code calls.  With kernels on (the
-default) it quantizes or storage-casts the weights to the ambient
-streamed format per call, as the reference does, and hands them to the
-kernel wrapper, which launches the CUDA kernel for CUDA tensors.
+``streamed_moe``, ``flash_attention`` and ``ssd_intra_chunk`` are what
+the model code calls.  With kernels on (the default) each hands its
+operands to the kernel wrapper, which launches the CUDA kernel for CUDA
+tensors; ``streamed_moe`` first quantizes or storage-casts the weights
+to the ambient streamed format per call, as the reference does.
 ``use_kernels(False)`` routes to the reference's oracles instead; it is
 an explicit switch (``chip_smoke.py`` uses it for its comparison run),
 never a fallback.  The tiles are fixed in the kernel: the Hopper tile
@@ -16,6 +17,8 @@ import contextlib
 import contextvars
 
 from . import quant, ref
+from .flash_attention import flash_attention_kernel
+from .ssd import ssd_intra_chunk_kernel
 from .streamed_moe import streamed_moe_kernel
 
 _USE = contextvars.ContextVar("repro_torch_use_kernels", default=True)
@@ -61,3 +64,17 @@ def streamed_moe(xe, w_g, w_u, w_d, activation: str, weight_dtype=None):
                                quant.storage_cast(w_u, wdt),
                                quant.storage_cast(w_d, wdt),
                                activation=activation)
+
+
+def flash_attention(q, k, v):
+    """Causal attention over (B,S,H,hd) with KV broadcast to H heads."""
+    if kernels_enabled():
+        return flash_attention_kernel(q, k, v)
+    return ref.flash_attention_ref(q, k, v)
+
+
+def ssd_intra_chunk(xc, Bc, Cc, Ac, A_cumsum):
+    """Mamba-2 SSD intra-chunk terms -> (Y_diag, states), fp32."""
+    if kernels_enabled():
+        return ssd_intra_chunk_kernel(xc, Bc, Cc, Ac, A_cumsum)
+    return ref.ssd_intra_chunk_ref(xc, Bc, Cc, Ac, A_cumsum)

@@ -1,18 +1,26 @@
-"""Plain PyTorch versions of the ``streamed_moe`` kernel (port of
+"""Plain PyTorch versions of the CUDA kernels (port of
 ``repro.kernels.ref``).
 
-* :func:`streamed_moe_ref` / :func:`streamed_moe_quant_ref` are the
-  reference's oracles: einsums in the operands' (promoted) dtype, and the
-  fp32 einsum over quantize->dequantize round-tripped weights.
-* :func:`streamed_moe_plain` repeats the CUDA kernel's arithmetic step
-  for step (fp32 accumulation, in-place dequantization, ``h`` cast to
-  ``w_d``'s dtype before the down GEMM).  The kernel wrapper takes it for
-  CPU tensors, and ``chip_smoke.py`` holds the kernel against it.
+* ``*_ref`` are the reference's oracles: :func:`streamed_moe_ref` /
+  :func:`streamed_moe_quant_ref` (einsums in the operands' promoted
+  dtype; the fp32 einsum over quantize->dequantize round-tripped
+  weights), :func:`flash_attention_ref` (full softmax attention) and
+  :func:`ssd_intra_chunk_ref` (the SSD intra-chunk einsums).
+* ``*_plain`` repeat each CUDA kernel's arithmetic step for step: tiles
+  of the kernel's width, fp32 accumulation, and the kernel's roundings.
+  A kernel wrapper takes its plain version for CPU tensors, and
+  ``chip_smoke.py`` holds each kernel against it on the card.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
+
+NEG_INF = -1e30
+FLASH_TILE = 64     # query rows and keys per tile of csrc/flash_attention.cu
+SSD_TILE = 64       # chunk rows per tile of csrc/ssd.cu
 
 
 def _act(kind: str, hu, hg=None):
@@ -69,3 +77,104 @@ def streamed_moe_plain(xe, w_g, w_u, w_d, activation: str, *,
     if w_d.dtype == torch.bfloat16:
         h = h.to(torch.bfloat16).float()
     return torch.einsum("ecm,emd->ecd", h, deq(w_d, s_d))
+
+
+def flash_attention_ref(q, k, v):
+    """q, k, v: (B,S,H,hd), kv already head-broadcast -> (B,Sq,H,hd).
+    Causal, right-aligned (key j is visible to query i iff j <= i+Sk-Sq)."""
+    hd = q.shape[-1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k).float() / math.sqrt(hd)
+    Sq, Sk = q.shape[1], k.shape[1]
+    mask = torch.arange(Sk, device=q.device)[None, :] \
+        <= torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
+    s = s.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+def flash_attention_plain(q, k, v):
+    """The flash kernel's arithmetic: per query tile, a loop over key tiles
+    up to the diagonal with fp32 running max ``m``, sum ``l`` and
+    accumulator; scores ``(q k^T) * hd^-1/2``, masked keys at -1e30; ``p``
+    rounded to v's dtype before the PV product (``l`` sums the unrounded
+    ``p``); output ``acc / max(l, 1e-30)`` in q's dtype.  Key tiles above
+    a row's diagonal that the loop still visits (the tile holds later rows
+    too) are an exact no-op for it: ``exp(-1e30 - m) == 0``."""
+    B, Sq, H, hd = q.shape
+    Sk = k.shape[1]
+    scale = 1.0 / math.sqrt(hd)
+    qh = q.permute(0, 2, 1, 3).float()                        # (B,H,Sq,hd)
+    kh = k.permute(0, 2, 1, 3).float()
+    vh = v.permute(0, 2, 1, 3).float()
+    out = torch.empty((B, H, Sq, hd), dtype=q.dtype, device=q.device)
+    for q0 in range(0, Sq, FLASH_TILE):
+        q1 = min(q0 + FLASH_TILE, Sq)
+        qpos = torch.arange(q0, q1, device=q.device)[:, None] + (Sk - Sq)
+        m = torch.full((B, H, q1 - q0), NEG_INF, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((B, H, q1 - q0, hd), device=q.device)
+        for k0 in range(0, q1 + Sk - Sq, FLASH_TILE):
+            k1 = min(k0 + FLASH_TILE, Sk)
+            s = (qh[:, :, q0:q1] @ kh[:, :, k0:k1].transpose(-1, -2)) * scale
+            kpos = torch.arange(k0, k1, device=q.device)[None, :]
+            s = torch.where(kpos <= qpos, s, torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + p.to(v.dtype).float() @ vh[:, :, k0:k1]
+            m = m_new
+        out[:, :, q0:q1] = (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+    return out.permute(0, 2, 1, 3).contiguous()
+
+
+def segsum(x):
+    """x: (..., T) -> (..., T, T); out[..., i, j] = sum_{k=j+1..i} x[k],
+    -inf above the diagonal."""
+    T = x.shape[-1]
+    cs = torch.cumsum(x, dim=-1)
+    out = cs[..., :, None] - cs[..., None, :]
+    keep = torch.tril(torch.ones((T, T), dtype=torch.bool, device=x.device))
+    return out.masked_fill(~keep, float("-inf"))
+
+
+def ssd_intra_chunk_ref(xc, Bc, Cc, Ac, A_cumsum):
+    """Intra-chunk SSD terms.  xc: (b,nc,c,h,p); Bc/Cc: (b,nc,c,h,n);
+    Ac/A_cumsum: (b,h,nc,c) -> Y_diag (b,nc,c,h,p), states (b,nc,h,p,n),
+    both fp32."""
+    L = torch.exp(segsum(Ac))                                    # (b,h,nc,c,c)
+    G = torch.einsum("bclhn,bcshn->bhcls", Cc, Bc)
+    Y_diag = torch.einsum("bhcls,bcshp->bclhp", G * L, xc)
+    decay_states = torch.exp(A_cumsum[:, :, :, -1:] - A_cumsum)
+    states = torch.einsum("bclhn,bhcl,bclhp->bchpn", Bc, decay_states, xc)
+    return Y_diag.float(), states.float()
+
+
+def ssd_intra_chunk_plain(xc, Bc, Cc, A_cumsum):
+    """The SSD kernel's arithmetic per (batch, chunk, head), fp32
+    throughout.  ``Y_diag``: per tile of chunk rows, a loop over source
+    tiles up to the diagonal of ``(C B^T) * L`` times x, with
+    ``L[i, j] = exp(acum[i] - acum[j])`` for i >= j and 0 above.  The
+    state: ``((B * exp(acum[-1] - acum)[:, None])^T x)^T``, (p, n).  The
+    decays ``Ac`` themselves are not read (nor by the Pallas kernel)."""
+    b, nc, c, h, p = xc.shape
+    x = xc.float().permute(0, 1, 3, 2, 4)                      # (b,nc,h,c,p)
+    Bm = Bc.float().permute(0, 1, 3, 2, 4)                     # (b,nc,h,c,n)
+    Cm = Cc.float().permute(0, 1, 3, 2, 4)
+    acum = A_cumsum.float().permute(0, 2, 1, 3)                # (b,nc,h,c)
+    y = torch.empty((b, nc, h, c, p), device=xc.device)
+    for q0 in range(0, c, SSD_TILE):
+        q1 = min(q0 + SSD_TILE, c)
+        acc = torch.zeros((b, nc, h, q1 - q0, p), device=xc.device)
+        for s0 in range(0, q1, SSD_TILE):
+            s1 = min(s0 + SSD_TILE, c)
+            g = Cm[..., q0:q1, :] @ Bm[..., s0:s1, :].transpose(-1, -2)
+            diff = acum[..., q0:q1, None] - acum[..., None, s0:s1]
+            keep = torch.arange(q0, q1, device=xc.device)[:, None] \
+                >= torch.arange(s0, s1, device=xc.device)[None, :]
+            L = torch.where(keep, torch.exp(diff), torch.zeros_like(diff))
+            acc = acc + (g * L) @ x[..., s0:s1, :]
+        y[..., q0:q1, :] = acc
+    decay = torch.exp(acum[..., -1:] - acum)                    # (b,nc,h,c)
+    st = ((Bm * decay[..., None]).transpose(-1, -2) @ x).transpose(-1, -2)
+    return y.permute(0, 1, 3, 2, 4).contiguous(), st.contiguous()

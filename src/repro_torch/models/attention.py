@@ -2,7 +2,9 @@
 ``repro.models.attention``).
 
 The reference's decode and prefill attention are plain einsums, not a
-Pallas kernel, so they are plain PyTorch here too.  Layouts stay the
+Pallas kernel, so they are plain PyTorch here too; the full-sequence
+``attention(use_flash=True)`` of the scoring forward runs the flash
+kernel (``kernels/flash_attention.py``).  Layouts stay the
 reference's: activations (B, S, d), heads (B, S, H, hd), pages
 (num_pages, page_size, n_kv, hd).  Unlike the reference, the paged
 decode writes the new K/V into the page pool in place.
@@ -64,8 +66,10 @@ def causal_mask(sq: int, sk: int, device):
 
 
 def attention(params, x, *, n_heads, n_kv, head_dim, rope_theta,
-              positions=None):
-    """Full self-attention (the reference's non-flash path). x: (B, S, d)."""
+              positions=None, use_flash=False):
+    """Full causal self-attention. x: (B, S, d).  ``use_flash`` runs the
+    flash kernel through ``kernels.ops`` (the reference's oracle under
+    ``use_kernels(False)``)."""
     B, S, _ = x.shape
     q = _split_heads(x @ params["wq"], n_heads, head_dim)
     k = _split_heads(x @ params["wk"], n_kv, head_dim)
@@ -75,8 +79,12 @@ def attention(params, x, *, n_heads, n_kv, head_dim, rope_theta,
             positions = torch.arange(S, device=x.device)[None, :]
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
-    out = _sdpa(q, _repeat_kv(k, n_heads), _repeat_kv(v, n_heads),
-                causal_mask(S, S, x.device))
+    kf, vf = _repeat_kv(k, n_heads), _repeat_kv(v, n_heads)
+    if use_flash:
+        from repro_torch.kernels import ops
+        out = ops.flash_attention(q, kf, vf)
+    else:
+        out = _sdpa(q, kf, vf, causal_mask(S, S, x.device))
     return out.reshape(B, S, n_heads * head_dim) @ params["wo"]
 
 

@@ -1,11 +1,13 @@
-"""Decoder-only LM assembly (port of ``repro.models.transformer``, the
-attention + FFN/MoE families).
+"""Decoder-only LM assembly (port of ``repro.models.transformer``: the
+attention + FFN/MoE and the Mamba-2 families).
 
 Layers are grouped into the smallest repeating period of identical
 structure and each slot's parameters are stacked over periods, exactly
 as in the reference, so the weight bridge is a leaf-for-leaf copy.  A
-Python loop over periods replaces ``lax.scan``.  The serving engine runs
-the network layer by layer through the ``decode_*`` entry points.
+Python loop over periods replaces ``lax.scan``.  ``forward`` is the
+full-sequence (scoring) pass; the serving engine runs the network layer
+by layer through ``prefill`` and the ``decode_*`` entry points, which
+take attention stacks only.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device, torch_dtype
 from . import attention as attn_mod
+from . import mamba2 as ssm_mod
 from . import moe as moe_mod
 from .layers import apply_norm, dense_init, embed_init, norm_init
 from .mlp import ffn, ffn_init
@@ -31,19 +34,29 @@ def period_plan(cfg: ModelConfig):
     return L, kinds
 
 
-def _check_supported(cfg: ModelConfig):
-    if cfg.is_encoder_decoder or any(m != "attn" for m in cfg.layer_kinds()):
+def _check_supported(cfg: ModelConfig, *, serving: bool = False):
+    """Encoder-decoder models are not ported; SSM layers run in the
+    full-sequence ``forward`` but not yet in the serving entry points."""
+    if cfg.is_encoder_decoder:
         raise NotImplementedError(
-            f"{cfg.name}: only attention stacks are ported; SSM and "
-            f"encoder-decoder models wait for ROADMAP A.13")
+            f"{cfg.name}: encoder-decoder models wait for ROADMAP A.13")
+    if serving and any(m != "attn" for m in cfg.layer_kinds()):
+        raise NotImplementedError(
+            f"{cfg.name}: SSM layers in prefill, decode and the state pool "
+            f"are not ported yet (ROADMAP A.13)")
 
 
-def _slot_init(gen, cfg: ModelConfig, ffn_kind: str, n_periods: int, device):
+def _slot_init(gen, cfg: ModelConfig, mixer: str, ffn_kind: str,
+               n_periods: int, device):
     dtype, lead = torch_dtype(cfg.dtype), (n_periods,)
-    slot = {"norm1": norm_init(cfg.norm, cfg.d_model, device, lead),
-            "attn": attn_mod.attn_init(gen, cfg.d_model, cfg.num_heads,
-                                       cfg.num_kv_heads, cfg.resolved_head_dim,
-                                       dtype, device, lead)}
+    slot = {"norm1": norm_init(cfg.norm, cfg.d_model, device, lead)}
+    if mixer == "attn":
+        slot["attn"] = attn_mod.attn_init(
+            gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+            cfg.resolved_head_dim, dtype, device, lead)
+    else:
+        slot["ssm"] = ssm_mod.mamba2_init(gen, cfg.d_model, cfg.ssm, dtype,
+                                          device, lead)
     if ffn_kind != "none":
         slot["norm2"] = norm_init(cfg.norm, cfg.d_model, device, lead)
         if ffn_kind == "moe":
@@ -62,8 +75,8 @@ def init_lm(cfg: ModelConfig, *, generator: torch.Generator, device=None):
     p, plan = period_plan(cfg)
     n_periods = cfg.num_layers // p
     dtype = torch_dtype(cfg.dtype)
-    params = {"periods": tuple(_slot_init(generator, cfg, f, n_periods, device)
-                               for _, f in plan),
+    params = {"periods": tuple(_slot_init(generator, cfg, m, f, n_periods,
+                                          device) for m, f in plan),
               "embed": embed_init(generator, cfg.vocab_size, cfg.d_model,
                                   dtype, device),
               "final_norm": norm_init(cfg.norm, cfg.d_model, device)}
@@ -83,7 +96,7 @@ def init_paged_caches(cfg: ModelConfig, batch: int, num_pages: int,
                       page_size: int, device=None):
     """Per-slot tuple of SlotCache with KV pages stacked over periods:
     (n_periods, num_pages, page_size, n_kv, hd)."""
-    _check_supported(cfg)
+    _check_supported(cfg, serving=True)
     device = resolve_device(device)
     p, plan = period_plan(cfg)
     n_periods = cfg.num_layers // p
@@ -100,15 +113,27 @@ def _slot(period_params, c: int):
     return period_params[c]
 
 
+def layer_slots(params, cfg: ModelConfig):
+    """(layer, slot parameters, mixer, ffn_kind) for every layer in order."""
+    p, plan = period_plan(cfg)
+    for c in range(cfg.num_layers // p):
+        for s, (mixer, ffn_kind) in enumerate(plan):
+            yield c * p + s, _slot(params["periods"][s], c), mixer, ffn_kind
+
+
 def _embed(params, tokens):
     return params["embed"][tokens]
 
 
-def _unembed(params, x):
+def head_matrix(params):
+    """The unembedding (d, V): ``lm_head``, or the tied embedding's
+    transpose."""
     head = params.get("lm_head")
-    if head is None:
-        head = params["embed"].T
-    return x @ head
+    return head if head is not None else params["embed"].T
+
+
+def _unembed(params, x):
+    return x @ head_matrix(params)
 
 
 def _coerce_spec(spec):
@@ -118,42 +143,93 @@ def _coerce_spec(spec):
     return ExecutionSpec.coerce(spec)
 
 
+def _apply_slot_full(slot, x, cfg: ModelConfig, mixer, ffn_kind, *,
+                     positions, spec, layer, use_flash, ssd_kernel=False):
+    """Full-sequence forward of one layer slot. Returns (x, aux).
+
+    ``ssd_kernel`` sends an SSM mixer through the SSD kernel; ``forward``
+    never sets it, as the reference's forward has no such switch."""
+    h = apply_norm(cfg.norm, slot["norm1"], x)
+    if mixer == "attn":
+        h = attn_mod.attention(slot["attn"], h, n_heads=cfg.num_heads,
+                               n_kv=cfg.num_kv_heads,
+                               head_dim=cfg.resolved_head_dim,
+                               rope_theta=cfg.rope_theta, positions=positions,
+                               use_flash=use_flash)
+    else:
+        h = ssm_mod.mamba2_block(slot["ssm"], h, cfg.ssm, cfg.d_model,
+                                 use_kernel=ssd_kernel)
+    x = x + h
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if ffn_kind != "none":
+        h = apply_norm(cfg.norm, slot["norm2"], x)
+        if ffn_kind == "moe":
+            h, aux = moe_mod.moe_block(slot["moe"], h, cfg.moe, cfg.activation,
+                                       spec=spec, phase="train", layer=layer,
+                                       return_aux=True)
+        else:
+            h = ffn(slot["ffn"], h, cfg.activation)
+        x = x + h
+    return x, aux
+
+
+def forward(params, tokens, cfg: ModelConfig, *, spec=None, use_flash=False,
+            return_hidden=False):
+    """tokens: (B, S) -> (logits (B, S, V) or, with ``return_hidden``, the
+    final-normed hidden states (B, S, d); MoE aux loss summed over layers).
+
+    ``spec``: MoE execution spec (strategy name / dict / ExecutionSpec),
+    resolved per layer at phase ``train``.  ``use_flash``: attention
+    through the flash kernel."""
+    _check_supported(cfg)
+    sp = _coerce_spec(spec)
+    x = _embed(params, tokens)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for layer, slot, mixer, ffn_kind in layer_slots(params, cfg):
+        x, a = _apply_slot_full(slot, x, cfg, mixer, ffn_kind,
+                                positions=positions, spec=sp, layer=layer,
+                                use_flash=use_flash)
+        aux = aux + a
+    x = apply_norm(cfg.norm, params["final_norm"], x)
+    if return_hidden:
+        return x, aux
+    return _unembed(params, x), aux
+
+
 def prefill(params, tokens, cfg: ModelConfig, max_seq: int, *, spec=None):
     """tokens: (B, S) -> (logits (B, S, V), caches with KV padded to
     max_seq: per slot (n_periods, B, max_seq, n_kv, hd))."""
+    _check_supported(cfg, serving=True)
     p, plan = period_plan(cfg)
     sp = _coerce_spec(spec)
     x = _embed(params, tokens)
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
     per_slot = [[] for _ in plan]
-    for c in range(cfg.num_layers // p):
-        for s, (_, ffn_kind) in enumerate(plan):
-            slot = _slot(params["periods"][s], c)
-            h = apply_norm(cfg.norm, slot["norm1"], x)
-            kv = attn_mod.prefill_kv(slot["attn"], h, n_kv=cfg.num_kv_heads,
-                                     head_dim=cfg.resolved_head_dim,
-                                     rope_theta=cfg.rope_theta,
-                                     positions=positions)
-            pad = (0, 0, 0, 0, 0, max_seq - S)
-            per_slot[s].append(attn_mod.KVCache(
-                torch.nn.functional.pad(kv.k, pad),
-                torch.nn.functional.pad(kv.v, pad)))
-            h = attn_mod.attention(slot["attn"], h, n_heads=cfg.num_heads,
-                                   n_kv=cfg.num_kv_heads,
-                                   head_dim=cfg.resolved_head_dim,
-                                   rope_theta=cfg.rope_theta,
-                                   positions=positions)
+    for layer, slot, _, ffn_kind in layer_slots(params, cfg):
+        h = apply_norm(cfg.norm, slot["norm1"], x)
+        kv = attn_mod.prefill_kv(slot["attn"], h, n_kv=cfg.num_kv_heads,
+                                 head_dim=cfg.resolved_head_dim,
+                                 rope_theta=cfg.rope_theta,
+                                 positions=positions)
+        pad = (0, 0, 0, 0, 0, max_seq - S)
+        per_slot[layer % p].append(attn_mod.KVCache(
+            torch.nn.functional.pad(kv.k, pad),
+            torch.nn.functional.pad(kv.v, pad)))
+        h = attn_mod.attention(slot["attn"], h, n_heads=cfg.num_heads,
+                               n_kv=cfg.num_kv_heads,
+                               head_dim=cfg.resolved_head_dim,
+                               rope_theta=cfg.rope_theta, positions=positions)
+        x = x + h
+        if ffn_kind != "none":
+            h = apply_norm(cfg.norm, slot["norm2"], x)
+            if ffn_kind == "moe":
+                h = moe_mod.moe_block(slot["moe"], h, cfg.moe, cfg.activation,
+                                      spec=sp, phase="prefill", layer=layer)
+            else:
+                h = ffn(slot["ffn"], h, cfg.activation)
             x = x + h
-            if ffn_kind != "none":
-                h = apply_norm(cfg.norm, slot["norm2"], x)
-                if ffn_kind == "moe":
-                    h = moe_mod.moe_block(slot["moe"], h, cfg.moe,
-                                          cfg.activation, spec=sp,
-                                          phase="prefill", layer=c * p + s)
-                else:
-                    h = ffn(slot["ffn"], h, cfg.activation)
-                x = x + h
     caches = tuple(SlotCache(attn_mod.KVCache(torch.stack([kv.k for kv in kvs]),
                                               torch.stack([kv.v for kv in kvs])),
                              ()) for kvs in per_slot)
