@@ -3,10 +3,11 @@
 Each source compiles with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, loaded through ``ctypes``.  Libraries land in
 ``build/repro_torch/`` at the repository root (``REPRO_TORCH_BUILD``
-overrides it), named by a hash of the source and flags, so an edited
-source rebuilds and an unchanged one is reused.  Nothing is built when
-this module is imported: :func:`load` builds on first use, and
-:func:`build_all` starts one ``nvcc`` per source at once.
+overrides it), named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source rebuilds and an
+unchanged one is reused.  Nothing is built when this module is imported:
+:func:`load` builds on first use, and :func:`build_all` starts one
+``nvcc`` per source at once.
 """
 from __future__ import annotations
 
@@ -46,7 +47,8 @@ def nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = (CSRC / f"{name}.cu").read_bytes() \
+        + b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return build_dir() / f"lib{name}-{tag}.so"
 

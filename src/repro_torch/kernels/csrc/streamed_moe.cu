@@ -9,24 +9,39 @@
 // Bound: at the serving path's decode and prefill shapes (E=32, C=64,
 // d=1024, m=512) every weight byte is read once and used for only C=64
 // rows, so the launch is bound by the weight stream (about 100 MB in bf16,
-// 34 us at 3.35 TB/s); the tensor-core floor is below that.
+// 34 us at 3.35 TB/s); the tensor-core floor is below that.  At the scoring
+// path's C=1280 the 129 GFLOP of the three products bound it (0.13 ms at
+// the bf16 tensor-core rate).
 //
 // What the design does about it: blocks are spread over experts and weight
 // tiles, not over token tiles, so all 132 SMs stream disjoint slices of the
 // weights at once and each weight tile is read from device memory by one
-// block only (C fits one row tile at decode).  Two phases:
-//   1. grid (m/64, C/64, E): a block streams its 64-column slice of w_g and
-//      w_u over d in 32-row steps and writes the activated h[e, rows, cols]
-//      (rounded to bf16 when w_d is bf16) to an fp32 scratch (E, C, m);
-//   2. grid (d/64, C/64, E): a block streams its 64-column slice of w_d over
+// block only when C fits one row tile (decode).  Two phases:
+//   1. grid (m/64, C/BM, E): a block streams its 64-column slice of w_g and
+//      w_u over d and writes the activated h[e, rows, cols] (rounded to bf16
+//      when w_d is bf16) to a scratch (E, C, m);
+//   2. grid (d/64, C/BM, E): a block streams its 64-column slice of w_d over
 //      m and writes out[e, rows, cols].
-// Each step's global loads for the next tile are issued into registers
+// The row tiles of one expert are neighbours in the grid, so at large C the
+// expert's weight slices are read from device memory once and from L2 by
+// the other row tiles.
+//
+// bf16 activations x bf16 weights (the serving and scoring paths) run on the
+// tensor cores: mma.sync.m16n8k16 with fp32 accumulation, bf16 tiles read by
+// ldmatrix, warps of 32 x 32 outputs (BM = 64 rows, 4 warps; BM = 128 rows,
+// 8 warps, when C > 64).  The activation and weight tiles stream through a
+// four-stage cp.async ring, three stages (24 KB of weights for swiglu) in
+// flight per block while the fourth is multiplied.  h is bf16 here (exact:
+// it is rounded to bf16 before the down product anyway).  This path takes
+// d and m multiples of 8 (16-byte rows).
+//
+// fp32 activations or fp32 / int8 / fp8 weights keep the CUDA-core path:
+// each step's global loads for the next tile are issued into registers
 // before the current tile is multiplied (two shared-memory buffers, one
-// barrier per step), so the weight stream overlaps the arithmetic.  The
-// products run on CUDA cores as fp32 FMAs in ascending k (4x4 outputs per
-// thread), which keeps the fp32, int8 and fp8 paths exact to the
-// reference's 2e-5 and leaves the kernel well above the byte bound; wgmma,
-// TMA and fp8 tensor cores come later.
+// barrier per step), and the products run as fp32 FMAs in ascending k (4x4
+// outputs per thread).  The reference's 2e-5 tolerance rules out TF32 for
+// fp32-valued operands, and fp8 / int8 tensor cores would need a tolerance
+// the reference does not have; h is an fp32 scratch there.
 //
 // Plain C interface for ctypes: one launch function that runs both phases
 // on the caller's stream, allocates nothing, and returns cudaGetLastError().
@@ -35,6 +50,10 @@
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -303,6 +322,205 @@ down_kernel(const float* __restrict__ h, const TW* __restrict__ wd,
   }
 }
 
+// ------------------------------------------ bf16 x bf16 on the tensor cores
+
+using bf16 = __nv_bfloat16;
+constexpr int TC_BN = 64;            // weight columns per block
+constexpr int TC_BK = 32;            // contraction rows per stage
+constexpr int TC_STAGES = 4;         // cp.async ring depth
+constexpr int TC_XS = TC_BK + 8;     // activation tile row stride (80 bytes)
+constexpr int TC_WS = TC_BN + 8;     // weight tile row stride (144 bytes)
+
+// A block of BM rows runs (BM / 32) x 2 warps of 32 x 32 outputs; a stage
+// holds a BM x TC_BK activation tile and NMAT TC_BK x TC_BN weight tiles.
+template <int BM, int NMAT>
+struct TcShape {
+  static constexpr int NT = BM * 2;
+  static constexpr int X_ELEMS = BM * TC_XS;
+  static constexpr int W_ELEMS = TC_BK * TC_WS;
+  static constexpr int STAGE = X_ELEMS + NMAT * W_ELEMS;
+  static constexpr int SMEM = 2 * TC_STAGES * STAGE;
+};
+
+// acc[mat] += x[r0 : r0+BM, :] @ w[mat][:, c0 : c0+TC_BN] for row-major
+// x (R, K) and w (K, N), each warp keeping its 32 x 32 share: acc[mat][i][j]
+// is the m16 tile i, n8 tile j.  Rows past R, columns past N and k past K
+// load as zeros (K and N multiples of 8).
+template <int BM, int NMAT>
+__device__ __forceinline__ void tc_mainloop(float (&acc)[NMAT][2][4][4], bf16* smem,
+                                            const bf16* __restrict__ x, int R, int K, int r0,
+                                            const bf16* const (&w)[NMAT], int N, int c0) {
+  using S = TcShape<BM, NMAT>;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wm = warp / 2, wn = warp % 2;
+  const int nk = (K + TC_BK - 1) / TC_BK;
+  auto load = [&](int kt, int stage) {
+    bf16* xs = smem + stage * S::STAGE;
+    const int k0 = kt * TC_BK;
+    for (int i = tid; i < BM * (TC_BK / 8); i += S::NT) {
+      const int r = i / (TC_BK / 8), c = (i % (TC_BK / 8)) * 8;
+      const bool ok = r0 + r < R && k0 + c < K;
+      tc::cp_async16(xs + r * TC_XS + c, ok ? x + (size_t)(r0 + r) * K + k0 + c : x, ok);
+    }
+#pragma unroll
+    for (int mat = 0; mat < NMAT; ++mat) {
+      bf16* ws = xs + S::X_ELEMS + mat * S::W_ELEMS;
+      for (int i = tid; i < TC_BK * (TC_BN / 8); i += S::NT) {
+        const int r = i / (TC_BN / 8), c = (i % (TC_BN / 8)) * 8;
+        const bool ok = k0 + r < K && c0 + c < N;
+        tc::cp_async16(ws + r * TC_WS + c, ok ? w[mat] + (size_t)(k0 + r) * N + c0 + c : w[mat],
+                       ok);
+      }
+    }
+  };
+  // Prologue: stages 0 .. TC_STAGES-2 in flight (a group per stage, empty
+  // past the last tile, so the group count stays fixed).
+#pragma unroll
+  for (int st = 0; st < TC_STAGES - 1; ++st) {
+    if (st < nk) load(st, st);
+    tc::cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    tc::cp_async_wait<TC_STAGES - 2>();   // tile kt has landed (this thread's copies)
+    __syncthreads();                      // ... everyone's; stage (kt-1) is free again
+    const int next = kt + TC_STAGES - 1;
+    if (next < nk) load(next, next % TC_STAGES);
+    tc::cp_async_commit();
+    const bf16* xs = smem + (kt % TC_STAGES) * S::STAGE;
+#pragma unroll
+    for (int kk = 0; kk < TC_BK / 16; ++kk) {
+      uint32_t a[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        tc::ldmatrix_x4(a[i], xs + (wm * 32 + i * 16 + lane % 16) * TC_XS + kk * 16 +
+                                  (lane / 16) * 8);
+#pragma unroll
+      for (int mat = 0; mat < NMAT; ++mat) {
+        const bf16* ws = xs + S::X_ELEMS + mat * S::W_ELEMS;
+#pragma unroll
+        for (int jp = 0; jp < 2; ++jp) {
+          uint32_t b[4];
+          tc::ldmatrix_x4_trans(b, ws + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * TC_WS +
+                                       wn * 32 + jp * 16 + (lane / 16) * 8);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            tc::mma_bf16(acc[mat][i][2 * jp], a[i], b[0], b[1]);
+            tc::mma_bf16(acc[mat][i][2 * jp + 1], a[i], b[2], b[3]);
+          }
+        }
+      }
+    }
+  }
+  tc::cp_async_wait<0>();   // only empty groups are left; retire them
+}
+
+// Phase 1 on the tensor cores: h[e, rows, cols] = bf16(act(x w_g, x w_u)).
+template <int BM, int ACT>
+__global__ void __launch_bounds__(BM * 2)
+up_kernel_tc(const bf16* __restrict__ xe, const bf16* __restrict__ wg,
+             const bf16* __restrict__ wu, bf16* __restrict__ h, int C, int d, int m) {
+  constexpr int NMAT = ACT == ACT_SWIGLU ? 2 : 1;   // [0] up, [1] gate
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int e = blockIdx.z, c0 = blockIdx.x * TC_BN, r0 = blockIdx.y * BM;
+  const bf16* w[NMAT];
+  w[0] = wu + (size_t)e * d * m;
+  if constexpr (NMAT == 2) w[1] = wg + (size_t)e * d * m;
+  float acc[NMAT][2][4][4] = {};
+  tc_mainloop<BM, NMAT>(acc, reinterpret_cast<bf16*>(smem_raw), xe + (size_t)e * C * d, C, d,
+                        r0, w, m, c0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rw = r0 + (warp / 2) * 32 + lane / 4, cw = c0 + (warp % 2) * 32 + 2 * (lane % 4);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = rw + i * 16 + half * 8, c = cw + j * 8;
+        if (r >= C || c >= m) continue;
+        const float* u = &acc[0][i][j][2 * half];
+        const float* g = &acc[NMAT - 1][i][j][2 * half];
+        *reinterpret_cast<__nv_bfloat162*>(h + ((size_t)e * C + r) * m + c) =
+            __floats2bfloat162_rn(activate<ACT>(g[0], u[0]), activate<ACT>(g[1], u[1]));
+      }
+}
+
+// Phase 2 on the tensor cores: out[e, rows, cols] = h[e] @ w_d[e], fp32.
+template <int BM>
+__global__ void __launch_bounds__(BM * 2)
+down_kernel_tc(const bf16* __restrict__ h, const bf16* __restrict__ wd,
+               float* __restrict__ out, int C, int d, int m) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int e = blockIdx.z, c0 = blockIdx.x * TC_BN, r0 = blockIdx.y * BM;
+  const bf16* w[1] = {wd + (size_t)e * m * d};
+  float acc[1][2][4][4] = {};
+  tc_mainloop<BM, 1>(acc, reinterpret_cast<bf16*>(smem_raw), h + (size_t)e * C * m, C, m, r0,
+                     w, d, c0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rw = r0 + (warp / 2) * 32 + lane / 4, cw = c0 + (warp % 2) * 32 + 2 * (lane % 4);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = rw + i * 16 + half * 8, c = cw + j * 8;
+        if (r >= C || c >= d) continue;
+        *reinterpret_cast<float2*>(out + ((size_t)e * C + r) * d + c) =
+            make_float2(acc[0][i][j][2 * half], acc[0][i][j][2 * half + 1]);
+      }
+}
+
+template <int BM, typename Kernel, typename... Args>
+void launch_tc_kernel(Kernel kernel, int bytes, dim3 grid, cudaStream_t s, Args... args) {
+  if (bytes > 48 * 1024)
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  kernel<<<grid, BM * 2, bytes, s>>>(args...);
+}
+
+template <int BM>
+void launch_tc_bm(const bf16* x, const bf16* g, const bf16* u, const bf16* wd, bf16* h,
+                  float* out, int E, int C, int d, int m, int act, cudaStream_t s) {
+  const dim3 g_up((m + TC_BN - 1) / TC_BN, (C + BM - 1) / BM, E);
+  const dim3 g_down((d + TC_BN - 1) / TC_BN, (C + BM - 1) / BM, E);
+  switch (act) {
+    case ACT_SWIGLU:
+      launch_tc_kernel<BM>(up_kernel_tc<BM, ACT_SWIGLU>, TcShape<BM, 2>::SMEM, g_up, s, x, g, u,
+                           h, C, d, m);
+      break;
+    case ACT_RELU2:
+      launch_tc_kernel<BM>(up_kernel_tc<BM, ACT_RELU2>, TcShape<BM, 1>::SMEM, g_up, s, x, g, u,
+                           h, C, d, m);
+      break;
+    default:
+      launch_tc_kernel<BM>(up_kernel_tc<BM, ACT_GELU>, TcShape<BM, 1>::SMEM, g_up, s, x, g, u,
+                           h, C, d, m);
+      break;
+  }
+  launch_tc_kernel<BM>(down_kernel_tc<BM>, TcShape<BM, 1>::SMEM, g_down, s,
+                       static_cast<const bf16*>(h), wd, out, C, d, m);
+}
+
+// bf16 x bf16: 16-byte rows and operands, or cudaErrorInvalidValue.
+int launch_tc(const void* xe, const void* wg, const void* wu, const void* wd, void* h,
+              float* out, int E, int C, int d, int m, int act, cudaStream_t s) {
+  const uintptr_t bits = reinterpret_cast<uintptr_t>(xe) | reinterpret_cast<uintptr_t>(wg) |
+                         reinterpret_cast<uintptr_t>(wu) | reinterpret_cast<uintptr_t>(wd) |
+                         reinterpret_cast<uintptr_t>(h);
+  if (d % 8 != 0 || m % 8 != 0 || bits % 16 != 0) return -1;
+  const bf16* x = static_cast<const bf16*>(xe);
+  const bf16* g = static_cast<const bf16*>(wg);
+  const bf16* u = static_cast<const bf16*>(wu);
+  const bf16* w = static_cast<const bf16*>(wd);
+  if (C <= 64)
+    launch_tc_bm<64>(x, g, u, w, static_cast<bf16*>(h), out, E, C, d, m, act, s);
+  else
+    launch_tc_bm<128>(x, g, u, w, static_cast<bf16*>(h), out, E, C, d, m, act, s);
+  return 0;
+}
+
+// ------------------------------------------------------ the CUDA-core path
+
 // Launch with dynamic shared memory; above the 48 KB default the kernel
 // must be allowed more first.
 template <typename Kernel, typename... Args>
@@ -340,20 +558,26 @@ void launch_typed(const void* xe, const void* wg, const void* wu, const void* wd
 template <typename TX>
 int launch_w(int w_dtype, const void* xe, const void* wg, const void* wu,
              const void* wd, const float* sg, const float* su, const float* sd,
-             float* h, float* out, int E, int C, int d, int m, int act,
+             void* h, float* out, int E, int C, int d, int m, int act,
              cudaStream_t s) {
+  float* hf = static_cast<float*>(h);
   switch (w_dtype) {
     case DT_F32:
-      launch_typed<TX, float>(xe, wg, wu, wd, sg, su, sd, h, out, E, C, d, m, act, s);
+      launch_typed<TX, float>(xe, wg, wu, wd, sg, su, sd, hf, out, E, C, d, m, act, s);
       return 0;
     case DT_BF16:
-      launch_typed<TX, __nv_bfloat16>(xe, wg, wu, wd, sg, su, sd, h, out, E, C, d, m, act, s);
-      return 0;
+      if constexpr (std::is_same<TX, bf16>::value) {
+        return launch_tc(xe, wg, wu, wd, h, out, E, C, d, m, act, s);
+      } else {
+        launch_typed<TX, bf16>(xe, wg, wu, wd, sg, su, sd, hf, out, E, C, d, m, act, s);
+        return 0;
+      }
     case DT_I8:
-      launch_typed<TX, int8_t>(xe, wg, wu, wd, sg, su, sd, h, out, E, C, d, m, act, s);
+      launch_typed<TX, int8_t>(xe, wg, wu, wd, sg, su, sd, hf, out, E, C, d, m, act, s);
       return 0;
     case DT_F8:
-      launch_typed<TX, __nv_fp8_e4m3>(xe, wg, wu, wd, sg, su, sd, h, out, E, C, d, m, act, s);
+      launch_typed<TX, __nv_fp8_e4m3>(xe, wg, wu, wd, sg, su, sd, hf, out, E, C, d, m, act,
+                                      s);
       return 0;
     default:
       return -1;
@@ -364,11 +588,13 @@ int launch_w(int w_dtype, const void* xe, const void* wg, const void* wu,
 
 // xe (E,C,d) fp32|bf16; w_g/w_u (E,d,m), w_d (E,m,d) fp32|bf16|int8|fp8;
 // s_g/s_u (E,1,m), s_d (E,1,d) fp32 (quantized weights only); h (E,C,m)
-// fp32 scratch; out (E,C,d) fp32.  Returns a cudaError_t (0 on success),
-// or cudaErrorInvalidValue for a dtype, activation or size it does not take.
+// scratch, bf16 when xe and the weights are bf16 (then d and m multiples of
+// 8 and every operand 16-byte aligned), else fp32; out (E,C,d) fp32.
+// Returns a cudaError_t (0 on success), or cudaErrorInvalidValue for a
+// dtype, activation or size it does not take.
 extern "C" int streamed_moe_forward(const void* xe, const void* wg, const void* wu,
                                     const void* wd, const float* sg, const float* su,
-                                    const float* sd, float* h, float* out, int E,
+                                    const float* sd, void* h, float* out, int E,
                                     int C, int d, int m, int x_dtype, int w_dtype,
                                     int act, void* stream) {
   if (E <= 0 || C <= 0 || d <= 0 || m <= 0 || E > 65535 || act < 0 || act > 2)

@@ -3,16 +3,15 @@
 Replaces ``repro/kernels/flash_attention.py::flash_attention_kernel``
 (Pallas, TPU).  The kernel (``csrc/flash_attention.cu``) is bound by
 operations at the scoring path's shape; its note says what the design
-does about that.  For a CUDA tensor the wrapper launches the kernel or
-raises; for a CPU tensor it runs the plain version
-(``kernels.ref.flash_attention_plain``), which repeats the kernel's
-arithmetic.  ``LAUNCHES`` counts kernel launches and nothing else.  The
-kernel has no backward, as the Pallas kernel has no VJP.
+does about that: bf16 runs on the tensor cores, fp32 on CUDA cores.  For
+a CUDA tensor the wrapper launches the kernel or raises; for a CPU tensor
+it runs the plain version (``kernels.ref.flash_attention_plain``), which
+repeats the kernel's arithmetic.  ``LAUNCHES`` counts kernel launches and
+nothing else.  The kernel has no backward, as the Pallas kernel has no VJP.
 """
 from __future__ import annotations
 
 import ctypes
-import math
 
 import torch
 
@@ -75,12 +74,15 @@ def flash_attention_kernel(q, k, v):
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel takes head_dim in "
                          f"{HEAD_DIMS}, got {hd}")
+    if q.dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("the bf16 flash kernel needs 16-byte aligned q, k, v")
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = _kernel_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           out.data_ptr(), B, H, Sq, k.shape[1], hd,
-                          DTYPES[q.dtype], 1.0 / math.sqrt(hd), stream)
+                          DTYPES[q.dtype], ref.flash_scale_log2(hd), stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"cudaError {rc}")

@@ -13,13 +13,14 @@
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 
 NEG_INF = -1e30
-FLASH_TILE = 64     # query rows and keys per tile of csrc/flash_attention.cu
+FLASH_TILE = 64     # keys per tile of csrc/flash_attention.cu (query rows here)
 SSD_TILE = 64       # chunk rows per tile of csrc/ssd.cu
 
 
@@ -58,6 +59,24 @@ def streamed_moe_quant_ref(xe, w_g, w_u, w_d, activation: str,
                             quant.fake_quant(w_d, weight_dtype), activation)
 
 
+def _deq(w, s):
+    return None if w is None else (w.float() if s is None else w.float() * s)
+
+
+def streamed_moe_plain_h(xe, w_g, w_u, w_d, activation: str, *,
+                         s_g=None, s_u=None):
+    """The kernel's first phase: ``h = act(x w_g, x w_u)`` in fp32 (E,C,m),
+    rounded to bf16 (and back) when ``w_d`` is stored in bf16."""
+    x = xe.float()
+    hu = torch.einsum("ecd,edm->ecm", x, _deq(w_u, s_u))
+    hg = torch.einsum("ecd,edm->ecm", x, _deq(w_g, s_g)) \
+        if activation == "swiglu" and w_g is not None else None
+    h = _act(activation, hu, hg)
+    if w_d.dtype == torch.bfloat16:
+        h = h.to(torch.bfloat16).float()
+    return h
+
+
 def streamed_moe_plain(xe, w_g, w_u, w_d, activation: str, *,
                        s_g=None, s_u=None, s_d=None):
     """The kernel's arithmetic in plain PyTorch.
@@ -66,17 +85,8 @@ def streamed_moe_plain(xe, w_g, w_u, w_d, activation: str, *,
     (dequantized as ``w.float() * s``).  Both GEMMs accumulate in fp32;
     ``h`` is rounded to bf16 before the down GEMM when ``w_d`` is stored
     in bf16 (the Pallas body's ``h.astype(wd.dtype)``)."""
-    def deq(w, s):
-        return None if w is None else (w.float() if s is None
-                                       else w.float() * s)
-    x = xe.float()
-    hu = torch.einsum("ecd,edm->ecm", x, deq(w_u, s_u))
-    hg = torch.einsum("ecd,edm->ecm", x, deq(w_g, s_g)) \
-        if activation == "swiglu" and w_g is not None else None
-    h = _act(activation, hu, hg)
-    if w_d.dtype == torch.bfloat16:
-        h = h.to(torch.bfloat16).float()
-    return torch.einsum("ecm,emd->ecd", h, deq(w_d, s_d))
+    h = streamed_moe_plain_h(xe, w_g, w_u, w_d, activation, s_g=s_g, s_u=s_u)
+    return torch.einsum("ecm,emd->ecd", h, _deq(w_d, s_d))
 
 
 def flash_attention_ref(q, k, v):
@@ -92,17 +102,27 @@ def flash_attention_ref(q, k, v):
     return torch.einsum("bhqk,bkhd->bqhd", p, v)
 
 
+@functools.lru_cache(maxsize=None)
+def flash_scale_log2(hd: int) -> float:
+    """The kernel's score scale ``hd^-1/2 * log2(e)``, as the fp32 product of
+    the two fp32 constants: scores in log2 units, so ``p = 2^(s - m)``."""
+    return (torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32)
+            * torch.tensor(math.log2(math.e), dtype=torch.float32)).item()
+
+
 def flash_attention_plain(q, k, v):
     """The flash kernel's arithmetic: per query tile, a loop over key tiles
-    up to the diagonal with fp32 running max ``m``, sum ``l`` and
-    accumulator; scores ``(q k^T) * hd^-1/2``, masked keys at -1e30; ``p``
-    rounded to v's dtype before the PV product (``l`` sums the unrounded
-    ``p``); output ``acc / max(l, 1e-30)`` in q's dtype.  Key tiles above
-    a row's diagonal that the loop still visits (the tile holds later rows
-    too) are an exact no-op for it: ``exp(-1e30 - m) == 0``."""
+    of FLASH_TILE keys up to the diagonal with fp32 running max ``m``, sum
+    ``l`` and accumulator; scores ``(q k^T) * flash_scale_log2(hd)`` (log2
+    units), masked keys at -1e30, ``p = exp2(s - m)``; ``p`` rounded to v's
+    dtype before the PV product (``l`` sums the unrounded ``p``); each
+    tile's PV added to ``acc * corr``; output ``acc / max(l, 1e-30)`` in q's
+    dtype.  Key tiles above a row's diagonal that the loop still visits (the
+    tile holds later rows too) are an exact no-op for it:
+    ``exp2(-1e30 - m) == 0``."""
     B, Sq, H, hd = q.shape
     Sk = k.shape[1]
-    scale = 1.0 / math.sqrt(hd)
+    scale = flash_scale_log2(hd)
     qh = q.permute(0, 2, 1, 3).float()                        # (B,H,Sq,hd)
     kh = k.permute(0, 2, 1, 3).float()
     vh = v.permute(0, 2, 1, 3).float()
@@ -119,8 +139,8 @@ def flash_attention_plain(q, k, v):
             kpos = torch.arange(k0, k1, device=q.device)[None, :]
             s = torch.where(kpos <= qpos, s, torch.full_like(s, NEG_INF))
             m_new = torch.maximum(m, s.amax(-1))
-            p = torch.exp(s - m_new[..., None])
-            corr = torch.exp(m - m_new)
+            p = torch.exp2(s - m_new[..., None])
+            corr = torch.exp2(m - m_new)
             l = l * corr + p.sum(-1)
             acc = acc * corr[..., None] + p.to(v.dtype).float() @ vh[:, :, k0:k1]
             m = m_new

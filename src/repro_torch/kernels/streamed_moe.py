@@ -3,10 +3,12 @@
 Replaces ``repro/kernels/streamed_moe.py::streamed_moe_kernel`` (Pallas,
 TPU).  The kernel (``csrc/streamed_moe.cu``) is bound by the weight
 stream at serving shapes; its note says how the design spreads that
-stream over the card.  For a CUDA tensor the wrapper launches the kernel
-or raises; for a CPU tensor it runs the plain version
-(``kernels.ref.streamed_moe_plain``), which repeats the kernel's
-arithmetic.  ``LAUNCHES`` counts kernel launches and nothing else.
+stream over the card.  bf16 activations with bf16 weights run on the
+tensor cores (d and m multiples of 8); every other combination on CUDA
+cores.  For a CUDA tensor the wrapper launches the kernel or raises; for
+a CPU tensor it runs the plain version (``kernels.ref.streamed_moe_plain``),
+which repeats the kernel's arithmetic.  ``LAUNCHES`` counts kernel
+launches and nothing else.
 """
 from __future__ import annotations
 
@@ -82,20 +84,37 @@ def streamed_moe_kernel(xe, w_g, w_u, w_d, *, activation: str,
     (E,m,d), all fp32, bf16, int8 or float8_e4m3fn.  Quantized weights
     take fp32 scales s_g/s_u (E,1,m) and s_d (E,1,d).  Returns (E,C,d)
     fp32."""
-    global LAUNCHES
-    gated, quantized, tensors = _check(xe, w_g, w_u, w_d, activation,
-                                       s_g, s_u, s_d)
+    checked = _check(xe, w_g, w_u, w_d, activation, s_g, s_u, s_d)
     if xe.device.type == "cpu":
+        gated = checked[0]
         return ref.streamed_moe_plain(
             xe, w_g if gated else None, w_u, w_d, activation,
             s_g=s_g if gated else None, s_u=s_u, s_d=s_d)
+    return _launch(xe, w_g, w_u, w_d, activation, s_g, s_u, s_d, checked)[1]
+
+
+def _launch(xe, w_g, w_u, w_d, activation, s_g=None, s_u=None, s_d=None,
+            checked=None):
+    """Launch the kernel on CUDA tensors -> (h, out): its (E,C,m) scratch
+    (bf16 on the tensor-core path, else fp32) beside the output, so a
+    check can hold h itself."""
+    global LAUNCHES
+    gated, quantized, tensors = checked or _check(
+        xe, w_g, w_u, w_d, activation, s_g, s_u, s_d)
     if xe.device.type != "cuda":
         raise ValueError(f"streamed_moe runs on cuda or cpu, not {xe.device}")
     if not all(t.is_contiguous() for t in [xe] + tensors):
         raise ValueError("streamed_moe kernel needs contiguous operands")
     E, C, d = xe.shape
     m = w_u.shape[-1]
-    h = torch.empty((E, C, m), dtype=torch.float32, device=xe.device)
+    tensor_cores = xe.dtype == torch.bfloat16 and w_u.dtype == torch.bfloat16
+    if tensor_cores and (d % 8 or m % 8 or any(
+            t.data_ptr() % 16 for t in [xe] + tensors)):
+        raise ValueError(f"the bf16 tensor-core path takes d and m multiples"
+                         f" of 8 and 16-byte aligned operands, got d={d}, "
+                         f"m={m}")
+    h = torch.empty((E, C, m), device=xe.device, dtype=torch.bfloat16
+                    if tensor_cores else torch.float32)
     out = torch.empty((E, C, d), dtype=torch.float32, device=xe.device)
 
     def ptr(t):
@@ -113,4 +132,4 @@ def streamed_moe_kernel(xe, w_g, w_u, w_d, *, activation: str,
         raise RuntimeError(f"streamed_moe kernel launch failed: "
                            f"cudaError {rc}")
     LAUNCHES += 1
-    return out
+    return h, out

@@ -3,16 +3,23 @@
 * ``kernels.ref.flash_attention_plain`` (what the wrapper runs for CPU
   tensors: the CUDA kernel's arithmetic) matches the Pallas kernel in
   interpret mode and the reference's oracle at the reference's shapes
-  (``tests/test_kernels.py``, rectangular KV included) and tolerances:
+  (``tests/test_kernels.py``, rectangular KV with Sk = 2 Sq at hd 16 and
+  128 included) and tolerances:
   2e-4 in fp32, 4e-2 in bf16 (p and the output are rounded to bf16);
 * ``attention(use_flash=True)`` matches the JAX ``attention(use_flash=
   True)`` on the same weights and input within 1e-4 in fp32 (both
   accumulate in fp32, in other orders), with kernels on and off;
 * the wrapper refuses what the kernel does not take, and CPU tensors
-  never touch its launch counter.
+  never touch its launch counter;
+* ``chip_smoke.flash_bf16_check``, which holds the bf16 tensor-core kernel
+  on the card, passes the plain version against itself and fails an
+  output whose p skipped the bf16 rounding or that lost a key.
 
 The CUDA kernel itself runs only on the card (``chip_smoke.py``).
 """
+import importlib.util
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -46,7 +53,8 @@ def _both(arrays, dtype):
 
 @pytest.mark.parametrize("B,Sq,Sk,H,hd", [(1, 64, 64, 2, 16), (2, 100, 100, 4, 32),
                                           (1, 256, 256, 1, 64), (1, 17, 17, 2, 8),
-                                          (1, 32, 64, 2, 16)])
+                                          (1, 32, 64, 2, 16), (1, 64, 128, 2, 128),
+                                          (1, 40, 80, 2, 16)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_plain_matches_pallas_and_oracle(B, Sq, Sk, H, hd, dtype):
     j, t = _both(_qkv(B, Sq, Sk, H, hd, seed=B * 100 + Sq), dtype)
@@ -108,3 +116,24 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         fa.flash_attention_kernel(q, k.to("meta"), v)
     with pytest.raises(NotImplementedError):             # no backward
         fa.flash_attention_kernel(q.requires_grad_(), k, v)
+
+
+@pytest.mark.parametrize("fault", [None, "unrounded_p", "lost_key"])
+def test_flash_bf16_check_has_teeth(fault):
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _qkv(1, 100, 130, 2, 64, seed=5))
+    plain = ref.flash_attention_plain(q, k, v)
+    got = plain
+    if fault == "unrounded_p":               # p kept in fp32 before PV
+        got = ref.flash_attention_plain(q.float(), k.float(),
+                                        v.float()).to(torch.bfloat16)
+    elif fault == "lost_key":                # one key's value never added
+        v_lost = v.clone()
+        v_lost[:, 40] = 0
+        got = ref.flash_attention_plain(q, k, v_lost)
+    ok, metrics = chip_smoke.flash_bf16_check(got, plain, q, k, v)
+    assert ok == (fault is None), metrics

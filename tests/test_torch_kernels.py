@@ -8,10 +8,16 @@
   C; tolerances are the reference's own (``tests/test_quantization.py``
   KERNEL_TOL): 2e-5 for fp32/int8/fp8, 2e-2 for bf16;
 * a CPU tensor never touches the kernel's launch counter, and the
-  wrapper refuses operands the kernel does not take.
+  wrapper refuses operands the kernel does not take;
+* ``chip_smoke.moe_bf16_check``, which holds the bf16 tensor-core path on
+  the card, passes the plain version against itself and fails an h that
+  skipped the bf16 rounding or lost part of its contraction.
 
 The CUDA kernel itself runs only on the card (``chip_smoke.py``).
 """
+import importlib.util
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -112,3 +118,31 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):                    # scales missing
         sm.streamed_moe_kernel(xe, None, q, quant.quantize(wd, "int8")[0],
                                activation="relu2", s_u=s)
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("fault", [None, "unrounded_h", "short_contraction"])
+@pytest.mark.parametrize("act", ["swiglu", "relu2", "gelu"])
+def test_moe_bf16_check_has_teeth(act, fault):
+    xe, wg, wu, wd = (torch.from_numpy(a).to(torch.bfloat16)
+                      for a in _inputs(E=2, C=37, d=64, m=48, seed=2))
+    wg = wg if act == "swiglu" else None
+    h_plain = ref.streamed_moe_plain_h(xe, wg, wu, wd, act)
+    h = h_plain
+    if fault == "unrounded_h":               # a kernel that skips the rounding
+        h = ref.streamed_moe_plain_h(xe, wg, wu, wd.float(), act)
+    elif fault == "short_contraction":       # one that drops the last k tile
+        x = xe.clone()
+        x[..., -16:] = 0
+        h = ref.streamed_moe_plain_h(x, wg, wu, wd, act)
+    out = torch.einsum("ecm,emd->ecd", h, wd.float())
+    ok, metrics = _chip_smoke().moe_bf16_check(h, out, h_plain, xe, wg, wu,
+                                               wd, act)
+    assert ok == (fault is None), metrics
