@@ -11,10 +11,10 @@ Phases, each printing its result on its own line; any failure exits 1:
 3. kernels: each kernel against its plain PyTorch version and the
    reference oracle on the card, at its path's shapes and at small odd
    ones (the bf16 tensor-core paths of flash attention and streamed_moe
-   included, held element by element), with each kernel's device time per
-   call beside the time of one call with its host work, the bound, and for
-   flash attention the time of ``F.scaled_dot_product_attention`` on the
-   same tensors;
+   included, held element by element), with the time of one call of each
+   kernel with its host work beside its device time per call, the bound,
+   and for flash attention the times of ``F.scaled_dot_product_attention``
+   on the same tensors;
 4. slice: ``repro_torch.launch.serve`` serves 4 requests x 16 tokens of
    granite-moe-1b-a400m at full width in bf16; the streamed_moe launch
    count must equal the number of MoE-layer expert calls;
@@ -35,7 +35,8 @@ Phases, each printing its result on its own line; any failure exits 1:
 10. summary: one ``{"kernels": [...]}`` JSON line with one entry per
     kernel and path (``streamed_moe`` on the serve and the forward paths,
     ``flash_attention`` on the forward path, ``ssd`` on the mamba path),
-    each with that path's launches and its shape's times and bound; the
+    each with that path's launches and its shape's times (``ms`` one call
+    with its host work, ``device_ms`` the device time per call) and bound; the
     ``nvidia-smi`` name/power line; and the contract line
     ``{"ok": true, "device": {"platform": "gpu", ...}}`` last.
 
@@ -76,8 +77,10 @@ DOT_GAMMA = 1.5 * 2.0 ** -23
 #     the image, through the activation, of the dot-product bound
 #     DOT_GAMMA * K * sum_k |x_k w_k| of each pre-activation (|silu'| <= 1.1,
 #     |gelu'| <= 1.13, and relu(u)^2 moves by at most du (2|u| + du)), plus
-#     2^-20 |h| for the two activations' own fp32 evaluation; and at most
-#     MOE_FLIP_SHARE of the elements differing;
+#     2^-20 |h| for the two activations' own fp32 evaluation (one ulp alone
+#     does not hold: where a pre-activation cancels, its two sums differ by
+#     more than an ulp of h); and at most MOE_FLIP_SHARE of the elements
+#     differing;
 # (b) the down product: out against einsum(h_kernel, w_d) in fp32 within
 #     MOE_DOWN_TOL of max |out| (only the order of fp32 sums differs).
 MOE_FLIP_SHARE = 1e-2
@@ -93,19 +96,11 @@ MARGIN_TOL = 1e-3
 # flipped top-k tie moves a token between capacity slots)
 ARGMAX_MISS = 1e-3
 # Flash attention.  fp32: max abs error over max |want| within 1e-5 of the
-# plain version.  bf16, element by element (flash_bf16_check): the plain
-# version repeats the kernel's arithmetic, but the kernel's scores come from
-# the tensor cores, in another order than the plain version's fp32 sums, so
-# a rounding of p or of the output may flip.  An output flip is one ulp of
-# o; a flip of p_j moves o by one bf16 ulp of p_j times |v_j| / l (carried
-# through the running rescale), which at a small o is many of its ulps.  So
-# each element is held within FLASH_BF16_ULPS bf16 ulps of the plain one
-# (plus 1e-6) beyond that allowance, summed over the keys whose p_j lies
-# close enough to a bf16 rounding midpoint to flip (flash_flip_allowance):
-# within ln2 (ds_j + max_j' ds_j' + 2^-23 |s_j - m|) + 2^-21 of p_j, where
-# ds = DOT_GAMMA hd sum_d |q_d k_d| * scale bounds the scores' difference
-# (log2 units), the max over the keys seen bounds the running max's, 2^-23
-# |s - m| the subtraction's rounding and 2^-21 the two exp2s.  At most
+# plain version.  bf16, element by element: the plain version repeats the
+# kernel's arithmetic (its scores and PV products from the tensor cores, as
+# the kernel's), but its other fp32 sums (l, acc) run in another order, so a
+# rounding of p or of the output may flip by one ulp; each element is held
+# within FLASH_BF16_ULPS bf16 ulps of the plain one (plus 1e-6), and at most
 # FLASH_FLIP_SHARE of the elements may differ at all.  Against the exact
 # fp32 attention, each element is held to the error the bf16 roundings can
 # make: p rounded (unit roundoff u = 2^-8 of p, so u * sum p|v| / l) and the
@@ -191,13 +186,15 @@ def device_ms(fn, reps=20, warmup=3):
 
 
 def kernel_times(fn):
-    """A kernel wrapper's device time per call (``device_ms``) and the
-    median time of one call with its host work; -> (ms, text)."""
-    ms, ahead = device_ms(fn)
+    """A kernel wrapper's times: ``ms`` the median time of one call with its
+    host work (``median_ms``, the kernels line's ``ms``), ``device_ms`` its
+    device time per call (``device_ms``); -> (times, text)."""
+    dev, ahead = device_ms(fn)
+    times = dict(ms=median_ms(fn), device_ms=dev)
     behind = "" if ahead else "; queue fell behind"
-    text = (f"kernel {ms:.4f} ms on the device ({median_ms(fn):.4f} ms a "
-            f"call with its host work{behind})")
-    return ms, text
+    text = (f"kernel {times['ms']:.4f} ms a call with its host work "
+            f"({dev:.4f} ms on the device{behind})")
+    return times, text
 
 
 def streamed_moe_bound_ms(E, C, d, m, wdt, x_bytes, gated=True):
@@ -388,7 +385,7 @@ def _check_streamed_moe():
         if not ok or rel_oracle > tol:
             fail("kernels", line)
         if (E_, d_, m_, act) == (E, d, m, "swiglu") and C_ in (C, C_SCORE):
-            ms, text = kernel_times(lambda: sm.streamed_moe_kernel(
+            times, text = kernel_times(lambda: sm.streamed_moe_kernel(
                 xe, *ws, activation=act, **scales))
             plain_ms = median_ms(lambda: ref.streamed_moe_plain(
                 xe, *ws, act, **scales))
@@ -398,7 +395,7 @@ def _check_streamed_moe():
                      f"bound {bound * 1e3:.1f} us ({by})")
             if wdt == "bf16":
                 paths["serve" if C_ == C else "forward"] = dict(
-                    max_abs_err=err_plain, ms=ms, plain_ms=plain_ms,
+                    max_abs_err=err_plain, **times, plain_ms=plain_ms,
                     bound_ms=bound, bound_by=by, library_ms=None)
         log("kernels", line)
     return paths
@@ -411,59 +408,12 @@ def _flash_inputs(B, Sq, Sk, H, hd, dtype, seed=0):
             for s in (Sq, Sk, Sk)]
 
 
-def flash_flip_allowance(q, k, v):
-    """Per output element of the bf16 flash kernel, how far the roundings of
-    p that a reordered fp32 score can flip may move it (see the flash
-    tolerances): the plain version's loop over key tiles, carrying
-    sum_j [p_j near a bf16 rounding midpoint] ulp(p_j) |v_j| as it carries
-    acc, over l.  -> (B, Sq, H, hd) fp32."""
-    import math
-    import torch
-    from repro_torch.kernels import ref
-    B, Sq, H, hd = q.shape
-    Sk, T, dev = k.shape[1], ref.FLASH_TILE, q.device
-    scale = ref.flash_scale_log2(hd)
-    qh, kh, vh = (t.permute(0, 2, 1, 3).float() for t in (q, k, v))
-    out = torch.empty((B, H, Sq, hd), device=dev)
-    for q0 in range(0, Sq, T):
-        q1 = min(q0 + T, Sq)
-        qpos = torch.arange(q0, q1, device=dev)[:, None] + (Sk - Sq)
-        m = torch.full((B, H, q1 - q0), ref.NEG_INF, device=dev)
-        l, dmax = torch.zeros_like(m), torch.zeros_like(m)
-        allow = torch.zeros((B, H, q1 - q0, hd), device=dev)
-        qt = qh[:, :, q0:q1]
-        for k0 in range(0, q1 + Sk - Sq, T):
-            k1 = min(k0 + T, Sk)
-            keep = torch.arange(k0, k1, device=dev)[None, :] <= qpos
-            kt = kh[:, :, k0:k1].transpose(-1, -2)
-            s = torch.where(keep, (qt @ kt) * scale, ref.NEG_INF)
-            ds = torch.where(keep, (qt.abs() @ kt.abs())
-                             * (DOT_GAMMA * hd * scale), 0.0)
-            dmax = torch.maximum(dmax, ds.amax(-1))
-            m_new = torch.maximum(m, s.amax(-1))
-            p = torch.exp2(s - m_new[..., None])
-            corr = torch.exp2(m - m_new)
-            _, e = torch.frexp(p)
-            ulp = torch.ldexp(torch.ones_like(p), e - 8)
-            gap = ulp / 2 - (p - p.bfloat16().float()).abs()
-            kappa = math.log(2) * (ds + dmax[..., None] + 2.0 ** -23
-                                   * (s - m_new[..., None]).abs()) + 2.0 ** -21
-            near = keep & (gap <= kappa * p)
-            l = l * corr + p.sum(-1)
-            allow = allow * corr[..., None] \
-                + torch.where(near, ulp, 0.0) @ vh[:, :, k0:k1].abs()
-            m = m_new
-        out[:, :, q0:q1] = allow / torch.clamp(l, min=1e-30)[..., None]
-    return out.permute(0, 2, 1, 3)
-
-
 def flash_bf16_check(got, plain, q, k, v):
-    """The bf16 flash output held element by element as the flash tolerances
-    say.  -> (ok, metrics): ``ulps`` the largest difference from plain beyond
-    the flip allowance, in ulps of the plain element; ``ulps_raw`` the same
-    without the allowance; ``flips`` the share of elements that differ;
-    ``over`` the largest error against the exact fp32 attention over the
-    bound the bf16 roundings allow."""
+    """The bf16 flash output held element by element (see FLASH_BF16_ULPS).
+    -> (ok, metrics): ``ulps`` the largest difference from the plain version
+    in ulps of the plain element, ``flips`` the share of elements that
+    differ, ``over`` the largest error against the exact fp32 attention over
+    the bound the bf16 roundings allow."""
     import torch
     from repro_torch.kernels import ref
     got, plain = got.float(), plain.float()
@@ -471,18 +421,12 @@ def flash_bf16_check(got, plain, q, k, v):
     _, e = torch.frexp(plain)
     ulp = torch.where(plain == 0, torch.zeros_like(plain),
                       torch.ldexp(torch.ones_like(plain), e - 8))
-
-    def in_ulps(excess):
-        return (excess.clamp(min=0) / ulp).nan_to_num(posinf=1e9).max().item()
-
-    allow = flash_flip_allowance(q, k, v)
+    ulps = ((diff - 1e-6).clamp(min=0) / ulp).nan_to_num(posinf=1e9).max()
     qf, kf, vf = q.float(), k.float(), v.float()
     exact = ref.flash_attention_ref(qf, kf, vf)
     spread = ref.flash_attention_ref(qf, kf, vf.abs())     # sum p|v| / l
     bound = 2.0 ** -8 * (exact.abs() + spread) + 1e-6
-    metrics = dict(ulps=in_ulps(diff - 1e-6 - allow),
-                   ulps_raw=in_ulps(diff - 1e-6),
-                   flips=(diff > 0).float().mean().item(),
+    metrics = dict(ulps=ulps.item(), flips=(diff > 0).float().mean().item(),
                    over=((got - exact).abs() / bound).max().item())
     ok = metrics["ulps"] <= FLASH_BF16_ULPS and \
         metrics["flips"] <= FLASH_FLIP_SHARE and \
@@ -525,9 +469,7 @@ def _check_flash():
             ok, mt = flash_bf16_check(got, plain, q, k, v)
             bad = not ok
             line += (f"), per element: at most {mt['ulps']:.3f} ulps from "
-                     f"plain beyond the p-flip allowance (tol "
-                     f"{FLASH_BF16_ULPS}; {mt['ulps_raw']:.3f} without it), "
-                     f"share differing {mt['flips']:.3e} (tol "
+                     f"plain (tol {FLASH_BF16_ULPS}), share differing {mt['flips']:.3e} (tol "
                      f"{FLASH_FLIP_SHARE:g}), error vs exact fp32 "
                      f"{mt['over']:.3f} of the bf16 rounding bound (tol "
                      f"{FLASH_BOUND_SLACK:g})")
@@ -536,18 +478,22 @@ def _check_flash():
         if bad or rel_oracle > FLASH_ORACLE_TOL[kind]:
             fail("kernels", line)
         if Sq == S:
-            ms, text = kernel_times(lambda: fa.flash_attention_kernel(q, k, v))
+            times, text = kernel_times(
+                lambda: fa.flash_attention_kernel(q, k, v))
             plain_ms = median_ms(lambda: ref.flash_attention_plain(q, k, v),
                                  reps=5, warmup=1)
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            lib_ms, _ = device_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True))
+
+            def sdpa():
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      is_causal=True)
+            lib_ms, lib_dev = median_ms(sdpa), device_ms(sdpa)[0]
             bound, by = flash_bound_ms(B_, Sq, Sk, H_, hd_, kind,
                                        q.element_size())
             line += (f"; {text}, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} "
-                     f"ms on the device, bound {bound * 1e3:.1f} us ({by})")
+                     f"ms ({lib_dev:.4f} on the device), bound {bound * 1e3:.1f} us ({by})")
             if kind == "bf16":
-                main = dict(max_abs_err=err_plain, ms=ms, plain_ms=plain_ms,
+                main = dict(max_abs_err=err_plain, **times, plain_ms=plain_ms,
                             bound_ms=bound, bound_by=by, library_ms=lib_ms)
         log("kernels", line)
     return {"forward": main}
@@ -585,14 +531,14 @@ def _check_ssd():
         if rel_plain > SSD_PLAIN_TOL or rel_oracle > SSD_ORACLE_TOL:
             fail("kernels", line)
         if main is None:
-            ms, text = kernel_times(lambda: ssd.ssd_intra_chunk_kernel(
+            times, text = kernel_times(lambda: ssd.ssd_intra_chunk_kernel(
                 xc, Bc, Cc, Ac, Acum))
             plain_ms = median_ms(lambda: ref.ssd_intra_chunk_plain(xc, Bc, Cc,
                                                                    Acum))
             bound, by = ssd_bound_ms(*shape)
             line += (f"; {text}, plain {plain_ms:.4f} ms, "
                      f"bound {bound * 1e3:.1f} us ({by})")
-            main = dict(max_abs_err=err_plain, ms=ms, plain_ms=plain_ms,
+            main = dict(max_abs_err=err_plain, **times, plain_ms=plain_ms,
                         bound_ms=bound, bound_by=by, library_ms=None)
         log("kernels", line)
     return {"mamba": main}
@@ -941,7 +887,7 @@ def main():
         phase_build()
         rows = phase_kernels()
         launches = {("streamed_moe", "serve"): phase_slice(
-            rows["streamed_moe"]["serve"]["ms"])}
+            rows["streamed_moe"]["serve"]["device_ms"])}
         phase_parity()
         phase_features()
         for k, n in phase_forward().items():

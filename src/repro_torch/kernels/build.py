@@ -92,3 +92,14 @@ def load(name: str) -> ctypes.CDLL:
         path = build_all([name])[name]
         lib = _LIBS[name] = ctypes.CDLL(str(path))
     return lib
+
+
+def launch_on(device: int, fn, args) -> int:
+    """Call a kernel's launch function as ``fn(*args, stream)`` on the
+    current stream of CUDA device ``device`` (made the current device for
+    the call if it is not) -> the function's cudaError code."""
+    import torch
+    if device == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(device))
+    with torch.cuda.device(device):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(device))

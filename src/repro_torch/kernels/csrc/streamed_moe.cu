@@ -22,9 +22,10 @@
 //      when w_d is bf16) to a scratch (E, C, m);
 //   2. grid (d/64, C/BM, E): a block streams its 64-column slice of w_d over
 //      m and writes out[e, rows, cols].
-// The row tiles of one expert are neighbours in the grid, so at large C the
-// expert's weight slices are read from device memory once and from L2 by
-// the other row tiles.
+// The expert is the grid's slowest axis, so all blocks of one expert (its
+// column tiles, row tile by row tile) run at about the same time, and at
+// large C the expert's weight slices are read from device memory about once
+// and from L2 by its other row tiles.
 //
 // bf16 activations x bf16 weights (the serving and scoring paths) run on the
 // tensor cores: mma.sync.m16n8k16 with fp32 accumulation, bf16 tiles read by

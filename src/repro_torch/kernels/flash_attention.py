@@ -16,6 +16,7 @@ import ctypes
 import torch
 
 from . import ref
+from .build import launch_on
 
 LAUNCHES = 0
 
@@ -38,11 +39,11 @@ def _kernel_fn():
 
 
 def _check(q, k, v):
-    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("want q (B,Sq,H,hd), k and v (B,Sk,H,hd)")
     B, Sq, H, hd = q.shape
     Sk = k.shape[1]
-    if tuple(k.shape) != (B, Sk, H, hd) or tuple(v.shape) != tuple(k.shape):
+    if k.shape != (B, Sk, H, hd) or v.shape != k.shape:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
     if Sq == 0 or Sk < Sq:
@@ -78,11 +79,9 @@ def flash_attention_kernel(q, k, v):
             t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("the bf16 flash kernel needs 16-byte aligned q, k, v")
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _kernel_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                          out.data_ptr(), B, H, Sq, k.shape[1], hd,
-                          DTYPES[q.dtype], ref.flash_scale_log2(hd), stream)
+    rc = launch_on(q.get_device(), _kernel_fn(), (
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, Sq,
+        k.shape[1], hd, DTYPES[q.dtype], ref.flash_scale_log2(hd)))
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"cudaError {rc}")

@@ -110,22 +110,37 @@ def flash_scale_log2(hd: int) -> float:
             * torch.tensor(math.log2(math.e), dtype=torch.float32)).item()
 
 
+def _flash_dot(a, b):
+    """``a @ b`` over the last two axes with fp32 output, as the flash kernel
+    forms its two products.  bf16 operands on the card take a bf16 GEMM with
+    fp32 output, which runs on the tensor cores as the kernel's mma.sync
+    does, so the scores match the kernel's bit for bit; a reordered fp32
+    score would flip roundings of ``p`` that move a small output by
+    hundreds of its ulps.  On the CPU, which has no such GEMM, and for fp32
+    operands (the kernel's fp32 FMAs in ascending order), the fp32 product."""
+    if a.is_cuda and a.dtype == torch.bfloat16:
+        out = torch.bmm(a.reshape(-1, *a.shape[-2:]),
+                        b.reshape(-1, *b.shape[-2:]), out_dtype=torch.float32)
+        return out.reshape(*a.shape[:-1], b.shape[-1])
+    return a.float() @ b.float()
+
+
 def flash_attention_plain(q, k, v):
     """The flash kernel's arithmetic: per query tile, a loop over key tiles
     of FLASH_TILE keys up to the diagonal with fp32 running max ``m``, sum
     ``l`` and accumulator; scores ``(q k^T) * flash_scale_log2(hd)`` (log2
-    units), masked keys at -1e30, ``p = exp2(s - m)``; ``p`` rounded to v's
-    dtype before the PV product (``l`` sums the unrounded ``p``); each
-    tile's PV added to ``acc * corr``; output ``acc / max(l, 1e-30)`` in q's
-    dtype.  Key tiles above a row's diagonal that the loop still visits (the
-    tile holds later rows too) are an exact no-op for it:
-    ``exp2(-1e30 - m) == 0``."""
+    units; the product by :func:`_flash_dot`), masked keys at -1e30,
+    ``p = exp2(s - m)``; ``p`` rounded to v's dtype before the PV product
+    (``l`` sums the unrounded ``p``); each tile's PV added to
+    ``acc * corr``; output ``acc / max(l, 1e-30)`` in q's dtype.  Key tiles
+    above a row's diagonal that the loop still visits (the tile holds later
+    rows too) are an exact no-op for it: ``exp2(-1e30 - m) == 0``."""
     B, Sq, H, hd = q.shape
     Sk = k.shape[1]
     scale = flash_scale_log2(hd)
-    qh = q.permute(0, 2, 1, 3).float()                        # (B,H,Sq,hd)
-    kh = k.permute(0, 2, 1, 3).float()
-    vh = v.permute(0, 2, 1, 3).float()
+    qh = q.permute(0, 2, 1, 3)                                # (B,H,Sq,hd)
+    kt = k.permute(0, 2, 3, 1)                                # (B,H,hd,Sk)
+    vh = v.permute(0, 2, 1, 3)
     out = torch.empty((B, H, Sq, hd), dtype=q.dtype, device=q.device)
     for q0 in range(0, Sq, FLASH_TILE):
         q1 = min(q0 + FLASH_TILE, Sq)
@@ -135,14 +150,15 @@ def flash_attention_plain(q, k, v):
         acc = torch.zeros((B, H, q1 - q0, hd), device=q.device)
         for k0 in range(0, q1 + Sk - Sq, FLASH_TILE):
             k1 = min(k0 + FLASH_TILE, Sk)
-            s = (qh[:, :, q0:q1] @ kh[:, :, k0:k1].transpose(-1, -2)) * scale
+            s = _flash_dot(qh[:, :, q0:q1], kt[..., k0:k1]) * scale
             kpos = torch.arange(k0, k1, device=q.device)[None, :]
             s = torch.where(kpos <= qpos, s, torch.full_like(s, NEG_INF))
             m_new = torch.maximum(m, s.amax(-1))
             p = torch.exp2(s - m_new[..., None])
             corr = torch.exp2(m - m_new)
             l = l * corr + p.sum(-1)
-            acc = acc * corr[..., None] + p.to(v.dtype).float() @ vh[:, :, k0:k1]
+            acc = acc * corr[..., None] + _flash_dot(p.to(v.dtype),
+                                                     vh[:, :, k0:k1])
             m = m_new
         out[:, :, q0:q1] = (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
     return out.permute(0, 2, 1, 3).contiguous()

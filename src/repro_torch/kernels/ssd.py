@@ -15,6 +15,7 @@ import ctypes
 import torch
 
 from . import ref
+from .build import launch_on
 
 LAUNCHES = 0
 
@@ -78,11 +79,9 @@ def ssd_intra_chunk_kernel(xc, Bc, Cc, Ac, A_cumsum):
                          f"n={n}")
     y = torch.empty_like(xc)
     st = torch.empty((b, nc, h, p, n), dtype=torch.float32, device=xc.device)
-    with torch.cuda.device(xc.device):
-        stream = torch.cuda.current_stream(xc.device).cuda_stream
-        rc = _kernel_fn()(xc.data_ptr(), Bc.data_ptr(), Cc.data_ptr(),
-                          A_cumsum.data_ptr(), y.data_ptr(), st.data_ptr(),
-                          b, nc, c, h, p, n, stream)
+    rc = launch_on(xc.get_device(), _kernel_fn(), (
+        xc.data_ptr(), Bc.data_ptr(), Cc.data_ptr(), A_cumsum.data_ptr(),
+        y.data_ptr(), st.data_ptr(), b, nc, c, h, p, n))
     if rc != 0:
         raise RuntimeError(f"ssd_intra_chunk kernel launch failed: "
                            f"cudaError {rc}")

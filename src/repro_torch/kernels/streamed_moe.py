@@ -17,6 +17,7 @@ import ctypes
 import torch
 
 from . import ref
+from .build import launch_on
 
 LAUNCHES = 0
 
@@ -42,38 +43,43 @@ def _kernel_fn():
 
 
 def _check(xe, w_g, w_u, w_d, activation, s_g, s_u, s_d):
+    """Validate the operands -> (gated, quantized, tensors besides xe).
+    Called on every launch, so it compares shapes and devices directly."""
     if activation not in ACTIVATIONS:
         raise ValueError(f"unknown activation {activation!r}")
     gated = activation == "swiglu"
     if gated and w_g is None:
         raise ValueError("activation='swiglu' requires w_g")
-    if xe.dim() != 3 or w_u.dim() != 3 or w_d.dim() != 3:
+    if xe.ndim != 3 or w_u.ndim != 3 or w_d.ndim != 3:
         raise ValueError("want xe (E,C,d), w_u (E,d,m), w_d (E,m,d)")
     E, C, d = xe.shape
     m = w_u.shape[-1]
-    if tuple(w_u.shape) != (E, d, m) or tuple(w_d.shape) != (E, m, d):
+    if w_u.shape != (E, d, m) or w_d.shape != (E, m, d):
         raise ValueError(f"shape mismatch: xe {tuple(xe.shape)}, w_u "
                          f"{tuple(w_u.shape)}, w_d {tuple(w_d.shape)}")
-    if gated and tuple(w_g.shape) != (E, d, m):
+    if gated and w_g.shape != w_u.shape:
         raise ValueError(f"w_g {tuple(w_g.shape)} != w_u {tuple(w_u.shape)}")
     if xe.dtype not in X_DTYPES:
         raise TypeError(f"xe dtype {xe.dtype} not in {list(X_DTYPES)}")
-    ws = [w for w in (w_g if gated else None, w_u, w_d) if w is not None]
-    if any(w.dtype != w_u.dtype for w in ws) or w_u.dtype not in W_DTYPES:
+    ws = (w_g, w_u, w_d) if gated else (w_u, w_d)
+    wdt = w_u.dtype
+    if wdt not in W_DTYPES or any(w.dtype != wdt for w in ws):
         raise TypeError(f"weights must share one dtype of {list(W_DTYPES)}, "
                         f"got {[w.dtype for w in ws]}")
-    quantized = w_u.dtype in QUANT_DTYPES
-    scales = ([(s_g, (E, 1, m))] if gated else []) \
-        + [(s_u, (E, 1, m)), (s_d, (E, 1, d))]
+    quantized = wdt in QUANT_DTYPES
+    tensors = ws
     if quantized:
+        scales = ((s_g, (E, 1, m)),) if gated else ()
+        scales += ((s_u, (E, 1, m)), (s_d, (E, 1, d)))
         for s, shape in scales:
-            if s is None or tuple(s.shape) != shape or s.dtype != torch.float32:
-                raise ValueError(f"quantized {w_u.dtype} weights need fp32 "
+            if s is None or s.shape != shape or s.dtype != torch.float32:
+                raise ValueError(f"quantized {wdt} weights need fp32 "
                                  f"scales {shape}")
-    elif any(s is not None for s in (s_g, s_u, s_d)):
-        raise ValueError(f"scales given for unquantized {w_u.dtype} weights")
-    tensors = ws + ([s for s, _ in scales] if quantized else [])
-    if any(t.device != xe.device for t in tensors):
+        tensors = ws + tuple(s for s, _ in scales)
+    elif s_g is not None or s_u is not None or s_d is not None:
+        raise ValueError(f"scales given for unquantized {wdt} weights")
+    dev = xe.device
+    if any(t.device != dev for t in tensors):
         raise ValueError("all operands must lie on one device")
     return gated, quantized, tensors
 
@@ -101,33 +107,29 @@ def _launch(xe, w_g, w_u, w_d, activation, s_g=None, s_u=None, s_d=None,
     global LAUNCHES
     gated, quantized, tensors = checked or _check(
         xe, w_g, w_u, w_d, activation, s_g, s_u, s_d)
-    if xe.device.type != "cuda":
-        raise ValueError(f"streamed_moe runs on cuda or cpu, not {xe.device}")
-    if not all(t.is_contiguous() for t in [xe] + tensors):
+    if not xe.is_cuda:
+        raise ValueError(f"the streamed_moe kernel runs on cuda, not "
+                         f"{xe.device}")
+    if not xe.is_contiguous() or not all(t.is_contiguous() for t in tensors):
         raise ValueError("streamed_moe kernel needs contiguous operands")
     E, C, d = xe.shape
     m = w_u.shape[-1]
     tensor_cores = xe.dtype == torch.bfloat16 and w_u.dtype == torch.bfloat16
-    if tensor_cores and (d % 8 or m % 8 or any(
-            t.data_ptr() % 16 for t in [xe] + tensors)):
+    if tensor_cores and (d % 8 or m % 8 or xe.data_ptr() % 16 or any(
+            t.data_ptr() % 16 for t in tensors)):
         raise ValueError(f"the bf16 tensor-core path takes d and m multiples"
                          f" of 8 and 16-byte aligned operands, got d={d}, "
                          f"m={m}")
     h = torch.empty((E, C, m), device=xe.device, dtype=torch.bfloat16
                     if tensor_cores else torch.float32)
     out = torch.empty((E, C, d), dtype=torch.float32, device=xe.device)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    with torch.cuda.device(xe.device):
-        stream = torch.cuda.current_stream(xe.device).cuda_stream
-        rc = _kernel_fn()(
-            ptr(xe), ptr(w_g) if gated else None, ptr(w_u), ptr(w_d),
-            ptr(s_g) if gated and quantized else None,
-            ptr(s_u) if quantized else None, ptr(s_d) if quantized else None,
-            ptr(h), ptr(out), E, C, d, m, X_DTYPES[xe.dtype],
-            W_DTYPES[w_u.dtype], ACTIVATIONS[activation], stream)
+    q = quantized
+    args = (xe.data_ptr(), w_g.data_ptr() if gated else None, w_u.data_ptr(),
+            w_d.data_ptr(), s_g.data_ptr() if gated and q else None,
+            s_u.data_ptr() if q else None, s_d.data_ptr() if q else None,
+            h.data_ptr(), out.data_ptr(), E, C, d, m, X_DTYPES[xe.dtype],
+            W_DTYPES[w_u.dtype], ACTIVATIONS[activation])
+    rc = launch_on(xe.get_device(), _kernel_fn(), args)
     if rc != 0:
         raise RuntimeError(f"streamed_moe kernel launch failed: "
                            f"cudaError {rc}")

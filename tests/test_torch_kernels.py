@@ -130,15 +130,16 @@ def _chip_smoke():
 
 @pytest.mark.parametrize("fault", [None, "unrounded_h", "short_contraction"])
 @pytest.mark.parametrize("act", ["swiglu", "relu2", "gelu"])
-def test_moe_bf16_check_has_teeth(act, fault):
+@pytest.mark.parametrize("d", [64, 1024])   # toy width; granite's d_model
+def test_moe_bf16_check_has_teeth(act, fault, d):
     xe, wg, wu, wd = (torch.from_numpy(a).to(torch.bfloat16)
-                      for a in _inputs(E=2, C=37, d=64, m=48, seed=2))
+                      for a in _inputs(E=2, C=37, d=d, m=48, seed=2))
     wg = wg if act == "swiglu" else None
     h_plain = ref.streamed_moe_plain_h(xe, wg, wu, wd, act)
     h = h_plain
     if fault == "unrounded_h":               # a kernel that skips the rounding
         h = ref.streamed_moe_plain_h(xe, wg, wu, wd.float(), act)
-    elif fault == "short_contraction":       # one that drops the last k tile
+    elif fault == "short_contraction":       # one that drops the last k16 step
         x = xe.clone()
         x[..., -16:] = 0
         h = ref.streamed_moe_plain_h(x, wg, wu, wd, act)
