@@ -11,7 +11,9 @@ Phases, each printing its result on its own line; any failure exits 1:
 3. kernels: each kernel against its plain PyTorch version and the
    reference oracle on the card, at its path's shapes and at small odd
    ones (the bf16 tensor-core paths of flash attention and streamed_moe
-   included, held element by element), with the time of one call of each
+   included, held element by element; streamed_moe's int8 / fp8 weights
+   with bf16 and fp32 activations; SSD with B and C per group, g = 1 and
+   g = h), with the time of one call of each
    kernel with its host work beside its device time per call, the bound,
    and for flash attention the times of ``F.scaled_dot_product_attention``
    on the same tensors;
@@ -20,21 +22,24 @@ Phases, each printing its result on its own line; any failure exits 1:
    count must equal the number of MoE-layer expert calls;
 5. path parity: the same path in fp32 with kernels and with
    ``use_kernels(False)`` — prefill logits and greedy tokens must agree;
-6. features: ``--schedule dynamic --slack 0.2`` and ``--weight-dtype fp8``;
+6. features: ``--schedule dynamic --slack 0.2`` and ``--weight-dtype fp8``
+   (its streamed_moe launch count, 24 per prefill and decode iteration, is
+   the ``serve_fp8`` path's);
 7. forward: ``api.loss_fn`` scores 2 x 2048 tokens of granite-moe-1b-a400m
    at full width in bf16 through the flash and streamed_moe kernels (24
    launches each), then the same batch in fp32 with kernels and with
    ``use_kernels(False)``: losses within 1e-4, argmax agreement reported;
 8. mamba: ``api.loss_fn`` over 2 x 2048 tokens of mamba2-370m at full
    width in bf16, then each layer's ``mamba2_block`` with the SSD kernel
-   (48 launches) against the plain path on the same activations, in bf16
-   (reported) and fp32 (within 2e-5);
-9. profile: the slice and both scoring losses once more under
-   ``torch.profiler`` — device kernel time by name and the device's busy
-   share of the wall time;
+   (48 launches, B and C per group: n_groups = 1) against the plain path on
+   the same activations, in bf16 (reported) and fp32 (within 2e-5);
+9. profile: the slice (bf16, then ``--weight-dtype fp8``) and both scoring
+   losses once more under ``torch.profiler`` — device kernel time by name
+   and the device's busy share of the wall time;
 10. summary: one ``{"kernels": [...]}`` JSON line with one entry per
-    kernel and path (``streamed_moe`` on the serve and the forward paths,
-    ``flash_attention`` on the forward path, ``ssd`` on the mamba path),
+    kernel and path (``streamed_moe`` on the serve path in bf16 and in fp8
+    and on the forward path, ``flash_attention`` on the forward path,
+    ``ssd`` on the mamba path),
     each with that path's launches and its shape's times (``ms`` one call
     with its host work, ``device_ms`` the device time per call) and bound; the
     ``nvidia-smi`` name/power line; and the contract line
@@ -56,9 +61,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
 ARCH = "granite-moe-1b-a400m"
-# streamed_moe.  Tolerances are max abs error over max |want|.  On the
-# CUDA-core paths (fp32 activations, or fp32 / int8 / fp8 weights) the plain
-# version repeats the kernel's arithmetic step for step (bf16 rounding of h
+# streamed_moe.  Tolerances are max abs error over max |want|.  On every path
+# but bf16 x bf16 (fp32 activations, or fp32 / int8 / fp8 weights, the 8-bit
+# ones on the tensor cores with fp32-exact products) the plain version
+# repeats the kernel's arithmetic step for step (bf16 rounding of h
 # included), so the kernel is held to it at 1e-5.  Against the fp32 oracle:
 # the reference's KERNEL_TOL (tests/test_quantization.py) for the fp32, int8
 # and fp8 paths; bf16 rounds h before the down GEMM, as the Pallas kernel
@@ -121,7 +127,7 @@ LOSS_TOL = 1e-4
 BLOCK_TOL = 2e-5
 # H100 SXM data-sheet peaks (dense): bytes/s and operations/s by type
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"bf16": 989e12, "fp32": 67e12, "int8": 1979e12, "fp8": 1979e12}
+PEAK_OPS = {"bf16": 989e12, "fp32": 67e12}
 WEIGHT_BYTES = {"fp32": 4, "bf16": 2, "int8": 1, "fp8": 1}
 # the scoring runs (phases 7 and 8): batch x sequence, random tokens
 SCORE_B, SCORE_S = 2, 2048
@@ -199,13 +205,16 @@ def kernel_times(fn):
 
 def streamed_moe_bound_ms(E, C, d, m, wdt, x_bytes, gated=True):
     """Least time for one call: each input read once, the fp32 output
-    written once, against the multiply-adds of both GEMMs."""
+    written once, against the multiply-adds of both GEMMs at the peak of
+    their operands' type (bf16 unless x or the weights are fp32; 8-bit
+    weights meet bf16 activations, so not the int8 / fp8 rate)."""
     n_mats = 3 if gated else 2
     weights = n_mats * E * d * m * WEIGHT_BYTES[wdt]
     scales = 0 if wdt not in ("int8", "fp8") else 4 * E * ((n_mats - 1) * m + d)
     moved = weights + scales + E * C * d * x_bytes + E * C * d * 4
     ops = 2 * E * C * d * m * n_mats
-    return _bound(moved, ops, wdt)
+    return _bound(moved, ops, "fp32" if wdt == "fp32" or x_bytes == 4
+                  else "bf16")
 
 
 def _bound(moved, ops, kind):
@@ -222,14 +231,17 @@ def flash_bound_ms(B, Sq, Sk, H, hd, kind, elt):
                   kind)
 
 
-def ssd_bound_ms(b, nc, c, h, p, n):
-    """x, B, C and A_cumsum read once, Y_diag and the states written once
-    (fp32), against the fp32 multiply-adds over the causal (i >= j) pairs
+def ssd_bound_ms(b, nc, c, h, g, p, n):
+    """x, B and C (per group) and A_cumsum read once, Y_diag and the states
+    written once (fp32), against the fp32 multiply-adds (67 TFLOP/s) of C B^T
+    once per group and of (G o L) x per head over the causal (i >= j) pairs,
     and of the state product."""
-    cells = b * nc * h
+    heads, groups = b * nc * h, b * nc * g
     pairs = c * (c + 1) // 2
-    moved = 4 * (cells * c * (2 * p + 2 * n) + cells * c + cells * p * n)
-    return _bound(moved, cells * (2 * pairs * (n + p) + 2 * c * n * p), "fp32")
+    moved = 4 * (heads * c * 2 * p + groups * c * 2 * n + heads * c
+                 + heads * p * n)
+    ops = groups * 2 * pairs * n + heads * (2 * pairs * p + 2 * c * n * p)
+    return _bound(moved, ops, "fp32")
 
 
 def rel_err(got, want):
@@ -351,9 +363,11 @@ def _check_streamed_moe():
     cases += [(E, C_SCORE, d, m, "swiglu", "bf16", bf)]
     cases += [(4, 37, 256, 96, act, wdt, f32) for act in ("relu2", "gelu")
               for wdt in ("fp32", "bf16", "int8", "fp8")]
-    # the tensor-core path at ragged edges, and a down product with K = 1024
-    cases += [(4, 37, 256, 96, act, "bf16", bf) for act in ("relu2", "gelu")]
-    cases += [(4, 64, 512, 1024, "swiglu", "bf16", bf)]
+    # the tensor-core paths at ragged edges, and a down product with K = 1024
+    cases += [(4, 37, 256, 96, act, wdt, bf) for act in ("relu2", "gelu")
+              for wdt in ("bf16", "int8", "fp8")]
+    cases += [(4, 64, 512, 1024, "swiglu", wdt, bf)
+              for wdt in ("bf16", "int8", "fp8")]
     for (E_, C_, d_, m_, act, wdt, x_dtype) in cases:
         xe, wg, wu, wd = _moe_inputs(E_, C_, d_, m_, act, x_dtype)
         ws, scales = _stream_operands(wg, wu, wd, wdt)
@@ -370,7 +384,7 @@ def _check_streamed_moe():
         line = (f"streamed_moe E={E_} C={C_} d={d_} m={m_} {act} w={wdt} "
                 f"x={str(x_dtype)[6:]}: max_abs_err vs plain {err_plain:.3e} "
                 f"(rel {rel_plain:.3e}")
-        if h.dtype == torch.bfloat16:       # the tensor-core path
+        if wdt == "bf16" and x_dtype == bf:   # bf16 x bf16 on the tensor cores
             ok, mt = moe_bf16_check(h, got, ref.streamed_moe_plain_h(
                 xe, *ws, act, **scales), xe, *ws, act)
             line += (f"), h: at most {mt['over']:.3f} of its bound (tol 1), "
@@ -393,8 +407,10 @@ def _check_streamed_moe():
                                               xe.element_size())
             line += (f"; {text}, plain {plain_ms:.4f} ms, "
                      f"bound {bound * 1e3:.1f} us ({by})")
-            if wdt == "bf16":
-                paths["serve" if C_ == C else "forward"] = dict(
+            path = {("bf16", C): "serve", ("fp8", C): "serve_fp8",
+                    ("bf16", C_SCORE): "forward"}.get((wdt, C_))
+            if path:
+                paths[path] = dict(
                     max_abs_err=err_plain, **times, plain_ms=plain_ms,
                     bound_ms=bound, bound_by=by, library_ms=None)
         log("kernels", line)
@@ -500,20 +516,24 @@ def _check_flash():
 
 
 def _check_ssd():
-    """mamba2-370m's (b, nc, c, h, p, n) = (2, 8, 256, 32, 64, 128), a
-    chunk of one partial tile (c = 32) and one whose last tile is partial
-    after a full one (c = 100); the first is the one the summary reports."""
+    """mamba2-370m's (b, nc, c, h, p, n) = (2, 8, 256, 32, 64, 128) with B and
+    C per group as the path passes them (g = 1, the one the summary
+    reports) and per head (g = h, the reference's layout), then a chunk of
+    one partial tile (c = 32) and one whose last tile is partial after a
+    full one (c = 100), each with g = 1 and g = h = 3."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd
     main = None
-    for shape in ((SCORE_B, SCORE_S // 256, 256, 32, 64, 128),
-                  (1, 3, 32, 3, 32, 16), (1, 2, 100, 3, 64, 16)):
-        b, nc, c, h, p, n = shape
-        g = torch.Generator(device="cuda").manual_seed(0)
-        kw = dict(generator=g, device="cuda")
+    shapes = [(SCORE_B, SCORE_S // 256, 256, 32, g, 64, 128) for g in (1, 32)]
+    shapes += [(1, 3, 32, 3, g, 32, 16) for g in (1, 3)]
+    shapes += [(1, 2, 100, 3, g, 64, 16) for g in (1, 3)]
+    for shape in shapes:
+        b, nc, c, h, g_, p, n = shape
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        kw = dict(generator=gen, device="cuda")
         xc = torch.randn(b, nc, c, h, p, **kw)
-        Bc, Cc = (torch.randn(b, nc, c, h, n, **kw) for _ in range(2))
+        Bc, Cc = (torch.randn(b, nc, c, g_, n, **kw) for _ in range(2))
         Ac = -torch.rand(b, h, nc, c, **kw) * 0.1
         Acum = torch.cumsum(Ac, -1)
         got = ssd.ssd_intra_chunk_kernel(xc, Bc, Cc, Ac, Acum)
@@ -525,12 +545,13 @@ def _check_ssd():
         err_plain = max((a - w).abs().max().item() for a, w in zip(got, plain))
         rel_plain = max(rel_err(a, w) for a, w in zip(got, plain))
         rel_oracle = max(rel_err(a, w) for a, w in zip(got, oracle))
-        line = (f"ssd_intra_chunk (b,nc,c,h,p,n)={shape}: max_abs_err vs plain "
-                f"{err_plain:.3e} (rel {rel_plain:.3e}, tol {SSD_PLAIN_TOL:g}), "
-                f"rel vs oracle {rel_oracle:.3e} (tol {SSD_ORACLE_TOL:g})")
+        line = (f"ssd_intra_chunk (b,nc,c,h,g,p,n)={shape}: max_abs_err vs "
+                f"plain {err_plain:.3e} (rel {rel_plain:.3e}, tol "
+                f"{SSD_PLAIN_TOL:g}), rel vs oracle {rel_oracle:.3e} (tol "
+                f"{SSD_ORACLE_TOL:g})")
         if rel_plain > SSD_PLAIN_TOL or rel_oracle > SSD_ORACLE_TOL:
             fail("kernels", line)
-        if main is None:
+        if c == 256:
             times, text = kernel_times(lambda: ssd.ssd_intra_chunk_kernel(
                 xc, Bc, Cc, Ac, Acum))
             plain_ms = median_ms(lambda: ref.ssd_intra_chunk_plain(xc, Bc, Cc,
@@ -538,8 +559,9 @@ def _check_ssd():
             bound, by = ssd_bound_ms(*shape)
             line += (f"; {text}, plain {plain_ms:.4f} ms, "
                      f"bound {bound * 1e3:.1f} us ({by})")
-            main = dict(max_abs_err=err_plain, **times, plain_ms=plain_ms,
-                        bound_ms=bound, bound_by=by, library_ms=None)
+            if main is None:
+                main = dict(max_abs_err=err_plain, **times, plain_ms=plain_ms,
+                            bound_ms=bound, bound_by=by, library_ms=None)
         log("kernels", line)
     return {"mamba": main}
 
@@ -613,20 +635,21 @@ def _profile(label, fn):
     log("profile", f"{label}: wall {wall:.3f}s, device kernel time "
                    f"{busy:.3f}s, busy share {busy / wall:.3f}")
     # the ten largest, then the port's own kernels further down the list
-    ours = ("::up_kernel", "::down_kernel", "::flash_fwd", "::ssd_")
+    ours = ("::up_kernel", "::down_kernel", "::flash_fwd", "::ssd_", "::split3")
     for ms, n, name in rows[:10] + [r for r in rows[10:]
                                     if any(k in r[2] for k in ours)]:
         log("profile", f"{label}: {ms:9.2f} ms {n:6d} x {name[:100]}")
 
 
 def phase_profile():
-    """The slice and the two bf16 scoring losses once more under the
-    profiler."""
+    """The slice (bf16 and fp8 weights) and the two bf16 scoring losses
+    once more under the profiler."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import api
-    _profile("slice", lambda: _serve(["--requests", "4", "--prompt-len", "8",
-                                      "--max-new", "16"]))
+    for label, argv in (("slice", []), ("slice fp8", ["--weight-dtype", "fp8"])):
+        _profile(label, lambda: _serve(["--requests", "4", "--prompt-len", "8",
+                                        "--max-new", "16"] + argv))
     for label, arch, kw in (("forward", ARCH, dict(spec="capacity",
                                                    use_flash=True)),
                             ("mamba", MAMBA, {})):
@@ -850,6 +873,7 @@ def phase_parity():
 
 
 def phase_features():
+    """-> the fp8 run's streamed_moe launches (the serve_fp8 path)."""
     from repro_torch.kernels import streamed_moe as sm
     for argv in (["--schedule", "dynamic", "--slack", "0.2"],
                  ["--weight-dtype", "fp8"]):
@@ -872,7 +896,10 @@ def phase_features():
                         f"deferrals {s['deferrals']}, loads saved "
                         f"{s['expert_loads_saved']}, dynamic schedules "
                         f"{s['dynamic_schedules']}, launches {sm.LAUNCHES}")
+        if "--weight-dtype" in argv:
+            fp8_launches = sm.LAUNCHES
         del res, eng
+    return fp8_launches
 
 
 SOURCES = {"streamed_moe": "src/repro/kernels/streamed_moe.py:201",
@@ -889,7 +916,7 @@ def main():
         launches = {("streamed_moe", "serve"): phase_slice(
             rows["streamed_moe"]["serve"]["device_ms"])}
         phase_parity()
-        phase_features()
+        launches["streamed_moe", "serve_fp8"] = phase_features()
         for k, n in phase_forward().items():
             launches[k, "forward"] = n
         launches["ssd", "mamba"] = phase_mamba()

@@ -74,7 +74,8 @@ def flash_attention(q, k, v):
 
 
 def ssd_intra_chunk(xc, Bc, Cc, Ac, A_cumsum):
-    """Mamba-2 SSD intra-chunk terms -> (Y_diag, states), fp32."""
+    """Mamba-2 SSD intra-chunk terms -> (Y_diag, states), fp32.  B and C
+    come per group, (b,nc,c,g,n) with g dividing the h heads of xc."""
     if kernels_enabled():
         return ssd_intra_chunk_kernel(xc, Bc, Cc, Ac, A_cumsum)
     return ref.ssd_intra_chunk_ref(xc, Bc, Cc, Ac, A_cumsum)

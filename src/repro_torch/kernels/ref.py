@@ -21,7 +21,6 @@ import torch.nn.functional as F
 
 NEG_INF = -1e30
 FLASH_TILE = 64     # keys per tile of csrc/flash_attention.cu (query rows here)
-SSD_TILE = 64       # chunk rows per tile of csrc/ssd.cu
 
 
 def _act(kind: str, hu, hg=None):
@@ -59,8 +58,12 @@ def streamed_moe_quant_ref(xe, w_g, w_u, w_d, activation: str,
                             quant.fake_quant(w_d, weight_dtype), activation)
 
 
-def _deq(w, s):
-    return None if w is None else (w.float() if s is None else w.float() * s)
+def _qmm(eq, a, w, s):
+    """``a @ w`` in fp32 for weights stored fp32/bf16, or int8/fp8 with
+    their fp32 scale row ``s``: the stored values are multiplied and the
+    scale applied to the sum, as the kernel's epilogue does."""
+    out = torch.einsum(eq, a, w.float())
+    return out if s is None else out * s
 
 
 def streamed_moe_plain_h(xe, w_g, w_u, w_d, activation: str, *,
@@ -68,8 +71,8 @@ def streamed_moe_plain_h(xe, w_g, w_u, w_d, activation: str, *,
     """The kernel's first phase: ``h = act(x w_g, x w_u)`` in fp32 (E,C,m),
     rounded to bf16 (and back) when ``w_d`` is stored in bf16."""
     x = xe.float()
-    hu = torch.einsum("ecd,edm->ecm", x, _deq(w_u, s_u))
-    hg = torch.einsum("ecd,edm->ecm", x, _deq(w_g, s_g)) \
+    hu = _qmm("ecd,edm->ecm", x, w_u, s_u)
+    hg = _qmm("ecd,edm->ecm", x, w_g, s_g) \
         if activation == "swiglu" and w_g is not None else None
     h = _act(activation, hu, hg)
     if w_d.dtype == torch.bfloat16:
@@ -82,11 +85,12 @@ def streamed_moe_plain(xe, w_g, w_u, w_d, activation: str, *,
     """The kernel's arithmetic in plain PyTorch.
 
     Weights are stored fp32/bf16, or int8/fp8 with their fp32 scale rows
-    (dequantized as ``w.float() * s``).  Both GEMMs accumulate in fp32;
+    (applied to each GEMM's fp32 sum).  Both GEMMs accumulate in fp32;
     ``h`` is rounded to bf16 before the down GEMM when ``w_d`` is stored
-    in bf16 (the Pallas body's ``h.astype(wd.dtype)``)."""
+    in bf16 (the Pallas body's ``h.astype(wd.dtype)``), and stays fp32
+    otherwise."""
     h = streamed_moe_plain_h(xe, w_g, w_u, w_d, activation, s_g=s_g, s_u=s_u)
-    return torch.einsum("ecm,emd->ecd", h, _deq(w_d, s_d))
+    return _qmm("ecm,emd->ecd", h, w_d, s_d)
 
 
 def flash_attention_ref(q, k, v):
@@ -174,10 +178,19 @@ def segsum(x):
     return out.masked_fill(~keep, float("-inf"))
 
 
+def _head_groups(h: int, g: int, device):
+    """The group each of h heads reads: head i -> i // (h // g)."""
+    if g == 0 or h % g:
+        raise ValueError(f"{g} groups of B and C do not divide {h} heads")
+    return torch.arange(h, device=device) // (h // g)
+
+
 def ssd_intra_chunk_ref(xc, Bc, Cc, Ac, A_cumsum):
-    """Intra-chunk SSD terms.  xc: (b,nc,c,h,p); Bc/Cc: (b,nc,c,h,n);
-    Ac/A_cumsum: (b,h,nc,c) -> Y_diag (b,nc,c,h,p), states (b,nc,h,p,n),
-    both fp32."""
+    """Intra-chunk SSD terms.  xc: (b,nc,c,h,p); Bc/Cc: (b,nc,c,g,n) with g
+    dividing h, broadcast to the heads; Ac/A_cumsum: (b,h,nc,c) -> Y_diag
+    (b,nc,c,h,p), states (b,nc,h,p,n), both fp32."""
+    grp = _head_groups(xc.shape[3], Bc.shape[3], xc.device)
+    Bc, Cc = Bc[:, :, :, grp], Cc[:, :, :, grp]
     L = torch.exp(segsum(Ac))                                    # (b,h,nc,c,c)
     G = torch.einsum("bclhn,bcshn->bhcls", Cc, Bc)
     Y_diag = torch.einsum("bhcls,bcshp->bclhp", G * L, xc)
@@ -187,30 +200,23 @@ def ssd_intra_chunk_ref(xc, Bc, Cc, Ac, A_cumsum):
 
 
 def ssd_intra_chunk_plain(xc, Bc, Cc, A_cumsum):
-    """The SSD kernel's arithmetic per (batch, chunk, head), fp32
-    throughout.  ``Y_diag``: per tile of chunk rows, a loop over source
-    tiles up to the diagonal of ``(C B^T) * L`` times x, with
-    ``L[i, j] = exp(acum[i] - acum[j])`` for i >= j and 0 above.  The
-    state: ``((B * exp(acum[-1] - acum)[:, None])^T x)^T``, (p, n).  The
-    decays ``Ac`` themselves are not read (nor by the Pallas kernel)."""
-    b, nc, c, h, p = xc.shape
+    """The SSD kernel's arithmetic, fp32 throughout.  ``G = C B^T`` once per
+    (batch, chunk, group); per head, ``Y_diag = (G * L) x`` with
+    ``L[i, j] = exp(acum[i] - acum[j])`` for i >= j and 0 above, and the
+    state ``((B * exp(acum[-1] - acum)[:, None])^T x)^T``, (p, n), with B
+    and G of the head's group.  The decays ``Ac`` themselves are not read
+    (nor by the Pallas kernel)."""
+    c, h = xc.shape[2:4]
+    grp = _head_groups(h, Bc.shape[3], xc.device)
     x = xc.float().permute(0, 1, 3, 2, 4)                      # (b,nc,h,c,p)
-    Bm = Bc.float().permute(0, 1, 3, 2, 4)                     # (b,nc,h,c,n)
+    Bm = Bc.float().permute(0, 1, 3, 2, 4)                     # (b,nc,g,c,n)
     Cm = Cc.float().permute(0, 1, 3, 2, 4)
     acum = A_cumsum.float().permute(0, 2, 1, 3)                # (b,nc,h,c)
-    y = torch.empty((b, nc, h, c, p), device=xc.device)
-    for q0 in range(0, c, SSD_TILE):
-        q1 = min(q0 + SSD_TILE, c)
-        acc = torch.zeros((b, nc, h, q1 - q0, p), device=xc.device)
-        for s0 in range(0, q1, SSD_TILE):
-            s1 = min(s0 + SSD_TILE, c)
-            g = Cm[..., q0:q1, :] @ Bm[..., s0:s1, :].transpose(-1, -2)
-            diff = acum[..., q0:q1, None] - acum[..., None, s0:s1]
-            keep = torch.arange(q0, q1, device=xc.device)[:, None] \
-                >= torch.arange(s0, s1, device=xc.device)[None, :]
-            L = torch.where(keep, torch.exp(diff), torch.zeros_like(diff))
-            acc = acc + (g * L) @ x[..., s0:s1, :]
-        y[..., q0:q1, :] = acc
+    G = (Cm @ Bm.transpose(-1, -2))[:, :, grp]                 # (b,nc,h,c,c)
+    diff = acum[..., :, None] - acum[..., None, :]
+    keep = torch.ones((c, c), dtype=torch.bool, device=xc.device).tril()
+    y = torch.where(keep, G * torch.exp(diff), torch.zeros_like(diff)) @ x
     decay = torch.exp(acum[..., -1:] - acum)                    # (b,nc,h,c)
-    st = ((Bm * decay[..., None]).transpose(-1, -2) @ x).transpose(-1, -2)
+    st = ((Bm[:, :, grp] * decay[..., None]).transpose(-1, -2) @ x) \
+        .transpose(-1, -2)
     return y.permute(0, 1, 3, 2, 4).contiguous(), st.contiguous()

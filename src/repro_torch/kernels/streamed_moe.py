@@ -4,8 +4,11 @@ Replaces ``repro/kernels/streamed_moe.py::streamed_moe_kernel`` (Pallas,
 TPU).  The kernel (``csrc/streamed_moe.cu``) is bound by the weight
 stream at serving shapes; its note says how the design spreads that
 stream over the card.  bf16 activations with bf16 weights run on the
-tensor cores (d and m multiples of 8); every other combination on CUDA
-cores.  For a CUDA tensor the wrapper launches the kernel or raises; for
+tensor cores (d and m multiples of 8), and so do int8 / fp8 weights with
+either activation dtype (d and m multiples of 16; fp32 operands split
+into three bf16 parts, so the products keep fp32 accuracy); fp32 weights,
+or bf16 weights with fp32 activations, on CUDA cores.  For a CUDA tensor
+the wrapper launches the kernel or raises; for
 a CPU tensor it runs the plain version (``kernels.ref.streamed_moe_plain``),
 which repeats the kernel's arithmetic.  ``LAUNCHES`` counts kernel
 launches and nothing else.
@@ -101,9 +104,11 @@ def streamed_moe_kernel(xe, w_g, w_u, w_d, *, activation: str,
 
 def _launch(xe, w_g, w_u, w_d, activation, s_g=None, s_u=None, s_d=None,
             checked=None):
-    """Launch the kernel on CUDA tensors -> (h, out): its (E,C,m) scratch
-    (bf16 on the tensor-core path, else fp32) beside the output, so a
-    check can hold h itself."""
+    """Launch the kernel on CUDA tensors -> (h, out): its scratch beside
+    the output, so a check can hold h itself.  The scratch is h (E,C,m) in
+    bf16 for bf16 x bf16, in fp32 for fp32 weights or fp32 x x bf16
+    weights; for int8 / fp8 weights it is flat, h's three bf16 planes
+    ``hi + mid + lo`` (3,E,C,m) and then, for fp32 x, x's."""
     global LAUNCHES
     gated, quantized, tensors = checked or _check(
         xe, w_g, w_u, w_d, activation, s_g, s_u, s_d)
@@ -120,8 +125,17 @@ def _launch(xe, w_g, w_u, w_d, activation, s_g=None, s_u=None, s_d=None,
         raise ValueError(f"the bf16 tensor-core path takes d and m multiples"
                          f" of 8 and 16-byte aligned operands, got d={d}, "
                          f"m={m}")
-    h = torch.empty((E, C, m), device=xe.device, dtype=torch.bfloat16
-                    if tensor_cores else torch.float32)
+    if quantized and (d % 16 or m % 16 or xe.data_ptr() % 16 or any(
+            t.data_ptr() % 16 for t in tensors)):
+        raise ValueError(f"the 8-bit weight path takes d and m multiples of "
+                         f"16 and 16-byte aligned operands, got d={d}, m={m}")
+    if quantized:    # h as three bf16 planes, then fp32 x's three planes
+        h = torch.empty((3 * E * C * (m + (d if xe.dtype == torch.float32
+                                            else 0)),),
+                        device=xe.device, dtype=torch.bfloat16)
+    else:
+        h = torch.empty((E, C, m), device=xe.device, dtype=torch.bfloat16
+                        if tensor_cores else torch.float32)
     out = torch.empty((E, C, d), dtype=torch.float32, device=xe.device)
     q = quantized
     args = (xe.data_ptr(), w_g.data_ptr() if gated else None, w_u.data_ptr(),

@@ -52,45 +52,49 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk, initial_state=None, use_kernel=False):
     """Chunked SSD scan.
 
     x: (b, l, h, p); dt: (b, l, h) positive step sizes; A: (h,) negative
-    decay rates; Bm, Cm: (b, l, g, n) broadcast over heads.
+    decay rates; Bm, Cm: (b, l, g, n) broadcast over heads (the kernel
+    takes them per group, as they are).
     Returns y (b, l, h, p) in x's dtype and the final state (b, h, p, n)."""
     b, l, h, p = x.shape
-    n = Bm.shape[-1]
+    g, n = Bm.shape[-2:]
     if l % chunk:
         raise ValueError(f"sequence length {l} is not a multiple of {chunk}")
     nc = l // chunk
-    Bh = torch.repeat_interleave(Bm, h // Bm.shape[2], dim=2)
-    Ch = torch.repeat_interleave(Cm, h // Cm.shape[2], dim=2)
+    Ch = torch.repeat_interleave(Cm, h // g, dim=2)
 
     # operands stay in the model dtype; fp32 only inside the chunk math
     xd = x * dt[..., None].to(x.dtype)
     dA = (dt * A[None, None, :]).float()                       # (b,l,h)
 
     xc = xd.reshape(b, nc, chunk, h, p)
-    Bc = Bh.reshape(b, nc, chunk, h, n)
     Cc = Ch.reshape(b, nc, chunk, h, n)
     Ac = dA.reshape(b, nc, chunk, h).permute(0, 3, 1, 2)       # (b,h,nc,c)
     A_cumsum = torch.cumsum(Ac, dim=-1)
 
     if use_kernel:
         Y_diag, states = ops.ssd_intra_chunk(
-            xc.float().contiguous(), Bc.float().contiguous(),
-            Cc.float().contiguous(), Ac, A_cumsum.contiguous())
-    elif nc >= 16:
-        # long sequences: one chunk at a time, so only one (c, c) mask
-        # is live (O(nc c^2) -> O(c^2) memory)
-        ys, sts = [], []
-        for i in range(nc):
-            yi, si = ssd_intra_chunk_ref(
-                xc[:, i:i + 1].float(), Bc[:, i:i + 1].float(),
-                Cc[:, i:i + 1].float(), Ac[:, :, i:i + 1],
-                A_cumsum[:, :, i:i + 1])
-            ys.append(yi)
-            sts.append(si)
-        Y_diag, states = torch.cat(ys, dim=1), torch.cat(sts, dim=1)
+            xc.float().contiguous(),
+            Bm.reshape(b, nc, chunk, g, n).float().contiguous(),
+            Cm.reshape(b, nc, chunk, g, n).float().contiguous(), Ac,
+            A_cumsum.contiguous())
     else:
-        Y_diag, states = ssd_intra_chunk_ref(xc.float(), Bc.float(),
-                                             Cc.float(), Ac, A_cumsum)
+        Bc = torch.repeat_interleave(Bm, h // g, dim=2) \
+            .reshape(b, nc, chunk, h, n)
+        if nc >= 16:
+            # long sequences: one chunk at a time, so only one (c, c) mask
+            # is live (O(nc c^2) -> O(c^2) memory)
+            ys, sts = [], []
+            for i in range(nc):
+                yi, si = ssd_intra_chunk_ref(
+                    xc[:, i:i + 1].float(), Bc[:, i:i + 1].float(),
+                    Cc[:, i:i + 1].float(), Ac[:, :, i:i + 1],
+                    A_cumsum[:, :, i:i + 1])
+                ys.append(yi)
+                sts.append(si)
+            Y_diag, states = torch.cat(ys, dim=1), torch.cat(sts, dim=1)
+        else:
+            Y_diag, states = ssd_intra_chunk_ref(xc.float(), Bc.float(),
+                                                 Cc.float(), Ac, A_cumsum)
 
     # inter-chunk recurrence
     if initial_state is None:

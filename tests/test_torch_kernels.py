@@ -11,7 +11,11 @@
   wrapper refuses operands the kernel does not take;
 * ``chip_smoke.moe_bf16_check``, which holds the bf16 tensor-core path on
   the card, passes the plain version against itself and fails an h that
-  skipped the bf16 rounding or lost part of its contraction.
+  skipped the bf16 rounding or lost part of its contraction;
+* with bf16 activations and int8 / fp8 weights (the tensor-core path of
+  8-bit weights) the plain version matches the Pallas kernel at 2e-5, and
+  the 1e-5 hold of ``chip_smoke.py`` fails the two shortcuts such a
+  kernel could take: h rounded to bf16, or x rounded to fp8.
 
 The CUDA kernel itself runs only on the card (``chip_smoke.py``).
 """
@@ -147,3 +151,53 @@ def test_moe_bf16_check_has_teeth(act, fault, d):
     ok, metrics = _chip_smoke().moe_bf16_check(h, out, h_plain, xe, wg, wu,
                                                wd, act)
     assert ok == (fault is None), metrics
+
+
+@pytest.mark.parametrize("wdt", ["int8", "fp8"])
+@pytest.mark.parametrize("act", ["swiglu", "relu2", "gelu"])
+def test_plain_bf16_activations_8bit_weights_match_pallas(act, wdt):
+    """bf16 x with int8 / fp8 weights (the fp8 serving path): the plain
+    version (the kernel's arithmetic: the stored values multiplied, the
+    scale applied to the fp32 sum, h kept in fp32) against the Pallas kernel
+    in interpret mode on the same bf16 x, at the reference's 2e-5."""
+    xe, wg, wu, wd = _inputs(C=7)
+    wg = wg if act == "swiglu" else None
+    xb = torch.from_numpy(xe).to(torch.bfloat16)
+    with jops.use_kernels(True):
+        pallas = np.asarray(jops.streamed_moe(
+            jnp.asarray(xb.float().numpy(), jnp.bfloat16),
+            None if wg is None else jnp.asarray(wg), jnp.asarray(wu),
+            jnp.asarray(wd), act, weight_dtype=wdt, interpret=True))
+    t = [None if a is None else torch.from_numpy(a) for a in (wg, wu, wd)]
+    got = ops.streamed_moe(xb, *t, act, weight_dtype=wdt)
+    assert got.dtype == torch.float32
+    tol = KERNEL_TOL[wdt]
+    np.testing.assert_allclose(got.numpy(), pallas.astype(np.float32),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("shortcut", ["h_bf16", "x_fp8"])
+@pytest.mark.parametrize("wdt", ["int8", "fp8"])
+@pytest.mark.parametrize("d", [64, 1024])   # toy width; granite's d_model
+def test_plain_hold_fails_8bit_shortcuts(d, wdt, shortcut):
+    """``chip_smoke.py`` holds the int8 / fp8 kernel to its plain version at
+    PLAIN_TOL (1e-5).  A kernel that rounded h to bf16 before the down
+    product, or x to fp8 to use fp8 mma, would miss it by far: on these
+    inputs (swiglu, bf16 x, E=2, C=37, m=48) the first moves the output by
+    1.3e-3 to 2.6e-3 of max |out| and the second by 2.7e-2 to 4.7e-2, both
+    over 100x the tolerance, which is what the test asserts."""
+    xe, wg, wu, wd = (torch.from_numpy(a) for a in _inputs(E=2, C=37, d=d,
+                                                           m=48, seed=3))
+    x = xe.to(torch.bfloat16)
+    ws, scales = _chip_smoke()._stream_operands(wg, wu, wd, wdt)
+    plain = ref.streamed_moe_plain(x, *ws, "swiglu", **scales)
+    if shortcut == "h_bf16":
+        h = ref.streamed_moe_plain_h(x, *ws, "swiglu", s_g=scales["s_g"],
+                                     s_u=scales["s_u"])
+        got = torch.einsum("ecm,emd->ecd", h.to(torch.bfloat16).float(),
+                           ws[2].float()) * scales["s_d"]
+    else:
+        x8 = x.float().to(torch.float8_e4m3fn).float()
+        got = ref.streamed_moe_plain(x8, *ws, "swiglu", **scales)
+    rel = ((got - plain).abs().max() / plain.abs().max()).item()
+    assert rel > 100 * _chip_smoke().PLAIN_TOL, rel

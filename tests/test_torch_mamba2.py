@@ -3,11 +3,13 @@
 * ``kernels.ref.ssd_intra_chunk_plain`` (what the wrapper runs for CPU
   tensors: the CUDA kernel's arithmetic) matches the Pallas kernel in
   interpret mode and the reference's oracle at the reference's shapes
-  (``tests/test_kernels.py``) plus an odd chunk, at the reference's 2e-5;
+  (``tests/test_kernels.py``) plus an odd chunk, at the reference's 2e-5,
+  and with B and C per group (g in {1, 2, h}) against the Pallas kernel on
+  the operands broadcast to every head;
 * ``ssd_chunked`` with ``use_kernel`` on and off matches the JAX one,
   the 16-chunk loop included, and the port's sequential ``ssd_naive``,
   within 2e-4 (the reference's chunked-vs-naive tolerance: the chunked
-  and sequential sums run in other orders);
+  and sequential sums run in other orders), at one group and at two;
 * ``mamba2_block`` on reduced mamba2-370m, with the JAX weights bridged
   leaf for leaf, matches the JAX block in fp32 within 1e-4 (kernel and
   plain paths), and the configs match the reference's.
@@ -67,14 +69,37 @@ def test_plain_matches_pallas_and_oracle(b, nc, c, h, p, n):
         np.testing.assert_allclose(m.numpy(), o, rtol=KERNEL_TOL, atol=KERNEL_TOL)
 
 
-def _scan_inputs(b, l, h, p, n, seed):
+def _scan_inputs(b, l, h, p, n, seed, g=1):
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((b, l, h, p)).astype(np.float32)
     dt = np.log1p(np.exp(rng.standard_normal((b, l, h)))).astype(np.float32)
     A = (-np.abs(rng.standard_normal(h))).astype(np.float32)
-    Bm = rng.standard_normal((b, l, 1, n)).astype(np.float32)
-    Cm = rng.standard_normal((b, l, 1, n)).astype(np.float32)
+    Bm = rng.standard_normal((b, l, g, n)).astype(np.float32)
+    Cm = rng.standard_normal((b, l, g, n)).astype(np.float32)
     return x, dt, A, Bm, Cm
+
+
+@pytest.mark.parametrize("g", [1, 2, 4])
+@pytest.mark.parametrize("b,nc,c,p,n", [(1, 2, 16, 8, 4), (2, 1, 100, 8, 4)])
+def test_plain_per_group_matches_pallas_on_broadcast(b, nc, c, p, n, g):
+    """B and C per group, as ``ssd_chunked(use_kernel=True)`` passes them:
+    the plain version and the oracle against the Pallas kernel (which takes
+    them per head) on the operands repeated to the h = 4 heads."""
+    h = 4
+    xc, _, _, Ac, Acum = _ssd_inputs(b, nc, c, h, p, n, seed=c + g)
+    rng = np.random.default_rng(g)
+    Bg, Cg = (rng.standard_normal((b, nc, c, g, n)).astype(np.float32)
+              for _ in range(2))
+    Bh, Ch = (np.repeat(a, h // g, axis=3) for a in (Bg, Cg))
+    pallas = [np.asarray(a) for a in jssd(*(jnp.asarray(a) for a in
+                                            (xc, Bh, Ch, Ac, Acum)))]
+    t = [torch.from_numpy(a) for a in (xc, Bg, Cg, Ac, Acum)]
+    got = ssd.ssd_intra_chunk_kernel(*t)
+    mine = ref.ssd_intra_chunk_ref(*t)
+    for gt, m, p_ in zip(got, mine, pallas):
+        assert tuple(gt.shape) == p_.shape
+        np.testing.assert_allclose(gt.numpy(), p_, rtol=KERNEL_TOL, atol=KERNEL_TOL)
+        np.testing.assert_allclose(m.numpy(), p_, rtol=KERNEL_TOL, atol=KERNEL_TOL)
 
 
 @pytest.mark.parametrize("chunk,l", [(16, 64), (8, 128), (32, 96)])
@@ -95,6 +120,22 @@ def test_ssd_chunked_matches_reference(chunk, l, use_kernel):
     np.testing.assert_allclose(y.numpy(), ny.numpy(), rtol=CHUNKED_TOL,
                                atol=CHUNKED_TOL)
     np.testing.assert_allclose(s.numpy(), ns.numpy(), rtol=CHUNKED_TOL,
+                               atol=CHUNKED_TOL)
+
+
+@pytest.mark.parametrize("g", [1, 2])
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_ssd_chunked_per_group_matches_reference(use_kernel, g):
+    """Four heads reading one or two groups of B and C (the kernel path
+    passes them per group, the plain path repeats them per head)."""
+    arrays = _scan_inputs(2, 64, 4, 8, 4, seed=40 + g, g=g)
+    jy, js = jm2.ssd_chunked(*(jnp.asarray(a) for a in arrays), 16,
+                             use_kernel=use_kernel)
+    y, s = mamba2.ssd_chunked(*(torch.from_numpy(a) for a in arrays), 16,
+                              use_kernel=use_kernel)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=CHUNKED_TOL,
+                               atol=CHUNKED_TOL)
+    np.testing.assert_allclose(s.numpy(), np.asarray(js), rtol=CHUNKED_TOL,
                                atol=CHUNKED_TOL)
 
 
@@ -149,6 +190,9 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         ssd.ssd_intra_chunk_kernel(xc[0], Bc, Cc, Ac, Acum)
     with pytest.raises(ValueError):                      # B/C shapes
         ssd.ssd_intra_chunk_kernel(xc, Bc, Cc[..., :2], Ac, Acum)
+    B3 = torch.zeros((*Bc.shape[:3], 3, Bc.shape[-1]))  # 3 groups, 2 heads
+    with pytest.raises(ValueError):
+        ssd.ssd_intra_chunk_kernel(xc, B3, B3, Ac, Acum)
     with pytest.raises(ValueError):                      # decay shape
         ssd.ssd_intra_chunk_kernel(xc, Bc, Cc, Ac, Acum[..., :8])
     with pytest.raises(ValueError):                      # device
