@@ -18,27 +18,44 @@ Phases, each printing its result on its own line; any failure exits 1:
    and for flash attention the times of ``F.scaled_dot_product_attention``
    on the same tensors;
 4. slice: ``repro_torch.launch.serve`` serves 4 requests x 16 tokens of
-   granite-moe-1b-a400m at full width in bf16; the streamed_moe launch
-   count must equal the number of MoE-layer expert calls;
-5. path parity: the same path in fp32 with kernels and with
-   ``use_kernels(False)`` — prefill logits and greedy tokens must agree;
-6. features: ``--schedule dynamic --slack 0.2`` and ``--weight-dtype fp8``
-   (its streamed_moe launch count, 24 per prefill and decode iteration, is
-   the ``serve_fp8`` path's);
-7. forward: ``api.loss_fn`` scores 2 x 2048 tokens of granite-moe-1b-a400m
+   granite-moe-1b-a400m at full width in bf16 on the default fused engine:
+   a first run captures the CUDA graphs (capture seconds logged), a second
+   run on the same engine replays them: no new capture, ``nb + 1`` host
+   syncs per steady iteration, and streamed_moe launches (the wrapper's
+   count plus captured launches x replays) equal to the MoE-layer calls;
+   its wall, tok/s and peak memory;
+5. fused: the fused engine against the eager per-layer loop on the card
+   (bf16, full width, the same prompts): static, ``--schedule dynamic
+   --slack 0.2`` and chunked admission; tokens, the trace record for
+   record and the statistics must be identical;
+6. traffic: ``Scheduler`` + ``run_closed_loop`` over 16 Poisson requests
+   (prompts about 64 tokens, 16-token chunks, max_batch 8) on the
+   iteration clock: all complete, none dropped; TTFT / TPOT / queue delay
+   in iterations and modeled seconds, wall tok/s, prefill chunks, host
+   syncs per iteration and the streamed_moe launches at C = 1024;
+7. path parity: the same serving path in fp32 with kernels and with
+   ``use_kernels(False)`` (fused engines both) — prefill logits and
+   greedy tokens must agree;
+8. features: ``--schedule dynamic --slack 0.2`` and ``--weight-dtype fp8``
+   on the fused engine (its streamed_moe launch count, 24 per prefill and
+   decode iteration, is the ``serve_fp8`` path's);
+9. forward: ``api.loss_fn`` scores 2 x 2048 tokens of granite-moe-1b-a400m
    at full width in bf16 through the flash and streamed_moe kernels (24
    launches each), then the same batch in fp32 with kernels and with
    ``use_kernels(False)``: losses within 1e-4, argmax agreement reported;
-8. mamba: ``api.loss_fn`` over 2 x 2048 tokens of mamba2-370m at full
+10. mamba: ``api.loss_fn`` over 2 x 2048 tokens of mamba2-370m at full
    width in bf16, then each layer's ``mamba2_block`` with the SSD kernel
    (48 launches, B and C per group: n_groups = 1) against the plain path on
    the same activations, in bf16 (reported) and fp32 (within 2e-5);
-9. profile: the slice (bf16, then ``--weight-dtype fp8``) and both scoring
-   losses once more under ``torch.profiler`` — device kernel time by name
-   and the device's busy share of the wall time;
-10. summary: one ``{"kernels": [...]}`` JSON line with one entry per
-    kernel and path (``streamed_moe`` on the serve path in bf16 and in fp8
-    and on the forward path, ``flash_attention`` on the forward path,
+11. profile: the fused slice (bf16, then ``--weight-dtype fp8``) and the
+    traffic run on engines whose graphs are captured, and both scoring
+    losses, once more under ``torch.profiler`` — device kernel time by
+    name, the device's busy share of the wall time, and the profiler's
+    ``up_kernel`` launches against the counted ones;
+12. summary: one ``{"kernels": [...]}`` JSON line with one entry per
+    kernel and path (``streamed_moe`` on the serve path in bf16 and in fp8,
+    on the chunked-prefill path of the traffic run (``serve_chunked``, C =
+    1024) and on the forward path, ``flash_attention`` on the forward path,
     ``ssd`` on the mamba path),
     each with that path's launches and its shape's times (``ms`` one call
     with its host work, ``device_ms`` the device time per call) and bound; the
@@ -131,6 +148,22 @@ PEAK_OPS = {"bf16": 989e12, "fp32": 67e12}
 WEIGHT_BYTES = {"fp32": 4, "bf16": 2, "int8": 1, "fp8": 1}
 # the scoring runs (phases 7 and 8): batch x sequence, random tokens
 SCORE_B, SCORE_S = 2, 2048
+# the traffic run's engine: 8 slots, 16-token prefill chunks, so a prefill
+# chunk's MoE runs drop-free at C = 8 * 16 * top_k = 1024 rows per expert
+TRAFFIC_BATCH, CHUNK = 8, 16
+C_CHUNK = TRAFFIC_BATCH * CHUNK * 8
+# the traffic stream: TrafficConfig(num_requests=16, rate=0.5,
+# avg_prompt=64, max_prompt=128, min_new=2, max_new=32, mix="poisson",
+# seed=0), arrivals on the iteration clock
+TRAFFIC_ARGV = ["--traffic", "--traffic-requests", "16", "--traffic-rate",
+                "0.5", "--avg-prompt", "64", "--prompt-len", "64",
+                "--max-new", "32", "--chunk-tokens", str(CHUNK),
+                "--max-batch", str(TRAFFIC_BATCH)]
+# engine statistics that fused and eager serving must share (the eager
+# loop counts no host syncs)
+SHARED_STATS = ("deferrals", "expert_loads", "expert_loads_saved",
+                "dynamic_schedules", "iterations", "tokens_emitted",
+                "prefill_chunks", "prefill_tokens")
 MAMBA = "mamba2-370m"
 
 
@@ -360,7 +393,7 @@ def _check_streamed_moe():
     bf, f32 = torch.bfloat16, torch.float32
     cases = [(E, C, d, m, "swiglu", wdt, f32 if wdt == "fp32" else bf)
              for wdt in ("bf16", "fp32", "int8", "fp8")]
-    cases += [(E, C_SCORE, d, m, "swiglu", "bf16", bf)]
+    cases += [(E, C_, d, m, "swiglu", "bf16", bf) for C_ in (C_CHUNK, C_SCORE)]
     cases += [(4, 37, 256, 96, act, wdt, f32) for act in ("relu2", "gelu")
               for wdt in ("fp32", "bf16", "int8", "fp8")]
     # the tensor-core paths at ragged edges, and a down product with K = 1024
@@ -398,7 +431,8 @@ def _check_streamed_moe():
         line += f", rel vs oracle {rel_oracle:.3e} (tol {tol:g})"
         if not ok or rel_oracle > tol:
             fail("kernels", line)
-        if (E_, d_, m_, act) == (E, d, m, "swiglu") and C_ in (C, C_SCORE):
+        if (E_, d_, m_, act) == (E, d, m, "swiglu") and \
+                C_ in (C, C_CHUNK, C_SCORE):
             times, text = kernel_times(lambda: sm.streamed_moe_kernel(
                 xe, *ws, activation=act, **scales))
             plain_ms = median_ms(lambda: ref.streamed_moe_plain(
@@ -408,6 +442,7 @@ def _check_streamed_moe():
             line += (f"; {text}, plain {plain_ms:.4f} ms, "
                      f"bound {bound * 1e3:.1f} us ({by})")
             path = {("bf16", C): "serve", ("fp8", C): "serve_fp8",
+                    ("bf16", C_CHUNK): "serve_chunked",
                     ("bf16", C_SCORE): "forward"}.get((wdt, C_))
             if path:
                 paths[path] = dict(
@@ -583,42 +618,239 @@ def _check_on_card(res, phase):
         fail(phase, f"tensors on the CPU: {bad[:5]}")
 
 
-def phase_slice(kernel_ms):
-    import torch
+def _launches(eng):
+    """streamed_moe launches of an engine's runs since the counts were last
+    set to 0: the wrapper's (eager calls, and the first call of each
+    segment, made before its capture) plus the graphs' replays."""
     from repro_torch.kernels import streamed_moe as sm
+    return sm.LAUNCHES + eng.graph_launches()
+
+
+def _zero_counts(eng=None):
+    """Set the launch counts to 0 (the graphs' replay counts too)."""
+    from repro_torch.kernels import streamed_moe as sm
+    sm.LAUNCHES = 0
+    if eng is not None:
+        for ms in eng._megasteps.values():
+            ms.replays = dict.fromkeys(ms.replays, 0)
+
+
+SLICE_ARGV = ["--requests", "4", "--prompt-len", "8", "--max-new", "16"]
+
+
+def phase_slice(kernel_ms):
+    """The default (fused) engine: a first run that captures the graphs,
+    then a second run on the same engine that only replays them."""
+    import torch
+    from repro_torch.launch import serve
     from repro_torch.models.api import leaves
     torch.cuda.reset_peak_memory_stats()
-    sm.LAUNCHES = 0
-    res = _serve(["--requests", "4", "--prompt-len", "8", "--max-new", "16"])
-    launches = sm.LAUNCHES
-    eng, cfg = res["engine"], res["cfg"]
+    _zero_counts()
+    cold = _serve(SLICE_ARGV)
+    eng, cfg = cold["engine"], cold["cfg"]
+    ms = eng.megastep()
+    nb = len(ms.boundaries)
+    launches = _launches(eng)
+    expected = _n_moe(cfg) * (4 + eng.stats["iterations"])
+    if launches != expected:
+        fail("slice", f"first run: streamed_moe launched {launches} times, "
+                      f"want {expected} MoE-layer calls")
+    log("slice", f"first run (captures): {cold['seconds']:.3f}s, "
+                 f"{ms.captures} graphs captured in {ms.capture_s:.3f}s, "
+                 f"streamed_moe launches {launches} == {expected}")
+    captures, syncs0, iters0 = ms.captures, eng.stats["host_syncs"], \
+        eng.stats["iterations"]
+    _zero_counts(eng)
+    res = serve.run(serve.parse_args(["--arch", ARCH, "--seed", "0"]
+                                     + SLICE_ARGV), engine=eng)
+    launches = _launches(eng)
+    iters = eng.stats["iterations"] - iters0
+    syncs = eng.stats["host_syncs"] - syncs0
     peak = torch.cuda.max_memory_allocated()
     toks = [t for seq in res["outs"].values() for t in seq]
     if len(toks) != 64:
         fail("slice", f"{len(toks)} tokens emitted, want 64")
     if not all(0 <= t < cfg.vocab_size for t in toks):
         fail("slice", "token id out of the vocabulary")
-    expected = _n_moe(cfg) * (4 + eng.stats["iterations"])
+    expected = _n_moe(cfg) * (4 + iters)
     if launches != expected:
-        fail("slice", f"streamed_moe launched {launches} times, want "
-                      f"{expected} MoE-layer calls")
+        fail("slice", f"streamed_moe launched {launches} times (graphs "
+                      f"{eng.graph_launches()}), want {expected} MoE-layer "
+                      f"calls")
+    if ms.captures != captures:
+        fail("slice", f"recaptured in steady state: {captures} -> "
+                      f"{ms.captures} captures")
+    if syncs != iters * (nb + 1):
+        fail("slice", f"{syncs} host syncs over {iters} steady iterations, "
+                      f"want {nb + 1} each")
     _check_on_card(res, "slice")
     n_params = sum(t.numel() for _, t in leaves(res["params"]))
     tps = len(toks) / res["seconds"]
     log("slice", f"{ARCH} full width bf16 ({n_params / 1e9:.3f} B params, "
-                 f"{cfg.num_layers} layers): 4 requests x 16 tokens = "
-                 f"{len(toks)} tokens in {res['seconds']:.3f}s ({tps:.1f} "
-                 f"tok/s), {eng.stats['iterations']} decode iterations, "
-                 f"streamed_moe launches {launches} == {expected} MoE calls, "
-                 f"peak memory {peak / 2**30:.2f} GiB")
+                 f"{cfg.num_layers} layers), fused engine, graphs captured: "
+                 f"4 requests x 16 tokens = {len(toks)} tokens in "
+                 f"{res['seconds']:.3f}s ({tps:.1f} tok/s; the 4 one-shot "
+                 f"eager prefills of submit {res['submit_seconds']:.3f}s, the"
+                 f" fused steps {res['seconds'] - res['submit_seconds']:.3f}s"
+                 f"), {iters} decode "
+                 f"iterations, {syncs / iters:.1f} host syncs per iteration "
+                 f"(nb + 1 = {nb + 1}), captures {ms.captures} (unchanged), "
+                 f"streamed_moe launches {launches} == {expected} MoE calls "
+                 f"({eng.graph_launches()} by graph replays), peak memory "
+                 f"{peak / 2**30:.2f} GiB")
     log("slice", f"streamed_moe share of wall time ~ launches x device "
                  f"kernel ms / wall = {launches * kernel_ms / 1e3 / res['seconds']:.3f}")
     return launches
 
 
-def _profile(label, fn):
+def _same_run(fused, eager, what):
+    """Tokens, the trace record for record and the shared statistics of a
+    fused and an eager run must be identical."""
+    import numpy as np
+    (ef, of), (ee, oe) = fused, eager
+    if of != oe:
+        first = next(i for i, (a, b) in enumerate(zip(of, oe)) if a != b)
+        fail("fused", f"{what}: tokens differ, request {first}: fused "
+                      f"{of[first]} eager {oe[first]}")
+    if len(ef.trace) != len(ee.trace):
+        fail("fused", f"{what}: trace lengths {len(ef.trace)} vs "
+                      f"{len(ee.trace)}")
+    for n, (a, b) in enumerate(zip(ef.trace, ee.trace)):
+        same = set(a) == set(b) and all(
+            np.array_equal(a[k], b[k]) if isinstance(a[k], np.ndarray)
+            else a[k] == b[k] for k in a)
+        if not same:
+            fail("fused", f"{what}: trace record {n} differs: {a} vs {b}")
+    for k in SHARED_STATS:
+        if ef.stats[k] != ee.stats[k]:
+            fail("fused", f"{what}: stats[{k!r}] {ef.stats[k]} vs "
+                          f"{ee.stats[k]}")
+
+
+def phase_fused_vs_eager():
+    """The fused engine (CUDA graphs) against the eager per-layer loop on
+    the card, bf16, full width, the same prompts: static; dynamic with
+    slack 0.2 (so deferral fires); and chunked admission."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.serving import Engine, ServeConfig
+
+    def serve(eng, prompts, max_new, chunked=False):
+        sub = eng.submit_chunked if chunked else eng.submit
+        rids = [sub(list(p), max_new=max_new) for p in prompts]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = eng.run()
+        torch.cuda.synchronize()
+        return [outs[r] for r in rids], time.perf_counter() - t0
+
+    params = None
+    for argv in ([], ["--schedule", "dynamic", "--slack", "0.2"]):
+        res = _serve(SLICE_ARGV + argv)
+        params, eng = res["params"], res["engine"]
+        eager = Engine(params, res["cfg"], dataclasses.replace(
+            eng.scfg, fused=False), device="cuda")
+        got, secs = serve(eager, res["prompts"], res["max_new"])
+        _same_run((eng, list(res["outs"].values())), (eager, got),
+                  " ".join(argv) or "static")
+        log("fused", f"{' '.join(argv) or 'static'}: fused == eager (tokens, "
+                     f"{len(eng.trace)} trace records, stats); deferrals "
+                     f"{eng.stats['deferrals']}, dynamic schedules "
+                     f"{eng.stats['dynamic_schedules']}; wall fused "
+                     f"{res['seconds']:.3f}s (with captures), eager "
+                     f"{secs:.3f}s")
+        del res, eng, eager
+    cfg = _serve_cfg()
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist()
+               for n in (64, 30, 100, 17, 64, 50, 9, 120)]
+    runs = []
+    for fused in (True, False):
+        eng = Engine(params, cfg, ServeConfig(
+            max_batch=TRAFFIC_BATCH, max_ctx=152, chunk_tokens=CHUNK,
+            fused=fused), device="cuda")
+        runs.append((eng, serve(eng, prompts, 24, chunked=True)))
+    (ef, (of, tf)), (ee, (oe, te)) = runs
+    _same_run((ef, of), (ee, oe), "chunked admission")
+    log("fused", f"chunked admission (8 prompts of 9-120 tokens, 16-token "
+                 f"chunks): fused == eager (tokens, {len(ef.trace)} trace "
+                 f"records, {ef.stats['prefill_chunks']} prefill chunks); "
+                 f"wall fused {tf:.3f}s (with captures), eager {te:.3f}s")
+    del runs, ef, ee
+    torch.cuda.empty_cache()
+
+
+def _serve_cfg():
+    from repro_torch.configs import get_config
+    return get_config(ARCH)
+
+
+def _traffic(engine=None):
+    from repro_torch.launch import serve
+    return serve.run_traffic(serve.parse_args(
+        ["--arch", ARCH, "--seed", "0"] + TRAFFIC_ARGV), wall_clock=False,
+        engine=engine)
+
+
+def phase_traffic():
+    """Scheduler + run_closed_loop over a Poisson stream at full width,
+    bf16, on the iteration clock (as the reference's benchmarks); the
+    modeled chiplet clock beside it.  -> (the engine, the streamed_moe
+    launches at C = C_CHUNK, all launches)."""
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    res = _traffic()
+    eng, out = res["engine"], res["result"]
+    m = out["metrics"]
+    ms = eng.megastep()
+    if m.completed != 16 or out["dropped"]:
+        fail("traffic", f"{m.completed}/16 completed, dropped "
+                        f"{out['dropped']}")
+    toks = sum(len(t) for t in out["outputs"].values())
+    prefill_steps = len({r["iter"] for r in eng.trace
+                         if r["phase"] == "prefill"})
+    # a segment's first call is the call of record, then its replays
+    chunk_launches = ms.captured["prefill"] * (ms.replays["prefill"] + 1)
+    decode_steps = ms.replays["last"] + 1
+    n_moe = _n_moe(res["cfg"])
+    launches = _launches(eng)
+    if chunk_launches != n_moe * prefill_steps or \
+            launches != n_moe * (prefill_steps + decode_steps):
+        fail("traffic", f"streamed_moe launches {launches} ({chunk_launches}"
+                        f" at C = {C_CHUNK}), want {n_moe} x ({prefill_steps}"
+                        f" prefill + {decode_steps} decode steps)")
+    s = eng.stats
+    log("traffic", f"{ARCH} full width bf16, 16 Poisson requests (rate 0.5 "
+                   f"per iteration, prompts ~64 of at most 128, 2-32 new "
+                   f"tokens), max_batch {TRAFFIC_BATCH}, {CHUNK}-token "
+                   f"chunks: {m.completed}/16 completed, 0 dropped, "
+                   f"{m.iterations} iterations, {toks} tokens in "
+                   f"{res['seconds']:.3f}s ({toks / res['seconds']:.1f} tok/s "
+                   f"wall, graphs captured during the run: {ms.captures} in "
+                   f"{ms.capture_s:.3f}s)")
+    for name, pct, pct_m in (("ttft", m.ttft, m.ttft_modeled),
+                             ("tpot", m.tpot, m.tpot_modeled),
+                             ("queue_delay", m.queue_delay,
+                              m.queue_delay_modeled)):
+        log("traffic", f"{name}: p50 {pct['p50']:.2f} p95 {pct['p95']:.2f} "
+                       f"iterations; modeled p50 {pct_m['p50'] * 1e3:.4f} "
+                       f"p95 {pct_m['p95'] * 1e3:.4f} ms")
+    log("traffic", f"{s['prefill_chunks']} prefill chunks ({s['prefill_tokens']}"
+                   f" tokens) in {prefill_steps} prefill steps, "
+                   f"{s['host_syncs'] / m.iterations:.2f} host syncs per "
+                   f"iteration, streamed_moe launches {launches} "
+                   f"({chunk_launches} at C = {C_CHUNK}), peak memory "
+                   f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return eng, chunk_launches
+
+
+def _profile(label, fn, launches=None):
     """Run ``fn`` once under torch.profiler: device kernel time by kernel
-    name and the device's busy share of the wall time."""
+    name and the device's busy share of the wall time.  ``launches()``,
+    if given, is the streamed_moe launch count of that run, held against
+    the profiler's count of ``up_kernel`` launches."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -639,17 +871,34 @@ def _profile(label, fn):
     for ms, n, name in rows[:10] + [r for r in rows[10:]
                                     if any(k in r[2] for k in ours)]:
         log("profile", f"{label}: {ms:9.2f} ms {n:6d} x {name[:100]}")
+    if launches is not None:
+        seen = sum(n for _, n, name in rows if "up_kernel" in name)
+        counted = launches()
+        if seen != counted:
+            fail("profile", f"{label}: the profiler saw {seen} up_kernel "
+                            f"launches, the counts say {counted}")
+        log("profile", f"{label}: the profiler's up_kernel launches {seen} "
+                       f"== streamed_moe launches counted {counted}")
 
 
-def phase_profile():
-    """The slice (bf16 and fp8 weights) and the two bf16 scoring losses
-    once more under the profiler."""
+def phase_profile(traffic_engine):
+    """The fused slice (bf16, then fp8 weights) and the traffic run, each
+    on an engine whose graphs are captured already, and the two bf16
+    scoring losses, once more under the profiler."""
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.launch import serve
     from repro_torch.models import api
     for label, argv in (("slice", []), ("slice fp8", ["--weight-dtype", "fp8"])):
-        _profile(label, lambda: _serve(["--requests", "4", "--prompt-len", "8",
-                                        "--max-new", "16"] + argv))
+        eng = _serve(SLICE_ARGV + argv)["engine"]          # captures
+        _zero_counts(eng)
+        _profile(label, lambda: serve.run(serve.parse_args(
+            ["--arch", ARCH, "--seed", "0"] + SLICE_ARGV + argv), engine=eng),
+            launches=lambda: _launches(eng))
+        del eng
+    _zero_counts(traffic_engine)
+    _profile("traffic", lambda: _traffic(traffic_engine),
+             launches=lambda: _launches(traffic_engine))
     for label, arch, kw in (("forward", ARCH, dict(spec="capacity",
                                                    use_flash=True)),
                             ("mamba", MAMBA, {})):
@@ -874,30 +1123,32 @@ def phase_parity():
 
 def phase_features():
     """-> the fp8 run's streamed_moe launches (the serve_fp8 path)."""
-    from repro_torch.kernels import streamed_moe as sm
     for argv in (["--schedule", "dynamic", "--slack", "0.2"],
                  ["--weight-dtype", "fp8"]):
-        sm.LAUNCHES = 0
-        res = _serve(["--requests", "4", "--prompt-len", "8",
-                      "--max-new", "16"] + argv)
+        _zero_counts()
+        res = _serve(SLICE_ARGV + argv)
         eng, s = res["engine"], res["engine"].stats
+        launches = _launches(eng)
         toks = [t for seq in res["outs"].values() for t in seq]
-        if len(toks) != 64 or sm.LAUNCHES == 0:
-            fail("features", f"{argv}: {len(toks)} tokens, "
-                             f"{sm.LAUNCHES} launches")
+        if len(toks) != 64 or launches == 0 or not eng.megastep().graphs:
+            fail("features", f"{argv}: {len(toks)} tokens, {launches} "
+                             f"launches, {eng.megastep().captures} graphs")
         if "--schedule" in argv and s["dynamic_schedules"] == 0:
             fail("features", "dynamic schedule never ran")
-        if "--weight-dtype" in argv and sm.LAUNCHES != \
+        if "--weight-dtype" in argv and launches != \
                 _n_moe(res["cfg"]) * (4 + s["iterations"]):
-            fail("features", f"fp8: {sm.LAUNCHES} launches")
+            fail("features", f"fp8: {launches} launches")
         _check_on_card(res, "features")
-        log("features", f"{' '.join(argv)}: {len(toks)} tokens in "
-                        f"{res['seconds']:.3f}s, {s['iterations']} iterations, "
-                        f"deferrals {s['deferrals']}, loads saved "
+        log("features", f"{' '.join(argv)}: fused engine, {len(toks)} tokens "
+                        f"in {res['seconds']:.3f}s (graphs captured during "
+                        f"the run), {s['iterations']} iterations, deferrals "
+                        f"{s['deferrals']}, loads saved "
                         f"{s['expert_loads_saved']}, dynamic schedules "
-                        f"{s['dynamic_schedules']}, launches {sm.LAUNCHES}")
+                        f"{s['dynamic_schedules']}, host syncs "
+                        f"{s['host_syncs']}, launches {launches} "
+                        f"({eng.graph_launches()} by graph replays)")
         if "--weight-dtype" in argv:
-            fp8_launches = sm.LAUNCHES
+            fp8_launches = launches
         del res, eng
     return fp8_launches
 
@@ -915,12 +1166,15 @@ def main():
         rows = phase_kernels()
         launches = {("streamed_moe", "serve"): phase_slice(
             rows["streamed_moe"]["serve"]["device_ms"])}
+        phase_fused_vs_eager()
+        traffic_engine, launches["streamed_moe", "serve_chunked"] = \
+            phase_traffic()
         phase_parity()
         launches["streamed_moe", "serve_fp8"] = phase_features()
         for k, n in phase_forward().items():
             launches[k, "forward"] = n
         launches["ssd", "mamba"] = phase_mamba()
-        phase_profile()
+        phase_profile(traffic_engine)
         if "jax" in sys.modules:
             fail("summary", "jax was imported")
     except SystemExit:

@@ -14,17 +14,16 @@ def paired_load_order(token_counts: Sequence[int]) -> List[int]:
     [hot1, cold1, hot2, cold2, ...], idle experts (zero tokens) last."""
     counts = np.asarray(token_counts)
     desc = np.argsort(-counts, kind="stable")
-    active = [int(e) for e in desc if counts[e] > 0]
-    idle = [int(e) for e in desc if counts[e] == 0]
-    order: List[int] = []
-    lo, hi = 0, len(active) - 1
-    while lo <= hi:
-        order.append(active[lo])
-        if hi != lo:
-            order.append(active[hi])
-        lo += 1
-        hi -= 1
-    return order + idle
+    busy = counts[desc] > 0
+    active, idle = desc[busy], desc[~busy]
+    # a0, a(n-1), a1, a(n-2), ...: the first half at the even places, the
+    # second half reversed at the odd ones (the engine calls this at every
+    # MoE boundary, so it is one pass of numpy, not a Python loop)
+    order = np.empty_like(active)
+    half = (len(active) + 1) // 2
+    order[0::2] = active[:half]
+    order[1::2] = active[half:][::-1]
+    return order.tolist() + idle.tolist()
 
 
 def expert_pairs(token_counts: Sequence[int]) -> List[tuple]:

@@ -194,12 +194,15 @@ class _SingleDevice:
         return x2d, routing
 
     def execute(self, params, x, moe, activation, *, routing=None,
-                schedule=None):
+                schedule=None, aux=True):
+        """-> (y, the load-balance loss, or None when ``aux`` is False:
+        the serving paths skip its kernels, as XLA drops them unused)."""
         from . import gating
         x2d, routing = self.route(params, x, moe, routing)
         y = self.run(params, x2d, routing, moe, activation, schedule)
         return (y.reshape(x.shape),
-                gating.aux_load_balance_loss(routing, moe.num_experts))
+                gating.aux_load_balance_loss(routing, moe.num_experts)
+                if aux else None)
 
 
 @register("dense")

@@ -11,7 +11,10 @@ or bf16 weights with fp32 activations, on CUDA cores.  For a CUDA tensor
 the wrapper launches the kernel or raises; for
 a CPU tensor it runs the plain version (``kernels.ref.streamed_moe_plain``),
 which repeats the kernel's arithmetic.  ``LAUNCHES`` counts kernel
-launches and nothing else.
+launches and nothing else; a call made while a CUDA graph is being
+captured records the launch into the graph instead, and ``CAPTURED``
+counts those (the graph's owner counts its replays,
+``serving.megastep``).
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from . import ref
 from .build import launch_on
 
 LAUNCHES = 0
+CAPTURED = 0
 
 ACTIVATIONS = {"swiglu": 0, "relu2": 1, "gelu": 2}
 X_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -109,7 +113,7 @@ def _launch(xe, w_g, w_u, w_d, activation, s_g=None, s_u=None, s_d=None,
     bf16 for bf16 x bf16, in fp32 for fp32 weights or fp32 x x bf16
     weights; for int8 / fp8 weights it is flat, h's three bf16 planes
     ``hi + mid + lo`` (3,E,C,m) and then, for fp32 x, x's."""
-    global LAUNCHES
+    global LAUNCHES, CAPTURED
     gated, quantized, tensors = checked or _check(
         xe, w_g, w_u, w_d, activation, s_g, s_u, s_d)
     if not xe.is_cuda:
@@ -147,5 +151,8 @@ def _launch(xe, w_g, w_u, w_d, activation, s_g=None, s_u=None, s_d=None,
     if rc != 0:
         raise RuntimeError(f"streamed_moe kernel launch failed: "
                            f"cudaError {rc}")
-    LAUNCHES += 1
+    if torch.cuda.is_current_stream_capturing():
+        CAPTURED += 1
+    else:
+        LAUNCHES += 1
     return h, out

@@ -1,16 +1,27 @@
-"""Serving entry point: low-batch decode with the layer-stepped engine and
-Algorithm-2 token buffering (port of ``repro.launch.serve``, the
-hand-fed batch and ``--dry-run``).
+"""Serving entry point: low-batch decode with the layer-stepped engine
+(fused segments, chunked admission, continuous batching, Algorithm-2
+token buffering); port of ``repro.launch.serve``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-1b-a400m
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-1b-a400m \\
       --reduced --device cpu --requests 6 --max-new 16 --slack 0.2
 
-Weights are random, drawn from ``--seed``.  ``--device`` defaults to
-``cuda`` (and fails where there is none).  MoE execution is one
+Closed-loop traffic (``--traffic``) drives the continuous-batching
+scheduler with Poisson arrivals: requests wait in a bounded queue
+(``--queue-capacity``, ``--queue-policy``), prompts prefill in
+``--chunk-tokens``-token chunks piggybacked on the decode batch, and the
+run reports TTFT / TPOT / queue-delay p50/p95/p99 on the wall clock (the
+iteration clock under ``--dry-run``) and on the modeled chiplet clock:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-1b-a400m \\
+      --reduced --device cpu --traffic --traffic-requests 32 \\
+      --traffic-rate 0.8 --chunk-tokens 8
+
+The engine runs its fused segments (CUDA graphs on the card).  Weights
+are random, drawn from ``--seed``.  ``--device`` defaults to ``cuda``
+(and fails where there is none).  MoE execution is one
 :class:`ExecutionSpec`: ``--strategy`` names a registered strategy
 (``capacity`` or ``dense``), ``--moe-spec path.json`` loads a full spec.
-Closed-loop traffic (``--traffic``) is later work (ROADMAP A.9).
 """
 from __future__ import annotations
 
@@ -57,23 +68,37 @@ def parse_args(argv=None):
                     default=None,
                     help="streamed storage format of the expert weights")
     ap.add_argument("--dry-run", action="store_true",
-                    help="validate the spec and serve one tiny request")
+                    help="validate the spec and serve one tiny request "
+                         "(with --traffic: a tiny closed loop on the "
+                         "iteration clock)")
+    ap.add_argument("--traffic", action="store_true",
+                    help="closed loop: Poisson arrivals through the "
+                         "continuous-batching scheduler (chunked prefill)")
+    ap.add_argument("--traffic-requests", type=int, default=32)
+    ap.add_argument("--traffic-rate", type=float, default=0.5,
+                    help="mean Poisson arrivals per clock unit")
+    ap.add_argument("--traffic-mix", default="poisson",
+                    help="'poisson' plus '+'-separated modifiers "
+                         "'zipf_prefix' and 'diurnal'")
+    ap.add_argument("--avg-prompt", type=int, default=12)
+    ap.add_argument("--chunk-tokens", type=int, default=8,
+                    help="prefill chunk size piggybacked per iteration")
+    ap.add_argument("--queue-capacity", type=int, default=64)
+    ap.add_argument("--queue-policy", choices=("fcfs", "spf"),
+                    default="fcfs")
+    ap.add_argument("--page-size", type=int, default=8,
+                    help="tokens per physical KV page in the state pool")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--seed", type=int, default=0)
     return ap.parse_args(argv)
 
 
-def run(args):
-    """Build the model and engine, serve the requests, and return a dict
-    with the engine, outputs and wall seconds (``chip_smoke.py`` calls
-    this directly)."""
-    import numpy as np
-    import torch
+def build(args):
+    """The spec, config and random weights the arguments name."""
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.core.strategy import ExecutionSpec
     from repro_torch.device import resolve_device
     from repro_torch.models import api
-    from repro_torch.serving import Engine, ServeConfig
 
     device = resolve_device(args.device)
     spec = build_spec(args)
@@ -84,33 +109,135 @@ def run(args):
     if args.reduced:
         cfg = cfg.replace(dtype="float32")
     params = api.init_params(cfg, seed=args.seed, device=device)
+    return {"spec": spec, "cfg": cfg, "params": params, "device": device}
+
+
+def _sync(device):
+    import torch
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run(args, engine=None):
+    """Serve the hand-fed batch and return a dict with the engine, this
+    run's outputs and wall seconds.  ``engine`` serves again on an engine
+    of an earlier run, whose graphs are captured already
+    (``chip_smoke.py`` calls this directly)."""
+    import numpy as np
+    from repro_torch.serving import Engine, ServeConfig
+
+    if engine is None:
+        built = build(args)
+    else:
+        built = {"spec": engine.scfg.spec, "cfg": engine.cfg,
+                 "params": engine.params, "device": engine.device}
+    cfg = built["cfg"]
     if args.dry_run:
-        scfg = ServeConfig(max_batch=2, max_ctx=16, spec=spec)
+        scfg = ServeConfig(max_batch=2, max_ctx=16, spec=built["spec"])
         prompts, max_new = [[1, 2, 3, 4]], 2
     else:
         scfg = ServeConfig(max_batch=args.max_batch,
                            max_ctx=args.prompt_len + args.max_new + 8,
                            buffering_slack=args.slack,
-                           theta_min=args.theta_min, spec=spec)
+                           theta_min=args.theta_min,
+                           page_size=args.page_size, spec=built["spec"])
         rng = np.random.default_rng(args.seed)
         prompts = [rng.integers(0, cfg.vocab_size, size=args.prompt_len).tolist()
                    for _ in range(args.requests)]
         max_new = args.max_new
-    eng = Engine(params, cfg, scfg, device=device)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    eng = engine or Engine(built["params"], cfg, scfg, device=built["device"])
+    _sync(eng.device)
     t0 = time.perf_counter()
-    for prompt in prompts:
-        eng.submit(prompt, max_new=max_new)
+    rids = [eng.submit(prompt, max_new=max_new) for prompt in prompts]
+    _sync(eng.device)
+    t_sub = time.perf_counter()
     outs = eng.run(max_iterations=8 if args.dry_run else 10_000)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    return {"engine": eng, "outs": outs, "seconds": time.perf_counter() - t0,
-            "spec": spec, "cfg": cfg, "params": params}
+    _sync(eng.device)
+    t1 = time.perf_counter()
+    return {**built, "engine": eng, "outs": {r: outs[r] for r in rids},
+            "prompts": prompts, "max_new": max_new, "seconds": t1 - t0,
+            "submit_seconds": t_sub - t0}
+
+
+def run_traffic(args, *, wall_clock=None, engine=None):
+    """Drive a Poisson request stream through the scheduler until it
+    drains.  The metric clock is the wall (``time.monotonic``), or the
+    iteration count under ``--dry-run`` or ``wall_clock=False``; the
+    modeled chiplet clock runs beside it.  Returns a dict with the
+    engine, the closed loop's result, the stream and wall seconds."""
+    from repro_torch.serving import (Engine, Scheduler, SchedulerConfig,
+                                     ServeConfig, TrafficConfig,
+                                     make_traffic, run_closed_loop)
+
+    built = build(args) if engine is None else {
+        "spec": engine.scfg.spec, "cfg": engine.cfg,
+        "params": engine.params, "device": engine.device}
+    cfg = built["cfg"]
+    n_req = (args.traffic_requests if args.traffic_requests != 32
+             else 4) if args.dry_run else args.traffic_requests
+    max_prompt = max(2, min(args.avg_prompt * 2,
+                            args.prompt_len + args.avg_prompt))
+    tcfg = TrafficConfig(num_requests=n_req, rate=args.traffic_rate,
+                         avg_prompt=args.avg_prompt, max_prompt=max_prompt,
+                         min_new=2, max_new=args.max_new,
+                         vocab=cfg.vocab_size, seed=args.seed,
+                         mix=args.traffic_mix)
+    traffic = make_traffic(tcfg)
+    eng = engine or Engine(built["params"], cfg, ServeConfig(
+        max_batch=args.max_batch, max_ctx=max_prompt + args.max_new + 1,
+        buffering_slack=args.slack, theta_min=args.theta_min,
+        chunk_tokens=args.chunk_tokens, page_size=args.page_size,
+        spec=built["spec"]), device=built["device"])
+    if wall_clock is None:
+        wall_clock = not args.dry_run
+    sched = Scheduler(eng, SchedulerConfig(
+        queue_capacity=args.queue_capacity, policy=args.queue_policy),
+        clock=time.monotonic if wall_clock else None)
+    _sync(eng.device)
+    t0 = time.perf_counter()
+    res = run_closed_loop(sched, traffic)
+    _sync(eng.device)
+    return {**built, "engine": eng, "result": res, "traffic": traffic,
+            "scheduler": sched, "seconds": time.perf_counter() - t0,
+            "n_requests": n_req, "wall_clock": wall_clock}
+
+
+def _print_traffic(res):
+    m, eng = res["result"]["metrics"], res["engine"]
+    unit = "s" if res["wall_clock"] else "iters"
+    print(f"traffic: {m.completed} completed, "
+          f"{len(res['result']['dropped'])} dropped, {m.rejected} rejected, "
+          f"{m.iterations} iterations")
+    for name, pct, pct_m in (("ttft", m.ttft, m.ttft_modeled),
+                             ("tpot", m.tpot, m.tpot_modeled),
+                             ("queue_delay", m.queue_delay,
+                              m.queue_delay_modeled)):
+        print(f"  {name:12s} p50={pct['p50']:.3f} p95={pct['p95']:.3f} "
+              f"p99={pct['p99']:.3f} {unit}; modeled p50={pct_m['p50']:.6f} "
+              f"p95={pct_m['p95']:.6f} s")
+    s = eng.stats
+    print(f"  throughput   {m.throughput:.2f} tok/{unit} "
+          f"({m.tokens_emitted} tokens, {s['prefill_chunks']} prefill "
+          f"chunks, {s['deferrals']} deferrals, {s['host_syncs']} host "
+          f"syncs); wall {m.tokens_emitted / res['seconds']:.1f} tok/s on "
+          f"{eng.device}")
+    print(f"  state pool   peak {s['pool_peak_pages']}/{s['pool_pages']} "
+          f"pages, {s['peak_resident_state_bytes']} peak resident bytes")
 
 
 def main(argv=None):
     args = parse_args(argv)
+    if args.traffic:
+        res = run_traffic(args)
+        print(f"moe spec: {res['spec'].to_json()}")
+        _print_traffic(res)
+        m = res["result"]["metrics"]
+        if args.dry_run:
+            if m.completed < res["n_requests"]:
+                raise SystemExit(f"traffic dry-run incomplete: "
+                                 f"{m.completed}/{res['n_requests']}")
+            print("traffic dry-run OK")
+        return
     res = run(args)
     eng, outs, dt = res["engine"], res["outs"], res["seconds"]
     print(f"moe spec: {res['spec'].to_json()}")
@@ -127,6 +254,7 @@ def main(argv=None):
           f"deferrals={s['deferrals']} expert_loads={s['expert_loads']} "
           f"loads_saved={s['expert_loads_saved']} "
           f"dynamic_schedules={s['dynamic_schedules']} "
+          f"host_syncs={s['host_syncs']} "
           f"throughput={n / dt:.1f} tok/s on {eng.device}")
 
 

@@ -1,6 +1,6 @@
 """Model API (port of the LM part of ``repro.models.api``): init, the
-scoring loss, one-shot prefill, and the per-layer ``decode_*`` sub-steps
-the serving engine uses."""
+scoring loss, one-shot and chunked prefill, and the per-layer
+``decode_*`` sub-steps the serving engine uses."""
 from __future__ import annotations
 
 import torch
@@ -77,9 +77,21 @@ def prefill_fn(params, batch, cfg: ModelConfig, max_seq: int, *, spec=None):
                                spec=spec)
 
 
+def prefill_chunk_fn(params, tokens, caches, cache_len, cfg: ModelConfig, *,
+                     spec=None, token_mask=None, return_hidden=False,
+                     page_table=None):
+    """Append one prompt chunk to the decode caches ->
+    (logits or hidden, caches, per-layer expert counts)."""
+    return transformer.prefill_chunk(params, tokens, caches, cache_len, cfg,
+                                     spec=spec, token_mask=token_mask,
+                                     return_hidden=return_hidden,
+                                     page_table=page_table)
+
+
 decode_embed_merge = transformer.decode_embed_merge
 decode_mixer = transformer.decode_mixer
 decode_route = transformer.decode_route
 decode_moe_exec = transformer.decode_moe_exec
 decode_ffn = transformer.decode_ffn
+decode_span = transformer.decode_span
 decode_logits = transformer.decode_logits

@@ -7,7 +7,14 @@ Pallas kernel, so they are plain PyTorch here too; the full-sequence
 kernel (``kernels/flash_attention.py``).  Layouts stay the
 reference's: activations (B, S, d), heads (B, S, H, hd), pages
 (num_pages, page_size, n_kv, hd).  Unlike the reference, the paged
-decode writes the new K/V into the page pool in place.
+decode and chunk append write the new K/V into the page pool in place.
+
+The pool holds one page more than the state pool hands out: its last
+page is a sink that no page-table entry names.  A masked row's write is
+steered there (the reference drops it out of range, which torch cannot
+index), so every write has a fixed shape, nothing syncs with the host
+(the serving segments are captured as CUDA graphs), and an idle slot's
+stale table row never writes through to a page another slot owns.
 """
 from __future__ import annotations
 
@@ -53,8 +60,7 @@ def _sdpa(q, k, v, mask=None):
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float()
     scores = scores / math.sqrt(hd)
     if mask is not None:
-        scores = torch.where(mask, scores, torch.tensor(NEG_INF,
-                                                        device=scores.device))
+        scores = scores.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
@@ -112,17 +118,80 @@ def attention_decode(params, x, cache: KVCache, cache_len, *, n_heads, n_kv,
     kf, vf = _repeat_kv(k, n_heads), _repeat_kv(v, n_heads)
     scores = torch.einsum("bqhd,bkhd->bhqk", q, kf).float() / math.sqrt(head_dim)
     valid = torch.arange(S, device=x.device)[None, :] <= idx[:, None]
-    scores = torch.where(valid[:, None, None, :], scores,
-                         torch.tensor(NEG_INF, device=x.device))
+    scores = scores.masked_fill(~valid[:, None, None, :], NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, vf)
     out = out.reshape(B, 1, n_heads * head_dim) @ params["wo"]
     return out, KVCache(k, v)
 
 
+def attention_append(params, x, cache: KVCache, cache_len, *, n_heads, n_kv,
+                     head_dim, rope_theta, token_mask=None):
+    """Chunked-prefill step: append a K-token chunk to a dense cache (not
+    modified).
+
+    x: (B, K, d); cache k/v: (B, S, n_kv, hd); cache_len: (B,) tokens
+    already cached; ``token_mask`` (B, K) marks each row's valid chunk
+    prefix.  Valid token i of row b lands at ``cache_len[b] + i`` and
+    attends causally over everything at or before it; masked positions
+    neither write nor become visible, so an all-False row's cache is
+    bit-untouched.  Returns (out (B, K, d), KVCache of the updated
+    copies)."""
+    B, K, _ = x.shape
+    S = cache.k.shape[1]
+    q, k_new, v_new, pos, token_mask = _append_qkv(
+        params, x, cache_len, token_mask, n_heads, n_kv, head_dim, rope_theta)
+    # a dense cache has no sink: position by position, a masked (or
+    # out-of-range) one rewrites what its clamped address holds by then
+    write = token_mask & (pos < S)
+    safe = torch.clamp(pos, max=S - 1)
+    rows = torch.arange(B, device=x.device)
+    k, v = cache.k.clone(), cache.v.clone()
+    for i in range(K):
+        m = write[:, i, None, None]
+        k[rows, safe[:, i]] = torch.where(m, k_new[:, i].to(k.dtype),
+                                          k[rows, safe[:, i]])
+        v[rows, safe[:, i]] = torch.where(m, v_new[:, i].to(v.dtype),
+                                          v[rows, safe[:, i]])
+    return _append_attend(params, q, k, v, pos, n_heads, head_dim), \
+        KVCache(k, v)
+
+
+def _append_qkv(params, x, cache_len, token_mask, n_heads, n_kv, head_dim,
+                rope_theta):
+    """The chunk's rotary q, k and v at positions ``cache_len + i``, and
+    the token mask (all True when not given)."""
+    B, K, _ = x.shape
+    q = _split_heads(x @ params["wq"], n_heads, head_dim)         # (B,K,H,hd)
+    k_new = _split_heads(x @ params["wk"], n_kv, head_dim)
+    v_new = _split_heads(x @ params["wv"], n_kv, head_dim)
+    pos = cache_len[:, None] + torch.arange(K, device=x.device)[None, :]
+    if rope_theta:
+        q = apply_rope(q, pos, rope_theta)
+        k_new = apply_rope(k_new, pos, rope_theta)
+    if token_mask is None:
+        token_mask = torch.ones((B, K), dtype=torch.bool, device=x.device)
+    return q, k_new, v_new, pos, token_mask
+
+
+def _append_attend(params, q, k, v, pos, n_heads, head_dim):
+    """Each chunk query attends over the keys at or before its position."""
+    B, K = q.shape[:2]
+    S = k.shape[1]
+    kf, vf = _repeat_kv(k, n_heads), _repeat_kv(v, n_heads)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, kf).float() / math.sqrt(head_dim)
+    valid = torch.arange(S, device=q.device)[None, None, :] \
+        <= torch.clamp(pos, max=S - 1)[:, :, None]                 # (B,K,S)
+    scores = scores.masked_fill(~valid[:, None], NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, vf)
+    return out.reshape(B, K, n_heads * head_dim) @ params["wo"]
+
+
 def init_paged_kv_cache(num_pages, page_size, n_kv, head_dim, dtype, device,
                         lead=()):
-    shape = (*lead, num_pages, page_size, n_kv, head_dim)
+    """``num_pages`` pages for the state pool plus the sink page last."""
+    shape = (*lead, num_pages + 1, page_size, n_kv, head_dim)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))
 
@@ -144,8 +213,8 @@ def attention_decode_paged(params, x, pages: KVCache, page_table, cache_len,
 
     Same math as :func:`attention_decode` on the gathered dense view;
     the new K/V of the ``row_mask`` rows are then written in place into
-    ``(page_table[b, pos // ps], pos % ps)``; other rows write nothing.
-    Returns (out, pages)."""
+    ``(page_table[b, pos // ps], pos % ps)``; the other rows' writes go to
+    the sink page.  Returns (out, pages)."""
     B = x.shape[0]
     ps = pages.k.shape[1]
     S = page_table.shape[1] * ps
@@ -155,11 +224,39 @@ def attention_decode_paged(params, x, pages: KVCache, page_table, cache_len,
     rows = torch.arange(B, device=x.device)
     idx = torch.clamp(cache_len, max=S - 1)
     m = torch.as_tensor(row_mask, device=x.device)
-    rows, idx = rows[m], idx[m]
-    phys = page_table[rows, idx // ps]
+    phys = _steer(page_table[rows, idx // ps], m, pages)
     pages.k[phys, idx % ps] = nd.k[rows, idx]
     pages.v[phys, idx % ps] = nd.v[rows, idx]
     return out, pages
+
+
+def _steer(phys, mask, pages: KVCache):
+    """Physical pages of the writes, masked ones steered to the sink."""
+    return torch.where(mask, phys, pages.k.shape[0] - 1)
+
+
+def attention_append_paged(params, x, pages: KVCache, page_table, cache_len,
+                           *, n_heads, n_kv, head_dim, rope_theta,
+                           token_mask=None):
+    """Chunked-prefill append against the paged pool.
+
+    Same math as :func:`attention_append` on the gathered dense view; each
+    valid chunk position ``pos = cache_len + i`` is written in place into
+    ``(page_table[b, pos // ps], pos % ps)``, masked positions into the
+    sink page.  Returns (out (B, K, d), pages)."""
+    B = x.shape[0]
+    ps = pages.k.shape[1]
+    S = page_table.shape[1] * ps
+    q, k_new, v_new, pos, token_mask = _append_qkv(
+        params, x, cache_len, token_mask, n_heads, n_kv, head_dim, rope_theta)
+    safe = torch.clamp(pos, max=S - 1)
+    rows = torch.arange(B, device=x.device)[:, None]
+    phys = _steer(page_table[rows, safe // ps], token_mask, pages)
+    pages.k[phys, pos % ps] = k_new.to(pages.k.dtype)
+    pages.v[phys, pos % ps] = v_new.to(pages.v.dtype)
+    dense = gather_pages(pages, page_table)
+    return _append_attend(params, q, dense.k, dense.v, pos, n_heads,
+                          head_dim), pages
 
 
 def prefill_kv(params, x, *, n_kv, head_dim, rope_theta, positions=None):

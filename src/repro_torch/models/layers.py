@@ -59,11 +59,25 @@ def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
                             / head_dim))
 
 
+_ROPE_FREQS: dict = {}
+
+
+def _rope_freqs_on(hd: int, theta: float, device) -> torch.Tensor:
+    """The frequency table on ``device``, copied there once (the numpy
+    values, bit for bit): later calls, the captured serving segments
+    among them, make no host-to-device copy."""
+    key = (hd, theta, device)
+    inv = _ROPE_FREQS.get(key)
+    if inv is None:
+        inv = _ROPE_FREQS[key] = torch.from_numpy(
+            np.asarray(rope_freqs(hd, theta), np.float32)).to(device)
+    return inv
+
+
 def apply_rope(x, positions, theta: float):
     """x: (..., seq, heads, head_dim); positions: (..., seq) int."""
     hd = x.shape[-1]
-    inv = torch.from_numpy(np.asarray(rope_freqs(hd, theta), np.float32)) \
-        .to(x.device)
+    inv = _rope_freqs_on(hd, theta, x.device)
     ang = positions[..., None].float() * inv               # (..., seq, hd/2)
     cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)

@@ -66,14 +66,20 @@ def moe_dense(params, x2d, routing, activation, schedule=None):
     return torch.einsum("te,etd->td", routing.combine, ye)
 
 
+def _one_hot(idx, n):
+    """``F.one_hot`` as a comparison, which checks no value on the host
+    (the serving segments are captured as CUDA graphs)."""
+    return idx[..., None] == torch.arange(n, device=idx.device)
+
+
 def dispatch_masks(routing, T, E, C):
     """(T, E, C) dispatch one-hot and combine weights; tokens beyond an
     expert's capacity C are dropped."""
-    onehot = F.one_hot(routing.indices, E).sum(1)                   # (T, E)
+    onehot = _one_hot(routing.indices, E).sum(1)                    # (T, E)
     pos = torch.cumsum(onehot, dim=0) * onehot - 1
     keep = (pos >= 0) & (pos < C)
     pos = torch.clamp(pos, 0, C - 1)
-    dispatch = F.one_hot(pos, C).float() * keep[..., None]           # (T,E,C)
+    dispatch = _one_hot(pos, C).float() * keep[..., None]            # (T,E,C)
     combine = dispatch * routing.combine[..., None].float()
     return dispatch, combine
 
@@ -123,7 +129,8 @@ def moe_block(params, x, moe: MoEConfig, activation, *, spec=None,
         x = x[None]
     with sp.scope():
         y, aux = strat.get_strategy(name).execute(
-            params, x, moe, activation, routing=routing, schedule=schedule)
+            params, x, moe, activation, routing=routing, schedule=schedule,
+            aux=return_aux)
     if moe.num_shared_experts:
         y = y + ffn(params["shared"], x, activation)
     y = y.reshape(shape)

@@ -5,8 +5,9 @@ Layers are grouped into the smallest repeating period of identical
 structure and each slot's parameters are stacked over periods, exactly
 as in the reference, so the weight bridge is a leaf-for-leaf copy.  A
 Python loop over periods replaces ``lax.scan``.  ``forward`` is the
-full-sequence (scoring) pass; the serving engine runs the network layer
-by layer through ``prefill`` and the ``decode_*`` entry points, which
+full-sequence (scoring) pass; the serving engine runs the network
+through ``prefill`` / ``prefill_chunk`` and, layer by layer or one span
+between MoE boundaries at a time, the ``decode_*`` entry points, which
 take attention stacks only.
 """
 from __future__ import annotations
@@ -95,7 +96,8 @@ class SlotCache(NamedTuple):
 def init_paged_caches(cfg: ModelConfig, batch: int, num_pages: int,
                       page_size: int, device=None):
     """Per-slot tuple of SlotCache with KV pages stacked over periods:
-    (n_periods, num_pages, page_size, n_kv, hd)."""
+    (n_periods, num_pages + 1, page_size, n_kv, hd), the last page the
+    sink of masked writes (``models.attention``)."""
     _check_supported(cfg, serving=True)
     device = resolve_device(device)
     p, plan = period_plan(cfg)
@@ -237,6 +239,76 @@ def prefill(params, tokens, cfg: ModelConfig, max_seq: int, *, spec=None):
     return _unembed(params, x), caches
 
 
+def prefill_chunk(params, tokens, caches, cache_len, cfg: ModelConfig, *,
+                  spec=None, token_mask=None, return_hidden=False,
+                  page_table=None):
+    """Append a K-token prompt chunk to the decode caches.
+
+    tokens: (B, K); caches: per-slot SlotCache tuple, paged (written in
+    place, with ``page_table`` (B, NP)) or dense (n_periods, B, S, n_kv,
+    hd) (new stacks returned); cache_len: (B,) tokens already cached;
+    token_mask: (B, K) each row's valid chunk prefix (all-False rows leave
+    their cache untouched, so decode and idle slots ride along).
+
+    Returns (logits (B, K, V), caches, counts); with ``return_hidden`` the
+    final-normed hidden states (B, K, d) come first instead.  ``counts``
+    (n_periods, p, E) are per-layer expert activations over the valid
+    tokens (layer L at ``counts[L // p, L % p]``, zero for non-MoE slots);
+    each MoE layer is routed once and that routing drives the counts and
+    the experts."""
+    from repro_torch.core import gating
+    _check_supported(cfg, serving=True)
+    p, plan = period_plan(cfg)
+    sp = _coerce_spec(spec)
+    x = _embed(params, tokens)
+    B, K = tokens.shape
+    if token_mask is None:
+        token_mask = torch.ones((B, K), dtype=torch.bool, device=x.device)
+    E = cfg.moe.num_experts if cfg.moe else 1
+    kw = dict(n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads,
+              head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
+              token_mask=token_mask)
+    counts, dense = [], [[] for _ in plan]
+    for layer, slot, _, ffn_kind in layer_slots(params, cfg):
+        c, s = divmod(layer, p)
+        stack = caches[s].kv
+        kv = attn_mod.KVCache(stack.k[c], stack.v[c])
+        h = apply_norm(cfg.norm, slot["norm1"], x)
+        if page_table is not None:
+            h, _ = attn_mod.attention_append_paged(slot["attn"], h, kv,
+                                                   page_table, cache_len, **kw)
+        else:
+            h, kv = attn_mod.attention_append(slot["attn"], h, kv, cache_len,
+                                              **kw)
+            dense[s].append(kv)
+        x = x + h
+        cnt = torch.zeros((E,), dtype=torch.int64, device=x.device)
+        if ffn_kind != "none":
+            h = apply_norm(cfg.norm, slot["norm2"], x)
+            if ffn_kind == "moe":
+                routing = gating.route(slot["moe"]["router"],
+                                       h.reshape(-1, h.shape[-1]),
+                                       top_k=cfg.moe.top_k)
+                cnt = gating.expert_token_counts(routing,
+                                                 token_mask.reshape(-1))
+                h = moe_mod.moe_block(slot["moe"], h, cfg.moe, cfg.activation,
+                                      spec=sp, phase="prefill", layer=layer,
+                                      routing=routing)
+            else:
+                h = ffn(slot["ffn"], h, cfg.activation)
+            x = x + h
+        counts.append(cnt)
+    if page_table is None:
+        caches = tuple(SlotCache(attn_mod.KVCache(
+            torch.stack([kv.k for kv in kvs]),
+            torch.stack([kv.v for kv in kvs])), ()) for kvs in dense)
+    counts = torch.stack(counts).reshape(cfg.num_layers // p, p, E)
+    x = apply_norm(cfg.norm, params["final_norm"], x)
+    if return_hidden:
+        return x, caches, counts
+    return _unembed(params, x), caches, counts
+
+
 # ---------------------------------------------------------------------------
 # serving decode sub-steps (masked, one layer at a time)
 # ---------------------------------------------------------------------------
@@ -319,6 +391,21 @@ def decode_ffn(params, x, cfg: ModelConfig, layer: int, mask):
     slot = _layer_slot(params, layer, p)
     h = ffn(slot["ffn"], apply_norm(cfg.norm, slot["norm2"], x), cfg.activation)
     return _merge(mask, x + h, x)
+
+
+def decode_span(params, x, caches, cache_len, cfg: ModelConfig, lo: int,
+                hi: int, mask, page_table):
+    """The non-MoE layers ``[lo, hi)`` (mixer and dense FFN each) for the
+    masked rows: the body of a fused serving segment between MoE
+    boundaries."""
+    p, plan = cached_period_plan(cfg)
+    for layer in range(lo, hi):
+        assert plan[layer % p][1] != "moe", \
+            f"layer {layer} is an MoE boundary, not span interior"
+        x, caches = decode_mixer(params, x, caches, cache_len, cfg, layer,
+                                 mask, page_table=page_table)
+        x = decode_ffn(params, x, cfg, layer, mask)
+    return x, caches
 
 
 def decode_logits(params, x, cfg: ModelConfig):

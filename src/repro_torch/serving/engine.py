@@ -1,21 +1,42 @@
 """Layer-stepped serving engine with QoS token buffering (port of
-``repro.serving.engine``, the eager per-layer loop).
+``repro.serving.engine``).
 
 Each iteration advances every active request by one token, running the
-network one layer at a time through the ``decode_*`` entry points so
-Algorithm 2 can defer a request exactly at an MoE boundary: after the
-layer's gate and before its experts.  A deferred request keeps its
-residual stream and resumes from the same boundary later, so its tokens
-do not change.  Each MoE layer is routed once per iteration; the same
-routing drives deferral, the workload trace, the per-layer LoadTracker
-EMA and, under ``schedule="dynamic"``, the expert trajectory.
+network at MoE-boundary granularity so Algorithm 2 can defer a request
+exactly at an MoE boundary: after the layer's gate and before its
+experts.  A deferred request keeps its residual stream and resumes from
+the same boundary later, so its tokens do not change.  Each MoE layer is
+routed once per iteration; the same routing drives deferral, the
+workload trace, the per-layer LoadTracker EMA and, under
+``schedule="dynamic"``, the expert trajectory.
 
-Admission is the one-shot ``submit``: the prompt is prefilled at batch 1
-and scattered into the slot's pages of the paged KV pool.  The
-reference's fused mega-step, chunked admission, prefix cache,
-preemption, modeled clock and resident/hybrid tiers are later work
-(ROADMAP A.7-A.11).  The reference pins its fused path to this eager
-loop bit for bit.
+Two paths share the ``transformer.decode_*`` entry points and give the
+same bits:
+
+* **fused** (default) — everything between MoE boundaries runs as one
+  segment (``serving.megastep``), on CUDA a captured CUDA graph replayed
+  every iteration: a steady decode iteration is ``k + 1`` segments with
+  one host sync per MoE boundary (one copy of the counts and routed
+  expert ids) and one for the logits, counted in
+  ``stats["host_syncs"]``;
+* **eager** (``ServeConfig(fused=False)``) — the per-layer Python loop,
+  kept as the referee.
+
+Admission is the one-shot ``submit`` (the prompt prefilled at batch 1 and
+scattered into the slot's pages) or ``submit_chunked`` (no compute at
+admission: each iteration's prefill stage appends up to ``chunk_tokens``
+prompt tokens per prefilling slot in one batched pass, and a prompt that
+completes emits its first token and joins the decode batch).  The
+prefill counts feed the trace (``phase="prefill"``) and the EMAs like the
+decode route stage.
+
+Every trace record carries ``modeled_s``, the closed-form seconds of
+that layer's expert flow on the paper's chiplet array
+(``core.autotune.ServingCostModel``); their sum over an iteration is
+``last_step_modeled_s``, which the scheduler's modeled clock integrates.
+Prefix caching and preemption (ROADMAP A.10), the resident and hybrid
+weight tiers (A.11) and temperature sampling are not ported: decoding is
+greedy.
 """
 from __future__ import annotations
 
@@ -29,25 +50,34 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core import gating, trajectory
+from repro_torch.core import autotune, gating, trajectory
 from repro_torch.core.policies import TokenBufferPolicy, paired_load_order
 from repro_torch.device import resolve_device, torch_dtype
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels import quant
 from repro_torch.models import api, transformer
 from . import statepool
+from .megastep import MegaStep, chunk_last_logits
 
 
 @dataclass
 class ServeConfig:
-    """The engine's knobs.  Decoding is greedy, the capacity factor is
+    """The engine's knobs.  Decoding is greedy and the capacity factor is
     always drop-free (C = T*k, so no token is dropped because of who
-    shares the batch), the pool holds two full contexts per slot and the
-    deferral threshold follows from ``buffering_slack``."""
+    shares the batch).  ``n_threshold`` defaults from
+    ``buffering_slack``; ``pool_pages=None`` sizes the pool at two full
+    contexts per slot."""
     max_batch: int = 8
     max_ctx: int = 256
     buffering_slack: float = 0.0
     theta_min: int = 2
+    n_threshold: Optional[int] = None
+    chunk_tokens: int = 16              # prefill chunk (submit_chunked)
     page_size: int = 8
+    pool_pages: Optional[int] = None
+    fused: bool = True                  # False: the eager per-layer loop
     spec: Optional[object] = None       # ExecutionSpec, strategy name or dict
+    ema_decay: float = 0.8              # LoadTracker decay (dynamic schedule)
 
     def __post_init__(self):
         from repro_torch.core.strategy import ExecutionSpec
@@ -70,10 +100,15 @@ class RequestState:
     progress: int = 0                   # sub-layer pointer: 2*layer (+1 = ffn pending)
     done: bool = False
     deferred_iterations: int = 0
+    # chunked prefill: a "prefill" row consumes chunk_tokens prompt tokens
+    # per iteration, then joins the decode batch with its first token
+    phase: str = "decode"
+    prompt: List[int] = field(default_factory=list)   # pending prompt tokens
+    prefill_pos: int = 0                              # tokens already cached
 
 
 class QueueFullError(RuntimeError):
-    """No free engine slot."""
+    """No free engine slot (the scheduler catches this type to requeue)."""
 
 
 _DEFER_OFF = 1 << 29
@@ -94,7 +129,8 @@ class Engine:
         self.p, self.plan = transformer.cached_period_plan(cfg)
         self.L = cfg.num_layers
         pages_per_slot = -(-scfg.max_ctx // scfg.page_size)
-        num_pages = 2 * scfg.max_batch * pages_per_slot
+        num_pages = (scfg.pool_pages if scfg.pool_pages is not None
+                     else 2 * scfg.max_batch * pages_per_slot)
         self.caches = transformer.init_paged_caches(
             cfg, scfg.max_batch, num_pages, scfg.page_size, self.device)
         page_b, _ = statepool.state_bytes(self.caches)
@@ -108,19 +144,37 @@ class Engine:
         self.free_slots = deque(range(scfg.max_batch))
         self.policy = TokenBufferPolicy.from_slack(scfg.buffering_slack,
                                                    theta_min=scfg.theta_min)
+        if scfg.n_threshold is not None:
+            self.policy.n_threshold = scfg.n_threshold
         self._x = torch.zeros((scfg.max_batch, 1, cfg.d_model),
                               dtype=torch_dtype(cfg.dtype), device=self.device)
         self._rid = itertools.count()
         self.iterations = 0
         self.stats = {"deferrals": 0, "expert_loads": 0,
                       "expert_loads_saved": 0, "iterations": 0,
-                      "tokens_emitted": 0, "dynamic_schedules": 0}
+                      "tokens_emitted": 0, "dynamic_schedules": 0,
+                      "prefill_chunks": 0, "prefill_tokens": 0,
+                      # fused path: boundary fetches, logits fetches and
+                      # prefill fetches, each one copy set and one sync
+                      "host_syncs": 0}
         self.stats.update(self.pool.stats)
         self.pool.stats = self.stats
         self.trace: List[dict] = []
         self.load_trackers: Dict[int, trajectory.LoadTracker] = {}
         self._layer_schedules: Dict[int, trajectory.Schedule] = {}
         self.dynamic_schedule = scfg.spec.schedule == "dynamic"
+        # the modeled chiplet clock; the spec's streamed weight format
+        # sets the expert bytes it streams
+        self.cost_model = (autotune.ServingCostModel.from_config(
+            cfg, weight_bytes=quant.weight_bytes(scfg.spec.weight_dtype))
+            if cfg.moe is not None else None)
+        self.last_step_modeled_s = 0.0
+        self._iter_modeled_s = 0.0
+        # fused segments, one MegaStep per setting read while capturing;
+        # on CUDA all their graphs share one memory pool
+        self._megasteps: Dict[tuple, MegaStep] = {}
+        self._graph_pool = (torch.cuda.graph_pool_handle()
+                            if self.device.type == "cuda" else None)
 
     def _dev(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.int64), device=self.device)
@@ -128,8 +182,27 @@ class Engine:
     def _layer_kind(self, layer: int) -> Tuple[str, str]:
         return self.plan[layer % self.p]
 
+    def megastep(self) -> MegaStep:
+        """The fused segments for the current setting: keyed on what the
+        segments read when they are captured (the kernels switch and the
+        ambient weight dtype; the spec and geometry are the engine's), so
+        a graph captured under one setting never replays under another."""
+        key = (kops.kernels_enabled(), quant.weight_dtype())
+        ms = self._megasteps.get(key)
+        if ms is None:
+            ms = self._megasteps[key] = MegaStep(
+                self.params, self.cfg, self.scfg.spec, self.caches, self._x,
+                max_batch=self.scfg.max_batch,
+                chunk_tokens=self.scfg.chunk_tokens,
+                table_cols=self.pool.table.shape[1], pool=self._graph_pool)
+        return ms
+
+    def graph_launches(self) -> int:
+        """``streamed_moe`` launches made by graph replays, all settings."""
+        return sum(ms.launches() for ms in self._megasteps.values())
+
     # ------------------------------------------------------------------
-    # admission: full-prompt prefill into a slot
+    # admission
     # ------------------------------------------------------------------
 
     def _validate_request(self, prompt: List[int], max_new: int) -> None:
@@ -144,6 +217,7 @@ class Engine:
 
     @torch.no_grad()
     def submit(self, prompt: List[int], max_new: int) -> str:
+        """One-shot admission: the whole prompt prefilled at batch 1."""
         self._validate_request(prompt, max_new)
         if not self.free_slots:
             raise QueueFullError("engine full — wait for completions")
@@ -163,6 +237,22 @@ class Engine:
         self.requests[rid] = st
         return rid
 
+    def submit_chunked(self, prompt: List[int], max_new: int) -> str:
+        """Chunked admission: no compute here.  The following ``step``
+        calls consume the prompt ``chunk_tokens`` at a time, piggybacked
+        on the decode batch; the step that caches the last chunk emits the
+        first token."""
+        self._validate_request(prompt, max_new)
+        if not self.free_slots:
+            raise QueueFullError("engine full — wait for completions")
+        slot = self.free_slots.popleft()
+        rid = f"req{next(self._rid)}"
+        self.cache_len[slot] = 0
+        self.requests[rid] = RequestState(
+            rid=rid, slot=slot, prompt_len=len(prompt), max_new=max_new,
+            phase="prefill", prompt=list(prompt))
+        return rid
+
     @staticmethod
     def _host(logits) -> np.ndarray:
         return logits.float().cpu().numpy()
@@ -178,29 +268,245 @@ class Engine:
     def active(self) -> List[RequestState]:
         return [r for r in self.requests.values() if not r.done]
 
+    def prefilling(self) -> List[RequestState]:
+        return [r for r in self.requests.values()
+                if not r.done and r.phase == "prefill"]
+
+    def _record(self, rec: dict) -> None:
+        """Append a trace record stamped with its modeled seconds."""
+        if self.cost_model is not None:
+            rec["modeled_s"] = self.cost_model.layer_s(
+                rec["counts"], dynamic=rec["schedule"] == "dynamic")
+            self._iter_modeled_s += rec["modeled_s"]
+        self.trace.append(rec)
+
     def _ensure_pages(self) -> None:
-        """Pages for every KV write of the coming iteration (one position
-        per decode row); the table goes to the device once."""
+        """Pages for every KV write of the coming iteration: one position
+        per decode row; a prefill row's chunk, plus one when its prompt
+        completes (it joins the decode batch in the same iteration)."""
+        K = max(1, self.scfg.chunk_tokens)
         for r in self.active():
-            self.pool.ensure(r.slot, min(int(self.cache_len[r.slot]) + 1,
-                                         self.scfg.max_ctx))
-        self._table_dev = self._dev(self.pool.table)
+            if r.phase == "prefill":
+                k_r = min(K, len(r.prompt) - r.prefill_pos)
+                length = int(self.cache_len[r.slot]) + k_r
+                if r.prefill_pos + k_r >= len(r.prompt):
+                    length += 1
+            else:
+                length = int(self.cache_len[r.slot]) + 1
+            self.pool.ensure(r.slot, min(length, self.scfg.max_ctx))
+        if not self.scfg.fused:
+            self._table_dev = self._dev(self.pool.table)
+
+    def _prefill_chunk_step(self, fused: bool) -> List[Tuple[str, int]]:
+        """Advance every prefilling request by one prompt chunk in one
+        batched pass (decode and idle slots ride along fully masked); a
+        request whose prompt completes samples its first token from its
+        last chunk position."""
+        pre = self.prefilling()
+        if not pre:
+            return []
+        scfg = self.scfg
+        B, K = scfg.max_batch, max(1, scfg.chunk_tokens)
+        tokens = np.zeros((B, K), np.int64)
+        mask = np.zeros((B, K), bool)
+        took: Dict[str, int] = {}
+        for r in pre:
+            k_r = min(K, len(r.prompt) - r.prefill_pos)
+            tokens[r.slot, :k_r] = r.prompt[r.prefill_pos:r.prefill_pos + k_r]
+            mask[r.slot, :k_r] = True
+            took[r.rid] = k_r
+        completes = any(r.prefill_pos + took[r.rid] >= len(r.prompt)
+                        for r in pre)
+        if fused:
+            ms = self.megastep()
+            ms.set(cache_len=self.cache_len, table=self.pool.table,
+                   tokens=tokens, token_mask=mask)
+            ms.prefill()
+            self.stats["host_syncs"] += 1
+            fetched = ms.fetch(ms.pre_counts, *((ms.pre_logits,)
+                                                if completes else ()))
+            counts = fetched[0]
+            first_logits = fetched[1] if completes else None
+        else:
+            tmask = torch.as_tensor(mask, device=self.device)
+            hid, _, counts = api.prefill_chunk_fn(
+                self.params, self._dev(tokens), self.caches,
+                self._dev(self.cache_len), self.cfg, spec=scfg.spec,
+                token_mask=tmask, return_hidden=True,
+                page_table=self._table_dev)
+            counts = counts.cpu().numpy().astype(np.int64)
+            first_logits = (self._host(chunk_last_logits(self.params, hid,
+                                                         tmask))
+                            if completes else None)
+        for layer in range(self.L):
+            if self._layer_kind(layer)[1] != "moe":
+                continue
+            cnt = counts[layer // self.p, layer % self.p]
+            tracker = self.load_trackers.setdefault(
+                layer, trajectory.LoadTracker(self.cfg.moe.num_experts,
+                                              decay=scfg.ema_decay))
+            tracker.update(cnt)
+            self._record({
+                "iter": self.iterations, "layer": layer, "phase": "prefill",
+                "counts": cnt.copy(), "order": paired_load_order(cnt),
+                "schedule": "dynamic" if self.dynamic_schedule else "static"})
+            self.stats["expert_loads"] += int((cnt > 0).sum())
+
+        out: List[Tuple[str, int]] = []
+        for r in pre:
+            k_r = took[r.rid]
+            self.cache_len[r.slot] += k_r
+            r.prefill_pos += k_r
+            self.stats["prefill_tokens"] += k_r
+            if r.prefill_pos < len(r.prompt):
+                continue
+            first = self._sample(first_logits[r.slot])
+            r.generated.append(first)
+            r.phase = "decode"
+            r.progress = 0
+            r.prompt = []
+            out.append((r.rid, first))
+            self.stats["tokens_emitted"] += 1
+            if len(r.generated) >= r.max_new:
+                r.done = True
+                self.free_slots.append(r.slot)
+                self.pool.release_slot(r.slot)
+                self.policy.drop(r.rid)
+        self.stats["prefill_chunks"] += len(pre)
+        return out
 
     @torch.no_grad()
     def step(self) -> List[Tuple[str, int]]:
+        self.last_step_modeled_s = 0.0
         if not self.active():
             return []
+        self._iter_modeled_s = 0.0
         self._ensure_pages()
-        self.iterations += 1
-        self.stats["iterations"] += 1
-        act = self.active()
-        out: List[Tuple[str, int]] = []
-        token_vec = np.zeros((self.scfg.max_batch,), np.int64)
-        start_mask = np.zeros((self.scfg.max_batch,), bool)
+        out = self._step_fused() if self.scfg.fused else self._step_legacy()
+        self.last_step_modeled_s = self._iter_modeled_s
+        return out
+
+    def _start_masks(self, act):
+        """Fresh-token vector and start mask of the rows beginning a pass."""
+        B = self.scfg.max_batch
+        token_vec = np.zeros((B,), np.int64)
+        start_mask = np.zeros((B,), bool)
         for r in act:
             if r.progress == 0:
                 token_vec[r.slot] = r.generated[-1]
                 start_mask[r.slot] = True
+        return token_vec, start_mask
+
+    def _rows(self, rows) -> np.ndarray:
+        m = np.zeros((self.scfg.max_batch,), bool)
+        m[[r.slot for r in rows]] = True
+        return m
+
+    # ------------------------------------------------------------------
+    # fused iteration (serving.megastep)
+    # ------------------------------------------------------------------
+
+    def _step_fused(self) -> List[Tuple[str, int]]:
+        self.iterations += 1
+        self.stats["iterations"] += 1
+        out = self._prefill_chunk_step(fused=True)
+        act = [r for r in self.active() if r.phase == "decode"]
+        if not act:
+            return out
+        ms = self.megastep()
+        token_vec, start_mask = self._start_masks(act)
+        ms.set(cache_len=self.cache_len, table=self.pool.table,
+               token_vec=token_vec, start_mask=start_mask)
+        bnds = ms.boundaries
+        if not bnds:
+            ms.only()
+            for r in act:
+                if start_mask[r.slot]:
+                    r.progress = 2 * self.L
+            return self._finish(act, out, lambda: self._fetch_logits(ms))
+
+        b0 = bnds[0]
+        for r in act:
+            if r.progress == 0:
+                r.progress = 2 * b0 + 1
+        run_ffn = [r for r in act if not r.done and r.progress == 2 * b0 + 1]
+        ms.set(count_mask=self._rows(run_ffn))
+        ms.first()
+        kept = self._boundary_fused(b0, run_ffn, ms)
+        for j, b in enumerate(bnds[1:], start=1):
+            for r in kept:
+                r.progress = 2 * b + 1
+            run_ffn = [r for r in act
+                       if not r.done and r.progress == 2 * b + 1]
+            ms.set(count_mask=self._rows(run_ffn))
+            ms.mid(j)
+            kept = self._boundary_fused(b, run_ffn, ms)
+        ms.last()
+        for r in kept:
+            r.progress = 2 * self.L
+        return self._finish(act, out, lambda: self._fetch_logits(ms))
+
+    def _boundary_fused(self, layer, run_ffn, ms: MegaStep):
+        """Host work at one MoE boundary: one fetch of the counts and
+        routed ids, the shared bookkeeping, and the inputs of the segment
+        that executes this boundary's experts (rows kept, trajectory).
+        Returns the rows kept."""
+        kept: List[RequestState] = []
+        order = np.arange(ms.E)
+        if run_ffn:
+            self.stats["host_syncs"] += 1
+            (fetched,) = ms.fetch(ms.route_out)
+            counts = fetched[:ms.E]
+            idx = fetched[ms.E:].reshape(self.scfg.max_batch, -1)
+            kept = self._boundary_host(layer, run_ffn, counts, idx,
+                                       gating.Routing(*ms.routing))
+            if self.dynamic_schedule and kept:
+                self.stats["dynamic_schedules"] += 1
+                order = self._layer_schedules[layer].order
+        ms.set(exec_mask=self._rows(kept), order=order)
+        return kept
+
+    def _fetch_logits(self, ms: MegaStep) -> np.ndarray:
+        self.stats["host_syncs"] += 1
+        (host,) = ms.fetch(ms.logits)
+        return host
+
+    def _finish(self, act, out, host_logits):
+        """Emit a token for every request that completed the pass;
+        ``host_logits()`` brings the (B, 1, V) logits over in one transfer,
+        called only when some request finished."""
+        finish = [r for r in act if not r.done and r.progress == 2 * self.L]
+        if not finish:
+            return out
+        host = host_logits()
+        for r in finish:
+            tok = self._sample(host[r.slot, 0])
+            r.generated.append(tok)
+            out.append((r.rid, tok))
+            self.stats["tokens_emitted"] += 1
+            r.progress = 0
+            self.cache_len[r.slot] += 1
+            self.policy.on_forward_pass(r.rid)
+            if len(r.generated) >= r.max_new or \
+                    int(self.cache_len[r.slot]) >= self.scfg.max_ctx - 1:
+                r.done = True
+                self.free_slots.append(r.slot)
+                self.pool.release_slot(r.slot)
+                self.policy.drop(r.rid)
+        return out
+
+    # ------------------------------------------------------------------
+    # eager per-layer iteration (fused=False)
+    # ------------------------------------------------------------------
+
+    def _step_legacy(self) -> List[Tuple[str, int]]:
+        self.iterations += 1
+        self.stats["iterations"] += 1
+        out = self._prefill_chunk_step(fused=False)
+        act = [r for r in self.active() if r.phase == "decode"]
+        if not act:
+            return out
+        token_vec, start_mask = self._start_masks(act)
         x = transformer.decode_embed_merge(
             self.params, self._x, self._dev(token_vec),
             torch.as_tensor(start_mask, device=self.device), self.cfg)
@@ -234,31 +540,9 @@ class Engine:
                                            self._mask([r.slot for r in run_ffn]))
             for r in run_ffn:
                 r.progress = 2 * (layer + 1)
-        self._x = x
+        self._x.copy_(x)
         logits = transformer.decode_logits(self.params, x, self.cfg)
-        return self._finish(act, logits, out)
-
-    def _finish(self, act, logits, out):
-        """Emit a token for every request that completed the pass."""
-        finish = [r for r in act if not r.done and r.progress == 2 * self.L]
-        if not finish:
-            return out
-        host = self._host(logits)                  # one transfer per step
-        for r in finish:
-            tok = self._sample(host[r.slot, 0])
-            r.generated.append(tok)
-            out.append((r.rid, tok))
-            self.stats["tokens_emitted"] += 1
-            r.progress = 0
-            self.cache_len[r.slot] += 1
-            self.policy.on_forward_pass(r.rid)
-            if len(r.generated) >= r.max_new or \
-                    int(self.cache_len[r.slot]) >= self.scfg.max_ctx - 1:
-                r.done = True
-                self.free_slots.append(r.slot)
-                self.pool.release_slot(r.slot)
-                self.policy.drop(r.rid)
-        return out
+        return self._finish(act, out, lambda: self._host(logits))
 
     # ------------------------------------------------------------------
     # MoE boundary: route stage bookkeeping, deferral, execution
@@ -275,10 +559,11 @@ class Engine:
 
     def _boundary_host(self, layer, run_ffn, counts, idx, routing):
         """LoadTracker EMA update, trace record (with the EMA trajectory
-        when dynamic) and the Algorithm-2 deferral sweep.  Returns the
-        rows that are not deferred."""
+        when dynamic) and the Algorithm-2 deferral sweep, shared by both
+        paths.  Returns the rows that are not deferred."""
         tracker = self.load_trackers.setdefault(
-            layer, trajectory.LoadTracker(self.cfg.moe.num_experts))
+            layer, trajectory.LoadTracker(self.cfg.moe.num_experts,
+                                          decay=self.scfg.ema_decay))
         tracker.update(counts)
         rec = {"iter": self.iterations, "layer": layer, "phase": "decode",
                "counts": counts.copy(), "order": paired_load_order(counts),
@@ -287,7 +572,7 @@ class Engine:
             sched = tracker.schedule()
             self._layer_schedules[layer] = sched
             rec["trajectory"] = list(sched.order)
-        self.trace.append(rec)
+        self._record(rec)
         self.stats["expert_loads"] += int((counts > 0).sum())
         if self.policy.n_threshold >= _DEFER_OFF:
             return list(run_ffn)

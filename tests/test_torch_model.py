@@ -149,6 +149,6 @@ def test_paged_decode_step_matches_reference(row_mask):
             _close(x, jx)
         _close(api.decode_logits(params, x, cfg),
                japi.decode_logits(jparams, jx, jcfg))
-    for c, jc_ in zip(caches, jcaches):
-        _close(c.kv.k, jc_.kv.k)
-        _close(c.kv.v, jc_.kv.v)
+    for c, jc_ in zip(caches, jcaches):     # the port's sink page is last
+        _close(c.kv.k[:, :-1], jc_.kv.k)
+        _close(c.kv.v[:, :-1], jc_.kv.v)
