@@ -17,6 +17,16 @@ Phases, each printing its result on its own line; any failure exits 1:
    kernel with its host work beside its device time per call, the bound,
    and for flash attention the times of ``F.scaled_dot_product_attention``
    on the same tensors;
+3b. dispatch: ``moe_capacity`` with one-hot and with sorted dispatch on
+   one routing at granite width, at C = 64 (a decode step), C = 1024 (a
+   traffic prefill step) and C = 1280 (the scoring forward, with
+   overflow), static and dynamic: sorted agrees with one-hot (fp32 2e-5,
+   bf16 3e-2), is the same bits twice and dynamic == static bit for bit;
+   under drop-free capacity a token's output keeps its bits at another
+   row among other tokens, one-hot and sorted;
+   the device time of dispatch plus combine, one-hot against sorted, with
+   the streamed_moe kernel's beside it (the kernel held against its plain
+   version on the sorted rows at C = 1024);
 4. slice: ``repro_torch.launch.serve`` serves 4 requests x 16 tokens of
    granite-moe-1b-a400m at full width in bf16 on the default fused engine:
    a first run captures the CUDA graphs (capture seconds logged), a second
@@ -26,13 +36,25 @@ Phases, each printing its result on its own line; any failure exits 1:
    its wall, tok/s and peak memory;
 5. fused: the fused engine against the eager per-layer loop on the card
    (bf16, full width, the same prompts): static, ``--schedule dynamic
-   --slack 0.2`` and chunked admission; tokens, the trace record for
-   record and the statistics must be identical;
+   --slack 0.2`` and chunked admission, then with sorted dispatch
+   (``--moe-spec``, ``"sorted_dispatch": true``) static and dynamic with
+   slack 0.2; tokens, the trace record for record and the statistics must
+   be identical;
 6. traffic: ``Scheduler`` + ``run_closed_loop`` over 16 Poisson requests
    (prompts about 64 tokens, 16-token chunks, max_batch 8) on the
    iteration clock: all complete, none dropped; TTFT / TPOT / queue delay
    in iterations and modeled seconds, wall tok/s, prefill chunks, host
-   syncs per iteration and the streamed_moe launches at C = 1024;
+   syncs per iteration and the streamed_moe launches at C = 1024; then
+   the same stream with sorted dispatch (the ``serve_sorted`` path);
+6b. prefix: phase 6's stream with four Zipf-shared 64-token system
+   prompts in front of each prompt, max_batch 8, max_ctx 256, three closed
+   loops on the fused engine: unbounded, ``preempt_queue_depth=0``, and
+   that with the prefix cache; all complete, the last two give the first
+   one's tokens, with preemptions == restores > 0 and cache hits > 0;
+   prefill tokens saved and their share logged; the cached loop once more
+   on its engine, warm (no new capture, the same tokens; the
+   ``serve_prefix`` path's launches); once with one-hot and once with
+   sorted dispatch;
 7. path parity: the same serving path in fp32 with kernels and with
    ``use_kernels(False)`` (fused engines both) — prefill logits and
    greedy tokens must agree;
@@ -43,20 +65,24 @@ Phases, each printing its result on its own line; any failure exits 1:
    at full width in bf16 through the flash and streamed_moe kernels (24
    launches each), then the same batch in fp32 with kernels and with
    ``use_kernels(False)``: losses within 1e-4, argmax agreement reported;
+   and the bf16 batch with sorted dispatch: loss within 1e-4 of one-hot's;
 10. mamba: ``api.loss_fn`` over 2 x 2048 tokens of mamba2-370m at full
    width in bf16, then each layer's ``mamba2_block`` with the SSD kernel
    (48 launches, B and C per group: n_groups = 1) against the plain path on
    the same activations, in bf16 (reported) and fp32 (within 2e-5);
 11. profile: the fused slice (bf16, then ``--weight-dtype fp8``) and the
-    traffic run on engines whose graphs are captured, and both scoring
-    losses, once more under ``torch.profiler`` — device kernel time by
-    name, the device's busy share of the wall time, and the profiler's
-    ``up_kernel`` launches against the counted ones;
+    traffic run (one-hot, then sorted) on engines whose graphs are
+    captured, and the scoring losses (one-hot and sorted) and mamba's,
+    once more under ``torch.profiler`` — device kernel time by name, the
+    device's busy share of the wall time, and the profiler's ``up_kernel``
+    launches against the counted ones;
 12. summary: one ``{"kernels": [...]}`` JSON line with one entry per
     kernel and path (``streamed_moe`` on the serve path in bf16 and in fp8,
     on the chunked-prefill path of the traffic run (``serve_chunked``, C =
-    1024) and on the forward path, ``flash_attention`` on the forward path,
-    ``ssd`` on the mamba path),
+    1024), on the sorted traffic path (``serve_sorted``) and the prefix
+    traffic path (``serve_prefix``), both with the kernel measured at C =
+    1024 in phase 3b, and on the forward path, ``flash_attention`` on the
+    forward path, ``ssd`` on the mamba path),
     each with that path's launches and its shape's times (``ms`` one call
     with its host work, ``device_ms`` the device time per call) and bound; the
     ``nvidia-smi`` name/power line; and the contract line
@@ -159,12 +185,40 @@ TRAFFIC_ARGV = ["--traffic", "--traffic-requests", "16", "--traffic-rate",
                 "0.5", "--avg-prompt", "64", "--prompt-len", "64",
                 "--max-new", "32", "--chunk-tokens", str(CHUNK),
                 "--max-batch", str(TRAFFIC_BATCH)]
+# phase 3b: moe_capacity with sorted dispatch against one-hot on the same
+# routing, max abs error over max |one-hot|: the reference's MoE-block
+# tolerances (fp32 2e-5, bf16 3e-2).  Cases (what, T, drop-free): a decode
+# step of 8 slots (C = T k = 64), a traffic prefill step of 8 x 16 tokens
+# (C = 1024), and the scoring forward's tokens at granite's capacity
+# factor 1.25 (C = 1280; the routing is skewed so that experts overflow)
+DISPATCH_TOL = {"fp32": 2e-5, "bf16": 3e-2}
+DISPATCH_CASES = (("decode", TRAFFIC_BATCH, True),
+                  ("prefill", TRAFFIC_BATCH * CHUNK, True),
+                  ("scoring", SCORE_B * SCORE_S, False))
+SORTED_SPEC = {"strategy": "capacity", "sorted_dispatch": True}
+# phase 6b: phase 6's stream with four Zipf-shared 64-token system prompts
+# in front of each private part (cut so the prompt stays within 128
+# tokens); 16-token chunks, so the prefixes end on chunk boundaries
+PREFIX_TRAFFIC = dict(num_requests=16, rate=0.5, avg_prompt=64,
+                      max_prompt=128, min_new=2, max_new=32,
+                      mix="poisson+zipf_prefix", num_prefixes=4,
+                      prefix_len=64, seed=0)
+PREFIX_LOOPS = (("unbounded", False, None), ("preempt", False, 0),
+                ("preempt+cache", True, 0))
+# the reference's floor on the prefill tokens its own shared-prefix mix
+# saves (benchmarks/check_regression.py), reported beside the port's share
+PREFIX_SAVINGS_FLOOR = 0.40
 # engine statistics that fused and eager serving must share (the eager
 # loop counts no host syncs)
 SHARED_STATS = ("deferrals", "expert_loads", "expert_loads_saved",
                 "dynamic_schedules", "iterations", "tokens_emitted",
                 "prefill_chunks", "prefill_tokens")
 MAMBA = "mamba2-370m"
+# phase 11: seconds the profiler's capture window stays open before and
+# after the profiled work, and the spin kernels run first in it (see
+# _profiled)
+PROFILE_PAD_S = 0.5
+PROFILE_WARMUP = 512
 
 
 def log(phase, msg):
@@ -601,6 +655,160 @@ def _check_ssd():
     return {"mamba": main}
 
 
+def phase_dispatch():
+    """``moe_capacity`` with one-hot and with sorted dispatch on one routing,
+    at granite width (one MoE layer from seed 0), in fp32 and bf16, for each
+    of DISPATCH_CASES.  -> the kernels line's row of streamed_moe at C =
+    C_CHUNK, on the rows sorted dispatch gathered (the rows one-hot
+    dispatch gives are the same bits)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import gating, trajectory
+    from repro_torch.models import moe
+    cfg = get_config(ARCH)
+    mc, act = cfg.moe, cfg.activation
+    E, k, d = mc.num_experts, mc.top_k, cfg.d_model
+    row = None
+    for dtype in (torch.float32, torch.bfloat16):
+        kind = "fp32" if dtype == torch.float32 else "bf16"
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = moe.moe_init(gen, d, mc, act, dtype, "cuda")
+        # a sharper router and a direction every token shares skew the
+        # load, so that a finite capacity overflows
+        params["router"]["w_router"] = params["router"]["w_router"] * 50
+        shared = torch.randn(d, generator=gen, device="cuda")
+        for what, T, drop_free in DISPATCH_CASES:
+            mcfg = dataclasses.replace(mc, capacity_factor=float(E)) \
+                if drop_free else mc
+            C = mcfg.capacity_rows(T)
+            x = (torch.randn(T, d, generator=gen, device="cuda")
+                 + shared).to(dtype)
+            r = gating.route(params["router"], x, top_k=k)
+            load = gating.expert_token_counts(r)
+            dropped = int((load - C).clamp(min=0).sum())
+
+            def run(sorted_, schedule=None):
+                with torch.no_grad(), moe.use_sorted_dispatch(sorted_):
+                    return moe.moe_capacity(params, x, r, mcfg, act,
+                                            schedule=schedule)
+            one_hot, got = run(False), run(True)
+            again, dyn = run(True), run(True, trajectory.DYNAMIC)
+            torch.cuda.synchronize()
+            err = rel_err(got, one_hot)
+            same, dyn_same = torch.equal(got, again), torch.equal(dyn, got)
+            line = (f"{what} T={T} C={C} {kind}: sorted vs one-hot rel "
+                    f"{err:.3e} (tol {DISPATCH_TOL[kind]:g}); {dropped} of "
+                    f"{T * k} choices past capacity (max load "
+                    f"{int(load.max())}); sorted the same bits twice: "
+                    f"{same}; dynamic == static: {dyn_same}")
+            if not torch.isfinite(got).all() or err > DISPATCH_TOL[kind] \
+                    or not same or not dyn_same:
+                fail("dispatch", line)
+            if not drop_free and not dropped:
+                fail("dispatch", f"{line}: no choice overflowed")
+            if drop_free:
+                line += _batch_invariance(params, x, mcfg, act, gen)
+            if kind == "bf16":
+                text, kernel_row = _dispatch_times(params, x, r, mcfg, act, C)
+                line += text
+                row = kernel_row or row
+            log("dispatch", line)
+        del params
+        torch.cuda.empty_cache()
+    return row
+
+
+def _batch_invariance(params, x, mcfg, act, gen, trials=4):
+    """Half of the tokens placed at other rows among other tokens: under
+    drop-free capacity each of their outputs must keep its bits, with
+    one-hot and with sorted dispatch (what serving with preemption and the
+    prefix cache needs: a request's tokens may not depend on its slot or on
+    who shares the batch)."""
+    import torch
+    from repro_torch.core import gating
+    from repro_torch.models import moe
+    T, k = x.shape[0], mcfg.top_k
+    half = T // 2
+    moved = {False: 0, True: 0}
+    for _ in range(trials):
+        other = torch.randn(x.shape, generator=gen, device="cuda").to(x.dtype)
+        rows = torch.randperm(T, generator=gen, device="cuda")[:half]
+        other[rows] = x[:half]
+        for sorted_ in moved:
+            with torch.no_grad(), moe.use_sorted_dispatch(sorted_):
+                y = moe.moe_capacity(params, x, gating.route(
+                    params["router"], x, top_k=k), mcfg, act)
+                y2 = moe.moe_capacity(params, other, gating.route(
+                    params["router"], other, top_k=k), mcfg, act)
+            moved[sorted_] += int((y2[rows] != y[:half]).any(-1).sum())
+    text = (f"; batch invariance: {half} tokens at other rows among other "
+            f"tokens, {trials} times: outputs that moved one-hot "
+            f"{moved[False]}, sorted {moved[True]}")
+    if any(moved.values()):
+        fail("dispatch", text)
+    return text
+
+
+def _dispatch_times(params, x, r, mcfg, act, C):
+    """Device time of dispatch plus combine as ``moe_capacity`` runs them,
+    one-hot against sorted, with the streamed_moe kernel's on the dispatched
+    rows beside it; at C = C_CHUNK the kernel is also held against its
+    plain version there.  -> (text, the kernels line's row or None)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import streamed_moe as sm
+    from repro_torch.models import moe
+    T, E = x.shape[0], mcfg.num_experts
+    ws = tuple(params[k] for k in ("w_gate", "w_up", "w_down"))
+    xe = moe.gather_dispatch(x, moe.dispatch_tables(r, T, E, C).idx)
+    h, ye = sm._launch(xe, *ws, act)
+
+    def one_hot():
+        dispatch, combine = moe.dispatch_masks(r, T, E, C)
+        torch.einsum("tec,td->ecd", dispatch.to(x.dtype), x)
+        return moe.one_hot_combine(combine, ye).to(x.dtype)
+
+    def sorted_():
+        tables = moe.dispatch_tables(r, T, E, C)
+        moe.gather_dispatch(x, tables.idx)
+        return moe.scatter_combine(ye, tables.rows, tables.weights) \
+            .to(x.dtype)
+
+    def kernel():
+        return sm.streamed_moe_kernel(xe, *ws, activation=act)
+    with torch.no_grad():
+        t_oh, t_so = device_ms(one_hot)[0], device_ms(sorted_)[0]
+        t_k = device_ms(kernel)[0]
+        combine = moe.dispatch_masks(r, T, E, C)[1]
+        cost = {label: (device_ms(lambda: fn(combine, ye))[0],
+                        _peak_bytes(lambda: fn(combine, ye)))
+                for label, fn in _combines().items()}
+    text = (f"; dispatch + combine on the device: one-hot {t_oh:.4f} ms, "
+            f"sorted {t_so:.4f} ms ({t_oh / t_so:.1f}x); streamed_moe "
+            f"{t_k:.4f} ms; the one-hot combine alone: " + ", ".join(
+                f"{label} {ms:.4f} ms (+{b / 2**20:.1f} MiB at its peak)"
+                for label, (ms, b) in cost.items()))
+    if C != C_CHUNK:
+        return text, None
+    ok, mt = moe_bf16_check(h, ye, ref.streamed_moe_plain_h(xe, *ws, act),
+                            xe, *ws, act)
+    err = (ye - ref.streamed_moe_plain(xe, *ws, act)).abs().max().item()
+    text += (f"; kernel on the sorted rows vs plain: h at most "
+             f"{mt['over']:.3f} of its bound, share differing "
+             f"{mt['flips']:.3e}, down product rel {mt['down']:.3e}")
+    if not ok:
+        fail("dispatch", text)
+    times, ktext = kernel_times(kernel)
+    plain_ms = median_ms(lambda: ref.streamed_moe_plain(xe, *ws, act))
+    bound, by = streamed_moe_bound_ms(E, C, x.shape[1], ws[1].shape[-1],
+                                      "bf16", x.element_size())
+    text += (f"; {ktext}, plain {plain_ms:.4f} ms, bound "
+             f"{bound * 1e3:.1f} us ({by})")
+    return text, dict(max_abs_err=err, **times, plain_ms=plain_ms,
+                      bound_ms=bound, bound_by=by, library_ms=None)
+
+
 def _serve(argv):
     from repro_torch.launch import serve
     return serve.run(serve.parse_args(["--arch", ARCH, "--seed", "0"] + argv))
@@ -727,10 +935,11 @@ def _same_run(fused, eager, what):
                           f"{ee.stats[k]}")
 
 
-def phase_fused_vs_eager():
+def phase_fused_vs_eager(spec_path):
     """The fused engine (CUDA graphs) against the eager per-layer loop on
     the card, bf16, full width, the same prompts: static; dynamic with
-    slack 0.2 (so deferral fires); and chunked admission."""
+    slack 0.2 (so deferral fires); both again with sorted dispatch (the
+    spec at ``spec_path``); and chunked admission."""
     import dataclasses
     import numpy as np
     import torch
@@ -746,15 +955,18 @@ def phase_fused_vs_eager():
         return [outs[r] for r in rids], time.perf_counter() - t0
 
     params = None
-    for argv in ([], ["--schedule", "dynamic", "--slack", "0.2"]):
+    dynamic = ["--schedule", "dynamic", "--slack", "0.2"]
+    sorted_ = ["--moe-spec", spec_path]
+    for argv in ([], dynamic, sorted_, sorted_ + dynamic):
         res = _serve(SLICE_ARGV + argv)
         params, eng = res["params"], res["engine"]
         eager = Engine(params, res["cfg"], dataclasses.replace(
             eng.scfg, fused=False), device="cuda")
         got, secs = serve(eager, res["prompts"], res["max_new"])
-        _same_run((eng, list(res["outs"].values())), (eager, got),
-                  " ".join(argv) or "static")
-        log("fused", f"{' '.join(argv) or 'static'}: fused == eager (tokens, "
+        what = " ".join(argv).replace(spec_path, "sorted dispatch") \
+            or "static"
+        _same_run((eng, list(res["outs"].values())), (eager, got), what)
+        log("fused", f"{what}: fused == eager (tokens, "
                      f"{len(eng.trace)} trace records, stats); deferrals "
                      f"{eng.stats['deferrals']}, dynamic schedules "
                      f"{eng.stats['dynamic_schedules']}; wall fused "
@@ -786,44 +998,74 @@ def _serve_cfg():
     return get_config(ARCH)
 
 
-def _traffic(engine=None):
+def _traffic(engine=None, extra=()):
     from repro_torch.launch import serve
     return serve.run_traffic(serve.parse_args(
-        ["--arch", ARCH, "--seed", "0"] + TRAFFIC_ARGV), wall_clock=False,
-        engine=engine)
+        ["--arch", ARCH, "--seed", "0"] + TRAFFIC_ARGV + list(extra)),
+        wall_clock=False, engine=engine)
 
 
-def phase_traffic():
+def _steps(eng, since):
+    """(prefill steps, decode steps) an engine ran after iteration ``since``,
+    from its trace."""
+    return tuple(len({r["iter"] for r in eng.trace
+                      if r.get("phase") == ph and r["iter"] > since})
+                 for ph in ("prefill", "decode"))
+
+
+def _check_traffic_launches(eng, n_moe, since, phase):
+    """streamed_moe launches since the counts were set to 0 (the engine's
+    first run, or a warm one from iteration ``since``): one per MoE layer
+    per prefill step and per decode step.  -> (all launches, those of the
+    prefill graph, at C = C_CHUNK)."""
+    ms = eng.megastep()
+    prefill_steps, decode_steps = _steps(eng, since)
+    # a segment's first call, before its capture, is the call of record
+    chunk = ms.captured["prefill"] * ms.replays["prefill"] + \
+        (n_moe if since == 0 and prefill_steps else 0)
+    launches = _launches(eng)
+    if chunk != n_moe * prefill_steps or \
+            launches != n_moe * (prefill_steps + decode_steps):
+        fail(phase, f"streamed_moe launches {launches} ({chunk} at C = "
+                    f"{C_CHUNK}), want {n_moe} x ({prefill_steps} prefill + "
+                    f"{decode_steps} decode steps)")
+    return launches, chunk
+
+
+def phase_traffic(spec_path):
     """Scheduler + run_closed_loop over a Poisson stream at full width,
     bf16, on the iteration clock (as the reference's benchmarks); the
-    modeled chiplet clock beside it.  -> (the engine, the streamed_moe
-    launches at C = C_CHUNK, all launches)."""
+    modeled chiplet clock beside it; then the same stream with sorted
+    dispatch.  -> {path: (the engine, the streamed_moe launches at C =
+    C_CHUNK)} for serve_chunked and serve_sorted."""
+    out = {"serve_chunked": _traffic_run("one-hot")}
+    out["serve_sorted"] = _traffic_run("sorted dispatch",
+                                       ["--moe-spec", spec_path])
+    a, b = (res["result"]["outputs"] for res, _ in out.values())
+    log("traffic", f"sorted dispatch: {sum(a[r] == b[r] for r in a)} of "
+                   f"{len(a)} requests emit one-hot's tokens (bf16: the two "
+                   f"combines round their fp32 sums apart)")
+    return {path: (res["engine"], n) for path, (res, n) in out.items()}
+
+
+def _traffic_run(what, extra=()):
     import torch
     torch.cuda.reset_peak_memory_stats()
     _zero_counts()
-    res = _traffic()
+    res = _traffic(extra=extra)
     eng, out = res["engine"], res["result"]
     m = out["metrics"]
     ms = eng.megastep()
     if m.completed != 16 or out["dropped"]:
-        fail("traffic", f"{m.completed}/16 completed, dropped "
+        fail("traffic", f"{what}: {m.completed}/16 completed, dropped "
                         f"{out['dropped']}")
     toks = sum(len(t) for t in out["outputs"].values())
-    prefill_steps = len({r["iter"] for r in eng.trace
-                         if r["phase"] == "prefill"})
-    # a segment's first call is the call of record, then its replays
-    chunk_launches = ms.captured["prefill"] * (ms.replays["prefill"] + 1)
-    decode_steps = ms.replays["last"] + 1
-    n_moe = _n_moe(res["cfg"])
-    launches = _launches(eng)
-    if chunk_launches != n_moe * prefill_steps or \
-            launches != n_moe * (prefill_steps + decode_steps):
-        fail("traffic", f"streamed_moe launches {launches} ({chunk_launches}"
-                        f" at C = {C_CHUNK}), want {n_moe} x ({prefill_steps}"
-                        f" prefill + {decode_steps} decode steps)")
+    prefill_steps, _ = _steps(eng, 0)
+    launches, chunk_launches = _check_traffic_launches(
+        eng, _n_moe(res["cfg"]), 0, "traffic")
     s = eng.stats
-    log("traffic", f"{ARCH} full width bf16, 16 Poisson requests (rate 0.5 "
-                   f"per iteration, prompts ~64 of at most 128, 2-32 new "
+    log("traffic", f"{what}: {ARCH} full width bf16, 16 Poisson requests "
+                   f"(rate 0.5 per iteration, prompts ~64 of at most 128, 2-32 new "
                    f"tokens), max_batch {TRAFFIC_BATCH}, {CHUNK}-token "
                    f"chunks: {m.completed}/16 completed, 0 dropped, "
                    f"{m.iterations} iterations, {toks} tokens in "
@@ -834,73 +1076,257 @@ def phase_traffic():
                              ("tpot", m.tpot, m.tpot_modeled),
                              ("queue_delay", m.queue_delay,
                               m.queue_delay_modeled)):
-        log("traffic", f"{name}: p50 {pct['p50']:.2f} p95 {pct['p95']:.2f} "
+        log("traffic", f"{what} {name}: p50 {pct['p50']:.2f} p95 "
+                       f"{pct['p95']:.2f} "
                        f"iterations; modeled p50 {pct_m['p50'] * 1e3:.4f} "
                        f"p95 {pct_m['p95'] * 1e3:.4f} ms")
-    log("traffic", f"{s['prefill_chunks']} prefill chunks ({s['prefill_tokens']}"
-                   f" tokens) in {prefill_steps} prefill steps, "
+    log("traffic", f"{what}: {s['prefill_chunks']} prefill chunks "
+                   f"({s['prefill_tokens']} tokens) in {prefill_steps} prefill steps, "
                    f"{s['host_syncs'] / m.iterations:.2f} host syncs per "
                    f"iteration, streamed_moe launches {launches} "
                    f"({chunk_launches} at C = {C_CHUNK}), peak memory "
                    f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return eng, chunk_launches
+    return res, chunk_launches
 
 
-def _profile(label, fn, launches=None):
-    """Run ``fn`` once under torch.profiler: device kernel time by kernel
-    name and the device's busy share of the wall time.  ``launches()``,
-    if given, is the streamed_moe launch count of that run, held against
-    the profiler's count of ``up_kernel`` launches."""
+def phase_prefix():
+    """PREFIX_TRAFFIC through the scheduler on fused engines (max_batch 8,
+    max_ctx 256, CHUNK-token chunks), once with one-hot and once with
+    sorted dispatch: the PREFIX_LOOPS closed loops, then the cached loop
+    once more on its engine, warm.  -> the warm one-hot run's streamed_moe
+    launches at C = C_CHUNK (the serve_prefix path)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.strategy import ExecutionSpec
+    from repro_torch.models import api
+    from repro_torch.serving import (Engine, Scheduler, SchedulerConfig,
+                                     ServeConfig, TrafficConfig,
+                                     make_traffic, run_closed_loop)
+    cfg = get_config(ARCH)
+    n_moe = _n_moe(cfg)
+    params = api.init_params(cfg, seed=0, device="cuda")
+    traffic = make_traffic(TrafficConfig(vocab=cfg.vocab_size,
+                                         **PREFIX_TRAFFIC))
+    n_req = PREFIX_TRAFFIC["num_requests"]
+
+    def loop(eng, label):
+        since = eng.iterations
+        _zero_counts(eng)
+        sched = Scheduler(eng, SchedulerConfig(queue_capacity=64))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run_closed_loop(sched, traffic)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        m = res["metrics"]
+        if m.completed != n_req or res["dropped"]:
+            fail("prefix", f"{label}: {m.completed}/{n_req} completed, "
+                           f"dropped {res['dropped']}")
+        launches, chunk = _check_traffic_launches(eng, n_moe, since, "prefix")
+        toks = sum(len(t) for t in res["outputs"].values())
+        return res, dict(secs=secs, toks=toks, launches=launches, chunk=chunk)
+
+    serve_prefix = None
+    for spec in (ExecutionSpec(strategy="capacity"),
+                 ExecutionSpec(**SORTED_SPEC)):
+        what = "sorted" if spec.sorted_dispatch else "one-hot"
+        runs = {}
+        for name, cache, depth in PREFIX_LOOPS:
+            eng = Engine(params, cfg, ServeConfig(
+                max_batch=TRAFFIC_BATCH, max_ctx=256, chunk_tokens=CHUNK,
+                prefix_cache=cache, preempt_queue_depth=depth, spec=spec),
+                device="cuda")
+            res, info = loop(eng, f"{what} {name}")
+            runs[name] = (eng, res, info)
+        want = runs["unbounded"][1]["outputs"]
+        base_tokens = runs["unbounded"][0].stats["prefill_tokens"]
+        for name, (eng, res, info) in runs.items():
+            m, s = res["metrics"], eng.stats
+            if res["outputs"] != want:
+                bad = [r for r in want if res["outputs"][r] != want[r]]
+                fail("prefix", f"{what} {name}: {len(bad)} requests emit "
+                               f"other tokens than the unbounded run "
+                               f"({bad[:4]})")
+            if name != "unbounded" and not (m.preemptions > 0
+                                           and m.preemptions == m.restores):
+                fail("prefix", f"{what} {name}: {m.preemptions} preemptions,"
+                               f" {m.restores} restores")
+            if "cache" in name and m.cache_hits == 0:
+                fail("prefix", f"{what} {name}: no cache hit")
+            ms = eng.megastep()
+            share = 1 - s["prefill_tokens"] / base_tokens
+            log("prefix", f"{what} {name}: {m.completed}/{n_req} completed, "
+                          f"outputs == unbounded; {m.iterations} "
+                          f"iterations, {info['toks']} tokens in "
+                          f"{info['secs']:.3f}s with {ms.captures} captures; "
+                          f"{m.preemptions} preemptions / {m.restores} "
+                          f"restores, {m.cache_hits} cache hits / "
+                          f"{m.cache_misses} misses, "
+                          f"{s['prefill_tokens_saved']} prefill tokens "
+                          f"saved, prefill tokens computed "
+                          f"{s['prefill_tokens']} of the unbounded run's "
+                          f"{base_tokens} (share saved {share:.3f}; the "
+                          f"reference gates {PREFIX_SAVINGS_FLOOR:.2f} on "
+                          f"its own mix); TTFT p50 {m.ttft['p50']:.2f} p95 "
+                          f"{m.ttft['p95']:.2f} iterations; streamed_moe "
+                          f"launches {info['launches']} ({info['chunk']} at "
+                          f"C = {C_CHUNK}); pool peak {s['pool_peak_pages']}"
+                          f"/{s['pool_pages']} pages")
+        eng, _, _ = runs["preempt+cache"]
+        ms = eng.megastep()
+        captures = ms.captures
+        res, info = loop(eng, f"{what} warm")
+        if len(eng._megasteps) != 1 or ms.captures != captures:
+            fail("prefix", f"{what} warm: recaptured ({captures} -> "
+                           f"{ms.captures} captures, "
+                           f"{len(eng._megasteps)} settings)")
+        if res["outputs"] != want:
+            fail("prefix", f"{what} warm: outputs differ from the unbounded "
+                           f"run")
+        m = res["metrics"]
+        log("prefix", f"{what} preempt+cache warm, on the same engine: "
+                      f"outputs == unbounded, no new capture ({captures}); "
+                      f"{info['toks']} tokens in {info['secs']:.3f}s "
+                      f"({info['toks'] / info['secs']:.1f} tok/s wall); "
+                      f"{m.preemptions} preemptions, {m.cache_hits} cache "
+                      f"hits; streamed_moe launches {info['launches']} "
+                      f"({info['chunk']} at C = {C_CHUNK}, "
+                      f"{eng.graph_launches()} by graph replays)")
+        if not spec.sorted_dispatch:
+            serve_prefix = info["chunk"]
+        del runs, eng
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    return serve_prefix
+
+
+def _profiled(fn):
+    """Run ``fn`` once under torch.profiler.  -> (wall seconds of ``fn``,
+    its device records as (ms, count, name), largest first, the kineto
+    events, how far past the host's idle time the last device record
+    ends (ms), the warm-up records kept).
+
+    Kineto keeps only the device records that lie inside its capture
+    window, and on the card their timestamps stray from the host's clock
+    (PERF.md, section 6): a run's last records can end tens of ms after
+    the host saw the device idle, and the first records of a session can
+    be stamped before the window opened.  So the window opens
+    PROFILE_PAD_S before ``fn``'s work, PROFILE_WARMUP spin kernels run
+    first and take the stray first stamps, and the window closes
+    PROFILE_PAD_S after the device is idle.  The spin kernels are left
+    out of the records returned."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
+        for _ in range(PROFILE_WARMUP):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA), reverse=True)
+        idle_ns = time.time_ns()
+        time.sleep(PROFILE_PAD_S)
+    events = prof.profiler.kineto_results.events()
+    device = [e for e in events if e.device_type() == DeviceType.CUDA]
+    work = [e for e in device if "spin_kernel" not in e.name()]
+    by_name = {}
+    for e in work:
+        ms, n = by_name.get(e.name(), (0.0, 0))
+        by_name[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+    late = (max(e.end_ns() for e in work) - idle_ns) / 1e6
+    return (wall, sorted(((ms, n, name) for name, (ms, n) in by_name.items()),
+                         reverse=True), events, late, len(device) - len(work))
+
+
+def _graph_breakdown(events, eng):
+    """The profiler's ``up_kernel`` records by the launch they belong to,
+    against the engine's counts: graph launches seen and replayed, and
+    the multiset of up_kernel records per graph launch against captured
+    launches x replays of each graph."""
+    import collections
+    from torch.autograd import DeviceType
+    from repro_torch.kernels import streamed_moe as sm
+    graph = {e.correlation_id() for e in events
+             if e.device_type() == DeviceType.CPU
+             and e.name().startswith("cudaGraphLaunch")}
+    per_launch = collections.Counter(dict.fromkeys(graph, 0))
+    eager = 0
+    for e in events:
+        if e.device_type() == DeviceType.CUDA and "up_kernel" in e.name():
+            if e.correlation_id() in graph:
+                per_launch[e.correlation_id()] += 1
+            else:
+                eager += 1
+    want = collections.Counter()
+    for ms in eng._megasteps.values():
+        for name, n in ms.replays.items():
+            want[ms.captured[name]] += n
+    return (f"graph launches seen {len(graph)}, replayed "
+            f"{sum(want.values())}; up_kernel records per graph launch "
+            f"{dict(sorted(collections.Counter(per_launch.values()).items()))}"
+            f", counted {dict(sorted(want.items()))}; eager up_kernel "
+            f"records {eager}, counted {sm.LAUNCHES}")
+
+
+def _profile(label, fn, eng=None):
+    """Run ``fn`` once under torch.profiler: device kernel time by kernel
+    name and the device's busy share of the wall time.  With an engine,
+    its streamed_moe launches in that run (the counts set to 0 first) are
+    held against the profiler's count of ``up_kernel`` launches; on a
+    mismatch the records are broken down by graph launch, and the phase
+    fails."""
+    if eng is not None:
+        _zero_counts(eng)
+    wall, rows, events, late, _ = _profiled(fn)
     busy = sum(ms for ms, _, _ in rows) / 1e3
     log("profile", f"{label}: wall {wall:.3f}s, device kernel time "
-                   f"{busy:.3f}s, busy share {busy / wall:.3f}")
+                   f"{busy:.3f}s, busy share {busy / wall:.3f}; the last "
+                   f"device record ends {late:.3f} ms after the host saw "
+                   f"the device idle (window closes {PROFILE_PAD_S}s after)")
     # the ten largest, then the port's own kernels further down the list
     ours = ("::up_kernel", "::down_kernel", "::flash_fwd", "::ssd_", "::split3")
     for ms, n, name in rows[:10] + [r for r in rows[10:]
                                     if any(k in r[2] for k in ours)]:
         log("profile", f"{label}: {ms:9.2f} ms {n:6d} x {name[:100]}")
-    if launches is not None:
+    if eng is not None:
         seen = sum(n for _, n, name in rows if "up_kernel" in name)
-        counted = launches()
+        counted = _launches(eng)
         if seen != counted:
             fail("profile", f"{label}: the profiler saw {seen} up_kernel "
-                            f"launches, the counts say {counted}")
+                            f"launches, the counts say {counted}: "
+                            f"{_graph_breakdown(events, eng)}")
         log("profile", f"{label}: the profiler's up_kernel launches {seen} "
                        f"== streamed_moe launches counted {counted}")
 
 
-def phase_profile(traffic_engine):
-    """The fused slice (bf16, then fp8 weights) and the traffic run, each
-    on an engine whose graphs are captured already, and the two bf16
-    scoring losses, once more under the profiler."""
+def phase_profile(traffic_engines):
+    """The fused slice (bf16, then fp8 weights) and the traffic runs
+    (one-hot, sorted), each on an engine whose graphs are captured already,
+    and the bf16 scoring losses (granite one-hot and sorted, mamba), once
+    more under the profiler."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models import api
     for label, argv in (("slice", []), ("slice fp8", ["--weight-dtype", "fp8"])):
         eng = _serve(SLICE_ARGV + argv)["engine"]          # captures
-        _zero_counts(eng)
         _profile(label, lambda: serve.run(serve.parse_args(
             ["--arch", ARCH, "--seed", "0"] + SLICE_ARGV + argv), engine=eng),
-            launches=lambda: _launches(eng))
+            eng)
         del eng
-    _zero_counts(traffic_engine)
-    _profile("traffic", lambda: _traffic(traffic_engine),
-             launches=lambda: _launches(traffic_engine))
+    for path, eng in traffic_engines.items():
+        _profile({"serve_chunked": "traffic",
+                  "serve_sorted": "traffic sorted"}[path],
+                 lambda: _traffic(eng), eng)
     for label, arch, kw in (("forward", ARCH, dict(spec="capacity",
                                                    use_flash=True)),
+                            ("forward sorted", ARCH, dict(spec=SORTED_SPEC,
+                                                          use_flash=True)),
                             ("mamba", MAMBA, {})):
         cfg = get_config(arch)
         params = api.init_params(cfg, seed=0, device="cuda")
@@ -959,6 +1385,8 @@ def phase_forward():
                    f"{m['ce'].item():.4f}, aux {m['aux'].item():.4f}) in "
                    f"{secs:.3f}s = {T / secs:.0f} scored tok/s; launches "
                    f"{launches}; peak memory {peak / 2**30:.2f} GiB")
+    _forward_sorted(params, batch, cfg, loss, n_attn)
+    _combine_cost(params, batch, cfg)
     del params
     torch.cuda.empty_cache()
 
@@ -990,6 +1418,102 @@ def phase_forward():
     del params, out, zk, zp
     torch.cuda.empty_cache()
     return launches
+
+
+def _single_gemm_combine(combine, ye):
+    """The reference's one-hot combine: one (T, E·C) x (E·C, d) fp32
+    product, whose sums follow where a token's k terms fall along E·C (not
+    batch invariant on the card: PERF.md, section 6).  Timed beside the
+    port's ``moe.one_hot_combine``, never used to serve."""
+    import torch
+    return torch.einsum("tec,ecd->td", combine, ye)
+
+
+def _combines():
+    """The one-hot combines timed side by side: the port's, and the
+    reference's single product."""
+    from repro_torch.models import moe
+    return {"per-expert": moe.one_hot_combine,
+            "single GEMM": _single_gemm_combine}
+
+
+def _peak_bytes(fn):
+    """Device memory ``fn`` allocates at its peak beyond what is held."""
+    import torch
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def _combine_cost(params, batch, cfg):
+    """The cost of the batch-invariant one-hot combine on the default
+    path: the bf16 scoring forward with ``moe.one_hot_combine`` and with
+    the single product patched in its place, run in turn (a, b, b, a
+    after one warm-up each), wall and peak memory of each."""
+    import torch
+    from unittest import mock
+    from repro_torch.models import api, moe
+
+    def score(fn):
+        with mock.patch.object(moe, "one_hot_combine", fn), torch.no_grad():
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loss, _ = api.loss_fn(params, batch, cfg, spec="capacity",
+                                  use_flash=True)
+            loss.item()
+            return time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+    fns = _combines()
+    for fn in fns.values():
+        score(fn)
+    got = {label: [] for label in fns}
+    for label in list(fns) + list(fns)[::-1]:
+        got[label].append(score(fns[label]))
+    log("forward", "one-hot combine on the bf16 scoring forward (C = "
+                   f"{cfg.moe.capacity_rows(SCORE_B * SCORE_S)}): " + "; ".join(
+                       f"{label} wall {statistics.mean(w for w, _ in runs):.4f}s, "
+                       f"peak memory {max(p for _, p in runs) / 2**30:.3f} GiB"
+                       for label, runs in got.items()))
+
+
+def _forward_sorted(params, batch, cfg, loss_one_hot, n_attn):
+    """The bf16 scoring batch with sorted dispatch: the loss within
+    LOSS_TOL (relative) of the one-hot run's; both timed again, one after
+    the other."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import streamed_moe as sm
+    from repro_torch.models import api
+
+    def score(spec):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            loss, _ = api.loss_fn(params, batch, cfg, spec=spec,
+                                  use_flash=True)
+        loss = loss.item()
+        return loss, time.perf_counter() - t0
+
+    fa.LAUNCHES = sm.LAUNCHES = 0
+    loss, secs = score(SORTED_SPEC)
+    launches = {"flash_attention": fa.LAUNCHES, "streamed_moe": sm.LAUNCHES}
+    _, secs_oh = score("capacity")
+    T = SCORE_B * SCORE_S
+    rel = abs(loss - loss_one_hot) / abs(loss_one_hot)
+    line = (f"sorted dispatch, bf16: loss {loss:.6f} against one-hot's "
+            f"{loss_one_hot:.6f}, rel {rel:.3e} (tol {LOSS_TOL:g}); "
+            f"{secs:.3f}s = {T / secs:.0f} scored tok/s (one-hot timed "
+            f"again right after: {secs_oh:.3f}s = {T / secs_oh:.0f} scored "
+            f"tok/s); launches {launches}")
+    if launches != {"flash_attention": n_attn, "streamed_moe": _n_moe(cfg)}:
+        fail("forward", line)
+    if not rel <= LOSS_TOL:
+        fail("forward", line)
+    log("forward", line)
 
 
 def _mamba_layers(params, cfg, tokens):
@@ -1161,20 +1685,30 @@ SOURCES = {"streamed_moe": "src/repro/kernels/streamed_moe.py:201",
 def main():
     try:
         card = phase_env()
+        import tempfile
         import torch
         phase_build()
         rows = phase_kernels()
+        sorted_row = phase_dispatch()
+        rows["streamed_moe"].update(serve_sorted=sorted_row,
+                                    serve_prefix=sorted_row)
         launches = {("streamed_moe", "serve"): phase_slice(
             rows["streamed_moe"]["serve"]["device_ms"])}
-        phase_fused_vs_eager()
-        traffic_engine, launches["streamed_moe", "serve_chunked"] = \
-            phase_traffic()
+        with tempfile.TemporaryDirectory() as tmp:
+            spec_path = os.path.join(tmp, "sorted-dispatch.json")
+            with open(spec_path, "w") as f:
+                json.dump(SORTED_SPEC, f)
+            phase_fused_vs_eager(spec_path)
+            traffic = phase_traffic(spec_path)
+        for path, (_, n) in traffic.items():
+            launches["streamed_moe", path] = n
+        launches["streamed_moe", "serve_prefix"] = phase_prefix()
         phase_parity()
         launches["streamed_moe", "serve_fp8"] = phase_features()
         for k, n in phase_forward().items():
             launches[k, "forward"] = n
         launches["ssd", "mamba"] = phase_mamba()
-        phase_profile(traffic_engine)
+        phase_profile({path: eng for path, (eng, _) in traffic.items()})
         if "jax" in sys.modules:
             fail("summary", "jax was imported")
     except SystemExit:

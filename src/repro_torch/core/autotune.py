@@ -9,7 +9,7 @@ profile is pure Table-I constants (:mod:`repro_torch.sim.hardware`), so
 the modeled TTFT / TPOT are the same on every machine; they describe the
 modeled array, never the card the port runs on.
 
-The two-tier ``hybrid`` pricing waits for ROADMAP A.11 and the kernel
+The two-tier ``hybrid`` pricing waits for ROADMAP A.11b and the kernel
 tile planner (``plan_moe``, tiles, measured timing) for A.12.
 """
 from __future__ import annotations
@@ -165,8 +165,8 @@ class ServingCostModel:
         ``hot`` pricing is not ported yet."""
         if hot is not None:
             raise NotImplementedError(
-                "two-tier hybrid pricing is not ported yet: ROADMAP A.11 "
-                "(hybrid, sorted dispatch, resident tier)")
+                "two-tier hybrid pricing is not ported yet: ROADMAP A.11b "
+                "(hybrid, resident tier)")
         total = float(sum(float(c) for c in counts))
         tokens = max(1, math.ceil(total / max(1, self.top_k)))
         C = _cap(tokens, self.top_k, self.num_experts, self.capacity_factor)

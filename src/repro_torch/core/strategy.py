@@ -5,9 +5,10 @@ single-device part of ``repro.core.strategy``).
 reads ``examples/moe-spec.json``.  The registry holds the single-device
 strategies ``dense`` and ``capacity``.  The other reference strategies
 are known names that raise ``NotImplementedError`` naming the ROADMAP
-step that ports them, as does ``sorted_dispatch=True``.  The spec's
-``autotune`` level is carried and ignored: the Hopper tile planner is
-not ported yet (the kernel's tiles are fixed).
+step that ports them.  The spec's scope enters its kernels, sorted
+dispatch and weight-dtype toggles.  Its ``autotune`` level is carried and
+ignored: the Hopper tile planner is not ported yet (the kernel's tiles
+are fixed).
 """
 from __future__ import annotations
 
@@ -23,13 +24,12 @@ PHASES = ("train", "prefill", "decode")
 
 # reference strategies not ported yet -> the ROADMAP step that ports them
 UNPORTED = {
-    "hybrid": "ROADMAP A.11 (hybrid, sorted dispatch, resident tier)",
+    "hybrid": "ROADMAP A.11b (hybrid, resident tier)",
     "fse_dp": "ROADMAP A.14 (distributed families)",
     "ep": "ROADMAP A.14 (distributed families)",
     "tp": "ROADMAP A.14 (distributed families)",
     "auto": "ROADMAP A.14 (distributed families)",
 }
-SORTED_DISPATCH_STEP = UNPORTED["hybrid"]
 
 
 def _freeze_overrides(overrides) -> Tuple[Tuple[int, str], ...]:
@@ -86,24 +86,21 @@ class ExecutionSpec:
         return tuple(sorted(names))
 
     def validate(self) -> "ExecutionSpec":
-        """Raise if a referenced strategy or option is not available."""
+        """Raise if a referenced strategy is not available."""
         for name in self.strategies_used():
             get_strategy(name)
-        if self.sorted_dispatch:
-            raise NotImplementedError(
-                f"sorted_dispatch is not ported yet: {SORTED_DISPATCH_STEP}")
         return self
 
     @contextlib.contextmanager
     def scope(self):
-        """Apply the spec's kernels and weight-dtype toggles."""
-        if self.sorted_dispatch:
-            raise NotImplementedError(
-                f"sorted_dispatch is not ported yet: {SORTED_DISPATCH_STEP}")
+        """Apply the spec's kernels, dispatch and weight-dtype toggles."""
         with contextlib.ExitStack() as stack:
             if self.use_kernels is not None:
                 from repro_torch.kernels import ops as kops
                 stack.enter_context(kops.use_kernels(self.use_kernels))
+            if self.sorted_dispatch is not None:
+                from repro_torch.models.moe import use_sorted_dispatch
+                stack.enter_context(use_sorted_dispatch(self.sorted_dispatch))
             if self.weight_dtype is not None:
                 stack.enter_context(quant.use_weight_dtype(self.weight_dtype))
             yield self

@@ -11,17 +11,22 @@ scheduler with Poisson arrivals: requests wait in a bounded queue
 (``--queue-capacity``, ``--queue-policy``), prompts prefill in
 ``--chunk-tokens``-token chunks piggybacked on the decode batch, and the
 run reports TTFT / TPOT / queue-delay p50/p95/p99 on the wall clock (the
-iteration clock under ``--dry-run``) and on the modeled chiplet clock:
+iteration clock under ``--dry-run``) and on the modeled chiplet clock.
+``--prefix-cache`` admits prompts that share a cached prefix with its
+pages attached, and ``--preempt-depth`` lets the scheduler evict a running
+request to the state pool when the queue is deeper:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-1b-a400m \\
       --reduced --device cpu --traffic --traffic-requests 32 \\
-      --traffic-rate 0.8 --chunk-tokens 8
+      --traffic-rate 0.8 --chunk-tokens 8 --traffic-mix poisson+zipf_prefix \\
+      --prefix-cache --preempt-depth 0
 
 The engine runs its fused segments (CUDA graphs on the card).  Weights
 are random, drawn from ``--seed``.  ``--device`` defaults to ``cuda``
 (and fails where there is none).  MoE execution is one
 :class:`ExecutionSpec`: ``--strategy`` names a registered strategy
-(``capacity`` or ``dense``), ``--moe-spec path.json`` loads a full spec.
+(``capacity`` or ``dense``), ``--moe-spec path.json`` loads a full spec
+(``"sorted_dispatch": true`` there turns on sorted dispatch).
 """
 from __future__ import annotations
 
@@ -88,6 +93,14 @@ def parse_args(argv=None):
                     default="fcfs")
     ap.add_argument("--page-size", type=int, default=8,
                     help="tokens per physical KV page in the state pool")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="content-hash prompt prefixes and admit shared "
+                         "prefixes with their pages attached")
+    ap.add_argument("--preempt-depth", type=int, default=None,
+                    help="queue depth past which the scheduler preempts one "
+                         "running request per step to the state pool "
+                         "(default: never; 0 preempts whenever the queue "
+                         "is non-empty and no slot is free)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--seed", type=int, default=0)
     return ap.parse_args(argv)
@@ -187,7 +200,8 @@ def run_traffic(args, *, wall_clock=None, engine=None):
         max_batch=args.max_batch, max_ctx=max_prompt + args.max_new + 1,
         buffering_slack=args.slack, theta_min=args.theta_min,
         chunk_tokens=args.chunk_tokens, page_size=args.page_size,
-        spec=built["spec"]), device=built["device"])
+        prefix_cache=args.prefix_cache, preempt_queue_depth=args.preempt_depth,
+        seed=args.seed, spec=built["spec"]), device=built["device"])
     if wall_clock is None:
         wall_clock = not args.dry_run
     sched = Scheduler(eng, SchedulerConfig(
@@ -222,7 +236,10 @@ def _print_traffic(res):
           f"syncs); wall {m.tokens_emitted / res['seconds']:.1f} tok/s on "
           f"{eng.device}")
     print(f"  state pool   peak {s['pool_peak_pages']}/{s['pool_pages']} "
-          f"pages, {s['peak_resident_state_bytes']} peak resident bytes")
+          f"pages, {s['peak_resident_state_bytes']} peak resident bytes, "
+          f"{s['cache_hits']} cache hits / {s['cache_misses']} misses "
+          f"({s['prefill_tokens_saved']} prefill tokens saved), "
+          f"{s['preemptions']} preemptions / {s['restores']} restores")
 
 
 def main(argv=None):
@@ -236,6 +253,10 @@ def main(argv=None):
             if m.completed < res["n_requests"]:
                 raise SystemExit(f"traffic dry-run incomplete: "
                                  f"{m.completed}/{res['n_requests']}")
+            if args.preempt_depth is not None and m.preemptions < 1:
+                raise SystemExit("preemption smoke: --preempt-depth was set "
+                                 "but no request was ever preempted (check "
+                                 "--traffic-requests vs --max-batch)")
             print("traffic dry-run OK")
         return
     res = run(args)

@@ -5,10 +5,16 @@ Weight layout, stacked over experts:
   w_down       : (E, d_expert, d_model)
 
 ``moe_block`` looks the strategy up in ``core.strategy``: ``dense`` (the
-oracle) or ``capacity`` (one-hot dispatch into (E, C, d) rows, the
-``streamed_moe`` kernel, weighted combine).
+oracle) or ``capacity`` (dispatch into (E, C, d) rows, the
+``streamed_moe`` kernel, weighted combine).  Capacity dispatch and
+combine are one-hot products by default, or gathers under
+``use_sorted_dispatch`` (``ExecutionSpec.sorted_dispatch``).
 """
 from __future__ import annotations
+
+import contextlib
+import contextvars
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -72,11 +78,20 @@ def _one_hot(idx, n):
     return idx[..., None] == torch.arange(n, device=idx.device)
 
 
+def _tokens_ahead(onehot):
+    """(T, E) 0/1 choices -> (T, E) count of earlier tokens that chose the
+    same expert: a cumulative count along T, run over the rows of the
+    (E, T) transpose (a scan along the outer dim of (T, E) has E-wide
+    parallelism and took 0.8 ms at T = 4096 on an H100)."""
+    onehot_t = onehot.t().contiguous()
+    return (torch.cumsum(onehot_t, 1) - onehot_t).t()
+
+
 def dispatch_masks(routing, T, E, C):
     """(T, E, C) dispatch one-hot and combine weights; tokens beyond an
     expert's capacity C are dropped."""
     onehot = _one_hot(routing.indices, E).sum(1)                    # (T, E)
-    pos = torch.cumsum(onehot, dim=0) * onehot - 1
+    pos = (_tokens_ahead(onehot) + 1) * onehot - 1
     keep = (pos >= 0) & (pos < C)
     pos = torch.clamp(pos, 0, C - 1)
     dispatch = _one_hot(pos, C).float() * keep[..., None]            # (T,E,C)
@@ -94,7 +109,10 @@ def moe_capacity(params, x2d, routing, moe: MoEConfig, activation,
                  schedule=None):
     """Capacity dispatch -> grouped expert FFN -> combine.  A dynamic
     schedule reorders the expert axis for the FFN and restores it before
-    the combine (values unchanged)."""
+    the combine (values unchanged).  Both dispatches return the model
+    dtype: the reference's sorted path returns fp32, which would promote
+    a bf16 residual stream, and the fused segments' buffers keep one
+    dtype."""
     if torch.is_grad_enabled() and x2d.requires_grad:
         raise NotImplementedError("the streamed_moe backward belongs to the "
                                   "training slice (ROADMAP A.15)")
@@ -104,6 +122,14 @@ def moe_capacity(params, x2d, routing, moe: MoEConfig, activation,
     order = trajectory.resolve_order(
         schedule, lambda: gating.expert_token_counts(routing), x2d.device)
     p = params if order is None else _reorder_experts(params, order)
+    if sorted_dispatch_enabled():
+        tables = dispatch_tables(routing, T, E, C)
+        idx = tables.idx if order is None else tables.idx.index_select(0,
+                                                                       order)
+        ye = _expert_ffn(p, gather_dispatch(x2d, idx), activation)
+        if order is not None:
+            ye = trajectory.restore_order(order, ye)
+        return scatter_combine(ye, tables.rows, tables.weights).to(x2d.dtype)
     dispatch, combine = dispatch_masks(routing, T, E, C)
     xe = torch.einsum("tec,td->ecd", dispatch.to(x2d.dtype), x2d)    # (E,C,d)
     if order is not None:
@@ -111,7 +137,106 @@ def moe_capacity(params, x2d, routing, moe: MoEConfig, activation,
     ye = _expert_ffn(p, xe.contiguous(), activation)                 # fp32
     if order is not None:
         ye = trajectory.restore_order(order, ye)
-    return torch.einsum("tec,ecd->td", combine, ye).to(x2d.dtype)
+    return one_hot_combine(combine, ye).to(x2d.dtype)
+
+
+def one_hot_combine(combine, ye):
+    """(T, E, C) combine weights x (E, C, d) fp32 expert rows -> (T, d) fp32.
+
+    One product per expert, (E, T, C) @ (E, C, d), in which each (expert,
+    token) pair has at most one non-zero term, so every partial is exact
+    whatever split the GEMM takes; then one sum over E of fixed shape.  A
+    token's sum so never depends on its capacity rows, which move with
+    whoever shares the batch.  (A single (T, E·C) product grouped a
+    token's k terms by where they fell along E·C: on an H100 a token's
+    output then moved with the slot and the batch.)"""
+    return torch.bmm(combine.transpose(0, 1), ye).sum(0)
+
+
+# ---------------------------------------------------------------------------
+# sorted dispatch: gathers in place of the one-hot products, which cost
+# O(T·E·C·d) operations to move T·k rows.  One-hot stays the default, as
+# in the reference.
+# ---------------------------------------------------------------------------
+
+_SORTED = contextvars.ContextVar("repro_torch_sorted_dispatch", default=False)
+
+
+@contextlib.contextmanager
+def use_sorted_dispatch(enabled: bool = True):
+    tok = _SORTED.set(enabled)
+    try:
+        yield
+    finally:
+        _SORTED.reset(tok)
+
+
+def sorted_dispatch_enabled() -> bool:
+    return _SORTED.get()
+
+
+class DispatchTables(NamedTuple):
+    idx: torch.Tensor        # (E, C) token ids, T for an empty row
+    rows: torch.Tensor       # (T, k) each choice's row of the flat (E*C),
+    #                          E*C where it overflowed
+    weights: torch.Tensor    # (T, k) its weight, 0 where it overflowed
+
+
+def dispatch_tables(routing, T, E, C) -> DispatchTables:
+    """The reference's idx table, plus each token's k choices in
+    ascending expert order (``rows``, ``weights``) for the combine.
+
+    An expert's rows hold its tokens in token order, so a choice's row is
+    the count of earlier tokens routed to the same expert: what the
+    reference's stable sort by expert gives, found here by a cumulative
+    count (only each token's k choices are sorted), with nothing read
+    back by the host (the serving segments are captured as CUDA graphs).
+    Choices past C overflow.  The reference drops them out of range;
+    here they are written to a sink column C of an (E, C + 1) table that
+    is then cut off, and their row is E*C, one past the last, which the
+    combine reads as 0."""
+    k = routing.indices.shape[1]
+    dev = routing.indices.device
+    experts, perm = torch.sort(routing.indices, dim=1)
+    w = routing.weights.gather(1, perm)
+    onehot = _one_hot(routing.indices, E).sum(1)                    # (T, E)
+    pos = _tokens_ahead(onehot).gather(1, experts)                   # (T, k)
+    keep = pos < C
+    dest = (experts * (C + 1) + pos.clamp(max=C)).reshape(-1)
+    tok = torch.arange(T, device=dev)[:, None].expand(T, k).reshape(-1)
+    idx = torch.full((E * (C + 1),), T, dtype=torch.int64, device=dev)
+    idx.scatter_(0, dest, tok)
+    return DispatchTables(idx.view(E, C + 1)[:, :C],
+                          torch.where(keep, experts * C + pos, E * C),
+                          torch.where(keep, w, torch.zeros_like(w)))
+
+
+def gather_dispatch(x2d, idx):
+    """x2d: (T, d); idx: (E, C) -> (E, C, d), zero rows for padding (T)."""
+    xpad = torch.cat([x2d, x2d.new_zeros((1, x2d.shape[1]))])
+    return xpad.index_select(0, idx.reshape(-1)).view(*idx.shape, -1)
+
+
+def scatter_combine(ye, rows, weights):
+    """ye: (E, C, d) -> (T, d) fp32: the reference's weighted scatter-add,
+    computed as a gather.  Token t adds ``ye`` at its k ``rows`` times
+    their weights one by one, from zero and in ascending expert order:
+    the order in which the reference's scatter over (e, c) reaches them.
+    With no atomics the sums are the same bits on every run and whoever
+    shares the batch, and only the T·k rows that carry a token are read.
+    An overflowed choice (row E*C) adds 0 whatever ``ye`` holds, as the
+    reference's drop does."""
+    E, C, d = ye.shape
+    T, k = rows.shape
+    drop = rows == E * C
+    g = ye.reshape(E * C, d).index_select(
+        0, rows.clamp(max=E * C - 1).reshape(-1)).view(T, k, d)
+    g = g.float().masked_fill(drop[..., None], 0.0) * \
+        weights.float()[..., None]
+    y = torch.zeros((T, d), dtype=torch.float32, device=ye.device)
+    for i in range(k):
+        y = y + g[:, i]
+    return y
 
 
 def moe_block(params, x, moe: MoEConfig, activation, *, spec=None,

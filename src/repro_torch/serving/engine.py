@@ -34,9 +34,15 @@ Every trace record carries ``modeled_s``, the closed-form seconds of
 that layer's expert flow on the paper's chiplet array
 (``core.autotune.ServingCostModel``); their sum over an iteration is
 ``last_step_modeled_s``, which the scheduler's modeled clock integrates.
-Prefix caching and preemption (ROADMAP A.10), the resident and hybrid
-weight tiers (A.11) and temperature sampling are not ported: decoding is
-greedy.
+
+Sequence state lives in the paged state pool (``serving.statepool``),
+which underpins **prefix caching** (``ServeConfig.prefix_cache``: a
+prompt that shares a cached prefix is admitted with its pages attached
+and computes only the rest) and **preemption** (:meth:`Engine.preempt` /
+:meth:`Engine.restore`, driven by the scheduler under queue pressure):
+both leave every token as it was.  Decoding is greedy, or samples at
+``ServeConfig.temperature`` from ``ServeConfig.seed``.  The resident and
+hybrid weight tiers wait for ROADMAP A.11b.
 """
 from __future__ import annotations
 
@@ -56,17 +62,17 @@ from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import quant
 from repro_torch.models import api, transformer
+from repro_torch.models import moe as moe_mod
 from . import statepool
 from .megastep import MegaStep, chunk_last_logits
 
 
 @dataclass
 class ServeConfig:
-    """The engine's knobs.  Decoding is greedy and the capacity factor is
-    always drop-free (C = T*k, so no token is dropped because of who
-    shares the batch).  ``n_threshold`` defaults from
+    """The engine's knobs.  ``n_threshold`` defaults from
     ``buffering_slack``; ``pool_pages=None`` sizes the pool at two full
-    contexts per slot."""
+    contexts per slot, the headroom prefix entries and preemption handles
+    live in."""
     max_batch: int = 8
     max_ctx: int = 256
     buffering_slack: float = 0.0
@@ -75,9 +81,21 @@ class ServeConfig:
     chunk_tokens: int = 16              # prefill chunk (submit_chunked)
     page_size: int = 8
     pool_pages: Optional[int] = None
+    # content-hashed prompt prefixes admitted with their pages attached
+    prefix_cache: bool = False
+    max_prefix_entries: int = 64
+    # when the scheduler's queue is deeper than this and no slot is free,
+    # one running request is evicted to the pool per step (None: never)
+    preempt_queue_depth: Optional[int] = None
+    # a request's tokens must not depend on who shares the batch, so the
+    # capacity factor is raised to the drop-free bound (C = T*k); False
+    # keeps the config's finite capacity (the paper's EP semantics)
+    drop_free: bool = True
     fused: bool = True                  # False: the eager per-layer loop
     spec: Optional[object] = None       # ExecutionSpec, strategy name or dict
     ema_decay: float = 0.8              # LoadTracker decay (dynamic schedule)
+    temperature: float = 0.0            # 0 = greedy
+    seed: int = 0
 
     def __post_init__(self):
         from repro_torch.core.strategy import ExecutionSpec
@@ -88,6 +106,10 @@ class ServeConfig:
         self.spec = sp.validate()
         if self.page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {self.page_size}")
+        if self.preempt_queue_depth is not None \
+                and self.preempt_queue_depth < 0:
+            raise ValueError("preempt_queue_depth must be >= 0 (or None "
+                             "to disable preemption)")
 
 
 @dataclass
@@ -105,6 +127,9 @@ class RequestState:
     phase: str = "decode"
     prompt: List[int] = field(default_factory=list)   # pending prompt tokens
     prefill_pos: int = 0                              # tokens already cached
+    # the prompt's hash chain (statepool.hash_chain), with prefix_cache on
+    prefix_keys: List[bytes] = field(default_factory=list)
+    preemptions: int = 0                # times evicted to the state pool
 
 
 class QueueFullError(RuntimeError):
@@ -120,7 +145,7 @@ class Engine:
         assert not cfg.is_encoder_decoder, "engine serves LM-family models"
         self.device = resolve_device(device)
         self.params = params
-        if cfg.moe is not None \
+        if scfg.drop_free and cfg.moe is not None \
                 and cfg.moe.capacity_factor < cfg.moe.num_experts:
             cfg = cfg.replace(moe=dataclasses.replace(
                 cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
@@ -137,7 +162,7 @@ class Engine:
         self.pool = statepool.StatePool(
             max_batch=scfg.max_batch, max_ctx=scfg.max_ctx,
             page_size=scfg.page_size, num_pages=num_pages,
-            bytes_per_page=page_b)
+            max_prefix_entries=scfg.max_prefix_entries, bytes_per_page=page_b)
         self._table_dev = self._dev(self.pool.table)
         self.cache_len = np.zeros((scfg.max_batch,), np.int64)
         self.requests: Dict[str, RequestState] = {}
@@ -149,6 +174,7 @@ class Engine:
         self._x = torch.zeros((scfg.max_batch, 1, cfg.d_model),
                               dtype=torch_dtype(cfg.dtype), device=self.device)
         self._rid = itertools.count()
+        self._rng = np.random.default_rng(scfg.seed)
         self.iterations = 0
         self.stats = {"deferrals": 0, "expert_loads": 0,
                       "expert_loads_saved": 0, "iterations": 0,
@@ -156,7 +182,9 @@ class Engine:
                       "prefill_chunks": 0, "prefill_tokens": 0,
                       # fused path: boundary fetches, logits fetches and
                       # prefill fetches, each one copy set and one sync
-                      "host_syncs": 0}
+                      "host_syncs": 0, "preemptions": 0, "restores": 0}
+        # the pool's counters (pages, cache hits / misses / evictions,
+        # prefill tokens saved) live in the same dict
         self.stats.update(self.pool.stats)
         self.pool.stats = self.stats
         self.trace: List[dict] = []
@@ -184,10 +212,12 @@ class Engine:
 
     def megastep(self) -> MegaStep:
         """The fused segments for the current setting: keyed on what the
-        segments read when they are captured (the kernels switch and the
-        ambient weight dtype; the spec and geometry are the engine's), so
-        a graph captured under one setting never replays under another."""
-        key = (kops.kernels_enabled(), quant.weight_dtype())
+        segments read when they are captured (the kernels switch, the
+        ambient weight dtype and dispatch; the spec and geometry are the
+        engine's), so a graph captured under one setting never replays
+        under another."""
+        key = (kops.kernels_enabled(), quant.weight_dtype(),
+               moe_mod.sorted_dispatch_enabled())
         ms = self._megasteps.get(key)
         if ms is None:
             ms = self._megasteps[key] = MegaStep(
@@ -241,16 +271,42 @@ class Engine:
         """Chunked admission: no compute here.  The following ``step``
         calls consume the prompt ``chunk_tokens`` at a time, piggybacked
         on the decode batch; the step that caches the last chunk emits the
-        first token."""
+        first token.
+
+        With ``prefix_cache`` on, the longest cached prefix of the prompt
+        is attached instead of computed (full pages shared, a partial
+        tail page copied now, eagerly) and prefill resumes after it: the
+        same bits as a cold run, since a token's prefill output does not
+        depend on how the prompt was cut into chunks under drop-free
+        capacity."""
         self._validate_request(prompt, max_new)
         if not self.free_slots:
             raise QueueFullError("engine full — wait for completions")
         slot = self.free_slots.popleft()
         rid = f"req{next(self._rid)}"
         self.cache_len[slot] = 0
-        self.requests[rid] = RequestState(
-            rid=rid, slot=slot, prompt_len=len(prompt), max_new=max_new,
-            phase="prefill", prompt=list(prompt))
+        st = RequestState(rid=rid, slot=slot, prompt_len=len(prompt),
+                          max_new=max_new, phase="prefill",
+                          prompt=list(prompt))
+        if self.scfg.prefix_cache:
+            st.prefix_keys = statepool.hash_chain(prompt)
+            # one prompt token must run for the first token's logits
+            hit = self.pool.lookup_prefix(st.prefix_keys, len(prompt) - 1)
+            if hit is not None:
+                try:
+                    copy = self.pool.attach_prefix(hit, slot)
+                except statepool.PoolExhausted:
+                    hit = None
+            if hit is not None:
+                if copy is not None:
+                    statepool.copy_page(self.caches, *copy)
+                self.cache_len[slot] = hit.length
+                st.prefill_pos = hit.length
+                self._record_event("cache_hit", rid=rid, slot=slot,
+                                   cached_tokens=hit.length)
+            else:
+                self.stats["cache_misses"] += 1
+        self.requests[rid] = st
         return rid
 
     @staticmethod
@@ -258,8 +314,14 @@ class Engine:
         return logits.float().cpu().numpy()
 
     def _sample(self, lf: np.ndarray) -> int:
-        """Greedy decoding."""
-        return int(np.asarray(lf, np.float32).argmax())
+        """Greedy at temperature 0, else a draw from the softmax of the
+        fp32 logits at ``temperature``, by the reference's numpy draw."""
+        lf = np.asarray(lf, np.float32)
+        if self.scfg.temperature <= 0:
+            return int(lf.argmax())
+        p = np.exp((lf - lf.max()) / self.scfg.temperature)
+        p /= p.sum()
+        return int(self._rng.choice(len(p), p=p))
 
     # ------------------------------------------------------------------
     # one forward iteration (all active requests advance <= 1 token)
@@ -279,6 +341,25 @@ class Engine:
                 rec["counts"], dynamic=rec["schedule"] == "dynamic")
             self._iter_modeled_s += rec["modeled_s"]
         self.trace.append(rec)
+
+    def _record_event(self, event: str, **fields) -> None:
+        """Append an event record (``cache_hit``, ``preempt``,
+        ``restore``): no counts and no modeled seconds, so consumers of
+        the expert flow skip it."""
+        self.trace.append({"iter": self.iterations, "event": event,
+                           **fields})
+
+    def _register_prefix(self, r: RequestState) -> None:
+        """Cache the slot's pages at this chunk boundary under the prompt
+        prefix's hash; a partial tail page is copied now.  Skipped when
+        the pool cannot spare the tail page even after LRU eviction."""
+        P = r.prefill_pos
+        try:
+            copy = self.pool.register_prefix(r.prefix_keys[P - 1], P, r.slot)
+        except statepool.PoolExhausted:
+            return
+        if copy is not None:
+            statepool.copy_page(self.caches, *copy)
 
     def _ensure_pages(self) -> None:
         """Pages for every KV write of the coming iteration: one position
@@ -358,6 +439,8 @@ class Engine:
             self.cache_len[r.slot] += k_r
             r.prefill_pos += k_r
             self.stats["prefill_tokens"] += k_r
+            if scfg.prefix_cache and r.prefix_keys:
+                self._register_prefix(r)
             if r.prefill_pos < len(r.prompt):
                 continue
             first = self._sample(first_logits[r.slot])
@@ -605,6 +688,50 @@ class Engine:
         return transformer.decode_moe_exec(
             self.params, x, h, routing, self.cfg, layer, self._mask(slots),
             spec=self.scfg.spec, schedule=schedule)
+
+    # ------------------------------------------------------------------
+    # preemption: evict a request's state to the pool, restore it
+    # ------------------------------------------------------------------
+
+    def preempt(self, rid: str) -> statepool.PreemptedState:
+        """Evict an active request at an iteration boundary
+        (``progress == 0``), freeing its slot: its page references move
+        to the handle, nothing on the device moves.  :meth:`restore`
+        resumes it with the same bits in any free slot."""
+        r = self.requests.get(rid)
+        if r is None or r.done:
+            raise ValueError(f"no active request {rid!r}")
+        if r.progress != 0:
+            raise ValueError(
+                f"request {rid!r} is mid-pass (progress={r.progress}): its "
+                f"deferred hidden state lives in the residual buffer and "
+                f"cannot be evicted — pick a victim at progress == 0")
+        handle = statepool.PreemptedState(
+            request=r, page_ids=self.pool.detach_slot(r.slot),
+            cache_len=int(self.cache_len[r.slot]))
+        del self.requests[rid]
+        self.free_slots.append(r.slot)
+        r.preemptions += 1
+        self.stats["preemptions"] += 1
+        self._record_event("preempt", rid=rid, slot=r.slot,
+                           cache_len=handle.cache_len)
+        return handle
+
+    def restore(self, handle: statepool.PreemptedState) -> str:
+        """Resume a preempted request in a free slot, under its own rid."""
+        if not self.free_slots:
+            raise QueueFullError("engine full — cannot restore preempted "
+                                 "request; wait for completions")
+        r = handle.request
+        slot = self.free_slots.popleft()
+        r.slot = slot
+        self.pool.attach_pages(slot, handle.page_ids)
+        self.cache_len[slot] = handle.cache_len
+        self.requests[r.rid] = r
+        self.stats["restores"] += 1
+        self._record_event("restore", rid=r.rid, slot=slot,
+                           cache_len=handle.cache_len)
+        return r.rid
 
     def run(self, max_iterations: int = 10_000) -> Dict[str, List[int]]:
         for _ in range(max_iterations):

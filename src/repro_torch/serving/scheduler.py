@@ -19,8 +19,12 @@ delay (arrival to admission).  The primary clock is the iteration count
 or ``"modeled"``: each step advances by the engine's
 ``last_step_modeled_s``, the chiplet array's modeled seconds.  A
 secondary modeled clock always runs beside it, so the ``*_modeled``
-metrics are always reported.  Preemption under queue pressure waits for
-ROADMAP A.10.
+metrics are always reported.
+
+Under queue pressure (``ServeConfig.preempt_queue_depth``) one running
+request per step is evicted to the state pool (``Engine.preempt``), and
+preempted requests are restored, oldest first, into the slots left once
+the queue drains; a request's tokens do not change.
 """
 from __future__ import annotations
 
@@ -98,6 +102,12 @@ class ServingMetrics:
     tpot_modeled: Dict[str, float] = field(default_factory=dict)
     queue_delay_modeled: Dict[str, float] = field(default_factory=dict)
     elapsed_modeled: float = 0.0
+    # state-pool activity, mirrored from Engine.stats
+    preemptions: int = 0
+    restores: int = 0
+    cache_hits: int = 0
+    cache_misses: int = 0
+    prefill_tokens_saved: int = 0
 
     @property
     def throughput(self) -> float:
@@ -120,6 +130,10 @@ class ServingMetrics:
             "queue_delay_modeled": self.queue_delay_modeled,
             "elapsed_modeled": self.elapsed_modeled,
             "throughput_modeled": self.throughput_modeled,
+            "preemptions": self.preemptions, "restores": self.restores,
+            "cache_hits": self.cache_hits,
+            "cache_misses": self.cache_misses,
+            "prefill_tokens_saved": self.prefill_tokens_saved,
         }
 
 
@@ -147,6 +161,8 @@ class Scheduler:
         self.queue: Deque[Ticket] = deque()
         self.tickets: Dict[str, Ticket] = {}        # by scheduler rid
         self._by_engine: Dict[str, Ticket] = {}     # engine rid -> ticket
+        # preemption handles (Engine.preempt), restored oldest first
+        self._preempted: Deque = deque()
         self._rid = itertools.count()
         self.now = 0.0
         self.iteration = 0
@@ -204,9 +220,12 @@ class Scheduler:
 
     def admit_ready(self) -> List[str]:
         """Fill free engine slots from the queue; returns admitted rids.
-        A slot lost to a concurrent direct ``submit`` surfaces as
-        :class:`QueueFullError`, which requeues the ticket instead of
-        crashing the serving loop."""
+
+        Queued arrivals take freed slots first (what a preemption bought);
+        preempted requests are restored, oldest first, into the slots
+        left once the queue drains.  A slot lost to a concurrent direct
+        ``submit`` surfaces as :class:`QueueFullError`, which requeues the
+        ticket instead of crashing the serving loop."""
         admitted = []
         while self.engine.free_slots and self.queue:
             t = self._pick()
@@ -221,7 +240,27 @@ class Scheduler:
             t.admitted_m = self.modeled_now
             self._by_engine[t.engine_rid] = t
             admitted.append(t.rid)
+        while self.engine.free_slots and self._preempted:
+            self.engine.restore(self._preempted.popleft())
         return admitted
+
+    def _maybe_preempt(self) -> None:
+        """When the queue is deeper than ``preempt_queue_depth`` and no
+        slot is free, evict one victim to the state pool: the request
+        with the most work left, at an iteration boundary, preempted
+        fewer than twice (the cap prevents thrash)."""
+        bound = self.engine.scfg.preempt_queue_depth
+        if bound is None or len(self.queue) <= bound \
+                or self.engine.free_slots:
+            return
+        victims = [r for r in self.engine.requests.values()
+                   if not r.done and r.progress == 0 and r.preemptions < 2]
+        if not victims:
+            return
+        v = max(victims,
+                key=lambda r: (r.max_new - len(r.generated))
+                + (len(r.prompt) - r.prefill_pos))
+        self._preempted.append(self.engine.preempt(v.rid))
 
     # ------------------------------------------------------------------
     # the serving loop
@@ -235,6 +274,7 @@ class Scheduler:
         fully deterministic).  Returns (rid, token) pairs in scheduler
         rids."""
         self.iteration += 1
+        self._maybe_preempt()
         self.admit_ready()
         events = self.engine.step()
         adv = getattr(self.engine, "last_step_modeled_s", 0.0)
@@ -309,6 +349,7 @@ class Scheduler:
         tpot_m = [(t.finished_m - t.first_token_m) / (len(t.tokens) - 1)
                   for t in done
                   if t.first_token_m is not None and len(t.tokens) > 1]
+        est = self.engine.stats
         return ServingMetrics(
             ttft=percentiles(ttft), tpot=percentiles(tpot),
             queue_delay=percentiles(qdel), completed=len(done),
@@ -317,4 +358,8 @@ class Scheduler:
             elapsed=self.now, iterations=self.iteration,
             ttft_modeled=percentiles(ttft_m), tpot_modeled=percentiles(tpot_m),
             queue_delay_modeled=percentiles(qdel_m),
-            elapsed_modeled=self.modeled_now)
+            elapsed_modeled=self.modeled_now,
+            preemptions=int(est["preemptions"]), restores=int(est["restores"]),
+            cache_hits=int(est["cache_hits"]),
+            cache_misses=int(est["cache_misses"]),
+            prefill_tokens_saved=int(est["prefill_tokens_saved"]))

@@ -14,6 +14,7 @@ from repro_torch.configs import reduced_config
 from repro_torch.core import gating
 from repro_torch.kernels import ops
 from repro_torch.models import api
+from repro_torch.models import moe
 from repro_torch.serving import Engine, ServeConfig
 
 ARCH = "granite-moe-1b-a400m"
@@ -29,10 +30,13 @@ def setup():
     return cfg, api.init_params(cfg, seed=0, device="cpu")
 
 
-def _run(cfg, params, *, fused, chunked, schedule, slack=0.0):
+def _run(cfg, params, *, fused, chunked, schedule, slack=0.0,
+         sorted_dispatch=None):
     spec = {"strategy": "capacity"}
     if schedule:
         spec["schedule"] = schedule
+    if sorted_dispatch is not None:
+        spec["sorted_dispatch"] = sorted_dispatch
     eng = Engine(params, cfg, ServeConfig(
         max_batch=4, max_ctx=48, fused=fused, chunk_tokens=3,
         buffering_slack=slack, theta_min=3, page_size=4, spec=spec),
@@ -124,6 +128,28 @@ def test_segments_keyed_on_capture_settings(setup):
     with ops.use_kernels(False):
         assert eng.megastep() is not ms
     assert eng.megastep() is ms
+    # a graph captured under one-hot dispatch never replays under an
+    # ambient use_sorted_dispatch(True)
+    with moe.use_sorted_dispatch(True):
+        sorted_ms = eng.megastep()
+        assert sorted_ms is not ms
+    assert eng.megastep() is ms
+
+
+@pytest.mark.parametrize("slack", [0.0, 0.2])
+@pytest.mark.parametrize("schedule", [None, "dynamic"],
+                         ids=["static", "dynamic"])
+def test_fused_matches_eager_sorted_dispatch(setup, schedule, slack):
+    """Sorted dispatch through the spec: the fused segments give the eager
+    loop's tokens, trace and stats, and the one-hot run's tokens (drop-free
+    capacity, fp32: the two dispatches move the same rows)."""
+    cfg, params = setup
+    runs = [_run(cfg, params, fused=fused, chunked=True, schedule=schedule,
+                 slack=slack, sorted_dispatch=True) for fused in (False, True)]
+    _assert_same(*runs[0], *runs[1])
+    _, one_hot = _run(cfg, params, fused=True, chunked=True,
+                      schedule=schedule, slack=slack)
+    assert runs[1][1] == one_hot
 
 
 def test_fused_engine_on_cpu_makes_no_graph(setup):

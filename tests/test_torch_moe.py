@@ -183,9 +183,14 @@ def test_unported_strategies_raise(name):
 
 
 def test_sorted_dispatch_and_unknown_strategy_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
-        strategy.ExecutionSpec(strategy="capacity",
-                               sorted_dispatch=True).validate()
+    x, jp, tp, jcfg, cfg = _moe_case(T=9, E=4, k=2)
+    spec = strategy.ExecutionSpec(strategy="capacity", sorted_dispatch=True)
+    assert spec.validate() is spec
+    got = moe.moe_block(tp, torch.from_numpy(x), cfg, "swiglu", spec=spec)
+    want = moe.moe_block(tp, torch.from_numpy(x), cfg, "swiglu",
+                         spec="capacity")
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=SORTED_TOL,
+                               atol=SORTED_TOL)
     with pytest.raises(KeyError):
         strategy.get_strategy("nope")
     spec = strategy.ExecutionSpec.load(str(REPO / "examples" / "moe-spec.json"))
@@ -195,3 +200,120 @@ def test_sorted_dispatch_and_unknown_strategy_raise():
     assert dataclasses.replace(spec, sorted_dispatch=None, strategy="dense",
                                prefill=None, decode=None,
                                layer_overrides=()).validate()
+
+
+# ---------------------------------------------------------------------------
+# sorted dispatch (gathers in place of the one-hot products)
+# ---------------------------------------------------------------------------
+
+SORTED_TOL = 2e-5          # the MoE block's fp32 tolerance in the reference
+
+
+def _routings(T, E, k, seed):
+    """The same routing on both sides: the reference's, carried across."""
+    x, jp, tp, _, _ = _moe_case(T=T, E=E, k=k, seed=seed)
+    jr = jgating.route(jp["router"], jnp.asarray(x), top_k=k)
+    r = gating.Routing(*(torch.from_numpy(np.array(a)) for a in jr))
+    return x, jp, tp, jr, gating.Routing(r.indices.long(), *r[1:])
+
+
+@pytest.mark.parametrize("C", [2, 5, 18], ids=["overflow", "overflow5",
+                                               "drop_free"])
+def test_sorted_dispatch_tables_match_reference(C):
+    T, E, k = 9, 4, 2
+    x, _, _, jr, r = _routings(T, E, k, seed=2)
+    tables = moe.dispatch_tables(r, T, E, C)
+    jidx, jwts = jmoe.dispatch_tables(jr, T, E, C)
+    np.testing.assert_array_equal(tables.idx.numpy(), np.asarray(jidx))
+    # the reference's wts, rebuilt from each choice's row and weight
+    wts = torch.zeros(E * C + 1).scatter_(0, tables.rows.reshape(-1),
+                                          tables.weights.reshape(-1))
+    np.testing.assert_array_equal(wts[:E * C].view(E, C).numpy(),
+                                  np.asarray(jwts))
+    np.testing.assert_array_equal(
+        moe.gather_dispatch(torch.from_numpy(x), tables.idx).numpy(),
+        np.asarray(jmoe.gather_dispatch(jnp.asarray(x), jidx)))
+    ye = np.random.default_rng(C).standard_normal((E, C, x.shape[1])) \
+        .astype(np.float32)
+    got = moe.scatter_combine(torch.from_numpy(ye), tables.rows,
+                              tables.weights)
+    # the same products added in the reference scatter's order: same bits
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jmoe.scatter_combine(jnp.asarray(ye), jidx,
+                                                     jwts, T)))
+    # an overflowed choice reads no row of ye (the reference drops it):
+    # empty rows may hold anything, and an inf reaches only its own token
+    ye[np.asarray(jidx) == T] = np.nan
+    ye[0, 0] = ye[-1, -1] = np.inf
+    got = moe.scatter_combine(torch.from_numpy(ye), tables.rows,
+                              tables.weights)
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jmoe.scatter_combine(jnp.asarray(ye), jidx,
+                                                     jwts, T)))
+    kept = (tables.weights != 0).sum().item()
+    assert kept == min(T * k, (np.asarray(jidx) < T).sum())
+    load = np.bincount(r.indices.reshape(-1).numpy(), minlength=E)
+    assert (kept < T * k) == (load.max() > C) == (C < 18)
+
+
+@pytest.mark.parametrize("schedule", ["static", "dynamic", "host"])
+@pytest.mark.parametrize("cf", [1.0, 4.0], ids=["overflow", "drop_free"])
+def test_sorted_moe_capacity_matches_reference(schedule, cf):
+    x, jp, tp, jcfg, cfg = _moe_case(T=13, E=4, k=2, seed=3)
+    jcfg, cfg = (dataclasses.replace(c, capacity_factor=cf)
+                 for c in (jcfg, cfg))
+    jr = jgating.route(jp["router"], jnp.asarray(x), top_k=2)
+    r = gating.route(tp["router"], torch.from_numpy(x), top_k=2)
+    counts = np.asarray(jgating.expert_token_counts(jr))
+    jsched = sched = None
+    if schedule == "dynamic":
+        jsched, sched = jtraj.DYNAMIC, trajectory.DYNAMIC
+    elif schedule == "host":
+        jsched, sched = (mod.build_schedule(counts[::-1].copy())
+                         for mod in (jtraj, trajectory))
+    with jops.use_kernels(False), jmoe.use_sorted_dispatch(True):
+        want = np.asarray(jmoe.moe_capacity(jp, jnp.asarray(x), jr, jcfg,
+                                            "swiglu", schedule=jsched))
+    with moe.use_sorted_dispatch(True):
+        got = moe.moe_capacity(tp, torch.from_numpy(x), r, cfg, "swiglu",
+                               schedule=sched)
+    np.testing.assert_allclose(got.numpy(), want, rtol=SORTED_TOL,
+                               atol=SORTED_TOL)
+    if cf == 1.0:           # C = ceil(13 * 2 / 4) = 7 rows: some overflow
+        assert counts.max() > cfg.capacity_rows(13)
+
+
+def test_sorted_spec_scope_equals_context_toggle():
+    x, _, tp, _, cfg = _moe_case(T=11, E=8, seed=6)
+    xt = torch.from_numpy(x)
+    y_spec = moe.moe_block(tp, xt, cfg, "swiglu", spec=strategy.ExecutionSpec(
+        strategy="capacity", sorted_dispatch=True))
+    with moe.use_sorted_dispatch(True):
+        assert moe.sorted_dispatch_enabled()
+        y_ctx = moe.moe_block(tp, xt, cfg, "swiglu", spec="capacity")
+    assert not moe.sorted_dispatch_enabled()
+    assert torch.equal(y_spec, y_ctx)
+    with moe.use_sorted_dispatch(True):      # an explicit False wins
+        y_off = moe.moe_block(tp, xt, cfg, "swiglu",
+                              spec={"strategy": "capacity",
+                                    "sorted_dispatch": False})
+    assert torch.equal(y_off, moe.moe_block(tp, xt, cfg, "swiglu",
+                                            spec="capacity"))
+
+
+@pytest.mark.parametrize("cf", [1.0, 8.0], ids=["overflow", "drop_free"])
+def test_sorted_dynamic_equals_static_bitwise(cf):
+    x, _, tp, _, cfg = _moe_case(T=11, E=8, seed=5)
+    cfg = dataclasses.replace(cfg, capacity_factor=cf)
+    xt = torch.from_numpy(x)
+    r = gating.route(tp["router"], xt, top_k=cfg.top_k)
+    counts = gating.expert_token_counts(r).numpy()
+    with moe.use_sorted_dispatch(True):
+        static = moe.moe_capacity(tp, xt, r, cfg, "swiglu")
+        for sched in (trajectory.DYNAMIC, trajectory.build_schedule(counts),
+                      trajectory.build_schedule(counts[::-1].copy())):
+            assert torch.equal(moe.moe_capacity(tp, xt, r, cfg, "swiglu",
+                                                schedule=sched), static)
+        y = moe.moe_block(tp, xt, cfg, "swiglu", spec={
+            "strategy": "capacity", "schedule": "dynamic"})
+    assert torch.equal(y, static)
