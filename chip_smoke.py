@@ -25,17 +25,34 @@ Phases, each printing its result on its own line; any failure exits 1:
    under drop-free capacity a token's output keeps its bits at another
    row among other tokens, one-hot and sorted;
    the device time of dispatch plus combine, one-hot against sorted, with
-   the streamed_moe kernel's beside it (the kernel held against its plain
-   version on the sorted rows at C = 1024);
+   the streamed_moe kernel's beside it at the analytic level's tiles and
+   at the default's (the kernel held against its plain version on the
+   sorted rows at C = 1024);
+3c. tiles: every streamed_moe tile setting (``TILE_SETTINGS``) against the
+   default one on the same operands, bit for bit (output and scratch):
+   bf16 at C = 64, 1024, 1280, int8 and fp8 at C = 64, and the ragged
+   cases of phase 3, each also held against the plain version with phase
+   3's checks; then at granite width (C = 64, 1024, 1280 bf16; C = 64
+   int8 and fp8) each setting's device time beside the planner's
+   prediction and its compiled registers, spills and shared memory, the
+   analytic and the measured picks, and three ``torch.bmm`` plus the
+   activation as a yardstick; the analytic pick must take at most 1.10
+   times the default's device time at the three bf16 shapes;
 4. slice: ``repro_torch.launch.serve`` serves 4 requests x 16 tokens of
-   granite-moe-1b-a400m at full width in bf16 on the default fused engine:
+   granite-moe-1b-a400m at full width in bf16 on the default fused engine,
+   under ``--autotune analytic`` (the default), ``off`` and ``measured``:
    a first run captures the CUDA graphs (capture seconds logged), a second
    run on the same engine replays them: no new capture, ``nb + 1`` host
    syncs per steady iteration, and streamed_moe launches (the wrapper's
    count plus captured launches x replays) equal to the MoE-layer calls;
-   its wall, tok/s and peak memory;
+   its wall, tok/s and peak memory; the three levels give the same tokens
+   and launches; under ``measured`` (its cache in a temporary directory,
+   ``REPRO_AUTOTUNE_CACHE``) the first engine times tile candidates and
+   writes ``kernel_tiles_torch.json``, and a second engine, the memory
+   dropped, reads the file, times nothing (``autotune.TIMINGS``) and
+   serves the same tokens (a timing inside a capture would raise);
 5. fused: the fused engine against the eager per-layer loop on the card
-   (bf16, full width, the same prompts): static, ``--schedule dynamic
+   (bf16, full width, the same prompts, the analytic level): static, ``--schedule dynamic
    --slack 0.2`` and chunked admission, then with sorted dispatch
    (``--moe-spec``, ``"sorted_dispatch": true``) static and dynamic with
    slack 0.2; tokens, the trace record for record and the statistics must
@@ -84,7 +101,8 @@ Phases, each printing its result on its own line; any failure exits 1:
     1024 in phase 3b, and on the forward path, ``flash_attention`` on the
     forward path, ``ssd`` on the mamba path),
     each with that path's launches and its shape's times (``ms`` one call
-    with its host work, ``device_ms`` the device time per call) and bound; the
+    with its host work, ``device_ms`` the device time per call) and bound,
+    and for streamed_moe the tile setting the path ran (``tiles``); the
     ``nvidia-smi`` name/power line; and the contract line
     ``{"ok": true, "device": {"platform": "gpu", ...}}`` last.
 
@@ -196,6 +214,24 @@ DISPATCH_CASES = (("decode", TRAFFIC_BATCH, True),
                   ("prefill", TRAFFIC_BATCH * CHUNK, True),
                   ("scoring", SCORE_B * SCORE_S, False))
 SORTED_SPEC = {"strategy": "capacity", "sorted_dispatch": True}
+# phase 3c: every tile setting against the default on these operands (E,
+# C, d, m, activation, weight format, activations' dtype) must give the
+# same bits: the serving shapes (decode C = 64, the traffic prefill C =
+# 1024, the scoring forward C = 1280) and phase 3's ragged ones
+TILE_BITS_CASES = tuple(
+    [(32, C_, 1024, 512, "swiglu", "bf16", "bf16") for C_ in (64, 1024, 1280)]
+    + [(32, 64, 1024, 512, "swiglu", w, "bf16") for w in ("int8", "fp8")]
+    + [(4, 37, 256, 96, act, w, x) for act in ("relu2", "gelu")
+       for w in ("bf16", "int8", "fp8") for x in ("bf16", "fp32")
+       if not (w == "bf16" and x == "fp32")]
+    + [(4, 64, 512, 1024, "swiglu", w, "bf16")
+       for w in ("bf16", "int8", "fp8")])
+# ... and is timed at these (bf16 activations); the analytic pick must take
+# at most TILE_GATE times the default's device time on the bf16 ones
+TILE_TIME_CASES = tuple(
+    [(32, C_, 1024, 512, "swiglu", "bf16") for C_ in (64, 1024, 1280)]
+    + [(32, 64, 1024, 512, "swiglu", w) for w in ("int8", "fp8")])
+TILE_GATE = 1.10
 # phase 6b: phase 6's stream with four Zipf-shared 64-token system prompts
 # in front of each private part (cut so the prompt stays within 128
 # tokens); 16-token chunks, so the prefixes end on chunk boundaries
@@ -487,13 +523,17 @@ def _check_streamed_moe():
             fail("kernels", line)
         if (E_, d_, m_, act) == (E, d, m, "swiglu") and \
                 C_ in (C, C_CHUNK, C_SCORE):
+            # timed with the tiles the serving paths run (the analytic
+            # level's); phase 3c holds every setting to these bits
+            tiles = _planned(E_, C_, d_, m_, act,
+                             "fp32" if x_dtype == f32 else "bf16", wdt)
             times, text = kernel_times(lambda: sm.streamed_moe_kernel(
-                xe, *ws, activation=act, **scales))
+                xe, *ws, activation=act, tiles=tiles, **scales))
             plain_ms = median_ms(lambda: ref.streamed_moe_plain(
                 xe, *ws, act, **scales))
             bound, by = streamed_moe_bound_ms(E_, C_, d_, m_, wdt,
                                               xe.element_size())
-            line += (f"; {text}, plain {plain_ms:.4f} ms, "
+            line += (f"; tiles {tiles}: {text}, plain {plain_ms:.4f} ms, "
                      f"bound {bound * 1e3:.1f} us ({by})")
             path = {("bf16", C): "serve", ("fp8", C): "serve_fp8",
                     ("bf16", C_CHUNK): "serve_chunked",
@@ -501,7 +541,8 @@ def _check_streamed_moe():
             if path:
                 paths[path] = dict(
                     max_abs_err=err_plain, **times, plain_ms=plain_ms,
-                    bound_ms=bound, bound_by=by, library_ms=None)
+                    bound_ms=bound, bound_by=by, library_ms=None,
+                    tiles=tiles)
         log("kernels", line)
     return paths
 
@@ -775,18 +816,22 @@ def _dispatch_times(params, x, r, mcfg, act, C):
         return moe.scatter_combine(ye, tables.rows, tables.weights) \
             .to(x.dtype)
 
-    def kernel():
-        return sm.streamed_moe_kernel(xe, *ws, activation=act)
+    tiles = _planned(E, C, x.shape[1], ws[1].shape[-1], act)
+
+    def kernel(tiles=tiles):
+        return sm.streamed_moe_kernel(xe, *ws, activation=act, tiles=tiles)
     with torch.no_grad():
         t_oh, t_so = device_ms(one_hot)[0], device_ms(sorted_)[0]
         t_k = device_ms(kernel)[0]
+        t_off = device_ms(lambda: kernel(None))[0]
         combine = moe.dispatch_masks(r, T, E, C)[1]
         cost = {label: (device_ms(lambda: fn(combine, ye))[0],
                         _peak_bytes(lambda: fn(combine, ye)))
                 for label, fn in _combines().items()}
     text = (f"; dispatch + combine on the device: one-hot {t_oh:.4f} ms, "
             f"sorted {t_so:.4f} ms ({t_oh / t_so:.1f}x); streamed_moe "
-            f"{t_k:.4f} ms; the one-hot combine alone: " + ", ".join(
+            f"{t_k:.4f} ms at the analytic level ({tiles}), {t_off:.4f} ms "
+            f"at off (the default); the one-hot combine alone: " + ", ".join(
                 f"{label} {ms:.4f} ms (+{b / 2**20:.1f} MiB at its peak)"
                 for label, (ms, b) in cost.items()))
     if C != C_CHUNK:
@@ -806,7 +851,124 @@ def _dispatch_times(params, x, r, mcfg, act, C):
     text += (f"; {ktext}, plain {plain_ms:.4f} ms, bound "
              f"{bound * 1e3:.1f} us ({by})")
     return text, dict(max_abs_err=err, **times, plain_ms=plain_ms,
-                      bound_ms=bound, bound_by=by, library_ms=None)
+                      bound_ms=bound, bound_by=by, library_ms=None,
+                      tiles=tiles)
+
+
+def _planned(E, C, d, m, act, x_dtype="bf16", weight_dtype="bf16"):
+    """The setting the analytic level runs for this call's shape."""
+    from repro_torch.core import autotune
+    return autotune.plan_kernel_tiles(E, C, d, m, act, None, x_dtype,
+                                      weight_dtype)["tiles"]
+
+
+def _same_bits(a, b):
+    """Bit for bit, NaNs included."""
+    import torch
+    view = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.view(view[a.dtype]), b.view(view[b.dtype]))
+
+
+def phase_tiles():
+    """Every setting of TILE_SETTINGS against the default one (the tiles
+    the kernel took before it took settings) on the same operands: the
+    same bits, output and scratch, on the bf16 and the 8-bit paths at
+    TILE_BITS_CASES, and each held against the plain version with phase
+    3's checks.  Then at TILE_TIME_CASES every setting's device time
+    beside the planner's prediction and its compiled registers, spills
+    and shared memory; the analytic and measured picks; three torch.bmm
+    plus the activation as a yardstick; and the gate: the analytic pick
+    at most TILE_GATE times the default's device time on the serving
+    shapes."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import autotune
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import streamed_moe as sm
+    profile = autotune.CardProfile.detect()
+    log("tiles", f"card profile: {profile}")
+    dtypes = {"fp32": torch.float32, "bf16": torch.bfloat16}
+    for (E, C, d, m, act, wdt, x) in TILE_BITS_CASES:
+        x_dtype = dtypes[x]
+        xe, wg, wu, wd = _moe_inputs(E, C, d, m, act, x_dtype)
+        ws, scales = _stream_operands(wg, wu, wd, wdt)
+        path = sm.tile_path(x_dtype, ws[1].dtype)
+        h0, out0 = sm._launch(xe, *ws, act, **scales)
+        plain = ref.streamed_moe_plain(xe, *ws, act, **scales)
+        h_plain = ref.streamed_moe_plain_h(xe, *ws, act, **scales) \
+            if path == "bf16" else None
+        worst = 0.0
+        for name in sm.TILE_SETTINGS[path]:
+            h, out = sm._launch(xe, *ws, act, tiles=name, **scales)
+            torch.cuda.synchronize()
+            what = f"E={E} C={C} d={d} m={m} {act} w={wdt} x={x} tiles {name}"
+            if not (_same_bits(out, out0) and _same_bits(h, h0)):
+                diff = (out - out0).abs().max().item()
+                fail("tiles", f"{what}: not the default's bits (out max abs "
+                              f"diff {diff:.3e}, h equal "
+                              f"{_same_bits(h, h0)})")
+            if path == "bf16":
+                ok, mt = moe_bf16_check(h, out, h_plain, xe, *ws, act)
+                worst = max(worst, mt["over"])
+            else:
+                err = rel_err(out, plain)
+                ok = err <= PLAIN_TOL
+                worst = max(worst, err)
+            if not ok:
+                fail("tiles", f"{what}: fails phase 3's hold against plain")
+        log("tiles", f"E={E} C={C} d={d} m={m} {act} w={wdt} "
+                     f"x={x}: all {len(sm.TILE_SETTINGS[path])} "
+                     f"settings give the default's bits (out and h); against"
+                     f" plain " + (f"h at most {worst:.3f} of its bound"
+                                   if path == "bf16" else
+                                   f"rel at most {worst:.3e} (tol "
+                                   f"{PLAIN_TOL:g})"))
+    for (E, C, d, m, act, wdt) in TILE_TIME_CASES:
+        xe, wg, wu, wd = _moe_inputs(E, C, d, m, act, torch.bfloat16)
+        ws, scales = _stream_operands(wg, wu, wd, wdt)
+        path = sm.tile_path(xe.dtype, ws[1].dtype)
+        plan = autotune.plan_kernel_tiles(E, C, d, m, act, profile, "bf16",
+                                          wdt)
+        times = {}
+        for name in sm.TILE_SETTINGS[path]:
+            times[name] = device_ms(lambda: sm.streamed_moe_kernel(
+                xe, *ws, activation=act, tiles=name, **scales))[0]
+            cost = autotune.tile_cost(E, C, d, m, act, name, profile, "bf16",
+                                      wdt)
+            up, down = cost["phases"]
+            log("tiles", f"E={E} C={C} d={d} m={m} {act} w={wdt} {name}: "
+                         f"device {times[name]:.4f} ms, predicted "
+                         f"{cost['t'] * 1e3:.4f} ms (fits {cost['fits']}); "
+                         + "; ".join(
+                             f"{ph} {p['regs']} regs, {p['spill']} B spilled,"
+                             f" {p['smem']} B shared, {p['threads']} threads,"
+                             f" {p['blocks_per_sm']} blocks an SM, "
+                             f"{p['waves']:.2f} waves"
+                             for ph, p in (("up", up), ("down", down))))
+        entry = autotune.measured_kernel_tiles(E, C, d, m, act, "bf16", wdt,
+                                               profile=profile)
+        default, pick = plan["default"], plan["tiles"]
+        line = (f"E={E} C={C} d={d} m={m} {act} w={wdt}: default {default} "
+                f"{times[default]:.4f} ms (predicted "
+                f"{plan['default_s'] * 1e3:.4f}); analytic pick {pick} "
+                f"{times[pick]:.4f} ms (predicted "
+                f"{plan['predicted_s'] * 1e3:.4f}, "
+                f"{times[pick] / times[default]:.3f} of the default's); "
+                f"measured pick {entry['tiles']} {entry['ms']:.4f} ms of "
+                f"{len(entry['candidates'])} timed; fastest here "
+                f"{min(times, key=times.get)} {min(times.values()):.4f} ms")
+        if wdt == "bf16":
+            def chain():
+                g = torch.bmm(xe, ws[0])
+                h = F.silu(g) * torch.bmm(xe, ws[1])
+                return torch.bmm(h, ws[2]).float()
+            line += (f"; bmm_chain_ms (3 torch.bmm + silu, a yardstick the "
+                     f"port never calls) {device_ms(chain)[0]:.4f}")
+            if times[pick] > TILE_GATE * times[default]:
+                fail("tiles", f"{line}: the analytic pick is over "
+                              f"{TILE_GATE:g} times the default's time")
+        log("tiles", line)
 
 
 def _serve(argv):
@@ -846,31 +1008,100 @@ def _zero_counts(eng=None):
 SLICE_ARGV = ["--requests", "4", "--prompt-len", "8", "--max-new", "16"]
 
 
-def phase_slice(kernel_ms):
-    """The default (fused) engine: a first run that captures the graphs,
-    then a second run on the same engine that only replays them."""
+def phase_slice(kernel_ms, cache_root):
+    """The default (fused) engine under each autotune level (``--autotune
+    off``, ``analytic``, the default, and ``measured``): a first run that
+    captures the graphs, then a second run on the same engine that only
+    replays them; the three give the same tokens and launches.  Under
+    ``measured`` the first engine times the tiles into an empty cache
+    under ``cache_root`` and writes the file, and a second engine, with
+    the memory dropped, reads it and times nothing.  -> the analytic run's
+    streamed_moe launches."""
     import torch
+    from repro_torch.core import autotune
+    runs = {}
+    for level in ("off", "analytic", "measured"):
+        if level == "measured":
+            cache = os.path.join(cache_root, "slice")
+            os.environ["REPRO_AUTOTUNE_CACHE"] = cache
+            autotune.forget_measured()
+            timed = autotune.TIMINGS
+        runs[level] = _slice_run(level, kernel_ms)
+        if level == "measured":
+            path = os.path.join(cache, autotune.CACHE_FILE)
+            if autotune.TIMINGS == timed or not os.path.exists(path):
+                fail("slice", f"measured: {autotune.TIMINGS - timed} "
+                              f"timings, cache file written "
+                              f"{os.path.exists(path)}")
+            with open(path) as f:
+                entries = json.load(f)
+            autotune.forget_measured()
+            timed = autotune.TIMINGS
+            again = _serve(SLICE_ARGV + ["--autotune", "measured"])
+            toks = list(again["outs"].values())
+            if autotune.TIMINGS != timed or toks != runs[level]["outs"]:
+                fail("slice", f"measured, second engine: "
+                              f"{autotune.TIMINGS - timed} timings (want 0 "
+                              f"from the cache), same tokens "
+                              f"{toks == runs[level]['outs']}")
+            log("slice", f"measured: the first engine timed "
+                         f"{runs[level]['timed']} candidates and wrote "
+                         f"{autotune.CACHE_FILE} ({len(entries)} entries: "
+                         + "; ".join(f"{k.split('/')[-1]} -> {v['tiles']} "
+                                     f"{v['ms']:.4f} ms" for k, v in
+                                     entries.items())
+                         + "); a second engine read it, timed 0, captured "
+                           "its graphs and served the same tokens")
+            del again
+        torch.cuda.empty_cache()
+    for level, run in runs.items():
+        if run["outs"] != runs["analytic"]["outs"] or \
+                run["launches"] != runs["analytic"]["launches"]:
+            fail("slice", f"--autotune {level}: tokens equal "
+                          f"{run['outs'] == runs['analytic']['outs']}, "
+                          f"launches {run['launches']} vs "
+                          f"{runs['analytic']['launches']} at analytic")
+    log("slice", "the same tokens and streamed_moe launches under every "
+                 "level; warm tok/s " + ", ".join(
+                     f"{level} {run['tps']:.1f}" for level, run in
+                     runs.items()))
+    return runs["analytic"]["launches"]
+
+
+def _slice_run(level, kernel_ms):
+    """One engine at ``--autotune level``: the cold run, then the warm one
+    on the same engine.  -> the warm run's outputs, launches and tok/s, and
+    the tiles timed during the cold run."""
+    import torch
+    from repro_torch.core import autotune
     from repro_torch.launch import serve
     from repro_torch.models.api import leaves
+    argv = SLICE_ARGV + ["--autotune", level]
     torch.cuda.reset_peak_memory_stats()
     _zero_counts()
-    cold = _serve(SLICE_ARGV)
+    timed, timing = autotune.TIMINGS, autotune.TIMING_LAUNCHES
+    cold = _serve(argv)
+    timed = autotune.TIMINGS - timed
+    timing = autotune.TIMING_LAUNCHES - timing
     eng, cfg = cold["engine"], cold["cfg"]
     ms = eng.megastep()
     nb = len(ms.boundaries)
     launches = _launches(eng)
     expected = _n_moe(cfg) * (4 + eng.stats["iterations"])
-    if launches != expected:
-        fail("slice", f"first run: streamed_moe launched {launches} times, "
-                      f"want {expected} MoE-layer calls")
-    log("slice", f"first run (captures): {cold['seconds']:.3f}s, "
+    if launches != expected + timing:
+        fail("slice", f"{level} first run: streamed_moe launched {launches} "
+                      f"times, want {expected} MoE-layer calls and {timing} "
+                      f"launches of the tile timing")
+    log("slice", f"--autotune {level} first run (captures): "
+                 f"{cold['seconds']:.3f}s, "
                  f"{ms.captures} graphs captured in {ms.capture_s:.3f}s, "
-                 f"streamed_moe launches {launches} == {expected}")
+                 f"streamed_moe launches {launches} == {expected} MoE calls "
+                 f"+ {timing} of the timing of {timed} tile candidates")
     captures, syncs0, iters0 = ms.captures, eng.stats["host_syncs"], \
         eng.stats["iterations"]
     _zero_counts(eng)
-    res = serve.run(serve.parse_args(["--arch", ARCH, "--seed", "0"]
-                                     + SLICE_ARGV), engine=eng)
+    res = serve.run(serve.parse_args(["--arch", ARCH, "--seed", "0"] + argv),
+                    engine=eng)
     launches = _launches(eng)
     iters = eng.stats["iterations"] - iters0
     syncs = eng.stats["host_syncs"] - syncs0
@@ -894,7 +1125,8 @@ def phase_slice(kernel_ms):
     _check_on_card(res, "slice")
     n_params = sum(t.numel() for _, t in leaves(res["params"]))
     tps = len(toks) / res["seconds"]
-    log("slice", f"{ARCH} full width bf16 ({n_params / 1e9:.3f} B params, "
+    log("slice", f"--autotune {level}: {ARCH} full width bf16 "
+                 f"({n_params / 1e9:.3f} B params, "
                  f"{cfg.num_layers} layers), fused engine, graphs captured: "
                  f"4 requests x 16 tokens = {len(toks)} tokens in "
                  f"{res['seconds']:.3f}s ({tps:.1f} tok/s; the 4 one-shot "
@@ -906,9 +1138,11 @@ def phase_slice(kernel_ms):
                  f"streamed_moe launches {launches} == {expected} MoE calls "
                  f"({eng.graph_launches()} by graph replays), peak memory "
                  f"{peak / 2**30:.2f} GiB")
-    log("slice", f"streamed_moe share of wall time ~ launches x device "
-                 f"kernel ms / wall = {launches * kernel_ms / 1e3 / res['seconds']:.3f}")
-    return launches
+    log("slice", f"--autotune {level}: streamed_moe share of wall time ~ "
+                 f"launches x device kernel ms / wall = "
+                 f"{launches * kernel_ms / 1e3 / res['seconds']:.3f}")
+    return dict(outs=list(res["outs"].values()), launches=launches, tps=tps,
+                timed=timed)
 
 
 def _same_run(fused, eager, what):
@@ -1687,13 +1921,18 @@ def main():
         card = phase_env()
         import tempfile
         import torch
+        # the measured level's cache: never the checkout's
+        autotune_cache = tempfile.TemporaryDirectory()
+        os.environ["REPRO_AUTOTUNE_CACHE"] = autotune_cache.name
         phase_build()
         rows = phase_kernels()
         sorted_row = phase_dispatch()
         rows["streamed_moe"].update(serve_sorted=sorted_row,
                                     serve_prefix=sorted_row)
-        launches = {("streamed_moe", "serve"): phase_slice(
-            rows["streamed_moe"]["serve"]["device_ms"])}
+        phase_tiles()
+        with tempfile.TemporaryDirectory() as cache_root:
+            launches = {("streamed_moe", "serve"): phase_slice(
+                rows["streamed_moe"]["serve"]["device_ms"], cache_root)}
         with tempfile.TemporaryDirectory() as tmp:
             spec_path = os.path.join(tmp, "sorted-dispatch.json")
             with open(spec_path, "w") as f:

@@ -1,1 +1,3 @@
-"""Routing, scheduling policies, trajectories and execution strategies."""
+"""Routing, scheduling policies, trajectories, execution strategies and the
+autotune level of the Hopper tile planner."""
+from .autotune import CardProfile, HardwareProfile, use_autotune  # noqa: F401

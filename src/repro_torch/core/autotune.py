@@ -1,24 +1,75 @@
-"""The serving engine's modeled chiplet clock (port of the cost-model part
-of ``repro.core.autotune``).
+"""The autotune level, the Hopper tile planner of ``streamed_moe`` and the
+serving engine's modeled chiplet clock (port of ``repro.core.autotune``
+but for the distributed planner).
 
-:class:`ServingCostModel` turns each workload-trace record (observed
-per-expert counts and the schedule policy) into closed-form seconds of
-the paper's chiplet array: DDR streams expert weights in trajectory order
-while the array computes the expert loaded before (double-buffered).  The
-profile is pure Table-I constants (:mod:`repro_torch.sim.hardware`), so
-the modeled TTFT / TPOT are the same on every machine; they describe the
-modeled array, never the card the port runs on.
+**The level** (``use_autotune``, ``autotune_level``; ``REPRO_AUTOTUNE``
+sets the default, ``analytic``): ``off`` launches the kernel's default
+tiles, ``analytic`` the tiles :func:`plan_kernel_tiles` scores best, and
+``measured`` the fastest of a few candidates timed once on the card and
+kept on disk (:func:`measured_kernel_tiles`).  :func:`kernel_opts_for` is
+the dispatch ``kernels.ops.streamed_moe_autotuned`` asks.
 
-The two-tier ``hybrid`` pricing waits for ROADMAP A.11b and the kernel
-tile planner (``plan_moe``, tiles, measured timing) for A.12.
+**The planner** is the counterpart of the reference's VMEM / HBM tile
+scoring, rebuilt for the CUDA kernel and the card (:class:`CardProfile`):
+a setting of ``kernels.streamed_moe.TILE_SETTINGS`` must fit the block's
+shared memory and 255 registers a thread without spilling (on the card
+the registers and spills are the compiled kernel's, from
+``cudaFuncGetAttributes``; on the CPU an estimate), and is priced
+(:func:`tile_cost`) as the larger of a compute time (tensor-core
+operations, the tiles its blocks load from L2 and its ring stages, at
+rates measured on the card, times its wave quantisation) and a memory
+time (device-memory bytes over the bandwidth).  The default setting is
+always a candidate and wins ties: a setting must be predicted ``TIE``
+faster to replace it.
+
+**The modeled clock**: :class:`ServingCostModel` turns each workload-trace
+record (observed per-expert counts and the schedule policy) into
+closed-form seconds of the paper's chiplet array: DDR streams expert
+weights in trajectory order while the array computes the expert loaded
+before (double-buffered).  The profile is pure Table-I constants
+(:mod:`repro_torch.sim.hardware`), so the modeled TTFT / TPOT are the same
+on every machine; they describe the modeled array, never the card the
+port runs on.
+
+The two-tier ``hybrid`` pricing waits for ROADMAP A.11b, and the
+distributed planner (``plan_moe``, ``mode_cost``, ``Plan``) for A.14.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import functools
+import json
 import math
+import os
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 from repro_torch.configs.base import moe_capacity_rows
+from repro_torch.kernels.quant import WEIGHT_DTYPES
+
+LEVELS = ("off", "analytic", "measured")
+# autotune level: "off" (the kernel's default tiles), "analytic" (the
+# planner's tiles, the default), "measured" (timed tiles, cached on disk)
+_LEVEL = contextvars.ContextVar(
+    "repro_torch_autotune",
+    default=os.environ.get("REPRO_AUTOTUNE", "analytic"))
+
+
+@contextlib.contextmanager
+def use_autotune(level: str):
+    """Scope the autotune level: 'off' | 'analytic' | 'measured'."""
+    if level not in LEVELS:
+        raise ValueError(f"unknown autotune level {level!r}")
+    tok = _LEVEL.set(level)
+    try:
+        yield
+    finally:
+        _LEVEL.reset(tok)
+
+
+def autotune_level() -> str:
+    return _LEVEL.get()
 
 
 @dataclass(frozen=True)
@@ -178,3 +229,484 @@ class ServingCostModel:
             total, self.profile, dtype_bytes=self.dtype_bytes,
             weight_bytes=self.weight_bytes, resident=resident,
             load=load)["total_s"]
+
+
+# ---------------------------------------------------------------------------
+# the card
+# ---------------------------------------------------------------------------
+
+# What torch's device properties do not say, by device name: the
+# data-sheet device-memory bandwidth and bf16 / fp32 peaks (NVIDIA's H100
+# SXM data sheet), and three rates of the streamed_moe kernel on the card
+# as tools/fit_tile_model.py fits them (least squares in log time) to the
+# device times of its 12 bf16 settings at (E, d, m) = (32, 1024, 512) and
+# C = 64, 1024 and 1280 (H100 80GB HBM3 at a 700 W limit): the mma.sync
+# rate, the L2-to-SM rate of the tiles the blocks load, and the seconds a
+# ring stage costs a block slot (its wait and barrier).  The fit's rms
+# error is 11.6%.
+_CARDS = {
+    "NVIDIA H100 80GB HBM3": dict(
+        sms=132, smem_block=232448, smem_sm=233472, regs_sm=65536,
+        l2_bytes=50 * 2 ** 20, mem_bw=3.35e12, bf16_peak=989e12,
+        fp32_peak=67e12, mma_rate=450e12, l2_bw=16e12, stage_s=0.55e-6),
+}
+
+
+@dataclass(frozen=True)
+class CardProfile:
+    """What the tile planner needs to know about the card (the counterpart
+    of ``HardwareProfile.from_tpu`` / ``detect`` in the reference)."""
+
+    name: str
+    sms: int                   # streaming multiprocessors
+    smem_block: int            # shared bytes a block may opt into
+    smem_sm: int               # shared bytes an SM holds for blocks
+    regs_sm: int               # 32-bit registers an SM holds
+    l2_bytes: int
+    mem_bw: float              # device-memory bytes/s
+    bf16_peak: float           # tensor-core bf16 FLOP/s, data sheet
+    fp32_peak: float           # CUDA-core fp32 FLOP/s, data sheet
+    mma_rate: float            # bf16 mma.sync FLOP/s the kernel reaches
+    l2_bw: float               # L2-to-SM bytes/s of the tiles blocks load
+    stage_s: float             # seconds a ring stage costs a block slot
+    device: Optional[int] = None   # a card's index: read compiled resources
+    regs_thread: int = 255
+    threads_sm: int = 2048
+    blocks_sm: int = 32
+    smem_reserved: int = 1024  # shared bytes the SM keeps per block
+
+    @classmethod
+    def h100_sxm(cls) -> "CardProfile":
+        """The H100 SXM's constants (no card needed)."""
+        return cls(name="NVIDIA H100 80GB HBM3",
+                   **_CARDS["NVIDIA H100 80GB HBM3"])
+
+    @classmethod
+    def from_device(cls, index: int = 0) -> "CardProfile":
+        """Read from ``torch.cuda.get_device_properties``, with the rates
+        from the table of known cards; an unknown card raises."""
+        import torch
+        props = torch.cuda.get_device_properties(index)
+        known = _CARDS.get(props.name)
+        if known is None:
+            raise ValueError(f"no tile-planner profile for {props.name!r}; "
+                             f"known cards: {sorted(_CARDS)}")
+        read = dict(sms=props.multi_processor_count,
+                    l2_bytes=props.L2_cache_size,
+                    smem_block=getattr(props, "shared_memory_per_block_optin",
+                                       known["smem_block"]),
+                    smem_sm=props.shared_memory_per_multiprocessor,
+                    regs_sm=getattr(props, "regs_per_multiprocessor",
+                                    known["regs_sm"]),
+                    threads_sm=props.max_threads_per_multi_processor)
+        return cls(name=props.name, device=index, **{**known, **read})
+
+    @classmethod
+    def detect(cls) -> "CardProfile":
+        import torch
+        if not torch.cuda.is_available():
+            raise RuntimeError("the tile planner needs a CUDA card (or an "
+                               "explicit CardProfile, e.g. h100_sxm())")
+        return _detected(torch.cuda.current_device())
+
+
+@functools.lru_cache(maxsize=None)
+def _detected(index: int) -> CardProfile:
+    return CardProfile.from_device(index)
+
+
+# ---------------------------------------------------------------------------
+# the tile planner
+# ---------------------------------------------------------------------------
+
+# A setting replaces the default only when it is predicted at least this
+# much faster: about the model's rms error (_CARDS), so closer predictions
+# count as ties, which the default wins.
+TIE = 0.10
+# device memory moves whole 128-byte lines through L2
+LINE_BYTES = 128
+
+
+def _torch_dtype(name: str):
+    import torch
+    return {"fp32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8,
+            "fp8": torch.float8_e4m3fn}[name]
+
+
+def _path(x_dtype: str, weight_dtype: str) -> str:
+    from repro_torch.kernels import streamed_moe as sm
+    return sm.tile_path(_torch_dtype(x_dtype), _torch_dtype(weight_dtype))
+
+
+def default_tiles(C: int, x_dtype: str = "bf16",
+                  weight_dtype: str = "bf16") -> str:
+    """The setting the kernel takes with no explicit tiles."""
+    from repro_torch.kernels import streamed_moe as sm
+    return sm.DEFAULT_TILES(C, _torch_dtype(weight_dtype),
+                            _torch_dtype(x_dtype))
+
+
+def _phases(path: str, row, gated: bool, x_dtype: str):
+    """Per phase (up, down) of a setting: (rows a block, columns a block,
+    k-rows a stage, threads, ring shared bytes, accumulator registers a
+    thread, mma passes over the activations: 3 for an operand taken as
+    three bf16 planes)."""
+    from repro_torch.kernels import streamed_moe as sm
+    n_up = 2 if gated else 1
+    if path == "bf16":
+        bm, bn, wm, wn, bk, st = row
+        threads = 32 * (bm // wm) * (bn // wn)
+        return [(bm, bn, bk, threads,
+                 2 * st * (bm * (bk + 8) + n * bk * (bn + 8)),
+                 n * wm * wn // 32, 1) for n in (n_up, 1)]
+    if path == "8bit":
+        bm = sm.Q_ROWS_A_BLOCK
+        parts_x = 3 if x_dtype == "fp32" else 1
+        out = []
+        for (bn, wn, bk, st), n, parts in ((row[0], n_up, parts_x),
+                                           (row[1], 1, 3)):
+            smem = st * (parts * bm * (bk + 8) * 2 + n * bk * (bn + 16))
+            acc = (2 if parts > 1 else 1) * n * 4 * (wn // 8) * 4
+            out.append((bm, bn, bk, 32 * bn // wn, smem, acc, parts))
+        return out
+    bm, bn, bk = row
+    return [(bm, bn, bk, 256, 4 * (2 * bk * (bm + 4) + 2 * n * bk * bn),
+             16 * n, 1) for n in (n_up, 1)]
+
+
+@functools.lru_cache(maxsize=None)
+def _compiled(tiles: str, x_dtype: str, weight_dtype: str):
+    """The compiled resources of a setting's kernels on the card
+    (``kernels.streamed_moe.tile_attrs``), read once."""
+    from repro_torch.kernels import streamed_moe as sm
+    return sm.tile_attrs(tiles, _torch_dtype(x_dtype),
+                         _torch_dtype(weight_dtype))
+
+
+def _estimated_regs(acc: int, parts: int) -> int:
+    """Registers a thread on the CPU: the accumulators, the A fragments
+    (four a 16-row tile and plane) and about 40 for addresses, B
+    fragments and the loop."""
+    return acc + 16 * parts + 40
+
+
+def blocks_per_sm(profile: CardProfile, threads: int, smem: int,
+                  regs: int) -> int:
+    """Blocks an SM holds, from its threads, shared memory and registers
+    (allocated a warp at a time, in units of 256)."""
+    warp_regs = -(-regs * 32 // 256) * 256
+    by_regs = profile.regs_sm // (warp_regs * (threads // 32))
+    by_smem = profile.smem_sm // (smem + profile.smem_reserved)
+    return max(0, min(profile.threads_sm // threads, by_smem, by_regs,
+                      profile.blocks_sm))
+
+
+def tile_cost(E: int, C: int, d: int, m: int, activation: str, tiles: str,
+              profile: CardProfile, x_dtype: str = "bf16",
+              weight_dtype: str = "bf16") -> Dict[str, object]:
+    """The predicted seconds of one ``streamed_moe`` call with setting
+    ``tiles``, and whether it fits the card.
+
+    Per phase, the larger of two times.  Compute: the tensor-core work
+    (padded rows and columns, each mma pass counted) over
+    ``profile.mma_rate`` (the fp32 peak on the CUDA-core path), plus the
+    tiles every block loads into shared memory over ``profile.l2_bw``
+    (smaller blocks re-read more), plus ``profile.stage_s`` for each ring
+    stage a block slot runs; times the waves of blocks the grid needs (the
+    tail wave counted whole) over the waves it fills, a wave being the SMs
+    times the blocks an SM holds, or times ceil(blocks / SMs) when that is
+    fewer.  Memory: the device-memory bytes over ``profile.mem_bw``, the
+    weight stream's at the share of a 128-byte line that a block's row of
+    a weight tile covers (a block reads BN columns of each weight row);
+    weights count once per expert when all its blocks fit on the card at
+    once (its row tiles then share them through L2), else once per row
+    tile, and x, h and out as the phases move them."""
+    from repro_torch.kernels import streamed_moe as sm
+    path = _path(x_dtype, weight_dtype)
+    row = sm.TILE_SETTINGS[path].get(tiles)
+    if row is None:
+        raise ValueError(f"unknown streamed_moe tile setting {tiles!r} for "
+                         f"the {path} path; known: "
+                         f"{list(sm.TILE_SETTINGS[path])}")
+    gated = activation == "swiglu"
+    wb = WEIGHT_DTYPES[weight_dtype]
+    xb = WEIGHT_DTYPES[x_dtype]
+    hb = {"bf16": 2, "8bit": 6, "simt": 4}[path]       # h as the kernel keeps it
+    ab = 4 if path == "simt" else 2                    # a shared activation element
+    compiled = None if profile.device is None else \
+        _compiled(tiles, x_dtype, weight_dtype)
+    attr_key = ("up_swiglu" if gated else f"up_{activation}", "down")
+    rate = profile.fp32_peak if path == "simt" else profile.mma_rate
+    phases = []
+    # (contraction, columns, weight matrices, bytes in besides weights,
+    # bytes out)
+    x_in = E * C * d * xb + (E * C * d * (4 + 6) if path == "8bit"
+                             and x_dtype == "fp32" else 0)
+    shapes = ((d, m, 2 if gated else 1, x_in, E * C * m * hb),
+              (m, d, 1, E * C * m * hb, E * C * d * 4))
+    for (bm, bn, bk, threads, smem, acc, parts), key, \
+            (K, N, n_w, b_in, b_out) in zip(
+                _phases(path, row, gated, x_dtype), attr_key, shapes):
+        if compiled is None:
+            regs, spill = _estimated_regs(acc, parts), 0
+        else:
+            regs, spill = compiled[key]["regs"], compiled[key]["spill_bytes"]
+        row_tiles, col_tiles = -(-C // bm), -(-N // bn)
+        blocks = row_tiles * col_tiles * E
+        per_sm = blocks_per_sm(profile, threads, smem, regs)
+        fits = (smem <= profile.smem_block and regs <= profile.regs_thread
+                and spill == 0 and per_sm > 0)
+        # the slots the grid can fill: a grid of fewer blocks than slots
+        # puts at most ceil(blocks / SMs) on an SM
+        slots = profile.sms * max(1, min(per_sm, -(-blocks // profile.sms)))
+        filled = blocks / slots
+        ops = 2.0 * E * row_tiles * bm * K * col_tiles * bn * n_w * parts
+        loaded = blocks * K * (bm * ab * parts + n_w * bn * wb)
+        stages = blocks * -(-K // bk) / slots
+        t_ops = (ops / rate + loaded / profile.l2_bw
+                 + stages * profile.stage_s) * math.ceil(filled) / filled
+        together = row_tiles * col_tiles <= slots
+        weights = n_w * K * N * wb * E * (1 if together else row_tiles)
+        moved = weights / min(1.0, bn * wb / LINE_BYTES) + b_in + b_out
+        if path == "8bit":
+            moved += 4 * E * N * n_w                    # scales
+        t_bytes = moved / profile.mem_bw
+        phases.append(dict(t=max(t_ops, t_bytes), t_ops=t_ops,
+                           t_bytes=t_bytes, fits=fits, regs=regs,
+                           spill=spill, smem=smem, threads=threads,
+                           blocks=blocks, blocks_per_sm=per_sm,
+                           waves=filled))
+    return {"t": sum(p["t"] for p in phases),
+            "fits": all(p["fits"] for p in phases), "phases": phases}
+
+
+def plan_kernel_tiles(E: int, C: int, d: int, m: int, activation: str,
+                      profile: Optional[CardProfile] = None,
+                      x_dtype: str = "bf16",
+                      weight_dtype: str = "bf16") -> Dict[str, object]:
+    """Score every setting of the call's path and return the winner with
+    its predicted seconds, the default's, and every fitting candidate by
+    predicted time.  The default setting is always a candidate and wins
+    ties (within ``TIE``); the other settings that do not fit (shared
+    memory, registers, spills) are not candidates, and a default that
+    does not fit loses to any that does."""
+    from repro_torch.kernels import streamed_moe as sm
+    profile = profile or CardProfile.detect()
+    default = default_tiles(C, x_dtype, weight_dtype)
+    scored = {}
+    for name in sm.TILE_SETTINGS[_path(x_dtype, weight_dtype)]:
+        sc = tile_cost(E, C, d, m, activation, name, profile, x_dtype,
+                       weight_dtype)
+        if sc["fits"] or name == default:
+            scored[name] = sc
+    # fitting settings first; a default that does not fit loses to any
+    # that does
+    ranked = sorted(scored, key=lambda n: (not scored[n]["fits"],
+                                           scored[n]["t"], n != default))
+    best = ranked[0]
+    if scored[default]["fits"] and \
+            scored[best]["t"] > (1.0 - TIE) * scored[default]["t"]:
+        best = default
+    return {"tiles": best, "default": default,
+            "predicted_s": scored[best]["t"],
+            "default_s": scored[default]["t"], "fits": scored[best]["fits"],
+            "ranked": [(name, scored[name]["t"]) for name in ranked]}
+
+
+# ---------------------------------------------------------------------------
+# measured tiles (cached on disk)
+# ---------------------------------------------------------------------------
+
+# the measured level times the default, the analytic pick and this many
+# more of the planner's ranking
+NEIGHBOURS = 3
+# candidates timed, so a run can show a cache hit timed nothing; and the
+# kernel launches the timing made (each counted by the kernel's wrapper too)
+TIMINGS = 0
+TIMING_LAUNCHES = 0
+_MEASURED: Dict[str, dict] = {}
+_CACHE_LOADED = False
+CACHE_FILE = "kernel_tiles_torch.json"   # the reference's is kernel_tiles.json
+
+
+def _repo_root() -> str:
+    return os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__)))))
+
+
+def cache_dir() -> str:
+    return os.environ.get("REPRO_AUTOTUNE_CACHE",
+                          os.path.join(_repo_root(), "artifacts", "autotune"))
+
+
+def _cache_path() -> str:
+    return os.path.join(cache_dir(), CACHE_FILE)
+
+
+def _load_cache() -> None:
+    global _CACHE_LOADED
+    if _CACHE_LOADED:
+        return
+    _CACHE_LOADED = True
+    try:
+        with open(_cache_path()) as f:
+            _MEASURED.update(json.load(f))
+    except (OSError, ValueError):
+        pass
+
+
+def _save_cache() -> None:
+    os.makedirs(cache_dir(), exist_ok=True)
+    with open(_cache_path(), "w") as f:
+        json.dump(_MEASURED, f, indent=1, sort_keys=True)
+
+
+def forget_measured() -> None:
+    """Drop the in-memory measured tiles, so the next lookup reads the
+    disk cache again."""
+    global _CACHE_LOADED
+    _MEASURED.clear()
+    _CACHE_LOADED = False
+    _kernel_opts_cached.cache_clear()
+
+
+def _kernel_hash() -> str:
+    from repro_torch.kernels import build
+    return build.source_hash("streamed_moe")
+
+
+def _device_key() -> str:
+    import torch
+    return (f"{torch.cuda.get_device_name()}/torch{torch.__version__}/"
+            f"cuda{torch.version.cuda}")
+
+
+def measured_key(E: int, C: int, d: int, m: int, activation: str,
+                 x_dtype: str, weight_dtype: str) -> str:
+    """The card, the torch and CUDA versions, the kernel source's hash and
+    the call's shape: a stale entry never picks tiles by another kernel's
+    times."""
+    return (f"{_device_key()}/src{_kernel_hash()}/E{E}_C{C}_d{d}_m{m}_"
+            f"{activation}_x{x_dtype}_w{weight_dtype}")
+
+
+def _time_setting(E: int, C: int, d: int, m: int, activation: str,
+                  x_dtype: str, weight_dtype: str, tiles: str,
+                  reps: int) -> float:
+    """Milliseconds of device time of one call with setting ``tiles``, on
+    random operands made on the card from seed 0: CUDA events around
+    ``reps`` calls after three warm-up calls."""
+    global TIMING_LAUNCHES
+    import torch
+    from repro_torch.kernels import quant
+    from repro_torch.kernels import streamed_moe as sm
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    kw = dict(generator=gen, device="cuda")
+    xe = torch.randn(E, C, d, **kw).to(_torch_dtype(x_dtype))
+    ws = [torch.randn(E, *s, **kw) / s[0] ** 0.5
+          for s in ((d, m), (d, m), (m, d))]
+    if not activation == "swiglu":
+        ws[0] = None
+    scales = {}
+    if weight_dtype in quant.QUANTIZED:
+        qs = [quant.quantize(w, weight_dtype) if w is not None else (None, None)
+              for w in ws]
+        ws = [q for q, _ in qs]
+        scales = dict(zip(("s_g", "s_u", "s_d"), (s for _, s in qs)))
+    else:
+        ws = [quant.storage_cast(w, weight_dtype) for w in ws]
+
+    def call():
+        return sm.streamed_moe_kernel(xe, *ws, activation=activation,
+                                      tiles=tiles, **scales)
+    TIMING_LAUNCHES += 3 + reps
+    for _ in range(3):
+        call()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        call()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def measured_kernel_tiles(E: int, C: int, d: int, m: int, activation: str,
+                          x_dtype: str = "bf16", weight_dtype: str = "bf16",
+                          reps: int = 20,
+                          profile: Optional[CardProfile] = None) -> dict:
+    """Time the default setting, the analytic pick and the next
+    ``NEIGHBOURS`` settings of the planner's ranking once, and keep the
+    fastest, in memory and on disk (``kernel_tiles_torch.json`` under
+    ``cache_dir()``), keyed by :func:`measured_key`.  Never times inside a
+    CUDA graph capture: a key that is not cached then raises."""
+    global TIMINGS
+    import torch
+    _load_cache()
+    key = measured_key(E, C, d, m, activation, x_dtype, weight_dtype)
+    if key in _MEASURED:
+        return _MEASURED[key]
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"measured tiles for {key} are not cached, and "
+                           f"nothing is timed inside a CUDA graph capture: "
+                           f"run the call once eagerly first")
+    plan = plan_kernel_tiles(E, C, d, m, activation, profile, x_dtype,
+                             weight_dtype)
+    cands = [plan["default"]]
+    for name, _ in plan["ranked"]:
+        if name not in cands and len(cands) < NEIGHBOURS + 2:
+            cands.append(name)
+    rows = []
+    for name in cands:
+        ms = _time_setting(E, C, d, m, activation, x_dtype, weight_dtype,
+                           name, reps)
+        TIMINGS += 1
+        rows.append({"tiles": name, "ms": ms})
+    best = min(rows, key=lambda r: r["ms"])
+    entry = {"tiles": best["tiles"], "ms": best["ms"],
+             "analytic": plan["tiles"], "analytic_s": plan["predicted_s"],
+             "candidates": rows}
+    _MEASURED[key] = entry
+    _save_cache()
+    return entry
+
+
+# ---------------------------------------------------------------------------
+# the dispatch
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=4096)
+def _kernel_opts_cached(E: int, C: int, d: int, m: int, activation: str,
+                        x_dtype: str, weight_dtype: str, level: str,
+                        profile: Optional[CardProfile]
+                        ) -> Tuple[Tuple[str, str], ...]:
+    if level == "off":
+        return ()
+    if level == "measured":
+        entry = measured_kernel_tiles(E, C, d, m, activation, x_dtype,
+                                      weight_dtype, profile=profile)
+        return (("tiles", entry["tiles"]),)
+    plan = plan_kernel_tiles(E, C, d, m, activation, profile, x_dtype,
+                             weight_dtype)
+    return (("tiles", plan["tiles"]),)
+
+
+def kernel_opts_for(E: int, C: int, d: int, m: int, activation: str, *,
+                    level: Optional[str] = None,
+                    profile: Optional[CardProfile] = None,
+                    x_dtype: str = "bf16",
+                    weight_dtype: str = "bf16") -> Dict[str, str]:
+    """Tile kwargs (``{"tiles": name}``) for one ``streamed_moe`` call
+    shape under the ambient (or given) autotune level; ``{}`` at level
+    'off', the kernel's default.  The formats of the activations and the
+    streamed weights ('fp32', 'bf16', 'int8', 'fp8') pick the kernel path
+    whose settings are planned."""
+    level = level or autotune_level()
+    if level not in LEVELS:
+        raise ValueError(f"unknown autotune level {level!r}")
+    if level == "off":
+        return {}
+    return dict(_kernel_opts_cached(
+        int(E), int(C), int(d), int(m), activation, x_dtype, weight_dtype,
+        level, profile or CardProfile.detect()))

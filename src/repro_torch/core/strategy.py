@@ -5,10 +5,9 @@ single-device part of ``repro.core.strategy``).
 reads ``examples/moe-spec.json``.  The registry holds the single-device
 strategies ``dense`` and ``capacity``.  The other reference strategies
 are known names that raise ``NotImplementedError`` naming the ROADMAP
-step that ports them.  The spec's scope enters its kernels, sorted
-dispatch and weight-dtype toggles.  Its ``autotune`` level is carried and
-ignored: the Hopper tile planner is not ported yet (the kernel's tiles
-are fixed).
+step that ports them.  The spec's scope enters its autotune level (the
+Hopper tile planner's, ``core.autotune.use_autotune``), then its kernels,
+sorted dispatch and weight-dtype toggles.
 """
 from __future__ import annotations
 
@@ -18,6 +17,7 @@ import json
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
+from repro_torch.core import autotune
 from repro_torch.kernels import quant
 
 PHASES = ("train", "prefill", "decode")
@@ -93,8 +93,11 @@ class ExecutionSpec:
 
     @contextlib.contextmanager
     def scope(self):
-        """Apply the spec's kernels, dispatch and weight-dtype toggles."""
+        """Apply the spec's autotune, kernels, dispatch and weight-dtype
+        toggles."""
         with contextlib.ExitStack() as stack:
+            if self.autotune is not None:
+                stack.enter_context(autotune.use_autotune(self.autotune))
             if self.use_kernels is not None:
                 from repro_torch.kernels import ops as kops
                 stack.enter_context(kops.use_kernels(self.use_kernels))

@@ -5,4 +5,10 @@ Three CUDA C++ kernels, one for each Pallas kernel of ``repro.kernels``:
 (``csrc/flash_attention.cu``) and ``ssd`` (``csrc/ssd.cu``, the SSD
 intra-chunk terms), each wrapped by the module of the same name, with
 its plain PyTorch version and the reference's oracle in ``ref``.
+``streamed_moe_autotuned`` runs the grouped FFN with the tile planner's
+setting (``core.autotune``).  The dispatch functions named like a kernel
+module (``ops.streamed_moe``, ``ops.flash_attention``) stay in ``ops``:
+here those names are the modules.
 """
+from .ops import (kernels_enabled, ssd_intra_chunk,  # noqa: F401
+                  streamed_moe_autotuned, use_kernels)

@@ -46,11 +46,16 @@ def nvcc() -> str:
                        "toolkit (set NVCC or put nvcc on PATH)")
 
 
-def _target(name: str) -> Path:
+def source_hash(name: str) -> str:
+    """A hash of ``csrc/<name>.cu``, the shared headers and the flags: what
+    names a build, and what keys anything measured of it."""
     src = (CSRC / f"{name}.cu").read_bytes() \
         + b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return build_dir() / f"lib{name}-{tag}.so"
+    return hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+
+
+def _target(name: str) -> Path:
+    return build_dir() / f"lib{name}-{source_hash(name)}.so"
 
 
 def _start(name: str):

@@ -18,24 +18,30 @@
 // tiles, not over token tiles, so all 132 SMs stream disjoint slices of the
 // weights at once and each weight tile is read from device memory by one
 // block only when C fits one row tile (decode).  Two phases:
-//   1. grid (m/64, C/BM, E): a block streams its 64-column slice of w_g and
+//   1. grid (m/BN, C/BM, E): a block streams its BN-column slice of w_g and
 //      w_u over d and writes the activated h[e, rows, cols] (rounded to bf16
 //      when w_d is bf16) to a scratch (E, C, m);
-//   2. grid (d/64, C/BM, E): a block streams its 64-column slice of w_d over
+//   2. grid (d/BN, C/BM, E): a block streams its BN-column slice of w_d over
 //      m and writes out[e, rows, cols].
 // The expert is the grid's slowest axis, so all blocks of one expert (its
 // column tiles, row tile by row tile) run at about the same time, and at
 // large C the expert's weight slices are read from device memory about once
 // and from L2 by its other row tiles.
 //
+// The tiles are chosen at launch: each tensor-core path has a table of
+// settings (TC_SETTINGS, Q_SETTINGS below; the counterpart of the Pallas
+// kernel's token_tile / dmodel_tile / dexpert_tile), the caller passes a
+// row of it, and core/autotune.py plans which.  No setting splits K or
+// reorders a sum, so every setting gives the same bits.
+//
 // bf16 activations x bf16 weights (the serving and scoring paths) run on the
 // tensor cores: mma.sync.m16n8k16 with fp32 accumulation, bf16 tiles read by
-// ldmatrix, warps of 32 x 32 outputs (BM = 64 rows, 4 warps; BM = 128 rows,
-// 8 warps, when C > 64).  The activation and weight tiles stream through a
-// four-stage cp.async ring, three stages (24 KB of weights for swiglu) in
-// flight per block while the fourth is multiplied.  h is bf16 here (exact:
-// it is rounded to bf16 before the down product anyway).  This path takes
-// d and m multiples of 8 (16-byte rows).
+// ldmatrix, warps of WM x WN outputs (the default: 32 x 32, BM = 64 rows and
+// 4 warps when C <= 64, else BM = 128 and 8 warps; BN = 64).  The activation
+// and weight tiles stream through a cp.async ring (the default: four stages
+// of 32 k-rows, three in flight per block while the fourth is multiplied).
+// h is bf16 here (exact: it is rounded to bf16 before the down product
+// anyway).  This path takes d and m multiples of 8 (16-byte rows).
 //
 // int8 / fp8-e4m3 weights (bf16 or fp32 activations) run on the same
 // mma.sync bf16 tensor cores with the reference's fp32 accuracy: every 8-bit
@@ -66,7 +72,9 @@
 // rules out TF32 for fp32-valued operands; h is an fp32 scratch there.
 //
 // Plain C interface for ctypes: one launch function that runs both phases
-// on the caller's stream, allocates nothing, and returns cudaGetLastError().
+// with the setting it is given on the caller's stream, allocates nothing,
+// and returns cudaGetLastError(); and one that reports each setting's
+// compiled registers, spills and shared memory, for the planner.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -319,85 +327,117 @@ down_kernel(const float* __restrict__ h, const TW* __restrict__ wd, float* __res
 // ------------------------------------------ bf16 x bf16 on the tensor cores
 
 using bf16 = __nv_bfloat16;
-constexpr int TC_BN = 64;            // weight columns per block
-constexpr int TC_BK = 32;            // contraction rows per stage
-constexpr int TC_STAGES = 4;         // cp.async ring depth
-constexpr int TC_XS = TC_BK + 8;     // activation tile row stride (80 bytes)
-constexpr int TC_WS = TC_BN + 8;     // weight tile row stride (144 bytes)
 
-// A block of BM rows runs (BM / 32) x 2 warps of 32 x 32 outputs; a stage
-// holds a BM x TC_BK activation tile and NMAT TC_BK x TC_BN weight tiles.
-template <int BM, int NMAT>
-struct TcShape {
-  static constexpr int NT = BM * 2;
-  static constexpr int X_ELEMS = BM * TC_XS;
-  static constexpr int W_ELEMS = TC_BK * TC_WS;
-  static constexpr int STAGE = X_ELEMS + NMAT * W_ELEMS;
-  static constexpr int SMEM = 2 * TC_STAGES * STAGE;
+// The settings of the bf16 tensor-core path, one per row: BM rows and BN
+// columns a block, warps of WM x WN outputs, BK k-rows a stage, STAGES
+// stages in the cp.async ring.  Row i is setting i of streamed_moe_forward's
+// `tiles`; repro_torch.kernels.streamed_moe.TILE_SETTINGS["bf16"] holds the
+// same rows in the same order (a CPU test parses this list).  Rows 0 and 1
+// are the default rule's: 64-row blocks when C <= 64, else 128.  Every
+// setting sums each output's k16 products in ascending k into one fp32
+// accumulator, so all give the same bits.
+#define TC_SETTINGS(X)        \
+  X(64, 64, 32, 32, 32, 4)    \
+  X(128, 64, 32, 32, 32, 4)   \
+  X(64, 32, 32, 32, 32, 4)    \
+  X(64, 32, 32, 32, 64, 4)    \
+  X(64, 64, 32, 32, 64, 4)    \
+  X(64, 64, 64, 32, 32, 4)    \
+  X(64, 128, 32, 64, 32, 4)   \
+  X(128, 64, 64, 32, 32, 4)   \
+  X(128, 64, 32, 32, 64, 3)   \
+  X(128, 128, 64, 32, 32, 4)  \
+  X(128, 128, 32, 64, 32, 4)  \
+  X(128, 128, 64, 32, 64, 3)
+
+template <int BM_, int BN_, int WM_, int WN_, int BK_, int STAGES_>
+struct TcCfg {
+  static constexpr int BM = BM_, BN = BN_, WM = WM_, WN = WN_, BK = BK_, STAGES = STAGES_;
+  static constexpr int WARPS_N = BN / WN;
+  static constexpr int NT = 32 * (BM / WM) * WARPS_N;
+  static constexpr int MI = WM / 16;   // m16 tiles a warp
+  static constexpr int NJ = WN / 8;    // n8 tiles a warp
+  static constexpr int XS = BK + 8;    // activation tile row stride (bf16)
+  static constexpr int WS = BN + 8;    // weight tile row stride (bf16)
+  static_assert(BM % WM == 0 && BN % WN == 0 && WM % 16 == 0 && WN % 16 == 0 && BK % 16 == 0 &&
+                    STAGES >= 2,
+                "bad tensor-core tile setting");
 };
 
-// acc[mat] += x[r0 : r0+BM, :] @ w[mat][:, c0 : c0+TC_BN] for row-major
-// x (R, K) and w (K, N), each warp keeping its 32 x 32 share: acc[mat][i][j]
-// is the m16 tile i, n8 tile j.  Rows past R, columns past N and k past K
-// load as zeros (K and N multiples of 8).
-template <int BM, int NMAT>
-__device__ __forceinline__ void tc_mainloop(float (&acc)[NMAT][2][4][4], bf16* smem,
+// A stage holds a BM x BK activation tile and NMAT BK x BN weight tiles,
+// rows padded by 16 bytes so that ldmatrix's eight rows hit distinct banks.
+template <class Cfg, int NMAT>
+struct TcShape {
+  static constexpr int X_ELEMS = Cfg::BM * Cfg::XS;
+  static constexpr int W_ELEMS = Cfg::BK * Cfg::WS;
+  static constexpr int STAGE = X_ELEMS + NMAT * W_ELEMS;
+  static constexpr int SMEM = 2 * Cfg::STAGES * STAGE;
+};
+
+// acc[mat] += x[r0 : r0+BM, :] @ w[mat][:, c0 : c0+BN] for row-major
+// x (R, K) and w (K, N), each warp keeping its WM x WN share: acc[mat][i][j]
+// is the warp's m16 tile i, n8 tile j.  Rows past R, columns past N and k
+// past K load as zeros (K and N multiples of 8).  Each output's k16 steps
+// run in ascending k whatever the setting.
+template <class Cfg, int NMAT>
+__device__ __forceinline__ void tc_mainloop(float (&acc)[NMAT][Cfg::MI][Cfg::NJ][4], bf16* smem,
                                             const bf16* __restrict__ x, int R, int K, int r0,
                                             const bf16* const (&w)[NMAT], int N, int c0) {
-  using S = TcShape<BM, NMAT>;
+  using S = TcShape<Cfg, NMAT>;
+  constexpr int BM = Cfg::BM, BN = Cfg::BN, BK = Cfg::BK, STAGES = Cfg::STAGES;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wm = warp / 2, wn = warp % 2;
-  const int nk = (K + TC_BK - 1) / TC_BK;
+  const int wm = warp / Cfg::WARPS_N, wn = warp % Cfg::WARPS_N;
+  const int nk = (K + BK - 1) / BK;
   auto load = [&](int kt, int stage) {
     bf16* xs = smem + stage * S::STAGE;
-    const int k0 = kt * TC_BK;
-    for (int i = tid; i < BM * (TC_BK / 8); i += S::NT) {
-      const int r = i / (TC_BK / 8), c = (i % (TC_BK / 8)) * 8;
+    const int k0 = kt * BK;
+    for (int i = tid; i < BM * (BK / 8); i += Cfg::NT) {
+      const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
       const bool ok = r0 + r < R && k0 + c < K;
-      tc::cp_async16(xs + r * TC_XS + c, ok ? x + (size_t)(r0 + r) * K + k0 + c : x, ok);
+      tc::cp_async16(xs + r * Cfg::XS + c, ok ? x + (size_t)(r0 + r) * K + k0 + c : x, ok);
     }
 #pragma unroll
     for (int mat = 0; mat < NMAT; ++mat) {
       bf16* ws = xs + S::X_ELEMS + mat * S::W_ELEMS;
-      for (int i = tid; i < TC_BK * (TC_BN / 8); i += S::NT) {
-        const int r = i / (TC_BN / 8), c = (i % (TC_BN / 8)) * 8;
+      for (int i = tid; i < BK * (BN / 8); i += Cfg::NT) {
+        const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
         const bool ok = k0 + r < K && c0 + c < N;
-        tc::cp_async16(ws + r * TC_WS + c, ok ? w[mat] + (size_t)(k0 + r) * N + c0 + c : w[mat],
+        tc::cp_async16(ws + r * Cfg::WS + c, ok ? w[mat] + (size_t)(k0 + r) * N + c0 + c : w[mat],
                        ok);
       }
     }
   };
-  // Prologue: stages 0 .. TC_STAGES-2 in flight (a group per stage, empty
+  // Prologue: stages 0 .. STAGES-2 in flight (a group per stage, empty
   // past the last tile, so the group count stays fixed).
 #pragma unroll
-  for (int st = 0; st < TC_STAGES - 1; ++st) {
+  for (int st = 0; st < STAGES - 1; ++st) {
     if (st < nk) load(st, st);
     tc::cp_async_commit();
   }
   for (int kt = 0; kt < nk; ++kt) {
-    tc::cp_async_wait<TC_STAGES - 2>();   // tile kt has landed (this thread's copies)
-    __syncthreads();                      // ... everyone's; stage (kt-1) is free again
-    const int next = kt + TC_STAGES - 1;
-    if (next < nk) load(next, next % TC_STAGES);
+    tc::cp_async_wait<STAGES - 2>();   // tile kt has landed (this thread's copies)
+    __syncthreads();                   // ... everyone's; stage (kt-1) is free again
+    const int next = kt + STAGES - 1;
+    if (next < nk) load(next, next % STAGES);
     tc::cp_async_commit();
-    const bf16* xs = smem + (kt % TC_STAGES) * S::STAGE;
+    const bf16* xs = smem + (kt % STAGES) * S::STAGE;
 #pragma unroll
-    for (int kk = 0; kk < TC_BK / 16; ++kk) {
-      uint32_t a[2][4];
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t a[Cfg::MI][4];
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
-        tc::ldmatrix_x4(a[i], xs + (wm * 32 + i * 16 + lane % 16) * TC_XS + kk * 16 +
+      for (int i = 0; i < Cfg::MI; ++i)
+        tc::ldmatrix_x4(a[i], xs + (wm * Cfg::WM + i * 16 + lane % 16) * Cfg::XS + kk * 16 +
                                   (lane / 16) * 8);
 #pragma unroll
       for (int mat = 0; mat < NMAT; ++mat) {
         const bf16* ws = xs + S::X_ELEMS + mat * S::W_ELEMS;
 #pragma unroll
-        for (int jp = 0; jp < 2; ++jp) {
+        for (int jp = 0; jp < Cfg::NJ / 2; ++jp) {
           uint32_t b[4];
-          tc::ldmatrix_x4_trans(b, ws + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * TC_WS +
-                                       wn * 32 + jp * 16 + (lane / 16) * 8);
+          tc::ldmatrix_x4_trans(b, ws + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * Cfg::WS +
+                                       wn * Cfg::WN + jp * 16 + (lane / 16) * 8);
 #pragma unroll
-          for (int i = 0; i < 2; ++i) {
+          for (int i = 0; i < Cfg::MI; ++i) {
             tc::mma_bf16(acc[mat][i][2 * jp], a[i], b[0], b[1]);
             tc::mma_bf16(acc[mat][i][2 * jp + 1], a[i], b[2], b[3]);
           }
@@ -409,25 +449,26 @@ __device__ __forceinline__ void tc_mainloop(float (&acc)[NMAT][2][4][4], bf16* s
 }
 
 // Phase 1 on the tensor cores: h[e, rows, cols] = bf16(act(x w_g, x w_u)).
-template <int BM, int ACT>
-__global__ void __launch_bounds__(BM * 2)
+template <class Cfg, int ACT>
+__global__ void __launch_bounds__(Cfg::NT)
 up_kernel_tc(const bf16* __restrict__ xe, const bf16* __restrict__ wg,
              const bf16* __restrict__ wu, bf16* __restrict__ h, int C, int d, int m) {
   constexpr int NMAT = ACT == ACT_SWIGLU ? 2 : 1;   // [0] up, [1] gate
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int e = blockIdx.z, c0 = blockIdx.x * TC_BN, r0 = blockIdx.y * BM;
+  const int e = blockIdx.z, c0 = blockIdx.x * Cfg::BN, r0 = blockIdx.y * Cfg::BM;
   const bf16* w[NMAT];
   w[0] = wu + (size_t)e * d * m;
   if constexpr (NMAT == 2) w[1] = wg + (size_t)e * d * m;
-  float acc[NMAT][2][4][4] = {};
-  tc_mainloop<BM, NMAT>(acc, reinterpret_cast<bf16*>(smem_raw), xe + (size_t)e * C * d, C, d,
-                        r0, w, m, c0);
+  float acc[NMAT][Cfg::MI][Cfg::NJ][4] = {};
+  tc_mainloop<Cfg, NMAT>(acc, reinterpret_cast<bf16*>(smem_raw), xe + (size_t)e * C * d, C, d,
+                         r0, w, m, c0);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int rw = r0 + (warp / 2) * 32 + lane / 4, cw = c0 + (warp % 2) * 32 + 2 * (lane % 4);
+  const int rw = r0 + (warp / Cfg::WARPS_N) * Cfg::WM + lane / 4;
+  const int cw = c0 + (warp % Cfg::WARPS_N) * Cfg::WN + 2 * (lane % 4);
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < Cfg::MI; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < Cfg::NJ; ++j)
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int r = rw + i * 16 + half * 8, c = cw + j * 8;
@@ -440,22 +481,23 @@ up_kernel_tc(const bf16* __restrict__ xe, const bf16* __restrict__ wg,
 }
 
 // Phase 2 on the tensor cores: out[e, rows, cols] = h[e] @ w_d[e], fp32.
-template <int BM>
-__global__ void __launch_bounds__(BM * 2)
+template <class Cfg>
+__global__ void __launch_bounds__(Cfg::NT)
 down_kernel_tc(const bf16* __restrict__ h, const bf16* __restrict__ wd,
                float* __restrict__ out, int C, int d, int m) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int e = blockIdx.z, c0 = blockIdx.x * TC_BN, r0 = blockIdx.y * BM;
+  const int e = blockIdx.z, c0 = blockIdx.x * Cfg::BN, r0 = blockIdx.y * Cfg::BM;
   const bf16* w[1] = {wd + (size_t)e * m * d};
-  float acc[1][2][4][4] = {};
-  tc_mainloop<BM, 1>(acc, reinterpret_cast<bf16*>(smem_raw), h + (size_t)e * C * m, C, m, r0,
-                     w, d, c0);
+  float acc[1][Cfg::MI][Cfg::NJ][4] = {};
+  tc_mainloop<Cfg, 1>(acc, reinterpret_cast<bf16*>(smem_raw), h + (size_t)e * C * m, C, m, r0,
+                      w, d, c0);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int rw = r0 + (warp / 2) * 32 + lane / 4, cw = c0 + (warp % 2) * 32 + 2 * (lane % 4);
+  const int rw = r0 + (warp / Cfg::WARPS_N) * Cfg::WM + lane / 4;
+  const int cw = c0 + (warp % Cfg::WARPS_N) * Cfg::WN + 2 * (lane % 4);
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < Cfg::MI; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < Cfg::NJ; ++j)
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int r = rw + i * 16 + half * 8, c = cw + j * 8;
@@ -465,51 +507,84 @@ down_kernel_tc(const bf16* __restrict__ h, const bf16* __restrict__ wd,
       }
 }
 
-template <int BM, typename Kernel, typename... Args>
-void launch_tc_kernel(Kernel kernel, int bytes, dim3 grid, cudaStream_t s, Args... args) {
+// Launch with dynamic shared memory; above the 48 KB default the kernel
+// must be allowed more first.
+template <typename Kernel, typename... Args>
+void launch_dyn(Kernel kernel, int bytes, dim3 grid, int threads, cudaStream_t s,
+                Args... args) {
   if (bytes > 48 * 1024)
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  kernel<<<grid, BM * 2, bytes, s>>>(args...);
+  kernel<<<grid, threads, bytes, s>>>(args...);
 }
 
-template <int BM>
-void launch_tc_bm(const bf16* x, const bf16* g, const bf16* u, const bf16* wd, bf16* h,
-                  float* out, int E, int C, int d, int m, int act, cudaStream_t s) {
-  const dim3 g_up((m + TC_BN - 1) / TC_BN, (C + BM - 1) / BM, E);
-  const dim3 g_down((d + TC_BN - 1) / TC_BN, (C + BM - 1) / BM, E);
+// One kernel's compiled resources, as the planner reads them: registers a
+// thread, local (spill) bytes a thread, static and dynamic shared bytes a
+// block, threads a block.
+constexpr int ATTR_FIELDS = 5;
+template <typename Kernel>
+void kernel_attrs(Kernel kernel, int dyn_smem, int threads, int* out) {
+  cudaFuncAttributes a{};
+  cudaFuncGetAttributes(&a, kernel);
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.localSizeBytes);
+  out[2] = static_cast<int>(a.sharedSizeBytes);
+  out[3] = dyn_smem;
+  out[4] = threads;
+}
+
+template <class Cfg>
+void launch_tc_cfg(const bf16* x, const bf16* g, const bf16* u, const bf16* wd, bf16* h,
+                   float* out, int E, int C, int d, int m, int act, cudaStream_t s) {
+  const dim3 g_up((m + Cfg::BN - 1) / Cfg::BN, (C + Cfg::BM - 1) / Cfg::BM, E);
+  const dim3 g_down((d + Cfg::BN - 1) / Cfg::BN, (C + Cfg::BM - 1) / Cfg::BM, E);
   switch (act) {
     case ACT_SWIGLU:
-      launch_tc_kernel<BM>(up_kernel_tc<BM, ACT_SWIGLU>, TcShape<BM, 2>::SMEM, g_up, s, x, g, u,
-                           h, C, d, m);
+      launch_dyn(up_kernel_tc<Cfg, ACT_SWIGLU>, TcShape<Cfg, 2>::SMEM, g_up, Cfg::NT, s, x, g, u,
+                 h, C, d, m);
       break;
     case ACT_RELU2:
-      launch_tc_kernel<BM>(up_kernel_tc<BM, ACT_RELU2>, TcShape<BM, 1>::SMEM, g_up, s, x, g, u,
-                           h, C, d, m);
+      launch_dyn(up_kernel_tc<Cfg, ACT_RELU2>, TcShape<Cfg, 1>::SMEM, g_up, Cfg::NT, s, x, g, u,
+                 h, C, d, m);
       break;
     default:
-      launch_tc_kernel<BM>(up_kernel_tc<BM, ACT_GELU>, TcShape<BM, 1>::SMEM, g_up, s, x, g, u,
-                           h, C, d, m);
+      launch_dyn(up_kernel_tc<Cfg, ACT_GELU>, TcShape<Cfg, 1>::SMEM, g_up, Cfg::NT, s, x, g, u,
+                 h, C, d, m);
       break;
   }
-  launch_tc_kernel<BM>(down_kernel_tc<BM>, TcShape<BM, 1>::SMEM, g_down, s,
-                       static_cast<const bf16*>(h), wd, out, C, d, m);
+  launch_dyn(down_kernel_tc<Cfg>, TcShape<Cfg, 1>::SMEM, g_down, Cfg::NT, s,
+             static_cast<const bf16*>(h), wd, out, C, d, m);
 }
 
-// bf16 x bf16: 16-byte rows and operands, or cudaErrorInvalidValue.
+// Attributes of a setting's kernels: up swiglu, up relu2, up gelu, down.
+template <class Cfg>
+void tc_cfg_attrs(int* out) {
+  kernel_attrs(up_kernel_tc<Cfg, ACT_SWIGLU>, TcShape<Cfg, 2>::SMEM, Cfg::NT, out);
+  kernel_attrs(up_kernel_tc<Cfg, ACT_RELU2>, TcShape<Cfg, 1>::SMEM, Cfg::NT, out + ATTR_FIELDS);
+  kernel_attrs(up_kernel_tc<Cfg, ACT_GELU>, TcShape<Cfg, 1>::SMEM, Cfg::NT,
+               out + 2 * ATTR_FIELDS);
+  kernel_attrs(down_kernel_tc<Cfg>, TcShape<Cfg, 1>::SMEM, Cfg::NT, out + 3 * ATTR_FIELDS);
+}
+
+using TcLaunch = void (*)(const bf16*, const bf16*, const bf16*, const bf16*, bf16*, float*, int,
+                          int, int, int, int, cudaStream_t);
+using AttrsFn = void (*)(int*);
+#define TC_LAUNCH_ENTRY(...) &launch_tc_cfg<TcCfg<__VA_ARGS__>>,
+#define TC_ATTRS_ENTRY(...) &tc_cfg_attrs<TcCfg<__VA_ARGS__>>,
+const TcLaunch kTcLaunch[] = {TC_SETTINGS(TC_LAUNCH_ENTRY)};
+const AttrsFn kTcAttrs[] = {TC_SETTINGS(TC_ATTRS_ENTRY)};
+constexpr int N_TC = sizeof(kTcLaunch) / sizeof(kTcLaunch[0]);
+
+// bf16 x bf16: 16-byte rows and operands and a setting of the table, or
+// cudaErrorInvalidValue.
 int launch_tc(const void* xe, const void* wg, const void* wu, const void* wd, void* h,
-              float* out, int E, int C, int d, int m, int act, cudaStream_t s) {
+              float* out, int E, int C, int d, int m, int act, int tiles, cudaStream_t s) {
   const uintptr_t bits = reinterpret_cast<uintptr_t>(xe) | reinterpret_cast<uintptr_t>(wg) |
                          reinterpret_cast<uintptr_t>(wu) | reinterpret_cast<uintptr_t>(wd) |
                          reinterpret_cast<uintptr_t>(h);
-  if (d % 8 != 0 || m % 8 != 0 || bits % 16 != 0) return -1;
-  const bf16* x = static_cast<const bf16*>(xe);
-  const bf16* g = static_cast<const bf16*>(wg);
-  const bf16* u = static_cast<const bf16*>(wu);
-  const bf16* w = static_cast<const bf16*>(wd);
-  if (C <= 64)
-    launch_tc_bm<64>(x, g, u, w, static_cast<bf16*>(h), out, E, C, d, m, act, s);
-  else
-    launch_tc_bm<128>(x, g, u, w, static_cast<bf16*>(h), out, E, C, d, m, act, s);
+  if (d % 8 != 0 || m % 8 != 0 || bits % 16 != 0 || tiles < 0 || tiles >= N_TC) return -1;
+  kTcLaunch[tiles](static_cast<const bf16*>(xe), static_cast<const bf16*>(wg),
+                   static_cast<const bf16*>(wu), static_cast<const bf16*>(wd),
+                   static_cast<bf16*>(h), out, E, C, d, m, act, s);
   return 0;
 }
 
@@ -523,14 +598,32 @@ int launch_tc(const void* xe, const void* wg, const void* wu, const void* wd, vo
 // lo exactly, and each plane meets the same q fragment.
 
 constexpr int Q_BM = 64;          // rows per block; each warp owns all 64 rows of WN columns
-// Per phase: columns a block, columns a warp, k-rows a stage, ring depth
-// (each the fastest of the settings timed at (E, C, d, m) = (32, 64, 1024,
-// 512); PERF.md).  Phase 1 keeps 64-column blocks, so E m / 64 blocks fill
-// the card, with 16-column warps; phase 2 reads three h planes for each k
-// step, so its warps take 32 columns (half the activation reads of a block)
-// and its blocks 128 (half the blocks that re-read an expert's h from L2).
-constexpr int Q_UP_BN = 64, Q_UP_WN = 16, Q_UP_BK = 64, Q_UP_STAGES = 4;
-constexpr int Q_DN_BN = 128, Q_DN_WN = 32, Q_DN_BK = 64, Q_DN_STAGES = 3;
+
+// The settings of the 8-bit path, one per row: for phase 1 (up) and then
+// phase 2 (down), the columns a block, the columns a warp (16 or 32), the
+// k-rows a stage and the ring depth.  Row i is setting i of
+// streamed_moe_forward's `tiles`; TILE_SETTINGS["8bit"] in the wrapper holds
+// the same rows in the same order.  Row 0 is the default: the fastest of the
+// settings timed at (E, C, d, m) = (32, 64, 1024, 512) (PERF.md).
+// Phase 1 keeps 64-column blocks, so E m / 64 blocks fill the card, with
+// 16-column warps; phase 2 reads three h planes for each k step, so its warps
+// take 32 columns (half the activation reads of a block) and its blocks 128
+// (half the blocks that re-read an expert's h from L2).  The others are the
+// runners-up of that timing.  An output's k16 steps run in ascending k in
+// every setting, so all give the same bits.
+#define Q_SETTINGS(X)                   \
+  X(64, 16, 64, 4, 128, 32, 64, 3)      \
+  X(64, 16, 128, 3, 128, 32, 64, 3)     \
+  X(64, 16, 64, 4, 128, 16, 64, 3)      \
+  X(64, 16, 64, 4, 64, 32, 64, 3)       \
+  X(64, 32, 64, 4, 128, 32, 64, 3)      \
+  X(128, 16, 64, 4, 128, 32, 64, 4)
+
+template <int UBN, int UWN, int UBK, int UST, int DBN, int DWN, int DBK, int DST>
+struct QCfg {
+  static constexpr int UP_BN = UBN, UP_WN = UWN, UP_BK = UBK, UP_STAGES = UST;
+  static constexpr int DN_BN = DBN, DN_WN = DWN, DN_BK = DBK, DN_STAGES = DST;
+};
 
 // A stage holds PARTS bf16 activation tiles (Q_BM x BK) and NMAT 8-bit
 // weight tiles (BK x BN bytes, rows padded by 16 bytes so that a warp's
@@ -547,6 +640,8 @@ struct QShape {
   static constexpr int W_BYTES = BK * WS;
   static constexpr int STAGE = A_BYTES + NMAT * W_BYTES;
   static constexpr int SMEM = STAGES * STAGE;
+  static_assert((WN == 16 || WN == 32) && BN % WN == 0 && BK % 16 == 0 && STAGES >= 2,
+                "bad 8-bit tile setting");
 };
 
 // v = hi + mid + lo with each part exact in bf16: hi rounds v to 8 bits, the
@@ -684,13 +779,13 @@ __device__ __forceinline__ float q_sum(const float (&acc)[NACC][NMAT][4][NJ][4],
 
 // Phase 1: h = act(s_g (x q_g), s_u (x q_u)) in fp32, written as three bf16
 // planes (3, E, C, m).  x is bf16 (PARTS = 1) or three planes of fp32 x.
-template <int PARTS, typename TW, int ACT>
-__global__ void __launch_bounds__(32 * Q_UP_BN / Q_UP_WN)
+template <int PARTS, typename TW, int ACT, int BN, int WN, int BK, int STAGES>
+__global__ void __launch_bounds__(32 * BN / WN)
 up_kernel_q(const bf16* __restrict__ xe, const TW* __restrict__ wg, const TW* __restrict__ wu,
             const float* __restrict__ sg, const float* __restrict__ su, bf16* __restrict__ h,
             int E, int C, int d, int m) {
   constexpr int NMAT = ACT == ACT_SWIGLU ? 2 : 1;   // [0] up, [1] gate
-  using S = QShape<PARTS, NMAT, Q_UP_BN, Q_UP_WN, Q_UP_BK, Q_UP_STAGES>;
+  using S = QShape<PARTS, NMAT, BN, WN, BK, STAGES>;
   constexpr int NC = 2 * S::NJ;                      // a thread's columns
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int e = blockIdx.z, c0 = blockIdx.x * S::BN, r0 = blockIdx.y * Q_BM;
@@ -735,11 +830,11 @@ up_kernel_q(const bf16* __restrict__ xe, const TW* __restrict__ wg, const TW* __
 }
 
 // Phase 2: out = s_d (h q_d), h as its three bf16 planes.
-template <typename TW>
-__global__ void __launch_bounds__(32 * Q_DN_BN / Q_DN_WN)
+template <typename TW, int BN, int WN, int BK, int STAGES>
+__global__ void __launch_bounds__(32 * BN / WN)
 down_kernel_q(const bf16* __restrict__ h, const TW* __restrict__ wd,
               const float* __restrict__ sd, float* __restrict__ out, int E, int C, int d, int m) {
-  using S = QShape<3, 1, Q_DN_BN, Q_DN_WN, Q_DN_BK, Q_DN_STAGES>;
+  using S = QShape<3, 1, BN, WN, BK, STAGES>;
   constexpr int NC = 2 * S::NJ;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int e = blockIdx.z, c0 = blockIdx.x * S::BN, r0 = blockIdx.y * Q_BM;
@@ -782,82 +877,113 @@ __global__ void split3_kernel(const float* __restrict__ x, bf16* __restrict__ pl
         make_uint2(tc::pack_bf16(p[part][0], p[part][1]), tc::pack_bf16(p[part][2], p[part][3]));
 }
 
-template <typename Kernel, typename... Args>
-void launch_q_kernel(Kernel kernel, int bytes, dim3 grid, int threads, cudaStream_t s,
-                     Args... args) {
-  if (bytes > 48 * 1024)
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  kernel<<<grid, threads, bytes, s>>>(args...);
+// Phase 1's kernel of a setting for one activation and its shape; then
+// phase 2's.
+template <class Cfg, int PARTS, int ACT>
+using QUpShape = QShape<PARTS, ACT == ACT_SWIGLU ? 2 : 1, Cfg::UP_BN, Cfg::UP_WN, Cfg::UP_BK,
+                        Cfg::UP_STAGES>;
+template <class Cfg>
+using QDownShape = QShape<3, 1, Cfg::DN_BN, Cfg::DN_WN, Cfg::DN_BK, Cfg::DN_STAGES>;
+
+template <class Cfg, int PARTS, typename TW, int ACT>
+void launch_q_up(dim3 grid, cudaStream_t s, const bf16* x, const TW* g, const TW* u,
+                 const float* sg, const float* su, bf16* h, int E, int C, int d, int m) {
+  using S = QUpShape<Cfg, PARTS, ACT>;
+  launch_dyn(up_kernel_q<PARTS, TW, ACT, Cfg::UP_BN, Cfg::UP_WN, Cfg::UP_BK, Cfg::UP_STAGES>,
+             S::SMEM, grid, S::NT, s, x, g, u, sg, su, h, E, C, d, m);
 }
 
-template <int PARTS, typename TW>
+template <class Cfg, int PARTS, typename TW>
 void launch_q_typed(const bf16* x, const void* wg, const void* wu, const void* wd,
                     const float* sg, const float* su, const float* sd, bf16* h, float* out,
                     int E, int C, int d, int m, int act, cudaStream_t s) {
-  const dim3 g_up((m + Q_UP_BN - 1) / Q_UP_BN, (C + Q_BM - 1) / Q_BM, E);
-  const dim3 g_down((d + Q_DN_BN - 1) / Q_DN_BN, (C + Q_BM - 1) / Q_BM, E);
+  const dim3 g_up((m + Cfg::UP_BN - 1) / Cfg::UP_BN, (C + Q_BM - 1) / Q_BM, E);
+  const dim3 g_down((d + Cfg::DN_BN - 1) / Cfg::DN_BN, (C + Q_BM - 1) / Q_BM, E);
   const TW* g = static_cast<const TW*>(wg);
   const TW* u = static_cast<const TW*>(wu);
-  using S1 = QShape<PARTS, 1, Q_UP_BN, Q_UP_WN, Q_UP_BK, Q_UP_STAGES>;
-  using S2 = QShape<PARTS, 2, Q_UP_BN, Q_UP_WN, Q_UP_BK, Q_UP_STAGES>;
   switch (act) {
     case ACT_SWIGLU:
-      launch_q_kernel(up_kernel_q<PARTS, TW, ACT_SWIGLU>, S2::SMEM, g_up, S2::NT, s, x, g, u, sg,
-                      su, h, E, C, d, m);
+      launch_q_up<Cfg, PARTS, TW, ACT_SWIGLU>(g_up, s, x, g, u, sg, su, h, E, C, d, m);
       break;
     case ACT_RELU2:
-      launch_q_kernel(up_kernel_q<PARTS, TW, ACT_RELU2>, S1::SMEM, g_up, S1::NT, s, x, g, u, sg,
-                      su, h, E, C, d, m);
+      launch_q_up<Cfg, PARTS, TW, ACT_RELU2>(g_up, s, x, g, u, sg, su, h, E, C, d, m);
       break;
     default:
-      launch_q_kernel(up_kernel_q<PARTS, TW, ACT_GELU>, S1::SMEM, g_up, S1::NT, s, x, g, u, sg,
-                      su, h, E, C, d, m);
+      launch_q_up<Cfg, PARTS, TW, ACT_GELU>(g_up, s, x, g, u, sg, su, h, E, C, d, m);
       break;
   }
-  using SD = QShape<3, 1, Q_DN_BN, Q_DN_WN, Q_DN_BK, Q_DN_STAGES>;
-  launch_q_kernel(down_kernel_q<TW>, SD::SMEM, g_down, SD::NT, s, static_cast<const bf16*>(h),
-                  static_cast<const TW*>(wd), sd, out, E, C, d, m);
+  using D = QDownShape<Cfg>;
+  launch_dyn(down_kernel_q<TW, Cfg::DN_BN, Cfg::DN_WN, Cfg::DN_BK, Cfg::DN_STAGES>, D::SMEM,
+             g_down, D::NT, s, static_cast<const bf16*>(h), static_cast<const TW*>(wd), sd, out,
+             E, C, d, m);
 }
 
-// 8-bit weights: rows of d and m bytes in 16-byte copies and 16-byte aligned
-// operands, or cudaErrorInvalidValue.  The scratch holds h's three planes,
-// then (fp32 x only) x's.
+// Attributes of a setting's kernels: up swiglu, up relu2, up gelu, down.
+template <class Cfg, int PARTS, typename TW>
+void q_typed_attrs(int* out) {
+  constexpr int BN = Cfg::UP_BN, WN = Cfg::UP_WN, BK = Cfg::UP_BK, ST = Cfg::UP_STAGES;
+  using S0 = QUpShape<Cfg, PARTS, ACT_SWIGLU>;
+  using S1 = QUpShape<Cfg, PARTS, ACT_RELU2>;
+  using D = QDownShape<Cfg>;
+  kernel_attrs(up_kernel_q<PARTS, TW, ACT_SWIGLU, BN, WN, BK, ST>, S0::SMEM, S0::NT, out);
+  kernel_attrs(up_kernel_q<PARTS, TW, ACT_RELU2, BN, WN, BK, ST>, S1::SMEM, S1::NT,
+               out + ATTR_FIELDS);
+  kernel_attrs(up_kernel_q<PARTS, TW, ACT_GELU, BN, WN, BK, ST>, S1::SMEM, S1::NT,
+               out + 2 * ATTR_FIELDS);
+  kernel_attrs(down_kernel_q<TW, Cfg::DN_BN, Cfg::DN_WN, Cfg::DN_BK, Cfg::DN_STAGES>, D::SMEM,
+               D::NT, out + 3 * ATTR_FIELDS);
+}
+
+using QLaunch = void (*)(const bf16*, const void*, const void*, const void*, const float*,
+                         const float*, const float*, bf16*, float*, int, int, int, int, int,
+                         cudaStream_t);
+using QAttrs = void (*)(int*);
+// [setting][x fp32][fp8 weights]
+#define Q_LAUNCH_ENTRY(...)                                    \
+  {{&launch_q_typed<QCfg<__VA_ARGS__>, 1, int8_t>,             \
+    &launch_q_typed<QCfg<__VA_ARGS__>, 1, __nv_fp8_e4m3>},     \
+   {&launch_q_typed<QCfg<__VA_ARGS__>, 3, int8_t>,             \
+    &launch_q_typed<QCfg<__VA_ARGS__>, 3, __nv_fp8_e4m3>}},
+#define Q_ATTRS_ENTRY(...)                                     \
+  {{&q_typed_attrs<QCfg<__VA_ARGS__>, 1, int8_t>,              \
+    &q_typed_attrs<QCfg<__VA_ARGS__>, 1, __nv_fp8_e4m3>},      \
+   {&q_typed_attrs<QCfg<__VA_ARGS__>, 3, int8_t>,              \
+    &q_typed_attrs<QCfg<__VA_ARGS__>, 3, __nv_fp8_e4m3>}},
+const QLaunch kQLaunch[][2][2] = {Q_SETTINGS(Q_LAUNCH_ENTRY)};
+const QAttrs kQAttrs[][2][2] = {Q_SETTINGS(Q_ATTRS_ENTRY)};
+constexpr int N_Q = sizeof(kQLaunch) / sizeof(kQLaunch[0]);
+
+// 8-bit weights: rows of d and m bytes in 16-byte copies, 16-byte aligned
+// operands and a setting of the table, or cudaErrorInvalidValue.  The
+// scratch holds h's three planes, then (fp32 x only) x's.
 template <typename TX>
 int launch_q(int w_dtype, const void* xe, const void* wg, const void* wu, const void* wd,
              const float* sg, const float* su, const float* sd, void* h, float* out, int E,
-             int C, int d, int m, int act, cudaStream_t s) {
+             int C, int d, int m, int act, int tiles, cudaStream_t s) {
   const uintptr_t bits = reinterpret_cast<uintptr_t>(xe) | reinterpret_cast<uintptr_t>(wg) |
                          reinterpret_cast<uintptr_t>(wu) | reinterpret_cast<uintptr_t>(wd) |
                          reinterpret_cast<uintptr_t>(h) | reinterpret_cast<uintptr_t>(su) |
                          reinterpret_cast<uintptr_t>(sd) | reinterpret_cast<uintptr_t>(sg);
-  if (d % 16 != 0 || m % 16 != 0 || bits % 16 != 0) return -1;
+  if (d % 16 != 0 || m % 16 != 0 || bits % 16 != 0 || tiles < 0 || tiles >= N_Q) return -1;
   bf16* hp = static_cast<bf16*>(h);
   const bf16* x = static_cast<const bf16*>(xe);
-  constexpr int PARTS = std::is_same<TX, float>::value ? 3 : 1;
-  if constexpr (PARTS == 3) {
+  constexpr int X_F32 = std::is_same<TX, float>::value ? 1 : 0;
+  if constexpr (X_F32) {
     const size_t n = (size_t)E * C * d;
     bf16* xp = hp + 3 * (size_t)E * C * m;
     split3_kernel<<<(unsigned)((n / 4 + 255) / 256), 256, 0, s>>>(static_cast<const float*>(xe),
                                                                  xp, n);
     x = xp;
   }
-  if (w_dtype == DT_I8)
-    launch_q_typed<PARTS, int8_t>(x, wg, wu, wd, sg, su, sd, hp, out, E, C, d, m, act, s);
-  else
-    launch_q_typed<PARTS, __nv_fp8_e4m3>(x, wg, wu, wd, sg, su, sd, hp, out, E, C, d, m, act, s);
+  kQLaunch[tiles][X_F32][w_dtype == DT_F8](x, wg, wu, wd, sg, su, sd, hp, out, E, C, d, m, act,
+                                           s);
   return 0;
 }
 
 // ------------------------------------------------------ the CUDA-core path
-
-// Launch with dynamic shared memory; above the 48 KB default the kernel
-// must be allowed more first.
-template <typename Kernel, typename... Args>
-void launch(Kernel kernel, int bytes, dim3 grid, cudaStream_t s, Args... args) {
-  if (bytes > 48 * 1024)
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  kernel<<<grid, NT, bytes, s>>>(args...);
-}
+//
+// One setting (index 0): 64 x 64 blocks of 256 threads, 4 x 4 outputs each,
+// 32-deep double-buffered steps.
 
 template <typename TX, typename TW>
 void launch_typed(const void* xe, const void* wg, const void* wu, const void* wd, float* h,
@@ -869,42 +995,49 @@ void launch_typed(const void* xe, const void* wg, const void* wu, const void* wd
   const TW* u = static_cast<const TW*>(wu);
   switch (act) {
     case ACT_SWIGLU:
-      launch(up_kernel<TX, TW, ACT_SWIGLU>, smem_bytes(2), g_up, stream, x, g, u, h, C, d, m);
+      launch_dyn(up_kernel<TX, TW, ACT_SWIGLU>, smem_bytes(2), g_up, NT, stream, x, g, u, h, C,
+                 d, m);
       break;
     case ACT_RELU2:
-      launch(up_kernel<TX, TW, ACT_RELU2>, smem_bytes(1), g_up, stream, x, g, u, h, C, d, m);
+      launch_dyn(up_kernel<TX, TW, ACT_RELU2>, smem_bytes(1), g_up, NT, stream, x, g, u, h, C, d,
+                 m);
       break;
     default:
-      launch(up_kernel<TX, TW, ACT_GELU>, smem_bytes(1), g_up, stream, x, g, u, h, C, d, m);
+      launch_dyn(up_kernel<TX, TW, ACT_GELU>, smem_bytes(1), g_up, NT, stream, x, g, u, h, C, d,
+                 m);
       break;
   }
-  launch(down_kernel<TW>, smem_bytes(1), g_down, stream, static_cast<const float*>(h),
-         static_cast<const TW*>(wd), out, C, d, m);
+  launch_dyn(down_kernel<TW>, smem_bytes(1), g_down, NT, stream, static_cast<const float*>(h),
+             static_cast<const TW*>(wd), out, C, d, m);
+}
+
+template <typename TX, typename TW>
+void simt_attrs(int* out) {
+  kernel_attrs(up_kernel<TX, TW, ACT_SWIGLU>, smem_bytes(2), NT, out);
+  kernel_attrs(up_kernel<TX, TW, ACT_RELU2>, smem_bytes(1), NT, out + ATTR_FIELDS);
+  kernel_attrs(up_kernel<TX, TW, ACT_GELU>, smem_bytes(1), NT, out + 2 * ATTR_FIELDS);
+  kernel_attrs(down_kernel<TW>, smem_bytes(1), NT, out + 3 * ATTR_FIELDS);
 }
 
 template <typename TX>
 int launch_w(int w_dtype, const void* xe, const void* wg, const void* wu,
              const void* wd, const float* sg, const float* su, const float* sd,
-             void* h, float* out, int E, int C, int d, int m, int act,
+             void* h, float* out, int E, int C, int d, int m, int act, int tiles,
              cudaStream_t s) {
   float* hf = static_cast<float*>(h);
-  switch (w_dtype) {
-    case DT_F32:
-      launch_typed<TX, float>(xe, wg, wu, wd, hf, out, E, C, d, m, act, s);
-      return 0;
-    case DT_BF16:
-      if constexpr (std::is_same<TX, bf16>::value) {
-        return launch_tc(xe, wg, wu, wd, h, out, E, C, d, m, act, s);
-      } else {
-        launch_typed<TX, bf16>(xe, wg, wu, wd, hf, out, E, C, d, m, act, s);
-        return 0;
-      }
-    case DT_I8:
-    case DT_F8:
-      return launch_q<TX>(w_dtype, xe, wg, wu, wd, sg, su, sd, h, out, E, C, d, m, act, s);
-    default:
-      return -1;
-  }
+  constexpr bool X_BF16 = std::is_same<TX, bf16>::value;
+  if (w_dtype == DT_I8 || w_dtype == DT_F8)
+    return launch_q<TX>(w_dtype, xe, wg, wu, wd, sg, su, sd, h, out, E, C, d, m, act, tiles, s);
+  if (w_dtype == DT_BF16 && X_BF16)
+    return launch_tc(xe, wg, wu, wd, h, out, E, C, d, m, act, tiles, s);
+  if (tiles != 0) return -1;
+  if (w_dtype == DT_F32)
+    launch_typed<TX, float>(xe, wg, wu, wd, hf, out, E, C, d, m, act, s);
+  else if (w_dtype == DT_BF16)
+    launch_typed<TX, bf16>(xe, wg, wu, wd, hf, out, E, C, d, m, act, s);
+  else
+    return -1;
+  return 0;
 }
 
 }  // namespace
@@ -915,13 +1048,16 @@ int launch_w(int w_dtype, const void* xe, const void* wg, const void* wu,
 // 8 and every operand 16-byte aligned); with int8 / fp8 weights three bf16
 // planes of h (3,E,C,m), then, for fp32 xe, three of xe (3,E,C,d) (d and m
 // multiples of 16, every operand 16-byte aligned); else fp32 (E,C,m); out
-// (E,C,d) fp32.  Returns a cudaError_t (0 on success), or
-// cudaErrorInvalidValue for a dtype, activation or size it does not take.
+// (E,C,d) fp32.  `tiles` is a row of the path's settings table: TC_SETTINGS
+// (bf16 x bf16), Q_SETTINGS (int8 / fp8 weights), or 0 (the CUDA-core
+// path's one setting).  Returns a cudaError_t (0 on success), or
+// cudaErrorInvalidValue for a dtype, activation, size or setting it does
+// not take.
 extern "C" int streamed_moe_forward(const void* xe, const void* wg, const void* wu,
                                     const void* wd, const float* sg, const float* su,
                                     const float* sd, void* h, float* out, int E,
                                     int C, int d, int m, int x_dtype, int w_dtype,
-                                    int act, void* stream) {
+                                    int act, int tiles, void* stream) {
   if (E <= 0 || C <= 0 || d <= 0 || m <= 0 || E > 65535 || act < 0 || act > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   if (act == ACT_SWIGLU && wg == nullptr) return static_cast<int>(cudaErrorInvalidValue);
@@ -931,10 +1067,38 @@ extern "C" int streamed_moe_forward(const void* xe, const void* wg, const void* 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc = -1;
   if (x_dtype == DT_F32)
-    rc = launch_w<float>(w_dtype, xe, wg, wu, wd, sg, su, sd, h, out, E, C, d, m, act, s);
+    rc = launch_w<float>(w_dtype, xe, wg, wu, wd, sg, su, sd, h, out, E, C, d, m, act, tiles,
+                         s);
   else if (x_dtype == DT_BF16)
-    rc = launch_w<__nv_bfloat16>(w_dtype, xe, wg, wu, wd, sg, su, sd, h, out, E, C, d, m,
-                                 act, s);
+    rc = launch_w<bf16>(w_dtype, xe, wg, wu, wd, sg, su, sd, h, out, E, C, d, m, act, tiles,
+                        s);
   if (rc != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The compiled resources of one setting's kernels for operands of these
+// dtypes: into out[4 * 5], for up swiglu, up relu2, up gelu and down in
+// turn, registers a thread, local (spill) bytes a thread, static shared
+// bytes, dynamic shared bytes and threads a block.  The 8-bit path reports
+// the kernels of its int8 or fp8 weights and its bf16 or fp32 activations.
+// Returns 0, or cudaErrorInvalidValue for dtypes or a setting it does not
+// take.
+extern "C" int streamed_moe_tile_attrs(int x_dtype, int w_dtype, int tiles, int* out) {
+  const bool x_f32 = x_dtype == DT_F32;
+  if (!x_f32 && x_dtype != DT_BF16) return static_cast<int>(cudaErrorInvalidValue);
+  if (w_dtype == DT_I8 || w_dtype == DT_F8) {
+    if (tiles < 0 || tiles >= N_Q) return static_cast<int>(cudaErrorInvalidValue);
+    kQAttrs[tiles][x_f32][w_dtype == DT_F8](out);
+  } else if (w_dtype == DT_BF16 && !x_f32) {
+    if (tiles < 0 || tiles >= N_TC) return static_cast<int>(cudaErrorInvalidValue);
+    kTcAttrs[tiles](out);
+  } else if (tiles == 0 && (w_dtype == DT_F32 || w_dtype == DT_BF16)) {
+    if (x_f32)
+      w_dtype == DT_F32 ? simt_attrs<float, float>(out) : simt_attrs<float, bf16>(out);
+    else
+      simt_attrs<bf16, float>(out);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }

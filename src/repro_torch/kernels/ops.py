@@ -7,14 +7,17 @@ tensors; ``streamed_moe`` first quantizes or storage-casts the weights
 to the ambient streamed format per call, as the reference does.
 ``use_kernels(False)`` routes to the reference's oracles instead; it is
 an explicit switch (``chip_smoke.py`` uses it for its comparison run),
-never a fallback.  The tiles are fixed in the kernel: the Hopper tile
-planner (the counterpart of ``core.autotune.kernel_opts_for``) and with
-it an autotuned entry point are later work.
+never a fallback.  ``streamed_moe`` takes an explicit tile setting;
+``streamed_moe_autotuned``, the entry point the MoE block calls, asks the
+Hopper tile planner (``core.autotune.kernel_opts_for``) for the setting
+of each call's shape under the ambient autotune level.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
+
+import torch
 
 from . import quant, ref
 from .flash_attention import flash_attention_kernel
@@ -37,15 +40,16 @@ def kernels_enabled() -> bool:
     return _USE.get()
 
 
-def streamed_moe(xe, w_g, w_u, w_d, activation: str, weight_dtype=None):
+def streamed_moe(xe, w_g, w_u, w_d, activation: str, weight_dtype=None,
+                 tiles=None):
     """Grouped expert FFN; ``w_g=None`` for the gateless activations.
 
     ``weight_dtype`` (or the ambient ``quant.use_weight_dtype``) selects
     the streamed format: int8/fp8 quantize per call with per-(expert,
-    output-channel) scales, bf16/fp32 cast."""
-    wdt = quant.check_weight_dtype(weight_dtype)
-    if wdt is None:
-        wdt = quant.weight_dtype()
+    output-channel) scales, bf16/fp32 cast.  ``tiles`` names the kernel's
+    tile setting (``kernels.streamed_moe.TILE_SETTINGS``; None: its
+    default); the oracles of ``use_kernels(False)`` have none."""
+    wdt = _streamed_format(weight_dtype)
     if not kernels_enabled():
         if wdt is None:
             return ref.streamed_moe_ref(xe, w_g, w_u, w_d, activation)
@@ -59,11 +63,40 @@ def streamed_moe(xe, w_g, w_u, w_d, activation: str, weight_dtype=None):
         w_u, s_u = quant.quantize(w_u, wdt)
         w_d, s_d = quant.quantize(w_d, wdt)
         return streamed_moe_kernel(xe, w_g, w_u, w_d, activation=activation,
-                                   s_g=s_g, s_u=s_u, s_d=s_d)
+                                   s_g=s_g, s_u=s_u, s_d=s_d, tiles=tiles)
     return streamed_moe_kernel(xe, quant.storage_cast(w_g, wdt),
                                quant.storage_cast(w_u, wdt),
                                quant.storage_cast(w_d, wdt),
-                               activation=activation)
+                               activation=activation, tiles=tiles)
+
+
+def _streamed_format(weight_dtype=None):
+    wdt = quant.check_weight_dtype(weight_dtype)
+    return quant.weight_dtype() if wdt is None else wdt
+
+
+_FORMATS = {torch.float32: "fp32", torch.bfloat16: "bf16"}
+
+
+def streamed_moe_autotuned(xe, w_g, w_u, w_d, activation: str):
+    """``streamed_moe`` with the tile setting the ``core.autotune`` planner
+    chooses for this call's (E, C, d, m) shape under the ambient autotune
+    level: ``off`` (the kernel's default), ``analytic`` (the cost model's
+    pick) or ``measured`` (timed on the card, cached on disk).  The
+    streamed weight format (the ambient one, else the stored dtype) and
+    the activations' dtype pick the kernel path the planner scores.  CPU
+    tensors and ``use_kernels(False)`` take the plain versions, which have
+    no tiles."""
+    tiles = None
+    if kernels_enabled() and xe.is_cuda:
+        from repro_torch.core import autotune
+        E, C, d = xe.shape
+        m = w_u.shape[-1]
+        wdt = _streamed_format() or _FORMATS[w_u.dtype]
+        tiles = autotune.kernel_opts_for(
+            E, C, d, m, activation, x_dtype=_FORMATS[xe.dtype],
+            weight_dtype=wdt).get("tiles")
+    return streamed_moe(xe, w_g, w_u, w_d, activation, tiles=tiles)
 
 
 def flash_attention(q, k, v):

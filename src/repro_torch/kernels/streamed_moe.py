@@ -10,7 +10,12 @@ into three bf16 parts, so the products keep fp32 accuracy); fp32 weights,
 or bf16 weights with fp32 activations, on CUDA cores.  For a CUDA tensor
 the wrapper launches the kernel or raises; for
 a CPU tensor it runs the plain version (``kernels.ref.streamed_moe_plain``),
-which repeats the kernel's arithmetic.  ``LAUNCHES`` counts kernel
+which repeats the kernel's arithmetic.  The tiles are chosen at launch:
+``tiles`` names a setting of ``TILE_SETTINGS`` (the tables of
+``csrc/streamed_moe.cu``, which every setting gives the same bits as), and
+``None`` takes ``DEFAULT_TILES``, the rule the kernel had before it took
+settings; ``core.autotune`` plans which.  An unknown setting raises, on
+the card and on the CPU alike.  ``LAUNCHES`` counts kernel
 launches and nothing else; a call made while a CUDA graph is being
 captured records the launch into the graph instead, and ``CAPTURED``
 counts those (the graph's owner counts its replays,
@@ -34,7 +39,78 @@ W_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
             torch.float8_e4m3fn: 3}
 QUANT_DTYPES = (torch.int8, torch.float8_e4m3fn)
 
+# The kernel's tile settings, path by path, in the order of its tables
+# (TC_SETTINGS and Q_SETTINGS in csrc/streamed_moe.cu; a CPU test holds the
+# two equal).  bf16 x bf16: rows and columns a block, the warp's rows and
+# columns, k-rows a stage, ring depth.  8-bit weights: per phase (up, then
+# down) columns a block, columns a warp, k-rows a stage, ring depth (64
+# rows a block).  The CUDA-core path (fp32 weights, or fp32 x x bf16
+# weights) has one setting.
+_TC_ROWS = ((64, 64, 32, 32, 32, 4), (128, 64, 32, 32, 32, 4),
+            (64, 32, 32, 32, 32, 4), (64, 32, 32, 32, 64, 4),
+            (64, 64, 32, 32, 64, 4), (64, 64, 64, 32, 32, 4),
+            (64, 128, 32, 64, 32, 4), (128, 64, 64, 32, 32, 4),
+            (128, 64, 32, 32, 64, 3), (128, 128, 64, 32, 32, 4),
+            (128, 128, 32, 64, 32, 4), (128, 128, 64, 32, 64, 3))
+_Q_ROWS = (((64, 16, 64, 4), (128, 32, 64, 3)),
+           ((64, 16, 128, 3), (128, 32, 64, 3)),
+           ((64, 16, 64, 4), (128, 16, 64, 3)),
+           ((64, 16, 64, 4), (64, 32, 64, 3)),
+           ((64, 32, 64, 4), (128, 32, 64, 3)),
+           ((128, 16, 64, 4), (128, 32, 64, 4)))
+Q_ROWS_A_BLOCK = 64                 # Q_BM: rows a block on the 8-bit path
+
+
+def _tc_name(bm, bn, wm, wn, bk, stages):
+    return f"bf16:{bm}x{bn}:w{wm}x{wn}:k{bk}s{stages}"
+
+
+def _q_name(up, down):
+    return "8bit:" + ":".join(f"{p}{bn}w{wn}k{bk}s{st}" for p, (bn, wn, bk, st)
+                              in (("up", up), ("dn", down)))
+
+
+TILE_SETTINGS = {
+    "bf16": {_tc_name(*row): row for row in _TC_ROWS},
+    "8bit": {_q_name(*row): row for row in _Q_ROWS},
+    "simt": {"simt:64x64:k32": (64, 64, 32)},
+}
+
+
+def tile_path(x_dtype, w_dtype) -> str:
+    """The kernel path operands of these dtypes take, a key of
+    ``TILE_SETTINGS``."""
+    if w_dtype in QUANT_DTYPES:
+        return "8bit"
+    if x_dtype == torch.bfloat16 and w_dtype == torch.bfloat16:
+        return "bf16"
+    return "simt"
+
+
+def DEFAULT_TILES(C: int, w_dtype, x_dtype=torch.bfloat16) -> str:
+    """The setting ``tiles=None`` takes: on the bf16 path 64-row blocks
+    when C <= 64, else 128; the first row of the other paths."""
+    path = tile_path(x_dtype, w_dtype)
+    names = list(TILE_SETTINGS[path])
+    return names[1] if path == "bf16" and C > 64 else names[0]
+
+
+def tile_index(tiles, x_dtype, w_dtype, C: int) -> int:
+    """The row of its path's table that ``tiles`` names (``None``: the
+    default's); raises for a setting the path does not have."""
+    path = tile_path(x_dtype, w_dtype)
+    if tiles is None:
+        tiles = DEFAULT_TILES(C, w_dtype, x_dtype)
+    names = list(TILE_SETTINGS[path])
+    if tiles not in names:
+        raise ValueError(f"unknown streamed_moe tile setting {tiles!r} for "
+                         f"the {path} path (x {x_dtype}, weights {w_dtype});"
+                         f" known: {names}")
+    return names.index(tiles)
+
+
 _fn = None
+_attrs_fn = None
 
 
 def _kernel_fn():
@@ -42,11 +118,39 @@ def _kernel_fn():
     if _fn is None:
         from .build import load
         fn = load("streamed_moe").streamed_moe_forward
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 \
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+ATTR_KERNELS = ("up_swiglu", "up_relu2", "up_gelu", "down")
+ATTR_FIELDS = ("regs", "spill_bytes", "static_smem", "dynamic_smem",
+               "threads")
+
+
+def tile_attrs(tiles: str, x_dtype, w_dtype) -> dict:
+    """The compiled resources of one setting's kernels on the card, from
+    ``cudaFuncGetAttributes``: {kernel: {field: int}} over ``ATTR_KERNELS``
+    and ``ATTR_FIELDS`` (registers a thread, local spill bytes a thread,
+    shared bytes a block, threads a block)."""
+    global _attrs_fn
+    if _attrs_fn is None:
+        from .build import load
+        fn = load("streamed_moe").streamed_moe_tile_attrs
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _attrs_fn = fn
+    row = tile_index(tiles, x_dtype, w_dtype, 0)
+    out = (ctypes.c_int * (len(ATTR_KERNELS) * len(ATTR_FIELDS)))()
+    rc = _attrs_fn(X_DTYPES[x_dtype], W_DTYPES[w_dtype], row, out)
+    if rc != 0:
+        raise RuntimeError(f"streamed_moe_tile_attrs({tiles!r}) failed: "
+                           f"cudaError {rc}")
+    n = len(ATTR_FIELDS)
+    return {k: dict(zip(ATTR_FIELDS, out[i * n:(i + 1) * n]))
+            for i, k in enumerate(ATTR_KERNELS)}
 
 
 def _check(xe, w_g, w_u, w_d, activation, s_g, s_u, s_d):
@@ -92,30 +196,35 @@ def _check(xe, w_g, w_u, w_d, activation, s_g, s_u, s_d):
 
 
 def streamed_moe_kernel(xe, w_g, w_u, w_d, *, activation: str,
-                        s_g=None, s_u=None, s_d=None):
+                        s_g=None, s_u=None, s_d=None, tiles=None):
     """xe: (E,C,d) fp32|bf16; w_g (swiglu only) / w_u: (E,d,m); w_d:
     (E,m,d), all fp32, bf16, int8 or float8_e4m3fn.  Quantized weights
-    take fp32 scales s_g/s_u (E,1,m) and s_d (E,1,d).  Returns (E,C,d)
-    fp32."""
+    take fp32 scales s_g/s_u (E,1,m) and s_d (E,1,d).  ``tiles`` names a
+    setting of the operands' path in ``TILE_SETTINGS`` (None: the
+    default).  Returns (E,C,d) fp32."""
     checked = _check(xe, w_g, w_u, w_d, activation, s_g, s_u, s_d)
+    tile_index(tiles, xe.dtype, w_u.dtype, xe.shape[1])   # raises if unknown
     if xe.device.type == "cpu":
         gated = checked[0]
         return ref.streamed_moe_plain(
             xe, w_g if gated else None, w_u, w_d, activation,
             s_g=s_g if gated else None, s_u=s_u, s_d=s_d)
-    return _launch(xe, w_g, w_u, w_d, activation, s_g, s_u, s_d, checked)[1]
+    return _launch(xe, w_g, w_u, w_d, activation, s_g, s_u, s_d, checked,
+                   tiles)[1]
 
 
 def _launch(xe, w_g, w_u, w_d, activation, s_g=None, s_u=None, s_d=None,
-            checked=None):
+            checked=None, tiles=None):
     """Launch the kernel on CUDA tensors -> (h, out): its scratch beside
     the output, so a check can hold h itself.  The scratch is h (E,C,m) in
     bf16 for bf16 x bf16, in fp32 for fp32 weights or fp32 x x bf16
     weights; for int8 / fp8 weights it is flat, h's three bf16 planes
-    ``hi + mid + lo`` (3,E,C,m) and then, for fp32 x, x's."""
+    ``hi + mid + lo`` (3,E,C,m) and then, for fp32 x, x's.  ``tiles``
+    names the setting (None: the default)."""
     global LAUNCHES, CAPTURED
     gated, quantized, tensors = checked or _check(
         xe, w_g, w_u, w_d, activation, s_g, s_u, s_d)
+    row = tile_index(tiles, xe.dtype, w_u.dtype, xe.shape[1])
     if not xe.is_cuda:
         raise ValueError(f"the streamed_moe kernel runs on cuda, not "
                          f"{xe.device}")
@@ -146,7 +255,7 @@ def _launch(xe, w_g, w_u, w_d, activation, s_g=None, s_u=None, s_d=None,
             w_d.data_ptr(), s_g.data_ptr() if gated and q else None,
             s_u.data_ptr() if q else None, s_d.data_ptr() if q else None,
             h.data_ptr(), out.data_ptr(), E, C, d, m, X_DTYPES[xe.dtype],
-            W_DTYPES[w_u.dtype], ACTIVATIONS[activation])
+            W_DTYPES[w_u.dtype], ACTIVATIONS[activation], row)
     rc = launch_on(xe.get_device(), _kernel_fn(), args)
     if rc != 0:
         raise RuntimeError(f"streamed_moe kernel launch failed: "

@@ -26,7 +26,12 @@ are random, drawn from ``--seed``.  ``--device`` defaults to ``cuda``
 (and fails where there is none).  MoE execution is one
 :class:`ExecutionSpec`: ``--strategy`` names a registered strategy
 (``capacity`` or ``dense``), ``--moe-spec path.json`` loads a full spec
-(``"sorted_dispatch": true`` there turns on sorted dispatch).
+(``"sorted_dispatch": true`` there turns on sorted dispatch), and
+``--autotune {off,analytic,measured}`` overrides the spec's tile-planner
+level (``core.autotune``; the engine's default is ``analytic``;
+``measured`` times the kernel's tile settings on the card once per shape
+and keeps the winners in ``kernel_tiles_torch.json`` under
+``REPRO_AUTOTUNE_CACHE`` or ``artifacts/autotune/``).
 """
 from __future__ import annotations
 
@@ -47,6 +52,8 @@ def build_spec(args):
         spec = dataclasses.replace(spec, schedule=args.schedule)
     if args.weight_dtype:
         spec = dataclasses.replace(spec, weight_dtype=args.weight_dtype)
+    if args.autotune:
+        spec = dataclasses.replace(spec, autotune=args.autotune)
     return spec
 
 
@@ -72,6 +79,12 @@ def parse_args(argv=None):
     ap.add_argument("--weight-dtype", choices=("fp32", "bf16", "int8", "fp8"),
                     default=None,
                     help="streamed storage format of the expert weights")
+    ap.add_argument("--autotune", choices=("off", "analytic", "measured"),
+                    default=None,
+                    help="override the spec's tile-planner level "
+                         "(core.autotune); 'measured' times the kernel's "
+                         "tile settings on the card and caches the winners "
+                         "under artifacts/autotune/")
     ap.add_argument("--dry-run", action="store_true",
                     help="validate the spec and serve one tiny request "
                          "(with --traffic: a tiny closed loop on the "

@@ -100,9 +100,11 @@ def dispatch_masks(routing, T, E, C):
 
 
 def _expert_ffn(params, xe, activation):
-    """(E, C, d) -> (E, C, d) fp32 through the kernel dispatch layer."""
-    return kops.streamed_moe(xe, params.get("w_gate"), params["w_up"],
-                             params["w_down"], activation)
+    """(E, C, d) -> (E, C, d) fp32 through the kernel dispatch layer, with
+    the planner's tiles (``kernels.ops.streamed_moe_autotuned``)."""
+    return kops.streamed_moe_autotuned(xe, params.get("w_gate"),
+                                       params["w_up"], params["w_down"],
+                                       activation)
 
 
 def moe_capacity(params, x2d, routing, moe: MoEConfig, activation,

@@ -213,11 +213,13 @@ class Engine:
     def megastep(self) -> MegaStep:
         """The fused segments for the current setting: keyed on what the
         segments read when they are captured (the kernels switch, the
-        ambient weight dtype and dispatch; the spec and geometry are the
-        engine's), so a graph captured under one setting never replays
-        under another."""
+        ambient weight dtype, dispatch and autotune level; the spec and
+        geometry are the engine's), so a graph captured under one setting
+        never replays under another.  (The spec's own autotune level,
+        which ``ServeConfig`` always sets, is entered around each MoE
+        layer and so rules inside the segments.)"""
         key = (kops.kernels_enabled(), quant.weight_dtype(),
-               moe_mod.sorted_dispatch_enabled())
+               moe_mod.sorted_dispatch_enabled(), autotune.autotune_level())
         ms = self._megasteps.get(key)
         if ms is None:
             ms = self._megasteps[key] = MegaStep(

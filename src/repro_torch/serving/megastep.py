@@ -35,6 +35,13 @@ warm-up CUDA graphs need, and the call of record), then captures it into
 the engine's one memory pool; every later call replays it.  A capture
 that fails raises: nothing falls back to eager segments.  On the CPU the
 same segment functions are called directly.
+
+Under the ``measured`` autotune level the tiles of each ``streamed_moe``
+call are timed on the card the first time its shape is seen, and nothing
+may be timed inside a capture (``core.autotune.measured_kernel_tiles``
+raises there).  The segment's first call, the eager warm-up on the side
+stream, is where that timing happens: by the capture the shape's tiles
+are cached and the capture only looks them up.
 """
 from __future__ import annotations
 
@@ -269,8 +276,8 @@ class MegaStep:
 
     def _capture(self, name: str, body) -> None:
         """Run ``body`` once on a side stream (the warm-up: lazy module
-        loading, kernel attributes, cuBLAS handles; and the call of
-        record), then capture it into the engine's pool."""
+        loading, kernel attributes, cuBLAS handles, measured tiles; and the
+        call of record), then capture it into the engine's pool."""
         t0 = time.perf_counter()
         cur = torch.cuda.current_stream(self.x.device)
         self._side.wait_stream(cur)

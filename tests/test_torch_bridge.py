@@ -101,7 +101,8 @@ def _imported_names(path: Path):
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
                          + [REPO / "chip_smoke.py",
-                            REPO / "tools" / "kernel_variants.py"],
+                            REPO / "tools" / "kernel_variants.py",
+                            REPO / "tools" / "fit_tile_model.py"],
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_or_reference_imports(path):
     bad = [f"{path.name}:{ln}: {name}" for ln, name in _imported_names(path)

@@ -1,22 +1,24 @@
 #!/usr/bin/env python3
-"""Time settings of the port's int8 / fp8 streamed_moe path and of its SSD
-kernel on one GPU: each setting is a copy of the kernel's source with its
-tile constants replaced, built with nvcc (all at once) into
-``build/variants/``, held against the plain version and timed.
+"""Time tile settings of the port's streamed_moe kernel and of its SSD
+kernel on one GPU.
 
-    python3 tools/kernel_variants.py "A=64,16,64,4,128,32,64,3;B=..." \\
+    python3 tools/kernel_variants.py "8bit:up64w16k64s4:dn128w32k64s3,..." \\
         ["S=32,2;T=32,1"]
 
-The first argument names streamed_moe settings: per phase (up, down) the
-columns a block, the columns a warp, the k-rows a stage and the ring depth,
-``up_bn,up_wn,up_bk,up_stages,dn_bn,dn_wn,dn_bk,dn_stages``.  The optional
-second names SSD settings: ``source_rows,blocks_per_sm``.  For each setting
-it prints the error against the plain version at the serving shape (E, C,
-d, m) = (32, 64, 1024, 512) and at two ragged ones, the device time per
-call (``chip_smoke.device_ms``) and the device time of each kernel from
-``torch.profiler``; for SSD at (2, 8, 256, 32, 64, 128) with g = 1 and
-g = 32 and at four small shapes.  It never changes the sources in the
-repository.
+The first argument names streamed_moe settings of
+``repro_torch.kernels.streamed_moe.TILE_SETTINGS`` (comma-separated;
+``all`` for every one, empty for none).  The kernel takes its setting at
+launch (``tiles=``), so these run from the one build of
+``csrc/streamed_moe.cu``: for each setting it prints the error against the
+plain version at the serving shape (E, C, d, m) = (32, 64, 1024, 512) and
+at two ragged ones, with the setting path's weights (bf16, or int8 and
+fp8), the device time per call (``chip_smoke.device_ms``) and the device
+time of each kernel from ``torch.profiler``.  The optional second argument
+names SSD settings, ``source_rows,blocks_per_sm``: each is a copy of
+``ssd.cu`` with its tile constants replaced, built with nvcc (all at once)
+into ``build/variants/`` and timed at (2, 8, 256, 32, 64, 128) with g = 1
+and g = 32, and checked at four small shapes.  It never changes the
+sources in the repository.
 """
 import ctypes
 import os
@@ -37,8 +39,6 @@ from repro_torch.kernels import streamed_moe as sm  # noqa: E402
 
 CSRC = os.path.join(HERE, "src/repro_torch/kernels/csrc")
 OUT = os.path.join(HERE, "build/variants")
-MOE_LINES = ("constexpr int Q_UP_BN = {}, Q_UP_WN = {}, Q_UP_BK = {}, Q_UP_STAGES = {};",
-             "constexpr int Q_DN_BN = {}, Q_DN_WN = {}, Q_DN_BK = {}, Q_DN_STAGES = {};")
 SSD_LINES = ("constexpr int ST = {};", "constexpr int Y_BLOCKS = {};")
 
 
@@ -94,16 +94,21 @@ def _profile(fn, reps=10):
 
 
 def moe(name):
-    sm._fn = _load("sm_" + name, "streamed_moe_forward", 9, 7)
-    for wdt in ("int8", "fp8"):
+    path = next(p for p, table in sm.TILE_SETTINGS.items() if name in table)
+    wdts = {"bf16": ("bf16",), "8bit": ("int8", "fp8"), "simt": ("fp32",)}[path]
+    for wdt in wdts:
         for (E, C, d, m, act, x_dtype) in ((32, 64, 1024, 512, "swiglu", torch.bfloat16),
                                            (4, 37, 256, 96, "gelu", torch.float32),
                                            (4, 64, 512, 1024, "swiglu", torch.bfloat16)):
+            if path == "bf16":
+                x_dtype = torch.bfloat16
+            elif path == "simt":
+                x_dtype = torch.float32
             xe, wg, wu, wd = cs._moe_inputs(E, C, d, m, act, x_dtype)
             ws, scales = cs._stream_operands(wg, wu, wd, wdt)
 
             def call():
-                return sm.streamed_moe_kernel(xe, *ws, activation=act, **scales)
+                return sm.streamed_moe_kernel(xe, *ws, activation=act, tiles=name, **scales)
             rel = cs.rel_err(call(), ref.streamed_moe_plain(xe, *ws, act, **scales))
             line = f"streamed_moe {name} {wdt} {(E, C, d, m, act)}: rel vs plain {rel:.3e}"
             if E == 32:
@@ -138,20 +143,24 @@ def main():
     cs.phase_env()
     os.makedirs(OUT, exist_ok=True)
     shutil.copy(os.path.join(CSRC, "tensor_core.cuh"), OUT)
-    moe_specs = _specs(sys.argv[1] if len(sys.argv) > 1 else "")
+    arg = sys.argv[1] if len(sys.argv) > 1 else ""
+    known = [n for table in sm.TILE_SETTINGS.values() for n in table]
+    moe_names = known if arg == "all" else [n for n in arg.split(",") if n]
+    if any(n not in known for n in moe_names):
+        raise SystemExit(f"unknown streamed_moe settings "
+                         f"{[n for n in moe_names if n not in known]}; known: {known}")
     ssd_specs = _specs(sys.argv[2] if len(sys.argv) > 2 else "")
+    text = open(os.path.join(CSRC, "ssd.cu")).read()
     jobs = {}
-    for prefix, specs, src, lines, per_line in (
-            ("sm_", moe_specs, "streamed_moe.cu", MOE_LINES, 4),
-            ("ssd_", ssd_specs, "ssd.cu", SSD_LINES, 1)):
-        text = open(os.path.join(CSRC, src)).read()
-        for name, values in specs.items():
-            path = f"{OUT}/{prefix}{name}.cu"
-            with open(path, "w") as f:
-                f.write(_variant(text, lines, values, per_line))
-            jobs[prefix + name] = path
+    for name, values in ssd_specs.items():
+        path = f"{OUT}/ssd_{name}.cu"
+        with open(path, "w") as f:
+            f.write(_variant(text, SSD_LINES, values, 1))
+        jobs["ssd_" + name] = path
+    if moe_names:
+        build.build_all(["streamed_moe"])
     _build(jobs)
-    for name in moe_specs:
+    for name in moe_names:
         moe(name)
     for name in ssd_specs:
         ssd_kernel(name)
