@@ -38,6 +38,12 @@ Phases, each printing its result on its own line; any failure exits 1:
    analytic and the measured picks, and three ``torch.bmm`` plus the
    activation as a yardstick; the analytic pick must take at most 1.10
    times the default's device time at the three bf16 shapes;
+3d. tiers: one granite MoE layer at C = 64 and C = 1024 (drop-free), one-hot
+   and sorted: ``moe_hybrid`` (8 hot experts, 24 cold) against
+   ``moe_capacity`` on the same routing and schedule bit for bit; the
+   kernel at E = 8 and E = 24 against the matching rows of the E = 32 call
+   bit for bit (output and scratch), under the analytic tiles and the
+   default; the device time of both MoE paths and of the reorder copies;
 4. slice: ``repro_torch.launch.serve`` serves 4 requests x 16 tokens of
    granite-moe-1b-a400m at full width in bf16 on the default fused engine,
    under ``--autotune analytic`` (the default), ``off`` and ``measured``:
@@ -51,6 +57,16 @@ Phases, each printing its result on its own line; any failure exits 1:
    writes ``kernel_tiles_torch.json``, and a second engine, the memory
    dropped, reads the file, times nothing (``autotune.TIMINGS``) and
    serves the same tokens (a timing inside a capture would raise);
+4h. hybrid: the slice under ``--strategy hybrid --schedule dynamic`` and
+   under ``capacity`` with the dynamic schedule (a cold run, then a warm
+   one on the same engine): the same tokens, twice the streamed_moe
+   launches per MoE layer, no recapture, a ``hot`` list of ``_n_hot`` ids
+   on every MoE trace record; then with ``--resident-budget-mb 576`` (8
+   experts of each of the 24 MoE layers resident): the same tokens,
+   ``resident_weight_bytes`` 8 x 24 x ``expert_bytes``, DDR bytes saved,
+   a modeled total at most the run's without the tier; then phase 6's
+   Poisson stream under ``hybrid`` (the ``serve_hybrid_chunked`` path at C
+   = 1024): phase 6's one-hot tokens, twice its launches;
 5. fused: the fused engine against the eager per-layer loop on the card
    (bf16, full width, the same prompts, the analytic level): static, ``--schedule dynamic
    --slack 0.2`` and chunked admission, then with sorted dispatch
@@ -72,6 +88,14 @@ Phases, each printing its result on its own line; any failure exits 1:
    on its engine, warm (no new capture, the same tokens; the
    ``serve_prefix`` path's launches); once with one-hot and once with
    sorted dispatch;
+6r. referee: the traces phase 6 took on the card (one-hot and sorted) and
+   phase 4h's resident run's, replayed through the port's chiplet
+   simulator (``simulate_trajectory`` / ``replay_trace`` on
+   ``spec_from_config`` of the full-width config): every record's
+   ``modeled_s`` within 5%, the total within 2%; the worst record and the
+   total gap printed; then, not gated, the paper's strategies
+   (``simulate_layer``) and ``rank_modes`` on the card's busiest prefill
+   and decode iterations;
 7. path parity: the same serving path in fp32 with kernels and with
    ``use_kernels(False)`` (fused engines both) — prefill logits and
    greedy tokens must agree;
@@ -87,7 +111,9 @@ Phases, each printing its result on its own line; any failure exits 1:
    width in bf16, then each layer's ``mamba2_block`` with the SSD kernel
    (48 launches, B and C per group: n_groups = 1) against the plain path on
    the same activations, in bf16 (reported) and fp32 (within 2e-5);
-11. profile: the fused slice (bf16, then ``--weight-dtype fp8``) and the
+11. profile: the fused slice (bf16, ``--weight-dtype fp8``, the dynamic
+    schedule, and ``hybrid``, whose reorder copies are named: the
+    index_select kernels beyond the static slice's) and the
     traffic run (one-hot, then sorted) on engines whose graphs are
     captured, and the scoring losses (one-hot and sorted) and mamba's,
     once more under ``torch.profiler`` — device kernel time by name, the
@@ -98,7 +124,10 @@ Phases, each printing its result on its own line; any failure exits 1:
     on the chunked-prefill path of the traffic run (``serve_chunked``, C =
     1024), on the sorted traffic path (``serve_sorted``) and the prefix
     traffic path (``serve_prefix``), both with the kernel measured at C =
-    1024 in phase 3b, and on the forward path, ``flash_attention`` on the
+    1024 in phase 3b, under ``hybrid`` at C = 64 (``serve_hybrid``, phase
+    4h's warm slice) and C = 1024 (``serve_hybrid_chunked``, phase 4h's
+    stream), two launches (E = 8 and 24) a MoE layer timed together in
+    phase 3d, and on the forward path, ``flash_attention`` on the
     forward path, ``ssd`` on the mamba path),
     each with that path's launches and its shape's times (``ms`` one call
     with its host work, ``device_ms`` the device time per call) and bound,
@@ -232,6 +261,23 @@ TILE_TIME_CASES = tuple(
     [(32, C_, 1024, 512, "swiglu", "bf16") for C_ in (64, 1024, 1280)]
     + [(32, 64, 1024, 512, "swiglu", w) for w in ("int8", "fp8")])
 TILE_GATE = 1.10
+# phase 3d: one granite MoE layer at a decode step of 8 slots (C = 64) and
+# a traffic prefill step of 8 x 16 tokens (C = 1024), drop-free as the
+# engine serves, under ``hybrid`` (default_hot(32) = 8 hot experts, 24
+# cold ones): two streamed_moe launches where ``capacity`` makes one
+TIER_CASES = (("decode", TRAFFIC_BATCH), ("prefill", TRAFFIC_BATCH * CHUNK))
+# phase 4h: the slice under hybrid with the dynamic schedule, then with
+# the resident tier at 576 MiB: 24 MiB for each of granite's 24 MoE
+# layers, 8 bf16 experts of 3 MiB (3 x 1024 x 512 x 2 bytes) each
+HYBRID_ARGV = ["--strategy", "hybrid", "--schedule", "dynamic"]
+RESIDENT_MB = 576
+RESIDENT_PER_LAYER = 8
+# phase 6r: the modeled clock against its discrete referee on the card's
+# traces, the reference's tolerances (tests/test_modeled_clock.py)
+REFEREE_RECORD_TOL = 0.05
+REFEREE_TOTAL_TOL = 0.02
+SIM_STRATEGIES = ("ep", "hydra", "fse_dp_naive", "fse_dp", "fse_dp_paired",
+                  "fse_dp_rule5")
 # phase 6b: phase 6's stream with four Zipf-shared 64-token system prompts
 # in front of each private part (cut so the prompt stays within 128
 # tokens); 16-token chunks, so the prefixes end on chunk boundaries
@@ -971,6 +1017,136 @@ def phase_tiles():
         log("tiles", line)
 
 
+def phase_tiers():
+    """One full-width granite MoE layer (bf16, seed 0) at each of
+    TIER_CASES: ``moe_hybrid`` against ``moe_capacity`` on the same routing
+    and schedule (none, in-call dynamic, a host schedule), one-hot and
+    sorted, bit for bit; the kernel at E = 8 and E = 24 on the rows
+    ``moe_hybrid`` hands it against the matching rows of the E = 32 call,
+    output and scratch bit for bit, each under the analytic level's tiles
+    and the default; then the device time of both MoE paths and of the
+    reorder copies.  -> {path: the kernels line's row} for serve_hybrid (C
+    = 64) and serve_hybrid_chunked (C = C_CHUNK)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import gating, trajectory
+    from repro_torch.core.strategy import default_hot
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import streamed_moe as sm
+    from repro_torch.models import moe
+    cfg = get_config(ARCH)
+    mc, act, d = cfg.moe, cfg.activation, cfg.d_model
+    E, k = mc.num_experts, mc.top_k
+    mcfg = dataclasses.replace(mc, capacity_factor=float(E))
+    H = default_hot(E)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = moe.moe_init(gen, d, mc, act, torch.bfloat16, "cuda")
+    rows = {}
+    for (what, T), path in zip(TIER_CASES, ("serve_hybrid",
+                                            "serve_hybrid_chunked")):
+        x = torch.randn(T, d, generator=gen, device="cuda").to(torch.bfloat16)
+        r = gating.route(params["router"], x, top_k=k)
+        C = mcfg.capacity_rows(T)
+        counts = gating.expert_token_counts(r)
+        host = trajectory.build_schedule(counts.cpu().numpy())
+        with torch.no_grad():
+            for sorted_ in (False, True):
+                with moe.use_sorted_dispatch(sorted_):
+                    for sched in (None, trajectory.DYNAMIC, host):
+                        cap = moe.moe_capacity(params, x, r, mcfg, act,
+                                               schedule=sched)
+                        hyb = moe.moe_hybrid(params, x, r, mcfg, act,
+                                             hot_experts=H, schedule=sched)
+                        if not _same_bits(cap, hyb):
+                            diff = (cap.float() - hyb.float()).abs().max()
+                            fail("tiers", f"{what} C={C} sorted={sorted_} "
+                                          f"schedule {sched}: moe_hybrid is "
+                                          f"not moe_capacity's bits (max "
+                                          f"abs diff {diff.item():.3e})")
+            order = torch.sort(-counts.to(torch.int64), stable=True).indices
+            p = moe._reorder_experts(params, order)
+            dispatch, _ = moe.dispatch_masks(r, T, E, C)
+            xe = torch.einsum("tec,td->ecd", dispatch.to(x.dtype),
+                              x).index_select(0, order).contiguous()
+            ws = [p[n] for n in ("w_gate", "w_up", "w_down")]
+            m = ws[1].shape[-1]
+            planned = {e: _planned(e, C, d, m, act) for e in (H, E - H, E)}
+            full = [sm._launch(xe, *ws, act, tiles=t)
+                    for t in (None, planned[E])]
+            for lo, hi in ((0, H), (H, E)):
+                for t in (None, planned[hi - lo]):
+                    h, out = sm._launch(xe[lo:hi], *(w[lo:hi] for w in ws),
+                                        act, tiles=t)
+                    for fh, fout in full:
+                        if not (_same_bits(out, fout[lo:hi])
+                                and _same_bits(h, fh[lo:hi])):
+                            fail("tiers", f"{what} C={C}: E={hi - lo} "
+                                          f"tiles {t} is not the E={E} "
+                                          f"call's rows {lo}:{hi}")
+
+            def pair():
+                return torch.cat([sm.streamed_moe_kernel(
+                    xe[lo:hi], *(w[lo:hi] for w in ws), activation=act,
+                    tiles=planned[hi - lo]) for lo, hi in ((0, H), (H, E))])
+            ye = pair()
+            h = torch.cat([sm._launch(xe[lo:hi], *(w[lo:hi] for w in ws),
+                                      act, tiles=planned[hi - lo])[0]
+                           for lo, hi in ((0, H), (H, E))])
+            ok, mt = moe_bf16_check(h, ye, ref.streamed_moe_plain_h(
+                xe, *ws, act), xe, *ws, act)
+            plain = ref.streamed_moe_plain(xe, *ws, act)
+            err = (ye - plain).abs().max().item()
+            if not ok:
+                fail("tiers", f"{what} C={C}: the two launches fail phase "
+                              f"3's hold against plain: {mt}")
+            times, ktext = kernel_times(pair)
+            plain_ms = median_ms(lambda: ref.streamed_moe_plain(xe, *ws, act))
+            bound, by = streamed_moe_bound_ms(E, C, d, m, "bf16", 2)
+            t_one = device_ms(lambda: sm.streamed_moe_kernel(
+                xe, *ws, activation=act, tiles=planned[E]))[0]
+            halves = {(hi - lo, t or "default"): device_ms(
+                lambda lo=lo, hi=hi, t=t: sm.streamed_moe_kernel(
+                    xe[lo:hi], *(w[lo:hi] for w in ws), activation=act,
+                    tiles=t))[0]
+                for lo, hi in ((0, H), (H, E))
+                for t in (planned[hi - lo], None)}
+            t_cap = device_ms(lambda: moe.moe_capacity(params, x, r, mcfg,
+                                                       act))[0]
+            t_hyb = device_ms(lambda: moe.moe_hybrid(params, x, r, mcfg, act,
+                                                     hot_experts=H))[0]
+            t_dyn = device_ms(lambda: moe.moe_capacity(
+                params, x, r, mcfg, act, schedule=trajectory.DYNAMIC))[0]
+            t_reo = device_ms(lambda: moe._reorder_experts(params, order))[0]
+        log("tiers", f"{what} T={T} C={C}: moe_hybrid == moe_capacity bit "
+                     f"for bit (one-hot and sorted; no schedule, in-call "
+                     f"dynamic, host); the kernel at E={H} and E={E - H} "
+                     f"(analytic tiles {planned[H]} / {planned[E - H]}, and "
+                     f"the default) gives the E={E} call's rows bit for bit "
+                     f"(its analytic {planned[E]} and default); the two "
+                     f"launches vs plain: h at most {mt['over']:.3f} of its "
+                     f"bound, share differing {mt['flips']:.3e}, max abs "
+                     f"{err:.3e}; {ktext} for both launches, one E={E} "
+                     f"launch {t_one:.4f} ms on the device, plain "
+                     f"{plain_ms:.4f} ms, bound {bound * 1e3:.1f} us ({by})")
+        log("tiers", f"{what} C={C} device ms of each launch: " + ", ".join(
+            f"E={e} {t} {ms:.4f}" for (e, t), ms in halves.items())
+            + f"; one E={E} launch {planned[E]} {t_one:.4f}")
+        log("tiers", f"{what} C={C} device ms per MoE layer: capacity "
+                     f"{t_cap:.4f}, capacity dynamic {t_dyn:.4f}, hybrid "
+                     f"{t_hyb:.4f} (its two launches and reorder); the "
+                     f"reorder copies of the weight stacks alone "
+                     f"{t_reo:.4f} ({3 * E * d * m * 2 / 2**20:.0f} MiB "
+                     f"read and written, {t_reo / t_hyb:.3f} of hybrid's)")
+        rows[path] = dict(max_abs_err=err, **times, plain_ms=plain_ms,
+                          bound_ms=bound, bound_by=by, library_ms=None,
+                          tiles=f"hot E={H}: {planned[H]}; cold E={E - H}: "
+                                f"{planned[E - H]}")
+    del params
+    torch.cuda.empty_cache()
+    return rows
+
+
 def _serve(argv):
     from repro_torch.launch import serve
     return serve.run(serve.parse_args(["--arch", ARCH, "--seed", "0"] + argv))
@@ -1247,21 +1423,22 @@ def _steps(eng, since):
                  for ph in ("prefill", "decode"))
 
 
-def _check_traffic_launches(eng, n_moe, since, phase):
+def _check_traffic_launches(eng, n_moe, since, phase, per_layer=1):
     """streamed_moe launches since the counts were set to 0 (the engine's
-    first run, or a warm one from iteration ``since``): one per MoE layer
-    per prefill step and per decode step.  -> (all launches, those of the
-    prefill graph, at C = C_CHUNK)."""
+    first run, or a warm one from iteration ``since``): ``per_layer`` (2
+    under ``hybrid``) per MoE layer per prefill step and per decode step.
+    -> (all launches, those of the prefill graph, at C = C_CHUNK)."""
     ms = eng.megastep()
     prefill_steps, decode_steps = _steps(eng, since)
+    n = n_moe * per_layer
     # a segment's first call, before its capture, is the call of record
     chunk = ms.captured["prefill"] * ms.replays["prefill"] + \
-        (n_moe if since == 0 and prefill_steps else 0)
+        (n if since == 0 and prefill_steps else 0)
     launches = _launches(eng)
-    if chunk != n_moe * prefill_steps or \
-            launches != n_moe * (prefill_steps + decode_steps):
+    if chunk != n * prefill_steps or \
+            launches != n * (prefill_steps + decode_steps):
         fail(phase, f"streamed_moe launches {launches} ({chunk} at C = "
-                    f"{C_CHUNK}), want {n_moe} x ({prefill_steps} prefill + "
+                    f"{C_CHUNK}), want {n} x ({prefill_steps} prefill + "
                     f"{decode_steps} decode steps)")
     return launches, chunk
 
@@ -1271,7 +1448,7 @@ def phase_traffic(spec_path):
     bf16, on the iteration clock (as the reference's benchmarks); the
     modeled chiplet clock beside it; then the same stream with sorted
     dispatch.  -> {path: (the engine, the streamed_moe launches at C =
-    C_CHUNK)} for serve_chunked and serve_sorted."""
+    C_CHUNK, the outputs)} for serve_chunked and serve_sorted."""
     out = {"serve_chunked": _traffic_run("one-hot")}
     out["serve_sorted"] = _traffic_run("sorted dispatch",
                                        ["--moe-spec", spec_path])
@@ -1279,7 +1456,8 @@ def phase_traffic(spec_path):
     log("traffic", f"sorted dispatch: {sum(a[r] == b[r] for r in a)} of "
                    f"{len(a)} requests emit one-hot's tokens (bf16: the two "
                    f"combines round their fp32 sums apart)")
-    return {path: (res["engine"], n) for path, (res, n) in out.items()}
+    return {path: (res["engine"], n, res["result"]["outputs"])
+            for path, (res, n) in out.items()}
 
 
 def _traffic_run(what, extra=()):
@@ -1321,6 +1499,211 @@ def _traffic_run(what, extra=()):
                    f"({chunk_launches} at C = {C_CHUNK}), peak memory "
                    f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return res, chunk_launches
+
+
+def phase_hybrid(traffic):
+    """The slice (phase 4's requests, bf16, full width) on the fused engine
+    under ``hybrid`` and under ``capacity``, both with the dynamic schedule:
+    a cold run that captures, then a warm one that replays.  The same
+    tokens; twice the streamed_moe launches per MoE layer; no recapture;
+    a ``hot`` list of ``_n_hot`` ids on every MoE record.  Then hybrid
+    with ``--resident-budget-mb 576``: the same tokens, 8 x 24 experts
+    resident, DDR bytes saved, a modeled total no larger.  Then phase 6's
+    Poisson stream under ``hybrid`` (static): phase 6's one-hot tokens,
+    twice its launches.  ``traffic`` is phase 6's result.  -> (the
+    kernels line's launches for serve_hybrid (the warm slice) and
+    serve_hybrid_chunked (at C = C_CHUNK), the resident run's engine)."""
+    import torch
+    from repro_torch.launch import serve
+    runs = {}
+    for what, argv in (("capacity", ["--strategy", "capacity",
+                                     "--schedule", "dynamic"]),
+                       ("hybrid", HYBRID_ARGV),
+                       ("hybrid+resident", HYBRID_ARGV + [
+                           "--resident-budget-mb", str(RESIDENT_MB)])):
+        _zero_counts()
+        cold = _serve(SLICE_ARGV + argv)
+        eng, cfg = cold["engine"], cold["cfg"]
+        ms = eng.megastep()
+        captures, iters0 = ms.captures, eng.stats["iterations"]
+        _zero_counts(eng)
+        warm = serve.run(serve.parse_args(["--arch", ARCH, "--seed", "0"]
+                                          + SLICE_ARGV + argv), engine=eng)
+        iters = eng.stats["iterations"] - iters0
+        launches = _launches(eng)
+        per_layer = 1 if what == "capacity" else 2
+        want = per_layer * _n_moe(cfg) * (4 + iters)
+        if launches != want:
+            fail("hybrid", f"{what}: streamed_moe launched {launches} times "
+                           f"in the warm run, want {want}")
+        if ms.captures != captures:
+            fail("hybrid", f"{what}: recaptured in steady state: "
+                           f"{captures} -> {ms.captures}")
+        recs = [r for r in eng.trace if "counts" in r]
+        if what != "capacity" and not all(
+                len(r.get("hot", ())) == eng._n_hot for r in recs):
+            fail("hybrid", f"{what}: a MoE record without {eng._n_hot} hot "
+                           f"ids")
+        _check_on_card(warm, "hybrid")
+        runs[what] = dict(eng=eng, outs=[list(cold["outs"].values()),
+                                         list(warm["outs"].values())],
+                          launches=launches, iters=iters,
+                          modeled=sum(r["modeled_s"] for r in recs))
+        s = eng.stats
+        log("hybrid", f"{what}: {ARCH} full width bf16, fused, dynamic "
+                      f"schedule, 4 requests x 16 tokens: cold "
+                      f"{cold['seconds']:.3f}s ({ms.captures} captures), "
+                      f"warm {warm['seconds']:.3f}s, {iters} decode "
+                      f"iterations, streamed_moe launches {launches} == "
+                      f"{per_layer} x {_n_moe(cfg)} x (4 + {iters}), "
+                      f"captures unchanged; hot ids {eng._n_hot} a record, "
+                      f"{s['hybrid_repartitions']} repartitions; resident "
+                      f"{s['resident_weight_bytes']} bytes "
+                      f"({eng._n_resident}/layer), DDR bytes saved "
+                      f"{s['ddr_bytes_saved']}; modeled "
+                      f"{runs[what]['modeled'] * 1e3:.4f} ms over "
+                      f"{len(recs)} records")
+        del cold, warm
+    cap, hyb, res = (runs[w] for w in ("capacity", "hybrid",
+                                       "hybrid+resident"))
+    if hyb["outs"] != cap["outs"] or res["outs"] != cap["outs"]:
+        fail("hybrid", f"tokens differ from capacity's: hybrid "
+                       f"{hyb['outs'] == cap['outs']}, resident "
+                       f"{res['outs'] == cap['outs']}")
+    if hyb["launches"] != 2 * cap["launches"] or hyb["iters"] != cap["iters"]:
+        fail("hybrid", f"hybrid launches {hyb['launches']} over "
+                       f"{hyb['iters']} iterations, capacity "
+                       f"{cap['launches']} over {cap['iters']}")
+    eng = res["eng"]
+    want = RESIDENT_PER_LAYER * _n_moe(eng.cfg) * eng.cost_model.expert_bytes
+    if eng._n_resident != RESIDENT_PER_LAYER or \
+            eng.stats["resident_weight_bytes"] != want or \
+            eng.stats["ddr_bytes_saved"] <= 0 or \
+            res["modeled"] > hyb["modeled"]:
+        fail("hybrid", f"resident tier: {eng._n_resident}/layer, "
+                       f"{eng.stats['resident_weight_bytes']} bytes (want "
+                       f"{want}), {eng.stats['ddr_bytes_saved']} DDR bytes "
+                       f"saved, modeled {res['modeled']} vs {hyb['modeled']}")
+    log("hybrid", f"hybrid == capacity token for token (cold and warm), "
+                  f"launches {hyb['launches']} == 2 x {cap['launches']}; "
+                  f"resident: the same tokens, {want} resident bytes, "
+                  f"modeled {res['modeled'] / hyb['modeled']:.4f} of "
+                  f"hybrid's")
+    for w in ("capacity", "hybrid"):
+        del runs[w]["eng"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t = _traffic(extra=["--strategy", "hybrid"])
+    teng, out = t["engine"], t["result"]
+    want = traffic["serve_chunked"][2]
+    if out["outputs"] != want or out["dropped"]:
+        fail("hybrid", f"traffic under hybrid: "
+                       f"{sum(out['outputs'].get(r) == want[r] for r in want)}"
+                       f" of {len(want)} requests emit capacity's tokens, "
+                       f"dropped {out['dropped']}")
+    launches, chunk = _check_traffic_launches(teng, _n_moe(t["cfg"]), 0,
+                                              "hybrid", per_layer=2)
+    log("hybrid", f"phase 6's stream under hybrid: the one-hot capacity "
+                  f"run's tokens for all {len(want)} requests; streamed_moe "
+                  f"launches {launches} ({chunk} at C = {C_CHUNK}), twice "
+                  f"capacity's; {t['seconds']:.3f}s with "
+                  f"{teng.megastep().captures} captures; peak memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del t, teng
+    torch.cuda.empty_cache()
+    return {"serve_hybrid": hyb["launches"],
+            "serve_hybrid_chunked": chunk}, eng
+
+
+def referee_gaps(trace, spec, cf):
+    """A trace's ``modeled_s`` against the port's discrete referee on the
+    Table-I prototype: each record's against ``simulate_trajectory`` (its
+    recorded trajectory when dynamic, the padded plan when static, its
+    resident experts streaming nothing), the total against
+    ``replay_trace``.  -> (worst record gap, that record as (iteration,
+    layer, phase, activations, modeled s, referee s), total gap, records
+    held, total modeled s, total referee s)."""
+    import numpy as np
+    from repro_torch.sim import hardware, modes
+    hw = hardware.PROTOTYPE_2X2
+    worst, where, n = 0.0, None, 0
+    for rec in trace:
+        if "counts" not in rec:
+            continue
+        counts = np.asarray(rec["counts"], np.float64)
+        if counts.sum() <= 0:
+            continue
+        kw = dict(capacity_factor=cf, resident=rec.get("resident"))
+        if rec["schedule"] == "dynamic":
+            ref = modes.simulate_trajectory(
+                hw, spec, counts, order=rec.get("trajectory") or rec["order"],
+                **kw)
+        else:
+            ref = modes.simulate_trajectory(hw, spec, counts, padded=True,
+                                            **kw)
+        gap = abs(rec["modeled_s"] - ref) / ref
+        n += 1
+        if gap >= worst:
+            worst, where = gap, (rec["iter"], rec["layer"], rec["phase"],
+                                 int(counts.sum()), rec["modeled_s"], ref)
+    total_m = sum(r.get("modeled_s", 0.0) for r in trace)
+    total_r = modes.replay_trace(hw, spec, trace, capacity_factor=cf)
+    return worst, where, abs(total_m - total_r) / total_r, n, total_m, total_r
+
+
+def phase_referee(traces):
+    """Each trace the card produced (``traces``: label -> engine) replayed
+    through the port's chiplet simulator on ``spec_from_config`` of the
+    engine's full-width config (``referee_gaps``): every record within
+    5%, the total within 2%.  Then, not gated, the paper's strategies
+    (``simulate_layer`` on ``workloads_from_trace``) and ``rank_modes``
+    on the busiest prefill and decode iterations of the first trace."""
+    from repro_torch.sim import engine as sim_engine
+    from repro_torch.sim import hardware, modes, workload
+    hw = hardware.PROTOTYPE_2X2
+    first = None
+    for label, eng in traces.items():
+        spec = hardware.spec_from_config(
+            eng.cfg, weight_bytes=eng.cost_model.weight_bytes)
+        worst, where, agg, n, total_m, total_r = referee_gaps(
+            eng.trace, spec, eng.cfg.moe.capacity_factor)
+        line = (f"{label}: {n} records; worst record {worst:.4%} (iteration "
+                f"{where[0]}, layer {where[1]}, {where[2]}, {where[3]} "
+                f"activations: modeled {where[4] * 1e6:.3f} us, referee "
+                f"{where[5] * 1e6:.3f} us; tol {REFEREE_RECORD_TOL:.0%}); "
+                f"total modeled {total_m * 1e3:.4f} ms, replay_trace "
+                f"{total_r * 1e3:.4f} ms, gap {agg:.4%} (tol "
+                f"{REFEREE_TOTAL_TOL:.0%})")
+        if worst > REFEREE_RECORD_TOL or agg > REFEREE_TOTAL_TOL:
+            fail("referee", line)
+        log("referee", line)
+        if first is None:
+            first = (label, eng, spec)
+    label, eng, spec = first
+    groups = {}
+    recs = [r for r in eng.trace if "counts" in r]
+    for rec, (it, _, wl) in zip(recs, workload.workloads_from_trace(
+            eng.trace, hw.num_chiplets)):
+        groups.setdefault((rec["phase"], it), []).append(wl)
+    for ph in ("prefill", "decode"):
+        keys = [key for key in groups if key[0] == ph]
+        if not keys:
+            continue
+        key = max(keys, key=lambda k: sum(w.total_tokens for w in groups[k]))
+        it, wls = key[1], groups[key]
+        tokens = max(1, wls[0].total_tokens // spec.top_k)
+        lat = {st: sum(sim_engine.simulate_layer(hw, spec, wl, st).latency
+                       for wl in wls) for st in SIM_STRATEGIES}
+        ranks = modes.rank_modes(hw, spec, tokens, B=tokens, S=1)
+        log("referee", f"{label}, {ph} iteration {it} ({tokens} tokens, "
+                       f"{len(wls)} MoE layers) on the modeled 2x2 array, "
+                       f"not gated: simulate_layer ms " + ", ".join(
+                           f"{st} {v * 1e3:.4f}" for st, v in lat.items())
+                       + f" (FSE-DP paired over EP "
+                       f"{lat['ep'] / lat['fse_dp_paired']:.3f}x); "
+                       f"rank_modes ms " + ", ".join(
+                           f"{m} {v * 1e3:.4f}" for m, v in ranks.items()))
 
 
 def phase_prefix():
@@ -1509,7 +1892,8 @@ def _graph_breakdown(events, eng):
 
 def _profile(label, fn, eng=None):
     """Run ``fn`` once under torch.profiler: device kernel time by kernel
-    name and the device's busy share of the wall time.  With an engine,
+    name and the device's busy share of the wall time; -> (device busy
+    seconds, the rows of ``_profiled``).  With an engine,
     its streamed_moe launches in that run (the counts set to 0 first) are
     held against the profiler's count of ``up_kernel`` launches; on a
     mismatch the records are broken down by graph launch, and the phase
@@ -1536,6 +1920,16 @@ def _profile(label, fn, eng=None):
                             f"{_graph_breakdown(events, eng)}")
         log("profile", f"{label}: the profiler's up_kernel launches {seen} "
                        f"== streamed_moe launches counted {counted}")
+    return busy, rows
+
+
+def _index_select_ms(rows):
+    """Device ms of the kernels ``index_select`` runs as (a vectorized
+    gather, or indexSelect*) among profiled rows: the expert reorder
+    copies, and any other gather by index."""
+    return sum(ms for ms, _, name in rows
+               if any(k in name.lower().replace("_", "")
+                      for k in ("indexselect", "gatherkernel")))
 
 
 def phase_profile(traffic_engines):
@@ -1547,12 +1941,27 @@ def phase_profile(traffic_engines):
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models import api
-    for label, argv in (("slice", []), ("slice fp8", ["--weight-dtype", "fp8"])):
+    selected = {}
+    for label, argv in (("slice", []),
+                        ("slice fp8", ["--weight-dtype", "fp8"]),
+                        ("slice capacity dynamic", ["--schedule", "dynamic"]),
+                        ("slice hybrid", HYBRID_ARGV)):
         eng = _serve(SLICE_ARGV + argv)["engine"]          # captures
-        _profile(label, lambda: serve.run(serve.parse_args(
+        busy, rows = _profile(label, lambda: serve.run(serve.parse_args(
             ["--arch", ARCH, "--seed", "0"] + SLICE_ARGV + argv), engine=eng),
             eng)
+        selected[label] = (_index_select_ms(rows), busy * 1e3)
         del eng
+    (s_ms, _), (d_ms, _), (h_ms, h_busy) = (selected[k] for k in (
+        "slice", "slice capacity dynamic", "slice hybrid"))
+    log("profile", f"slice hybrid: index_select's gather kernels "
+                   f"{h_ms:.2f} ms of {h_busy:.2f} ms device time "
+                   f"({h_ms / h_busy:.3f}); the "
+                   f"static capacity slice's {s_ms:.2f} ms are gathers that "
+                   f"are no reorder, so the reorder copies (weight stacks, "
+                   f"rows and their restore) take {h_ms - s_ms:.2f} ms, "
+                   f"{(h_ms - s_ms) / h_busy:.3f} of hybrid's device time "
+                   f"(capacity dynamic: {d_ms - s_ms:.2f} ms)")
     for path, eng in traffic_engines.items():
         _profile({"serve_chunked": "traffic",
                   "serve_sorted": "traffic sorted"}[path],
@@ -1930,6 +2339,7 @@ def main():
         rows["streamed_moe"].update(serve_sorted=sorted_row,
                                     serve_prefix=sorted_row)
         phase_tiles()
+        rows["streamed_moe"].update(phase_tiers())
         with tempfile.TemporaryDirectory() as cache_root:
             launches = {("streamed_moe", "serve"): phase_slice(
                 rows["streamed_moe"]["serve"]["device_ms"], cache_root)}
@@ -1939,15 +2349,22 @@ def main():
                 json.dump(SORTED_SPEC, f)
             phase_fused_vs_eager(spec_path)
             traffic = phase_traffic(spec_path)
-        for path, (_, n) in traffic.items():
+        for path, (_, n, _) in traffic.items():
             launches["streamed_moe", path] = n
+        hybrid, resident = phase_hybrid(traffic)
+        for path, n in hybrid.items():
+            launches["streamed_moe", path] = n
+        phase_referee({"traffic one-hot": traffic["serve_chunked"][0],
+                       "traffic sorted": traffic["serve_sorted"][0],
+                       "hybrid + resident slice": resident})
+        del resident
         launches["streamed_moe", "serve_prefix"] = phase_prefix()
         phase_parity()
         launches["streamed_moe", "serve_fp8"] = phase_features()
         for k, n in phase_forward().items():
             launches[k, "forward"] = n
         launches["ssd", "mamba"] = phase_mamba()
-        phase_profile({path: eng for path, (eng, _) in traffic.items()})
+        phase_profile({path: eng for path, (eng, _, _) in traffic.items()})
         if "jax" in sys.modules:
             fail("summary", "jax was imported")
     except SystemExit:

@@ -31,8 +31,16 @@ before (double-buffered).  The profile is pure Table-I constants
 on every machine; they describe the modeled array, never the card the
 port runs on.
 
-The two-tier ``hybrid`` pricing waits for ROADMAP A.11b, and the
-distributed planner (``plan_moe``, ``mode_cost``, ``Plan``) for A.14.
+**The two tiers**: on a profile with a near-memory tier
+(``HardwareProfile.ndp_flops`` / ``ndp_bw``, from ``sim.hardware.with_ndp``)
+:func:`hybrid_cost` prices the ``hybrid`` strategy's hot prefix on the
+fast array against its cold tail executed in place near memory, and
+``ServingCostModel.layer_s(hot=...)`` prices a trace record's partition
+the same way; on homogeneous hardware the partition is placement only and
+``hot`` is ignored.  :class:`Plan` carries the decision (its fields only:
+the Hopper planner's :func:`kernel_opts_for` stands where the reference's
+``Plan.kernel_opts`` would).  The distributed planner (``plan_moe``,
+``mode_cost``, ``ep_cost``) waits for ROADMAP A.14.
 """
 from __future__ import annotations
 
@@ -118,6 +126,26 @@ class HardwareProfile:
                    vmem_bytes=hw.buffer_bytes,
                    ndp_flops=None if ndp is None else ndp.tops,
                    ndp_bw=0.0 if ndp is None else ndp.gbps)
+
+
+@dataclass(frozen=True)
+class Plan:
+    """One resolved MoE execution decision.  ``family`` names the
+    ``core.strategy`` registry key that owns the plan, ``mode`` the
+    dataflow (the family's own name outside FSE-DP); ``hot_experts`` is
+    the ``hybrid`` family's fast-tier expert count."""
+
+    mode: str                          # stream | index | slice | <family>
+    micro_slices: int
+    family: str = "fse_dp"
+    token_tile: int = 128
+    dmodel_tile: Optional[int] = None
+    dexpert_tile: Optional[int] = None
+    predicted_s: float = 0.0
+    vmem_bytes: int = 0
+    per_mode_s: Tuple[Tuple[str, float], ...] = ()
+    source: str = "analytic"           # analytic | measured | fallback | forced
+    hot_experts: Optional[int] = None  # hybrid family: fast-tier expert count
 
 
 def _cap(tokens: int, top_k: int, E: int, cf: float) -> int:
@@ -212,15 +240,17 @@ class ServingCostModel:
     def layer_s(self, counts, *, dynamic: bool = False, resident: int = 0,
                 hot=None) -> float:
         """Modeled seconds for one layer's observed expert counts;
-        ``resident`` experts skip their DDR stream.  The two-tier
-        ``hot`` pricing is not ported yet."""
-        if hot is not None:
-            raise NotImplementedError(
-                "two-tier hybrid pricing is not ported yet: ROADMAP A.11b "
-                "(hybrid, resident tier)")
+        ``resident`` experts skip their DDR stream.  ``hot`` is the
+        hybrid strategy's fast-tier expert ids: on a two-tier profile the
+        layer prices as the slower of the fast flow over ``hot`` and the
+        near-memory tier over the rest; on homogeneous hardware it is
+        ignored (every expert still streams)."""
         total = float(sum(float(c) for c in counts))
         tokens = max(1, math.ceil(total / max(1, self.top_k)))
         C = _cap(tokens, self.top_k, self.num_experts, self.capacity_factor)
+        if hot is not None and self.profile.ndp_flops and self.profile.ndp_bw:
+            return self._hybrid_tiers_s(counts, C, frozenset(
+                int(e) for e in hot), dynamic and total > 0)
         load = None
         if dynamic and total > 0:
             load = tuple(float(c) / total for c in counts)
@@ -229,6 +259,158 @@ class ServingCostModel:
             total, self.profile, dtype_bytes=self.dtype_bytes,
             weight_bytes=self.weight_bytes, resident=resident,
             load=load)["total_s"]
+
+    def _hybrid_tiers_s(self, counts, C: int, hotset: frozenset,
+                        dynamic: bool) -> float:
+        """Two-tier pricing against the aggregate array profile: the hot
+        tier is the usual streaming flow (fill + overlapped compute/DDR
+        chains), the cold tier executes in place near memory plus a
+        token shuttle over D2D; the layer is their ``max``."""
+        p = self.profile
+        eb = float(self.expert_bytes)
+        fl = 2.0 * self.n_mats * self.d_model * self.d_expert
+        hot_rows = cold_rows = 0.0
+        hot_active = cold_active = 0
+        for e in range(self.num_experts):
+            r = min(float(C), float(counts[e])) if dynamic else float(C)
+            if dynamic and r < 0.5:
+                continue
+            if e in hotset:
+                hot_rows += r
+                hot_active += 1
+            else:
+                cold_rows += r
+                cold_active += 1
+        t_hot = 0.0
+        if hot_active:
+            t_fill = eb / p.mem_bw
+            t_hot = t_fill + max(hot_rows * fl / p.peak_flops,
+                                 hot_active * eb / p.mem_bw - t_fill)
+        t_cold = 0.0
+        if cold_active:
+            t_cold = max(cold_rows * fl / p.ndp_flops,
+                         cold_active * eb / p.ndp_bw) \
+                + 2.0 * cold_rows * self.d_model * self.dtype_bytes \
+                / p.link_bw
+        return max(t_hot, t_cold)
+
+
+# ---------------------------------------------------------------------------
+# the two tiers and the shapes the distributed modes lower for
+# ---------------------------------------------------------------------------
+
+
+def feasible_modes(B: int, S: int, P: int) -> Tuple[str, ...]:
+    """Which SPMD layouts lower for this global token shape."""
+    out = []
+    if S % P == 0 and S >= P:
+        out.append("stream")
+    if (B * S) % P == 0:
+        out.append("index")
+    out.append("slice")                # always lowers (weights stationary)
+    return tuple(out)
+
+
+def hybrid_cost(B: int, S: int, d: int, E: int, de: int, top_k: int,
+                cf: float, n_mats: int, P: int, profile: HardwareProfile,
+                dtype_bytes: int = 2,
+                load: Optional[Tuple[float, ...]] = None,
+                weight_bytes: Optional[int] = None,
+                hot_n: Optional[int] = None) -> Dict[str, float]:
+    """Predicted seconds for one MoE layer under two-tier hot/cold
+    placement (the ``hybrid`` family): *hot* experts stream through the
+    fast chiplet array as the usual double-buffered expert flow, *cold*
+    experts execute in place on the near-memory tier
+    (``profile.ndp_flops`` / ``ndp_bw``), and the layer finishes at
+    ``max(tier_fast, tier_ndp)`` — the HD-MoE / GPU-NDP operating
+    point.  Closed-form twin of ``sim.modes.simulate_hybrid`` (the
+    discrete referee; the reference asserts their rank agreement across
+    families, which needs ``family_costs``, ROADMAP A.14).
+
+    Global hot/cold placement is not aligned with any token sharding,
+    so routing + capacity dispatch run un-sharded on ONE fast die
+    before the tiers start — the centralization tax that keeps FSE-DP
+    competitive at prefill.  The hot set is a prefix of the
+    load-descending expert order: ``hot_n`` pins its size (static
+    top-N baseline, or the engine's EMA partition width); ``None``
+    sweeps every prefix and keeps the best — the idealized dynamic
+    repartition.  ``load`` is a normalized per-expert share vector
+    (``None``: every expert at its padded capacity); ``weight_bytes`` the
+    streamed bytes per expert-weight param (``None``: ``dtype_bytes``).
+    """
+    if not profile.ndp_flops or not profile.ndp_bw:
+        raise ValueError("hybrid_cost needs a near-memory tier "
+                         "(HardwareProfile.ndp_flops / ndp_bw)")
+    T = B * S
+    ab = dtype_bytes
+    wb = dtype_bytes if weight_bytes is None else weight_bytes
+    eb = float(n_mats * d * de * wb)
+    C = _cap(T, top_k, E, cf)
+    if load is None:
+        rows_desc = [float(C)] * E
+    else:
+        rows_desc = sorted((min(float(C), T * top_k * float(s))
+                            for s in load), reverse=True)
+    pref_rows = [0.0]
+    pref_active = [0]
+    for r in rows_desc:                 # prefix sums, load-descending
+        act = load is None or r >= 0.5
+        pref_rows.append(pref_rows[-1] + (r if act else 0.0))
+        pref_active.append(pref_active[-1] + int(act))
+    tot_rows, tot_active = pref_rows[-1], pref_active[-1]
+
+    dispatch_flops = 2.0 * T * E * C * d * 2 + 2.0 * T * d * E
+    t_dispatch = dispatch_flops / profile.peak_flops   # one die, un-sharded
+    ddr_bw = P * profile.mem_bw                        # array-total DDR
+
+    def _tiers(H: int) -> Tuple[float, float, float]:
+        hot_rows, hot_active = pref_rows[H], pref_active[H]
+        cold_rows = tot_rows - hot_rows
+        cold_active = tot_active - pref_active[H]
+        t_hot = 0.0
+        if hot_active:
+            # expert flow: exposed first load + ring broadcast, then
+            # compute / DDR / ring chains overlap (double-buffered)
+            t_fill = eb / ddr_bw \
+                + (P - 1) * (eb / (P * profile.link_bw)
+                             + profile.link_latency)
+            t_comp = 2.0 * n_mats * hot_rows * d * de \
+                / (P * profile.peak_flops)
+            t_ddr = hot_active * eb / ddr_bw
+            t_ring = hot_active * eb * (P - 1) / (P * profile.link_bw) \
+                + hot_active * (P - 1) * profile.link_latency
+            t_hot = t_fill + max(t_comp, t_ddr - t_fill, t_ring - t_fill)
+        t_cold = 0.0
+        if cold_active:
+            # in-place near-memory execution + token shuttle over D2D
+            t_cold = max(2.0 * n_mats * cold_rows * d * de
+                         / profile.ndp_flops,
+                         cold_active * eb / profile.ndp_bw)
+            t_cold += 2.0 * cold_rows * d * ab / profile.link_bw \
+                + 2.0 * profile.link_latency
+        return max(t_hot, t_cold), t_hot, t_cold
+
+    if hot_n is not None:
+        best_H = max(0, min(E, int(hot_n)))
+        best, t_hot, t_cold = _tiers(best_H)
+    else:
+        best = t_hot = t_cold = None
+        best_H = 0
+        for H in range(E + 1):
+            t, th, tc = _tiers(H)
+            if best is None or t < best:
+                best, t_hot, t_cold, best_H = t, th, tc, H
+    return {"total_s": t_dispatch + best, "dispatch_s": t_dispatch,
+            "hot_s": t_hot, "cold_s": t_cold, "hot_n": float(best_H),
+            "capacity": C, "rows": tot_rows, "active": float(tot_active)}
+
+
+def _micro_candidates(de_loc: int, configured: int) -> List[int]:
+    """Divisors of the local slice width worth trying (+ the config value)."""
+    cands = {m for m in (1, 2, 4, 8, 16) if m <= de_loc and de_loc % m == 0}
+    if 0 < configured <= de_loc and de_loc % configured == 0:
+        cands.add(configured)
+    return sorted(cands) or [1]
 
 
 # ---------------------------------------------------------------------------

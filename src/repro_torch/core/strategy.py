@@ -3,7 +3,10 @@ single-device part of ``repro.core.strategy``).
 
 :class:`ExecutionSpec` keeps the reference's fields and JSON form, so it
 reads ``examples/moe-spec.json``.  The registry holds the single-device
-strategies ``dense`` and ``capacity``.  The other reference strategies
+strategies ``dense``, ``capacity`` and ``hybrid`` (two-tier hot/cold
+placement: a hot prefix of the load-ordered experts on the fast array, a
+cold tail near memory, bit for bit the ``capacity`` output), which plans
+from a :class:`StrategyContext`.  The distributed reference strategies
 are known names that raise ``NotImplementedError`` naming the ROADMAP
 step that ports them.  The spec's scope enters its autotune level (the
 Hopper tile planner's, ``core.autotune.use_autotune``), then its kernels,
@@ -17,14 +20,35 @@ import json
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
+from repro_torch.configs.base import MoEConfig
 from repro_torch.core import autotune
+from repro_torch.core.autotune import HardwareProfile, Plan
 from repro_torch.kernels import quant
 
 PHASES = ("train", "prefill", "decode")
 
+# cross-family candidates of the reference's ``auto`` planner, in
+# tie-break order; ``hybrid`` joins only on a profile with a near-memory
+# tier (``sim.modes.rank_families`` mirrors this)
+BASE_FAMILIES = ("fse_dp", "ep", "tp")
+FAMILIES = BASE_FAMILIES + ("hybrid",)
+
+
+def default_hot(E: int) -> int:
+    """Fast-tier expert count when nothing better is known: the top
+    quartile of experts by load (at least 1), the static top-N baseline
+    the dynamic EMA repartition is measured against."""
+    return max(1, E // 4)
+
+
+def ep_feasible(B: int, S: int, E: int, P: int) -> bool:
+    """EP lowers when experts split evenly and tokens can seq- or
+    batch-shard over the model axis."""
+    return P > 1 and E % P == 0 and (S % P == 0 or B % P == 0)
+
+
 # reference strategies not ported yet -> the ROADMAP step that ports them
 UNPORTED = {
-    "hybrid": "ROADMAP A.11b (hybrid, resident tier)",
     "fse_dp": "ROADMAP A.14 (distributed families)",
     "ep": "ROADMAP A.14 (distributed families)",
     "tp": "ROADMAP A.14 (distributed families)",
@@ -157,6 +181,38 @@ class ExecutionSpec:
         raise TypeError(f"cannot coerce {type(value).__name__} to ExecutionSpec")
 
 
+@dataclass(frozen=True)
+class StrategyContext:
+    """Static shape and config facts a strategy needs to plan one call."""
+
+    B: int
+    S: int
+    d_model: int
+    moe: MoEConfig
+    activation: str
+    P: int = 1               # model-axis size
+    dtype_bytes: int = 2     # activation bytes per element
+    level: Optional[str] = None
+    profile: Optional[HardwareProfile] = None
+    load: Optional[Tuple[float, ...]] = None  # per-expert load shares
+    weight_bytes: Optional[int] = None  # streamed expert-weight bytes/param
+    #                                     (None = dtype_bytes)
+
+    @classmethod
+    def from_inputs(cls, x, moe: MoEConfig, activation: str,
+                    axis: str = "model", *,
+                    load: Optional[Tuple[float, ...]] = None
+                    ) -> "StrategyContext":
+        """From a (B, S, d) tensor on one device (``P`` = 1: the model
+        mesh comes with ROADMAP A.14); the streamed weight bytes are the
+        ambient ``quant.weight_dtype``'s."""
+        B, S, d = x.shape
+        return cls(B=int(B), S=int(S), d_model=int(d), moe=moe,
+                   activation=activation, P=1,
+                   dtype_bytes=x.element_size(), load=load,
+                   weight_bytes=quant.weight_bytes())
+
+
 _REGISTRY: Dict[str, Any] = {}
 
 
@@ -184,7 +240,7 @@ def available() -> Tuple[str, ...]:
 
 class _SingleDevice:
     """Global routing on one device: route (or accept the routing), then
-    the dense or capacity dataflow of ``models.moe``."""
+    the dense, capacity or two-tier dataflow of ``models.moe``."""
 
     def route(self, params, x, moe, routing=None):
         from . import gating
@@ -223,3 +279,43 @@ class CapacityStrategy(_SingleDevice):
         from repro_torch.models import moe as moe_mod
         return moe_mod.moe_capacity(params, x2d, routing, moe, activation,
                                     schedule=schedule)
+
+
+@register("hybrid")
+class HybridStrategy(_SingleDevice):
+    """Two-tier hot/cold placement: hot experts stream through the fast
+    chiplet array, cold experts execute in place on the near-memory tier
+    (``HardwareConfig.ndp``); the layer finishes at the slower tier.  The
+    split is placement only: execution cuts the load-ordered expert axis
+    into a hot prefix and a cold tail, bit for bit the ``capacity``
+    output.  (The reference delegates to ``fse_dp`` under a model mesh;
+    that branch comes with ROADMAP A.14.)"""
+
+    def plan(self, ctx: StrategyContext) -> Plan:
+        # the modeled chiplet array, as the reference plans off a TPU
+        profile = ctx.profile or HardwareProfile.from_chiplet()
+        E = ctx.moe.num_experts
+        if not (profile.ndp_flops and profile.ndp_bw):
+            # homogeneous hardware: placement-only plan, static top-N
+            return Plan(mode="hybrid", family="hybrid", micro_slices=1,
+                        source="fallback", hot_experts=default_hot(E))
+        n_mats = 3 if ctx.activation == "swiglu" else 2
+        c = autotune.hybrid_cost(ctx.B, ctx.S, ctx.d_model, E,
+                                 ctx.moe.d_expert, ctx.moe.top_k,
+                                 ctx.moe.capacity_factor, n_mats, ctx.P,
+                                 profile, ctx.dtype_bytes, ctx.load,
+                                 ctx.weight_bytes)
+        return Plan(mode="hybrid", family="hybrid", micro_slices=1,
+                    predicted_s=c["total_s"], source="analytic",
+                    hot_experts=int(c["hot_n"]))
+
+    def run(self, params, x2d, routing, moe, activation, schedule):
+        """H from the schedule's plan (the engine's EMA width on the eager
+        path), else ``default_hot(E)``."""
+        from repro_torch.models import moe as moe_mod
+        plan = None if schedule is None else schedule.plan
+        H = plan.hot_experts if plan is not None \
+            and plan.hot_experts is not None \
+            else default_hot(moe.num_experts)
+        return moe_mod.moe_hybrid(params, x2d, routing, moe, activation,
+                                  hot_experts=H, schedule=schedule)

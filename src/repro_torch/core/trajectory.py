@@ -25,8 +25,9 @@ class Schedule:
     """One expert-trajectory decision for one MoE layer call.
 
     ``order`` is a host tuple of expert ids, a tensor, or ``None``
-    (derive from the call's own counts when dynamic).  ``plan`` is
-    carried opaquely: the cost-model plan is not ported yet."""
+    (derive from the call's own counts when dynamic).  ``plan`` is the
+    ``core.autotune.Plan`` the caller made for this load (the ``hybrid``
+    strategy reads its ``hot_experts``)."""
 
     policy: str = "static"
     order: Optional[Tuple[int, ...]] = None
@@ -60,14 +61,16 @@ def normalized_load(counts: Sequence[float]) -> Optional[Tuple[float, ...]]:
 
 
 def build_schedule(counts: Optional[Sequence[int]] = None, *,
-                   policy: str = "dynamic") -> Schedule:
-    """Host-side schedule from observed (or EMA) expert counts."""
+                   policy: str = "dynamic",
+                   plan: Optional[Any] = None) -> Schedule:
+    """Host-side schedule from observed (or EMA) expert counts; ``plan``
+    travels with it."""
     if policy == "static" or counts is None:
-        return Schedule(policy="static")
+        return Schedule(policy="static", plan=plan)
     return Schedule(policy="dynamic",
                     order=tuple(paired_load_order(counts)),
                     pairs=tuple(expert_pairs(counts)),
-                    load=normalized_load(counts))
+                    load=normalized_load(counts), plan=plan)
 
 
 @dataclass
@@ -92,12 +95,12 @@ class LoadTracker:
         self.steps += 1
         return self.ema
 
-    def schedule(self) -> Schedule:
+    def schedule(self, *, plan: Optional[Any] = None) -> Schedule:
         """A dynamic Schedule from the EMA (derived in-call before any
         observation)."""
         if self.steps == 0:
             return Schedule(policy="dynamic")
-        return build_schedule(self.ema, policy="dynamic")
+        return build_schedule(self.ema, policy="dynamic", plan=plan)
 
 
 def traced_order(counts: torch.Tensor) -> torch.Tensor:

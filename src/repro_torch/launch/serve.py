@@ -25,13 +25,21 @@ The engine runs its fused segments (CUDA graphs on the card).  Weights
 are random, drawn from ``--seed``.  ``--device`` defaults to ``cuda``
 (and fails where there is none).  MoE execution is one
 :class:`ExecutionSpec`: ``--strategy`` names a registered strategy
-(``capacity`` or ``dense``), ``--moe-spec path.json`` loads a full spec
+(``capacity``, ``dense`` or ``hybrid``; ``--hot-experts`` sets hybrid's
+fast-tier width), ``--moe-spec path.json`` loads a full spec
 (``"sorted_dispatch": true`` there turns on sorted dispatch), and
 ``--autotune {off,analytic,measured}`` overrides the spec's tile-planner
 level (``core.autotune``; the engine's default is ``analytic``;
 ``measured`` times the kernel's tile settings on the card once per shape
 and keeps the winners in ``kernel_tiles_torch.json`` under
 ``REPRO_AUTOTUNE_CACHE`` or ``artifacts/autotune/``).
+``--resident-budget-mb`` pins each MoE layer's EMA-hottest experts on
+the modeled package (accounting only: the same tokens); every run prints
+the weight tier's resident bytes and the DDR bytes it saved:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-1b-a400m \\
+      --reduced --device cpu --dry-run --strategy hybrid --hot-experts 4 \\
+      --resident-budget-mb 0.1
 """
 from __future__ import annotations
 
@@ -68,8 +76,8 @@ def parse_args(argv=None):
     ap.add_argument("--theta-min", type=int, default=2)
     ap.add_argument("--max-batch", type=int, default=8)
     ap.add_argument("--strategy", default=None,
-                    help="MoE execution strategy (capacity or dense); "
-                         "default capacity")
+                    help="MoE execution strategy (capacity, dense or "
+                         "hybrid); default capacity")
     ap.add_argument("--moe-spec", default=None,
                     help="path to an ExecutionSpec JSON; --strategy "
                          "overrides its strategy field")
@@ -85,6 +93,17 @@ def parse_args(argv=None):
                          "(core.autotune); 'measured' times the kernel's "
                          "tile settings on the card and caches the winners "
                          "under artifacts/autotune/")
+    ap.add_argument("--resident-budget-mb", type=float, default=0.0,
+                    help="EMA-hot weight tier: MiB of expert weights pinned "
+                         "on the modeled package, split evenly over the MoE "
+                         "layers (each layer's hottest experts by EMA); "
+                         "they skip their DDR stream in the modeled clock "
+                         "and the trace. 0 disables the tier")
+    ap.add_argument("--hot-experts", type=int, default=None,
+                    help="hybrid strategy: fast-tier experts per MoE layer "
+                         "(default: the top quartile, strategy.default_hot),"
+                         " repartitioned every iteration off the EMA and "
+                         "recorded in the trace")
     ap.add_argument("--dry-run", action="store_true",
                     help="validate the spec and serve one tiny request "
                          "(with --traffic: a tiny closed loop on the "
@@ -158,15 +177,19 @@ def run(args, engine=None):
         built = {"spec": engine.scfg.spec, "cfg": engine.cfg,
                  "params": engine.params, "device": engine.device}
     cfg = built["cfg"]
+    tiers = dict(resident_budget_mb=args.resident_budget_mb,
+                 hot_experts=args.hot_experts)
     if args.dry_run:
-        scfg = ServeConfig(max_batch=2, max_ctx=16, spec=built["spec"])
+        scfg = ServeConfig(max_batch=2, max_ctx=16, spec=built["spec"],
+                           **tiers)
         prompts, max_new = [[1, 2, 3, 4]], 2
     else:
         scfg = ServeConfig(max_batch=args.max_batch,
                            max_ctx=args.prompt_len + args.max_new + 8,
                            buffering_slack=args.slack,
                            theta_min=args.theta_min,
-                           page_size=args.page_size, spec=built["spec"])
+                           page_size=args.page_size, spec=built["spec"],
+                           **tiers)
         rng = np.random.default_rng(args.seed)
         prompts = [rng.integers(0, cfg.vocab_size, size=args.prompt_len).tolist()
                    for _ in range(args.requests)]
@@ -214,7 +237,9 @@ def run_traffic(args, *, wall_clock=None, engine=None):
         buffering_slack=args.slack, theta_min=args.theta_min,
         chunk_tokens=args.chunk_tokens, page_size=args.page_size,
         prefix_cache=args.prefix_cache, preempt_queue_depth=args.preempt_depth,
-        seed=args.seed, spec=built["spec"]), device=built["device"])
+        seed=args.seed, spec=built["spec"],
+        resident_budget_mb=args.resident_budget_mb,
+        hot_experts=args.hot_experts), device=built["device"])
     if wall_clock is None:
         wall_clock = not args.dry_run
     sched = Scheduler(eng, SchedulerConfig(
@@ -253,6 +278,15 @@ def _print_traffic(res):
           f"{s['cache_hits']} cache hits / {s['cache_misses']} misses "
           f"({s['prefill_tokens_saved']} prefill tokens saved), "
           f"{s['preemptions']} preemptions / {s['restores']} restores")
+    print(f"  {_weight_tier(eng)}")
+
+
+def _weight_tier(eng) -> str:
+    s = eng.stats
+    return (f"weight tier  {eng.scfg.spec.weight_dtype or eng.cfg.dtype} "
+            f"weights, {s['resident_weight_bytes']} resident expert bytes "
+            f"({eng._n_resident}/layer), {s['ddr_bytes_saved']} DDR bytes "
+            f"saved")
 
 
 def main(argv=None):
@@ -280,6 +314,7 @@ def main(argv=None):
         if n < 1:
             raise SystemExit("dry-run emitted no tokens")
         print(f"dry-run OK: spec={eng.scfg.spec.to_json()} tokens={n}")
+        print(f"  {_weight_tier(eng)}")
         return
     for rid, toks in outs.items():
         print(f"{rid}: {toks[:12]}{'...' if len(toks) > 12 else ''}")
@@ -290,6 +325,7 @@ def main(argv=None):
           f"dynamic_schedules={s['dynamic_schedules']} "
           f"host_syncs={s['host_syncs']} "
           f"throughput={n / dt:.1f} tok/s on {eng.device}")
+    print(_weight_tier(eng))
 
 
 if __name__ == "__main__":

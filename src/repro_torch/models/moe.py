@@ -5,10 +5,11 @@ Weight layout, stacked over experts:
   w_down       : (E, d_expert, d_model)
 
 ``moe_block`` looks the strategy up in ``core.strategy``: ``dense`` (the
-oracle) or ``capacity`` (dispatch into (E, C, d) rows, the
-``streamed_moe`` kernel, weighted combine).  Capacity dispatch and
-combine are one-hot products by default, or gathers under
-``use_sorted_dispatch`` (``ExecutionSpec.sorted_dispatch``).
+oracle), ``capacity`` (dispatch into (E, C, d) rows, the
+``streamed_moe`` kernel, weighted combine) or ``hybrid`` (the same rows
+in load order, the kernel once on a hot prefix and once on the cold
+tail).  Capacity dispatch and combine are one-hot products by default,
+or gathers under ``use_sorted_dispatch`` (``ExecutionSpec.sorted_dispatch``).
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import contextlib
 import contextvars
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -153,6 +155,69 @@ def one_hot_combine(combine, ye):
     token's k terms by where they fell along E·C: on an H100 a token's
     output then moved with the slot and the batch.)"""
     return torch.bmm(combine.transpose(0, 1), ye).sum(0)
+
+
+# ---------------------------------------------------------------------------
+# hybrid two-tier dispatch: a hot prefix on the fast array, a cold tail near
+# memory.  The expert axis is a batch axis of the grouped FFN, so running
+# it as two groups gives the one group's bits.
+# ---------------------------------------------------------------------------
+
+
+def _expert_ffn_tiered(params, xe, activation, hot):
+    """(E, C, d) -> (E, C, d) fp32 as a hot prefix ``[:hot]`` and a cold
+    tail ``[hot:]`` of the (trajectory-ordered) expert axis, each through
+    ``_expert_ffn``; ``hot`` of 0 or E is one call."""
+    E = xe.shape[0]
+    H = max(0, min(int(hot), E))
+    if H in (0, E):
+        return _expert_ffn(params, xe, activation)
+
+    def _slice(a, b):
+        return {k: (v[a:b] if k in ("w_gate", "w_up", "w_down") else v)
+                for k, v in params.items()}
+
+    y_hot = _expert_ffn(_slice(0, H), xe[:H], activation)
+    y_cold = _expert_ffn(_slice(H, E), xe[H:], activation)
+    return torch.cat([y_hot, y_cold], 0)
+
+
+def moe_hybrid(params, x2d, routing, moe: MoEConfig, activation, *,
+               hot_experts, schedule=None):
+    """Capacity dispatch -> two-tier grouped FFN -> combine, bit for bit
+    ``moe_capacity`` on the same routing.
+
+    Experts go in load-descending order: the schedule's host load (the
+    engine's EMA) when it carries one, else this call's own counts
+    through a stable sort on the device, so the fused segments need no
+    new host input.  The ``hot_experts`` hottest form the fast-tier
+    prefix, and canonical order is restored before the combine."""
+    if torch.is_grad_enabled() and x2d.requires_grad:
+        raise NotImplementedError("the streamed_moe backward belongs to the "
+                                  "training slice (ROADMAP A.15)")
+    T, d = x2d.shape
+    E = moe.num_experts
+    C = moe.capacity_rows(T)
+    if schedule is not None and schedule.load is not None:
+        order = torch.as_tensor(
+            np.argsort(-np.asarray(schedule.load), kind="stable"),
+            dtype=torch.int64, device=x2d.device)
+    else:
+        counts = gating.expert_token_counts(routing)
+        order = torch.sort(-counts.to(torch.int64), stable=True).indices
+    p = _reorder_experts(params, order)
+    if sorted_dispatch_enabled():
+        tables = dispatch_tables(routing, T, E, C)
+        xe = gather_dispatch(x2d, tables.idx.index_select(0, order))
+        ye = _expert_ffn_tiered(p, xe, activation, hot_experts)
+        ye = trajectory.restore_order(order, ye)
+        return scatter_combine(ye, tables.rows, tables.weights).to(x2d.dtype)
+    dispatch, combine = dispatch_masks(routing, T, E, C)
+    xe = torch.einsum("tec,td->ecd", dispatch.to(x2d.dtype), x2d)    # (E,C,d)
+    (xe,) = trajectory.apply_order(order, xe)
+    ye = _expert_ffn_tiered(p, xe.contiguous(), activation, hot_experts)
+    ye = trajectory.restore_order(order, ye)
+    return one_hot_combine(combine, ye).to(x2d.dtype)
 
 
 # ---------------------------------------------------------------------------

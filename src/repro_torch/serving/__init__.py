@@ -8,10 +8,11 @@ from .scheduler import (Scheduler, SchedulerConfig, ServingMetrics, Ticket,
 from .statepool import (PoolExhausted, PreemptedState, PrefixEntry,
                         StatePool, hash_chain)
 from .traffic import (TrafficConfig, TrafficRequest, make_traffic,
-                      run_closed_loop)
+                      run_closed_loop, to_sim_requests)
 
 __all__ = ["Engine", "MegaStep", "PoolExhausted", "PreemptedState",
            "PrefixEntry", "QueueFullError", "RequestState", "Scheduler",
            "SchedulerConfig", "ServeConfig", "ServingMetrics", "StatePool",
            "Ticket", "TrafficConfig", "TrafficRequest", "hash_chain",
-           "make_traffic", "percentiles", "run_closed_loop"]
+           "make_traffic", "percentiles", "run_closed_loop",
+           "to_sim_requests"]

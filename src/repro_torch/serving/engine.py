@@ -41,8 +41,16 @@ prompt that shares a cached prefix is admitted with its pages attached
 and computes only the rest) and **preemption** (:meth:`Engine.preempt` /
 :meth:`Engine.restore`, driven by the scheduler under queue pressure):
 both leave every token as it was.  Decoding is greedy, or samples at
-``ServeConfig.temperature`` from ``ServeConfig.seed``.  The resident and
-hybrid weight tiers wait for ROADMAP A.11b.
+``ServeConfig.temperature`` from ``ServeConfig.seed``.
+
+Two weight tiers are accounting on top of the same tokens: the EMA-hot
+**resident tier** (``ServeConfig.resident_budget_mb``) pins each MoE
+layer's hottest experts on the package, so they skip their DDR stream in
+the modeled clock (``stats["ddr_bytes_saved"]``, each record's
+``resident`` ids); and under the ``hybrid`` strategy each record carries
+the layer's fast-tier ``hot`` ids (``ServeConfig.hot_experts`` wide),
+repartitioned off the EMA every iteration.  ``sim.modes.replay_trace``
+referees both.
 """
 from __future__ import annotations
 
@@ -94,6 +102,15 @@ class ServeConfig:
     fused: bool = True                  # False: the eager per-layer loop
     spec: Optional[object] = None       # ExecutionSpec, strategy name or dict
     ema_decay: float = 0.8              # LoadTracker decay (dynamic schedule)
+    # EMA-hot resident tier: this many MiB of expert weights, split evenly
+    # over the MoE layers, pinned on the package (each layer's hottest
+    # experts by LoadTracker EMA); they skip their DDR stream in the
+    # modeled clock and the trace.  Accounting only; 0 disables it.
+    resident_budget_mb: float = 0.0
+    # hybrid strategy: fast-tier experts per MoE layer (None: the
+    # registry's default_hot, the top quartile), repartitioned every
+    # iteration off the EMA and recorded per trace record (``hot``)
+    hot_experts: Optional[int] = None
     temperature: float = 0.0            # 0 = greedy
     seed: int = 0
 
@@ -110,6 +127,9 @@ class ServeConfig:
                 and self.preempt_queue_depth < 0:
             raise ValueError("preempt_queue_depth must be >= 0 (or None "
                              "to disable preemption)")
+        if self.resident_budget_mb < 0:
+            raise ValueError("resident_budget_mb must be >= 0 "
+                             f"(got {self.resident_budget_mb})")
 
 
 @dataclass
@@ -196,6 +216,29 @@ class Engine:
         self.cost_model = (autotune.ServingCostModel.from_config(
             cfg, weight_bytes=quant.weight_bytes(scfg.spec.weight_dtype))
             if cfg.moe is not None else None)
+        # the resident tier: the budget split evenly over the MoE layers
+        n_moe = sum(1 for l in range(self.L)
+                    if self._layer_kind(l)[1] == "moe")
+        self._n_resident = 0
+        if scfg.resident_budget_mb > 0 and self.cost_model is not None \
+                and n_moe:
+            per_layer = int(scfg.resident_budget_mb * 2 ** 20) // n_moe
+            self._n_resident = int(min(cfg.moe.num_experts,
+                                       per_layer // self.cost_model.expert_bytes))
+        self.stats["resident_weight_bytes"] = (
+            self._n_resident * n_moe * self.cost_model.expert_bytes
+            if self.cost_model is not None else 0)
+        self.stats["ddr_bytes_saved"] = 0
+        # the hybrid strategy's fast tier, repartitioned off the EMA
+        self._n_hot = 0
+        if cfg.moe is not None and "hybrid" in scfg.spec.strategies_used():
+            from repro_torch.core.strategy import default_hot
+            self._n_hot = int(scfg.hot_experts
+                              if scfg.hot_experts is not None
+                              else default_hot(cfg.moe.num_experts))
+            self._n_hot = max(1, min(cfg.moe.num_experts, self._n_hot))
+        self._last_hot: Dict[int, Tuple[int, ...]] = {}
+        self.stats["hybrid_repartitions"] = 0
         self.last_step_modeled_s = 0.0
         self._iter_modeled_s = 0.0
         # fused segments, one MegaStep per setting read while capturing;
@@ -336,11 +379,55 @@ class Engine:
         return [r for r in self.requests.values()
                 if not r.done and r.phase == "prefill"]
 
+    def _ema_top(self, layer: int, n: int) -> List[int]:
+        """The layer's ``n`` hottest experts by LoadTracker EMA (ties to
+        the lower id), sorted; the identity prefix before any traffic."""
+        tracker = self.load_trackers.get(layer)
+        if tracker is None or tracker.steps == 0:
+            return list(range(n))
+        ema = np.asarray(tracker.ema, np.float64)
+        hot = sorted(range(len(ema)), key=lambda e: (-ema[e], e))
+        return sorted(hot[:n])
+
+    def _resident_for(self, layer: int) -> List[int]:
+        """The layer's resident expert set (``_n_resident`` wide)."""
+        return self._ema_top(layer, self._n_resident)
+
+    def _hot_for(self, layer: int) -> List[int]:
+        """The layer's hybrid fast-tier expert set (``_n_hot`` wide)."""
+        return self._ema_top(layer, self._n_hot)
+
     def _record(self, rec: dict) -> None:
-        """Append a trace record stamped with its modeled seconds."""
+        """Append a trace record stamped with its modeled seconds.  With
+        the resident tier on it carries the layer's ``resident`` ids,
+        whose experts skip a stream they would have made (every one under
+        a static plan, those with tokens under a dynamic one) and accrue
+        ``stats["ddr_bytes_saved"]``; under ``hybrid`` it carries the
+        fast-tier ``hot`` ids, which the clock prices on a two-tier
+        profile."""
+        resident_n = 0
+        if self._n_resident and "layer" in rec:
+            resident = self._resident_for(rec["layer"])
+            rec["resident"] = resident
+            if rec["schedule"] == "dynamic":
+                counts = rec["counts"]
+                resident_n = sum(1 for e in resident if counts[int(e)] > 0)
+            else:
+                resident_n = len(resident)
+            self.stats["ddr_bytes_saved"] += (resident_n
+                                              * self.cost_model.expert_bytes)
+        hot = None
+        if self._n_hot and "layer" in rec:
+            hot = self._hot_for(rec["layer"])
+            rec["hot"] = hot
+            prev = self._last_hot.get(rec["layer"])
+            if prev is not None and prev != tuple(hot):
+                self.stats["hybrid_repartitions"] += 1
+            self._last_hot[rec["layer"]] = tuple(hot)
         if self.cost_model is not None:
             rec["modeled_s"] = self.cost_model.layer_s(
-                rec["counts"], dynamic=rec["schedule"] == "dynamic")
+                rec["counts"], dynamic=rec["schedule"] == "dynamic",
+                resident=resident_n, hot=hot)
             self._iter_modeled_s += rec["modeled_s"]
         self.trace.append(rec)
 
@@ -654,7 +741,13 @@ class Engine:
                "counts": counts.copy(), "order": paired_load_order(counts),
                "schedule": "dynamic" if self.dynamic_schedule else "static"}
         if self.dynamic_schedule:
-            sched = tracker.schedule()
+            # under hybrid the plan carries the engine's fast-tier width,
+            # so the eager path executes the trace's ``hot`` partition
+            plan = None
+            if self._n_hot:
+                plan = autotune.Plan(mode="hybrid", family="hybrid",
+                                     micro_slices=1, hot_experts=self._n_hot)
+            sched = tracker.schedule(plan=plan)
             self._layer_schedules[layer] = sched
             rec["trajectory"] = list(sched.order)
         self._record(rec)

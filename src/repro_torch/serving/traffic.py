@@ -10,8 +10,8 @@ seeded by the request), which gives the long-tail expert activation the
 dynamic trajectory feeds on.  ``TrafficConfig.mix`` adds "+"-separated
 modifiers: ``zipf_prefix`` (Zipf-shared system prompts, the shape prefix
 caching feeds on) and ``diurnal`` (a sinusoidal arrival-rate cycle).
-The streams are the reference's, byte for byte.  The simulator replay
-view (``to_sim_requests``) waits with the simulator.
+The streams are the reference's, byte for byte, and
+:func:`to_sim_requests` hands the same stream to the chiplet simulator.
 """
 from __future__ import annotations
 
@@ -137,6 +137,15 @@ def make_traffic(cfg: TrafficConfig) -> List[TrafficRequest]:
                                   affinity_seed=req.affinity_seed,
                                   home_chiplet=req.home_chiplet))
     return out
+
+
+def to_sim_requests(traffic: List[TrafficRequest]
+                    ) -> List[sim_workload.Request]:
+    """The same stream as simulator Requests (conformance replay)."""
+    return [sim_workload.Request(rid=t.rid, num_tokens=len(t.prompt),
+                                 home_chiplet=t.home_chiplet,
+                                 affinity_seed=t.affinity_seed)
+            for t in traffic]
 
 
 def run_closed_loop(scheduler, traffic: List[TrafficRequest], *,

@@ -173,11 +173,21 @@ def test_execution_spec_json_roundtrip():
 
 @pytest.mark.parametrize("name", ["fse_dp", "ep", "tp", "hybrid", "auto"])
 def test_unported_strategies_raise(name):
+    """The distributed strategies raise naming their ROADMAP step;
+    ``hybrid``, ported with the weight tiers (A.11b), is registered and
+    gives the ``capacity`` block's bits."""
+    x, _, tp, _, cfg = _moe_case()
+    if name == "hybrid":
+        assert strategy.ExecutionSpec(strategy=name).validate()
+        got = moe.moe_block(tp, torch.from_numpy(x), cfg, "swiglu", spec=name)
+        want = moe.moe_block(tp, torch.from_numpy(x), cfg, "swiglu",
+                             spec="capacity")
+        assert torch.equal(got, want)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         strategy.get_strategy(name)
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         strategy.ExecutionSpec(strategy=name).validate()
-    x, _, tp, _, cfg = _moe_case()
     with pytest.raises(NotImplementedError):
         moe.moe_block(tp, torch.from_numpy(x), cfg, "swiglu", spec=name)
 
@@ -196,7 +206,7 @@ def test_sorted_dispatch_and_unknown_strategy_raise():
     spec = strategy.ExecutionSpec.load(str(REPO / "examples" / "moe-spec.json"))
     with pytest.raises(NotImplementedError):
         spec.validate()
-    assert strategy.available() == ("capacity", "dense")
+    assert strategy.available() == ("capacity", "dense", "hybrid")
     assert dataclasses.replace(spec, sorted_dispatch=None, strategy="dense",
                                prefill=None, decode=None,
                                layer_overrides=()).validate()
