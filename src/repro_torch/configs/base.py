@@ -150,7 +150,7 @@ def register(cfg: ModelConfig) -> ModelConfig:
 
 
 # ported architectures; the reference registers thirteen
-_ARCH_MODULES = ["granite_moe_1b", "mamba2_370m"]
+_ARCH_MODULES = ["granite_moe_1b", "mamba2_370m", "jamba_v0_1_52b"]
 _loaded = False
 
 

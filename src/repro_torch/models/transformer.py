@@ -1,5 +1,5 @@
 """Decoder-only LM assembly (port of ``repro.models.transformer``: the
-attention + FFN/MoE and the Mamba-2 families).
+attention + FFN/MoE, Mamba-2 and hybrid attention/Mamba-2/MoE families).
 
 Layers are grouped into the smallest repeating period of identical
 structure and each slot's parameters are stacked over periods, exactly
@@ -7,8 +7,10 @@ as in the reference, so the weight bridge is a leaf-for-leaf copy.  A
 Python loop over periods replaces ``lax.scan``.  ``forward`` is the
 full-sequence (scoring) pass; the serving engine runs the network
 through ``prefill`` / ``prefill_chunk`` and, layer by layer or one span
-between MoE boundaries at a time, the ``decode_*`` entry points, which
-take attention stacks only.
+between MoE boundaries at a time, the ``decode_*`` entry points.  The
+engine's caches are a per-slot tuple of :class:`SlotCache`: attention
+slots hold paged KV, SSM slots a dense per-row :class:`SSMState`, both
+stacked over periods and written in place.
 """
 from __future__ import annotations
 
@@ -35,16 +37,11 @@ def period_plan(cfg: ModelConfig):
     return L, kinds
 
 
-def _check_supported(cfg: ModelConfig, *, serving: bool = False):
-    """Encoder-decoder models are not ported; SSM layers run in the
-    full-sequence ``forward`` but not yet in the serving entry points."""
+def _check_supported(cfg: ModelConfig):
+    """Encoder-decoder models (Whisper) are not ported yet."""
     if cfg.is_encoder_decoder:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder models wait for ROADMAP A.13")
-    if serving and any(m != "attn" for m in cfg.layer_kinds()):
-        raise NotImplementedError(
-            f"{cfg.name}: SSM layers in prefill, decode and the state pool "
-            f"are not ported yet (ROADMAP A.13)")
 
 
 def _slot_init(gen, cfg: ModelConfig, mixer: str, ffn_kind: str,
@@ -88,24 +85,34 @@ def init_lm(cfg: ModelConfig, *, generator: torch.Generator, device=None):
 
 
 class SlotCache(NamedTuple):
-    """Per-slot decode cache; only attention KV (``ssm`` stays ())."""
+    """Per-slot decode cache: attention KV (``ssm`` is ()) or an SSM state
+    (``kv`` is ())."""
     kv: Any
     ssm: Any
 
 
 def init_paged_caches(cfg: ModelConfig, batch: int, num_pages: int,
                       page_size: int, device=None):
-    """Per-slot tuple of SlotCache with KV pages stacked over periods:
-    (n_periods, num_pages + 1, page_size, n_kv, hd), the last page the
-    sink of masked writes (``models.attention``)."""
-    _check_supported(cfg, serving=True)
+    """Per-slot tuple of SlotCache stacked over periods.  Attention slots
+    hold KV pages (n_periods, num_pages + 1, page_size, n_kv, hd), the
+    last page the sink of masked writes (``models.attention``), shared by
+    every row through one page table; SSM slots a dense per-row
+    SSMState (n_periods, batch, ...), which the state pool snapshots by
+    value instead of paging it."""
+    _check_supported(cfg)
     device = resolve_device(device)
     p, plan = period_plan(cfg)
-    n_periods = cfg.num_layers // p
-    return tuple(SlotCache(attn_mod.init_paged_kv_cache(
-        num_pages, page_size, cfg.num_kv_heads, cfg.resolved_head_dim,
-        torch_dtype(cfg.dtype), device, lead=(n_periods,)), ())
-        for _ in plan)
+    lead, dtype = (cfg.num_layers // p,), torch_dtype(cfg.dtype)
+    caches = []
+    for mixer, _ in plan:
+        if mixer == "attn":
+            caches.append(SlotCache(attn_mod.init_paged_kv_cache(
+                num_pages, page_size, cfg.num_kv_heads,
+                cfg.resolved_head_dim, dtype, device, lead=lead), ()))
+        else:
+            caches.append(SlotCache((), ssm_mod.init_ssm_state(
+                batch, cfg.d_model, cfg.ssm, dtype, device, lead=lead)))
+    return tuple(caches)
 
 
 def _slot(period_params, c: int):
@@ -199,30 +206,54 @@ def forward(params, tokens, cfg: ModelConfig, *, spec=None, use_flash=False,
     return _unembed(params, x), aux
 
 
+def _stack_caches(per_slot):
+    """Per-slot lists of per-period SlotCache -> stacked over periods."""
+    out = []
+    for entries in per_slot:
+        kv, st = entries[0]
+        if kv != ():
+            out.append(SlotCache(attn_mod.KVCache(
+                torch.stack([e.kv.k for e in entries]),
+                torch.stack([e.kv.v for e in entries])), ()))
+        else:
+            out.append(SlotCache((), ssm_mod.SSMState(
+                torch.stack([e.ssm.conv for e in entries]),
+                torch.stack([e.ssm.ssd for e in entries]))))
+    return tuple(out)
+
+
 def prefill(params, tokens, cfg: ModelConfig, max_seq: int, *, spec=None):
-    """tokens: (B, S) -> (logits (B, S, V), caches with KV padded to
-    max_seq: per slot (n_periods, B, max_seq, n_kv, hd))."""
-    _check_supported(cfg, serving=True)
+    """tokens: (B, S) -> (logits (B, S, V), caches stacked over periods:
+    attention KV padded to max_seq, (n_periods, B, max_seq, n_kv, hd);
+    SSM states (n_periods, B, ...)).  On CUDA the SSM layers' intra-chunk
+    terms run through the SSD kernel."""
+    _check_supported(cfg)
     p, plan = period_plan(cfg)
     sp = _coerce_spec(spec)
     x = _embed(params, tokens)
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
     per_slot = [[] for _ in plan]
-    for layer, slot, _, ffn_kind in layer_slots(params, cfg):
+    for layer, slot, mixer, ffn_kind in layer_slots(params, cfg):
         h = apply_norm(cfg.norm, slot["norm1"], x)
-        kv = attn_mod.prefill_kv(slot["attn"], h, n_kv=cfg.num_kv_heads,
-                                 head_dim=cfg.resolved_head_dim,
-                                 rope_theta=cfg.rope_theta,
-                                 positions=positions)
-        pad = (0, 0, 0, 0, 0, max_seq - S)
-        per_slot[layer % p].append(attn_mod.KVCache(
-            torch.nn.functional.pad(kv.k, pad),
-            torch.nn.functional.pad(kv.v, pad)))
-        h = attn_mod.attention(slot["attn"], h, n_heads=cfg.num_heads,
-                               n_kv=cfg.num_kv_heads,
-                               head_dim=cfg.resolved_head_dim,
-                               rope_theta=cfg.rope_theta, positions=positions)
+        if mixer == "attn":
+            kv = attn_mod.prefill_kv(slot["attn"], h, n_kv=cfg.num_kv_heads,
+                                     head_dim=cfg.resolved_head_dim,
+                                     rope_theta=cfg.rope_theta,
+                                     positions=positions)
+            pad = (0, 0, 0, 0, 0, max_seq - S)
+            per_slot[layer % p].append(SlotCache(attn_mod.KVCache(
+                torch.nn.functional.pad(kv.k, pad),
+                torch.nn.functional.pad(kv.v, pad)), ()))
+            h = attn_mod.attention(slot["attn"], h, n_heads=cfg.num_heads,
+                                   n_kv=cfg.num_kv_heads,
+                                   head_dim=cfg.resolved_head_dim,
+                                   rope_theta=cfg.rope_theta,
+                                   positions=positions)
+        else:
+            h, st = ssm_mod.mamba2_prefill(slot["ssm"], h, cfg.ssm,
+                                           cfg.d_model, use_kernel=h.is_cuda)
+            per_slot[layer % p].append(SlotCache((), st))
         x = x + h
         if ffn_kind != "none":
             h = apply_norm(cfg.norm, slot["norm2"], x)
@@ -232,11 +263,8 @@ def prefill(params, tokens, cfg: ModelConfig, max_seq: int, *, spec=None):
             else:
                 h = ffn(slot["ffn"], h, cfg.activation)
             x = x + h
-    caches = tuple(SlotCache(attn_mod.KVCache(torch.stack([kv.k for kv in kvs]),
-                                              torch.stack([kv.v for kv in kvs])),
-                             ()) for kvs in per_slot)
     x = apply_norm(cfg.norm, params["final_norm"], x)
-    return _unembed(params, x), caches
+    return _unembed(params, x), _stack_caches(per_slot)
 
 
 def prefill_chunk(params, tokens, caches, cache_len, cfg: ModelConfig, *,
@@ -246,9 +274,11 @@ def prefill_chunk(params, tokens, caches, cache_len, cfg: ModelConfig, *,
 
     tokens: (B, K); caches: per-slot SlotCache tuple, paged (written in
     place, with ``page_table`` (B, NP)) or dense (n_periods, B, S, n_kv,
-    hd) (new stacks returned); cache_len: (B,) tokens already cached;
-    token_mask: (B, K) each row's valid chunk prefix (all-False rows leave
-    their cache untouched, so decode and idle slots ride along).
+    hd) (new stacks returned); an SSM slot's state advances through
+    ``mamba2_chunk``, in place with a page table, else into a new stack;
+    cache_len: (B,) tokens already cached; token_mask: (B, K) each row's
+    valid chunk prefix (all-False rows leave their cache untouched, so
+    decode and idle slots ride along).
 
     Returns (logits (B, K, V), caches, counts); with ``return_hidden`` the
     final-normed hidden states (B, K, d) come first instead.  ``counts``
@@ -257,7 +287,7 @@ def prefill_chunk(params, tokens, caches, cache_len, cfg: ModelConfig, *,
     each MoE layer is routed once and that routing drives the counts and
     the experts."""
     from repro_torch.core import gating
-    _check_supported(cfg, serving=True)
+    _check_supported(cfg)
     p, plan = period_plan(cfg)
     sp = _coerce_spec(spec)
     x = _embed(params, tokens)
@@ -269,18 +299,29 @@ def prefill_chunk(params, tokens, caches, cache_len, cfg: ModelConfig, *,
               head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
               token_mask=token_mask)
     counts, dense = [], [[] for _ in plan]
-    for layer, slot, _, ffn_kind in layer_slots(params, cfg):
+    for layer, slot, mixer, ffn_kind in layer_slots(params, cfg):
         c, s = divmod(layer, p)
-        stack = caches[s].kv
-        kv = attn_mod.KVCache(stack.k[c], stack.v[c])
         h = apply_norm(cfg.norm, slot["norm1"], x)
-        if page_table is not None:
-            h, _ = attn_mod.attention_append_paged(slot["attn"], h, kv,
-                                                   page_table, cache_len, **kw)
+        if mixer == "attn":
+            stack = caches[s].kv
+            kv = attn_mod.KVCache(stack.k[c], stack.v[c])
+            if page_table is not None:
+                h, _ = attn_mod.attention_append_paged(
+                    slot["attn"], h, kv, page_table, cache_len, **kw)
+            else:
+                h, kv = attn_mod.attention_append(slot["attn"], h, kv,
+                                                  cache_len, **kw)
+                dense[s].append(SlotCache(kv, ()))
         else:
-            h, kv = attn_mod.attention_append(slot["attn"], h, kv, cache_len,
-                                              **kw)
-            dense[s].append(kv)
+            stack = caches[s].ssm
+            h, st = ssm_mod.mamba2_chunk(
+                slot["ssm"], h, ssm_mod.SSMState(stack.conv[c], stack.ssd[c]),
+                cfg.ssm, cfg.d_model, token_mask=token_mask)
+            if page_table is not None:
+                stack.conv[c].copy_(st.conv)
+                stack.ssd[c].copy_(st.ssd)
+            else:
+                dense[s].append(SlotCache((), st))
         x = x + h
         cnt = torch.zeros((E,), dtype=torch.int64, device=x.device)
         if ffn_kind != "none":
@@ -299,9 +340,7 @@ def prefill_chunk(params, tokens, caches, cache_len, cfg: ModelConfig, *,
             x = x + h
         counts.append(cnt)
     if page_table is None:
-        caches = tuple(SlotCache(attn_mod.KVCache(
-            torch.stack([kv.k for kv in kvs]),
-            torch.stack([kv.v for kv in kvs])), ()) for kvs in dense)
+        caches = _stack_caches(dense)
     counts = torch.stack(counts).reshape(cfg.num_layers // p, p, E)
     x = apply_norm(cfg.norm, params["final_norm"], x)
     if return_hidden:
@@ -341,13 +380,24 @@ def decode_embed_merge(params, x, token_vec, start_mask, cfg: ModelConfig):
 
 def decode_mixer(params, x, caches, cache_len, cfg: ModelConfig, layer: int,
                  mask, page_table):
-    """Masked one-token attention step for one layer against the paged
-    pool.  Only ``mask`` rows advance; their new K/V land in the pool in
-    place.  Returns (x, caches)."""
-    p, _ = cached_period_plan(cfg)
+    """Masked one-token mixer step for one layer.  Only ``mask`` rows
+    advance: an attention layer's new K/V land in the paged pool, an SSM
+    layer's new state rows in its stacked state, in place (the fused
+    segments' graphs replay fixed addresses); other rows keep their bits.
+    Returns (x, caches)."""
+    p, plan = cached_period_plan(cfg)
     period_idx, slot_i = divmod(layer, p)
     slot = _layer_slot(params, layer, p)
     h = apply_norm(cfg.norm, slot["norm1"], x)
+    if plan[slot_i][0] == "ssm":
+        stack = caches[slot_i].ssm
+        old = ssm_mod.SSMState(stack.conv[period_idx], stack.ssd[period_idx])
+        h, new = ssm_mod.mamba2_decode(slot["ssm"], h, old, cfg.ssm,
+                                       cfg.d_model)
+        for o, n in zip(old, new):
+            o.copy_(torch.where(mask.reshape((-1,) + (1,) * (n.dim() - 1)),
+                                n, o))
+        return _merge(mask, x + h, x), caches
     stack = caches[slot_i].kv
     pages = attn_mod.KVCache(stack.k[period_idx], stack.v[period_idx])
     h, _ = attn_mod.attention_decode_paged(

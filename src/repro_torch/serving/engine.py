@@ -35,12 +35,14 @@ that layer's expert flow on the paper's chiplet array
 (``core.autotune.ServingCostModel``); their sum over an iteration is
 ``last_step_modeled_s``, which the scheduler's modeled clock integrates.
 
-Sequence state lives in the paged state pool (``serving.statepool``),
-which underpins **prefix caching** (``ServeConfig.prefix_cache``: a
-prompt that shares a cached prefix is admitted with its pages attached
-and computes only the rest) and **preemption** (:meth:`Engine.preempt` /
-:meth:`Engine.restore`, driven by the scheduler under queue pressure):
-both leave every token as it was.  Decoding is greedy, or samples at
+Sequence state lives in the paged state pool (``serving.statepool``):
+attention KV in pages, Mamba-2 state in dense per-slot rows.  It
+underpins **prefix caching** (``ServeConfig.prefix_cache``: a prompt that
+shares a cached prefix is admitted with its pages attached and its SSM
+snapshot restored, and computes only the rest) and **preemption**
+(:meth:`Engine.preempt` / :meth:`Engine.restore`, driven by the scheduler
+under queue pressure; the SSM rows travel as a snapshot): both leave
+every token as it was.  Decoding is greedy, or samples at
 ``ServeConfig.temperature`` from ``ServeConfig.seed``.
 
 Two weight tiers are accounting on top of the same tokens: the EMA-hot
@@ -178,11 +180,13 @@ class Engine:
                      else 2 * scfg.max_batch * pages_per_slot)
         self.caches = transformer.init_paged_caches(
             cfg, scfg.max_batch, num_pages, scfg.page_size, self.device)
-        page_b, _ = statepool.state_bytes(self.caches)
+        page_b, ssm_b = statepool.state_bytes(self.caches)
         self.pool = statepool.StatePool(
             max_batch=scfg.max_batch, max_ctx=scfg.max_ctx,
             page_size=scfg.page_size, num_pages=num_pages,
-            max_prefix_entries=scfg.max_prefix_entries, bytes_per_page=page_b)
+            max_prefix_entries=scfg.max_prefix_entries, bytes_per_page=page_b,
+            ssm_bytes_per_row=ssm_b)
+        self._has_ssm = statepool.has_ssm(self.caches)
         self._table_dev = self._dev(self.pool.table)
         self.cache_len = np.zeros((scfg.max_batch,), np.int64)
         self.requests: Dict[str, RequestState] = {}
@@ -304,7 +308,8 @@ class Engine:
                                          spec=self.scfg.spec)
         self.pool.ensure(slot, len(prompt))
         statepool.merge_prefill(self.caches, caches1,
-                                self.pool.slot_pages[slot], self.scfg.page_size)
+                                self.pool.slot_pages[slot], slot,
+                                self.scfg.page_size)
         self.cache_len[slot] = len(prompt)
         st = RequestState(rid=rid, slot=slot, prompt_len=len(prompt),
                           max_new=max_new)
@@ -320,10 +325,11 @@ class Engine:
 
         With ``prefix_cache`` on, the longest cached prefix of the prompt
         is attached instead of computed (full pages shared, a partial
-        tail page copied now, eagerly) and prefill resumes after it: the
-        same bits as a cold run, since a token's prefill output does not
-        depend on how the prompt was cut into chunks under drop-free
-        capacity."""
+        tail page copied now, eagerly; the SSM snapshot restored) and
+        prefill resumes after it: the same bits as a cold run, since a
+        token's prefill output does not depend on how the prompt was cut
+        into chunks under drop-free capacity.  Without a hit, a recycled
+        slot's SSM rows are zeroed."""
         self._validate_request(prompt, max_new)
         if not self.free_slots:
             raise QueueFullError("engine full — wait for completions")
@@ -333,6 +339,7 @@ class Engine:
         st = RequestState(rid=rid, slot=slot, prompt_len=len(prompt),
                           max_new=max_new, phase="prefill",
                           prompt=list(prompt))
+        hit = None
         if self.scfg.prefix_cache:
             st.prefix_keys = statepool.hash_chain(prompt)
             # one prompt token must run for the first token's logits
@@ -345,12 +352,16 @@ class Engine:
             if hit is not None:
                 if copy is not None:
                     statepool.copy_page(self.caches, *copy)
+                if hit.ssm != ():
+                    statepool.restore_ssm(self.caches, hit.ssm, slot)
                 self.cache_len[slot] = hit.length
                 st.prefill_pos = hit.length
                 self._record_event("cache_hit", rid=rid, slot=slot,
                                    cached_tokens=hit.length)
             else:
                 self.stats["cache_misses"] += 1
+        if hit is None and self._has_ssm:
+            statepool.zero_ssm(self.caches, slot)
         self.requests[rid] = st
         return rid
 
@@ -439,12 +450,16 @@ class Engine:
                            **fields})
 
     def _register_prefix(self, r: RequestState) -> None:
-        """Cache the slot's pages at this chunk boundary under the prompt
-        prefix's hash; a partial tail page is copied now.  Skipped when
-        the pool cannot spare the tail page even after LRU eviction."""
+        """Cache the slot's state at this chunk boundary under the prompt
+        prefix's hash: its pages (a partial tail page copied now) and a
+        snapshot of its SSM rows.  Skipped when the pool cannot spare the
+        tail page even after LRU eviction."""
         P = r.prefill_pos
+        snap = (statepool.snapshot_ssm(self.caches, r.slot)
+                if self._has_ssm else ())
         try:
-            copy = self.pool.register_prefix(r.prefix_keys[P - 1], P, r.slot)
+            copy = self.pool.register_prefix(r.prefix_keys[P - 1], P, r.slot,
+                                             ssm=snap)
         except statepool.PoolExhausted:
             return
         if copy is not None:
@@ -791,8 +806,9 @@ class Engine:
     def preempt(self, rid: str) -> statepool.PreemptedState:
         """Evict an active request at an iteration boundary
         (``progress == 0``), freeing its slot: its page references move
-        to the handle, nothing on the device moves.  :meth:`restore`
-        resumes it with the same bits in any free slot."""
+        to the handle (nothing on the device moves) and its SSM rows are
+        snapshot by value.  :meth:`restore` resumes it with the same bits
+        in any free slot."""
         r = self.requests.get(rid)
         if r is None or r.done:
             raise ValueError(f"no active request {rid!r}")
@@ -801,9 +817,12 @@ class Engine:
                 f"request {rid!r} is mid-pass (progress={r.progress}): its "
                 f"deferred hidden state lives in the residual buffer and "
                 f"cannot be evicted — pick a victim at progress == 0")
+        snap = (statepool.snapshot_ssm(self.caches, r.slot)
+                if self._has_ssm else ())
         handle = statepool.PreemptedState(
-            request=r, page_ids=self.pool.detach_slot(r.slot),
-            cache_len=int(self.cache_len[r.slot]))
+            request=r, page_ids=self.pool.detach_slot(r.slot,
+                                                      has_ssm=snap != ()),
+            cache_len=int(self.cache_len[r.slot]), ssm=snap)
         del self.requests[rid]
         self.free_slots.append(r.slot)
         r.preemptions += 1
@@ -820,8 +839,11 @@ class Engine:
         r = handle.request
         slot = self.free_slots.popleft()
         r.slot = slot
-        self.pool.attach_pages(slot, handle.page_ids)
+        self.pool.attach_pages(slot, handle.page_ids,
+                               has_ssm=handle.ssm != ())
         self.cache_len[slot] = handle.cache_len
+        if handle.ssm != ():
+            statepool.restore_ssm(self.caches, handle.ssm, slot)
         self.requests[r.rid] = r
         self.stats["restores"] += 1
         self._record_event("restore", rid=r.rid, slot=slot,

@@ -1,14 +1,17 @@
-"""Paged KV state pool: page table, prefix cache, preemption (port of
-``repro.serving.statepool``).
+"""Paged KV / SSM state pool: page table, prefix cache, preemption (port
+of ``repro.serving.statepool``).
 
 Attention KV lives in fixed-size physical pages shared by every serving
 slot; one host page table (max_batch, NP) maps each slot's logical pages
 to physical ones for every layer (allocation advances in lockstep across
-layers).  The pool is host-only bookkeeping; the engine owns the device
-tensors and applies :func:`merge_prefill` and :func:`copy_page` to them.
-The device pool holds one page more, the sink of masked writes
-(``models.attention``): the state pool never hands it out, hashes it,
-references it or copies it.
+layers).  Mamba-2 conv / SSD state is O(1) per slot, so it stays dense
+per row, and the pool holds it by value: snapshots are copies
+(:func:`snapshot_ssm`), so snapshot -> restore is bit-exact.  The pool is
+host-only bookkeeping; the engine owns the device tensors and applies
+:func:`merge_prefill`, :func:`copy_page`, :func:`restore_ssm` and
+:func:`zero_ssm` to them, in place.  The device pool holds one page
+more, the sink of masked writes (``models.attention``): the state pool
+never hands it out, hashes it, references it or copies it.
 
 On top of the pages sit two behaviours:
 
@@ -17,17 +20,19 @@ On top of the pages sit two behaviours:
   (``h_i = sha256(h_{i-1} || token_i)``).  A later request that shares a
   cached prefix is admitted with those pages attached (full pages shared
   by refcount, the partial tail page copied, since decode writes into
-  it) and computes only the rest of its prompt.  Entries are evicted LRU,
-  past ``max_prefix_entries`` and when the free list runs dry.
+  it) and its SSM snapshot restored, and computes only the rest of its
+  prompt.  Entries are evicted LRU, past ``max_prefix_entries`` and when
+  the free list runs dry.
 * **Preemption** -- a request at an iteration boundary is evicted to a
   :class:`PreemptedState`: its page-table row detaches (the page
-  references move to the handle, no data moves) and a restore into any
-  free slot attaches them again.
+  references move to the handle, no data moves), its SSM rows are
+  snapshot, and a restore into any free slot attaches the pages and
+  writes the snapshot back.
 
 A page is freed when no slot row, prefix entry or handle references it;
 :class:`PoolExhausted` is raised only when eviction cannot free enough.
-The SSM snapshots of the reference's hybrid stacks come with SSM serving
-(ROADMAP A.13): the ``ssm`` fields stay ``()`` until then.
+``resident_state_bytes`` counts the pages in use and the SSM rows that
+entries and handles hold off their slots.
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ from typing import Deque, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.models import mamba2 as ssm_mod
 from repro_torch.models.attention import KVCache
 
 
@@ -64,7 +70,7 @@ class PrefixEntry:
     key: bytes
     length: int                      # tokens covered
     page_ids: List[int]              # ceil(length / page_size) refcounted ids
-    ssm: tuple = ()                  # SSM snapshots (ROADMAP A.13)
+    ssm: tuple = ()                  # per-slot SSMState snapshots, or ()
     hits: int = 0
 
 
@@ -83,7 +89,8 @@ class StatePool:
 
     def __init__(self, *, max_batch: int, max_ctx: int, page_size: int,
                  num_pages: Optional[int] = None,
-                 max_prefix_entries: int = 64, bytes_per_page: int = 0):
+                 max_prefix_entries: int = 64, bytes_per_page: int = 0,
+                 ssm_bytes_per_row: int = 0):
         assert page_size >= 1 and max_ctx >= 1
         self.page_size = page_size
         self.pages_per_slot = -(-max_ctx // page_size)
@@ -95,11 +102,13 @@ class StatePool:
                 f"{max_batch} slots x {self.pages_per_slot} pages/slot")
         self.max_prefix_entries = max_prefix_entries
         self.bytes_per_page = bytes_per_page
+        self.ssm_bytes_per_row = ssm_bytes_per_row
         self.table = np.zeros((max_batch, self.pages_per_slot), np.int32)
         self.free: Deque[int] = deque(range(self.num_pages))
         self.ref = np.zeros((self.num_pages,), np.int64)
         self.slot_pages: List[List[int]] = [[] for _ in range(max_batch)]
         self.entries: "OrderedDict[bytes, PrefixEntry]" = OrderedDict()
+        self._ssm_rows_held = 0          # snapshots held by entries, handles
         self.stats: Dict[str, int] = {
             "pool_pages": self.num_pages,
             "pool_pages_in_use": 0, "pool_peak_pages": 0,
@@ -115,7 +124,8 @@ class StatePool:
         used = self.pages_in_use()
         self.stats["pool_pages_in_use"] = used
         self.stats["pool_peak_pages"] = max(self.stats["pool_peak_pages"], used)
-        resident = used * self.bytes_per_page
+        resident = (used * self.bytes_per_page
+                    + self._ssm_rows_held * self.ssm_bytes_per_row)
         self.stats["resident_state_bytes"] = resident
         self.stats["peak_resident_state_bytes"] = max(
             self.stats["peak_resident_state_bytes"], resident)
@@ -206,6 +216,8 @@ class StatePool:
             copy = (row[n_full], dst)
         self.entries[key] = PrefixEntry(key=key, length=length,
                                         page_ids=ids, ssm=ssm)
+        if ssm != ():
+            self._ssm_rows_held += 1
         while len(self.entries) > self.max_prefix_entries:
             self._evict_lru()
         self._account()
@@ -239,6 +251,8 @@ class StatePool:
         _, entry = self.entries.popitem(last=False)
         for pid in entry.page_ids:
             self._deref(pid)
+        if entry.ssm != ():
+            self._ssm_rows_held -= 1
         self.stats["cache_evictions"] += 1
         self._account()
 
@@ -246,19 +260,25 @@ class StatePool:
     # preemption
     # ------------------------------------------------------------------
 
-    def detach_slot(self, slot: int) -> List[int]:
+    def detach_slot(self, slot: int, *, has_ssm: bool = False) -> List[int]:
         """Move the slot row's page references to a preemption handle
         (refcounts unchanged).  The table row keeps its stale ids until a
         later ``ensure`` or attach overwrites them: an idle row's writes
         go to the sink page, and a new occupant writes only within the
-        pages it was given."""
+        pages it was given.  ``has_ssm``: the handle holds an SSM
+        snapshot, counted in ``resident_state_bytes`` (a pure-attention
+        preemption holds none)."""
         ids = self.slot_pages[slot]
         self.slot_pages[slot] = []
+        if has_ssm:
+            self._ssm_rows_held += 1
         self._account()
         return ids
 
-    def attach_pages(self, slot: int, page_ids: List[int]) -> None:
-        """Attach a preemption handle's pages to a free slot row."""
+    def attach_pages(self, slot: int, page_ids: List[int], *,
+                     has_ssm: bool = False) -> None:
+        """Attach a preemption handle's pages to a free slot row;
+        ``has_ssm`` as in :meth:`detach_slot`."""
         assert not self.slot_pages[slot], \
             f"attach_pages into non-empty slot {slot}"
         if len(page_ids) > self.pages_per_slot:
@@ -266,6 +286,8 @@ class StatePool:
                              f"{self.pages_per_slot}-page slot row")
         self.table[slot, :len(page_ids)] = page_ids
         self.slot_pages[slot] = list(page_ids)
+        if has_ssm:
+            self._ssm_rows_held -= 1
         self._account()
 
     def drop_handle(self, handle: PreemptedState) -> None:
@@ -273,7 +295,42 @@ class StatePool:
         prompt)."""
         for pid in handle.page_ids:
             self._deref(pid)
+        if handle.ssm != ():
+            self._ssm_rows_held -= 1
         self._account()
+
+
+def _is_ssm(part) -> bool:
+    return isinstance(part, ssm_mod.SSMState)
+
+
+def has_ssm(caches) -> bool:
+    return any(_is_ssm(c.ssm) for c in caches)
+
+
+def snapshot_ssm(caches, row: int) -> tuple:
+    """Value snapshot (copies) of one slot's SSM state across every SSM
+    layer, ``()`` for attention layers."""
+    return tuple(ssm_mod.ssm_state_slice(c.ssm, row) if _is_ssm(c.ssm)
+                 else () for c in caches)
+
+
+def restore_ssm(caches, snap: tuple, row: int):
+    """Write a :func:`snapshot_ssm` back into ``row``, in place."""
+    for c, s in zip(caches, snap):
+        if _is_ssm(c.ssm):
+            ssm_mod.ssm_state_restore(c.ssm, s, row)
+    return caches
+
+
+def zero_ssm(caches, row: int):
+    """Reset one slot's SSM rows to the initial state, in place (a fresh
+    admission into a recycled slot must not inherit the previous
+    occupant's recurrent state)."""
+    for c in caches:
+        if _is_ssm(c.ssm):
+            ssm_mod.ssm_state_zero_row(c.ssm, row)
+    return caches
 
 
 def copy_page(caches, src: int, dst: int) -> None:
@@ -286,12 +343,17 @@ def copy_page(caches, src: int, dst: int) -> None:
                 pages[:, dst] = pages[:, src]
 
 
-def merge_prefill(caches, dense_caches, page_ids: List[int], page_size: int):
-    """Scatter a one-shot (batch=1) prefill into the slot's pages, in
-    place.  ``dense_caches`` KV: (n_periods, 1, max_ctx, n_kv, hd)."""
+def merge_prefill(caches, dense_caches, page_ids: List[int], slot: int,
+                  page_size: int):
+    """Scatter a one-shot (batch=1) prefill into the pool, in place.
+    ``dense_caches`` KV (n_periods, 1, max_ctx, n_kv, hd) reshapes into the
+    slot's pages; SSM (n_periods, 1, ...) is written at row ``slot``."""
     ids = torch.as_tensor(page_ids, dtype=torch.int64)
     n = len(page_ids)
     for c, dc in zip(caches, dense_caches):
+        if _is_ssm(c.ssm):
+            for big, small in zip(c.ssm, dc.ssm):
+                big[:, slot] = small[:, 0].to(big.dtype)
         for pages, dense in zip(c.kv, dc.kv):
             arr = dense[:, 0]                              # (n_periods, S, ...)
             need = n * page_size
@@ -306,12 +368,17 @@ def merge_prefill(caches, dense_caches, page_ids: List[int], page_size: int):
 
 def state_bytes(caches) -> Tuple[int, int]:
     """(bytes per physical page across all attention layers, SSM bytes
-    per slot row — always 0 here)."""
-    page_b = 0
+    per slot row across all SSM layers): the pool's accounting constants."""
+    page_b = ssm_b = 0
     for c in caches:
         if isinstance(c.kv, KVCache):
             for a in c.kv:
                 # (n_periods, P, page_size, n_kv, hd): per page = all but P
                 page_b += int(a.shape[0] * np.prod(a.shape[2:])) \
                     * a.element_size()
-    return page_b, 0
+        if _is_ssm(c.ssm):
+            for a in c.ssm:
+                # (n_periods, B, ...): per row = all but B
+                ssm_b += int(a.shape[0] * np.prod(a.shape[2:])) \
+                    * a.element_size()
+    return page_b, ssm_b

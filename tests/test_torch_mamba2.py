@@ -140,13 +140,23 @@ def test_ssd_chunked_per_group_matches_reference(use_kernel, g):
 
 
 def test_configs_match_reference():
-    for a, b in ((jreduced(ARCH), reduced_config(ARCH)), (jget(ARCH), get_config(ARCH))):
-        for f in ("num_layers", "d_model", "vocab_size", "family", "norm",
-                  "tie_embeddings", "dtype"):
-            assert getattr(a, f) == getattr(b, f), f
-        assert a.ssm.__dict__ == b.ssm.__dict__
-        assert a.param_count() == b.param_count()
-        assert jtf.period_plan(a) == transformer.period_plan(b)
+    """mamba2-370m and Jamba-v0.1 (full and reduced), field for field."""
+    for arch in (ARCH, "jamba-v0.1-52b"):
+        for a, b in ((jreduced(arch), reduced_config(arch)),
+                     (jget(arch), get_config(arch))):
+            for f in ("name", "num_layers", "d_model", "vocab_size", "family",
+                      "norm", "tie_embeddings", "dtype", "num_heads",
+                      "num_kv_heads", "head_dim", "d_ff", "activation",
+                      "attn_every", "moe_every", "source", "verified"):
+                assert getattr(a, f) == getattr(b, f), (arch, f)
+            assert a.ssm.__dict__ == b.ssm.__dict__
+            assert (a.moe is None) == (b.moe is None)
+            if a.moe is not None:
+                assert a.moe.__dict__ == b.moe.__dict__
+            assert a.layer_kinds() == b.layer_kinds()
+            assert a.ffn_kinds() == b.ffn_kinds()
+            assert a.param_count() == b.param_count()
+            assert jtf.period_plan(a) == transformer.period_plan(b)
 
 
 @pytest.mark.parametrize("use_kernel", [True, False])

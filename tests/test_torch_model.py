@@ -114,7 +114,7 @@ def test_paged_decode_step_matches_reference(row_mask):
                 params, {"tokens": torch.as_tensor([prompt])}, cfg, max_ctx,
                 spec="capacity")
             jcaches = jpool.merge_prefill(jcaches, jc1, pages[slot], slot, ps)
-            statepool.merge_prefill(caches, tc1, pages[slot], ps)
+            statepool.merge_prefill(caches, tc1, pages[slot], slot, ps)
             first.append(int(np.asarray(jl[0, -1]).argmax()))
             assert int(tl[0, -1].argmax()) == first[-1]
         cl = np.array([len(p) for p in prompts])
