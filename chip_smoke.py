@@ -52,6 +52,13 @@ Phases, each printing its result on its own line; any failure exits 1:
    at the SSM serving prefill's shapes (one 8-token chunk of mamba2-370m
    and of Jamba, d_state 128 and 16; Jamba's heads at c = 1) against its
    plain version (1e-5) and the oracle;
+3m. family kernels: streamed_moe at the decode steps of the paper's Table I
+   MoE models (DeepSeek-MoE-16B E = 64, C = 48, d = 2048, m = 1408;
+   Qwen3-30B-A3B 128, 64, 2048, 768; Yuan2-M32 32, 16, 2048, 4096;
+   Phi-3.5-MoE 16, 16, 4096, 6400; bf16, swiglu) held as in phase 3j, the
+   analytic pick's device time over the default's; flash attention at
+   InternVL2's scoring shape (2, 2304, 16, 128), bf16 (timed, with SDPA)
+   and fp32, against its plain version and the oracle;
 4. slice: ``repro_torch.launch.serve`` serves 4 requests x 16 tokens of
    granite-moe-1b-a400m at full width in bf16 on the default fused engine,
    under ``--autotune analytic`` (the default), ``off`` and ``measured``:
@@ -144,7 +151,27 @@ Phases, each printing its result on its own line; any failure exits 1:
    the preemption check, phase 6b's shared-prefix stream unbounded and
    with preemption + the prefix cache (every hit restores an SSM
    snapshot): the same tokens; peak device memory;
-13. summary: one ``{"kernels": [...]}`` JSON line with one entry per
+13. deepseek (run after phase 12j): DeepSeek-MoE-16B at full width and
+   depth (28 layers, 16.88 B parameters, 64 experts top-6 and two shared
+   experts on every layer), bf16, ``capacity``: the static slice (first
+   run, fused == eager, a warm run: 29 host syncs an iteration, no
+   recapture, 28 streamed_moe launches a prefill and a step, profiled),
+   the dynamic slice fused == eager, phase 6b's shared-prefix stream
+   unbounded and with preemption + the prefix cache: the same tokens;
+   peak device memory;
+13q. qwen3: Qwen3-30B-A3B at its published widths, 12 of 48 layers (the
+   48 are 61 GB of bf16), the same slice checks without the stream;
+14. internvl2: InternVL2-2b at full width and depth: ``loss_fn`` over 2 x
+   (256 random patch embeddings + 2048 text tokens) through flash (hd =
+   128, 24 launches), bf16, scored tok/s; fp32 with kernels vs
+   ``use_kernels(False)`` (loss 1e-4 relative, argmax); fp32
+   ``prefill_fn`` with the prefix and greedy ``decode_fn`` steps vs the
+   teacher-forced forward (logits 1e-4 of max |logit|);
+15. whisper: Whisper-base at full width and depth over 1500 frames:
+   ``loss_fn`` (bf16), then fp32 ``prefill_fn`` and 16 greedy
+   ``decode_fn`` steps == ``decode_train``'s teacher-forced logits (rtol =
+   atol = 2e-3, the reference's test); no TPU kernel on this path;
+16. summary: one ``{"kernels": [...]}`` JSON line with one entry per
     kernel and path (``streamed_moe`` on the serve path in bf16 and in fp8,
     on the chunked-prefill path of the traffic run (``serve_chunked``, C =
     1024), on the sorted traffic path (``serve_sorted``) and the prefix
@@ -156,7 +183,9 @@ Phases, each printing its result on its own line; any failure exits 1:
     and on the forward path, ``flash_attention`` on the forward path,
     ``ssd`` on the mamba path and on the one-shot serving prefill of
     mamba2-370m (``serve_prefill``) and of Jamba
-    (``serve_prefill_jamba``)),
+    (``serve_prefill_jamba``), streamed_moe on the served DeepSeek and Qwen3
+    slices (``serve_deepseek``, ``serve_qwen3``, phase 3m's shapes) and
+    flash on InternVL2's scoring forward (``forward_internvl2``)),
     each with that path's launches and its shape's times (``ms`` one call
     with its host work, ``device_ms`` the device time per call) and bound,
     and for streamed_moe the tile setting the path ran (``tiles``); the
@@ -168,6 +197,7 @@ Weights are random from seed 0.  JAX is never imported.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -345,6 +375,30 @@ JAMBA_MOE = (16, TRAFFIC_BATCH * 2, 4096, 14336)
 SSD_SERVE_SHAPES = (("serve_prefill", (1, 1, 8, 32, 1, 64, 128)),
                     ("serve_prefill_jamba", (1, 1, 8, 128, 1, 64, 16)),
                     (None, (1, 8, 1, 128, 1, 64, 16)))
+# phases 3m and 13-15: the rest of the families (ROADMAP A.13b).  streamed_moe
+# at the decode step of the paper's Table I MoE models, (path, E, C, d, m):
+# C = TRAFFIC_BATCH slots x top-k rows (drop-free), swiglu, bf16
+FAMILY_MOE = (("serve_deepseek", (64, TRAFFIC_BATCH * 6, 2048, 1408)),
+              ("serve_qwen3", (128, TRAFFIC_BATCH * 8, 2048, 768)),
+              ("decode_yuan2", (32, TRAFFIC_BATCH * 2, 2048, 4096)),
+              ("decode_phi3.5", (16, TRAFFIC_BATCH * 2, 4096, 6400)))
+DEEPSEEK, QWEN = "deepseek-moe-16b", "qwen3-30b-a3b"
+# Qwen3-30B-A3B at its published widths, cut to 12 of its 48 layers: the 48
+# are 61 GB of bf16, too little room beside the graph pools and the dynamic
+# schedule's 1.2 GB reorder copy on one 80 GB card; every layer has the same
+# shapes, so depth adds only time
+QWEN_LAYERS = 12
+# InternVL2-2b's scoring batch: SCORE_B x SCORE_S text tokens behind its 256
+# patch embeddings (flash at (2, 2304, 16, 128)), then greedy decode steps
+VLM = "internvl2-2b"
+DECODE_STEPS = 16
+# Whisper-base: 30 s of audio is 1500 encoder frames; WHISPER_B clips, the
+# loss over WHISPER_TOKENS decoder tokens (the decoder's 448-token context);
+# decode == teacher forcing at the reference's tests/test_whisper.py
+# tolerance (rtol = atol = 2e-3)
+WHISPER = "whisper-base"
+WHISPER_FRAMES, WHISPER_B, WHISPER_TOKENS = 1500, 4, 448
+TF_TOL = 2e-3
 # phases 5, 12: chunked admission of 8 prompts of 9-120 tokens
 CHUNKED_LENS = (64, 30, 100, 17, 64, 50, 9, 120)
 # phase 11: seconds the profiler's capture window stays open before and
@@ -683,65 +737,72 @@ def _check_flash():
     """The scoring path's (2, 2048, 16, 64) in bf16 and fp32, odd S,
     Sk = 2 Sq, and in bf16 hd = 16 and ragged Sk > Sq; the bf16 path shape
     is the one the summary reports."""
-    import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ref
     B, S, H, hd = SCORE_B, SCORE_S, 16, 64
-    main = None
     cases = [(B, S, S, H, hd, "bf16"), (B, S, S, H, hd, "fp32"),
              (1, 17, 17, 3, 64, "fp32"), (2, 100, 100, 4, 64, "bf16"),
              (1, 100, 200, 2, 64, "fp32"), (2, 64, 128, 4, 128, "bf16"),
              (2, 77, 77, 3, 16, "bf16"), (1, 100, 165, 2, 32, "bf16"),
              (1, 130, 301, 2, 64, "bf16")]
-    for (B_, Sq, Sk, H_, hd_, kind) in cases:
-        dtype = torch.bfloat16 if kind == "bf16" else torch.float32
-        q, k, v = _flash_inputs(B_, Sq, Sk, H_, hd_, dtype)
-        got = fa.flash_attention_kernel(q, k, v)
-        torch.cuda.synchronize()
-        plain = ref.flash_attention_plain(q, k, v)
-        oracle = ref.flash_attention_ref(q, k, v)
-        if not torch.isfinite(got).all():
-            fail("kernels", f"flash non-finite output {(B_, Sq, Sk, H_, hd_)}")
-        err_plain = (got.float() - plain.float()).abs().max().item()
-        rel_plain, rel_oracle = rel_err(got, plain), rel_err(got, oracle)
-        line = (f"flash_attention B={B_} Sq={Sq} Sk={Sk} H={H_} hd={hd_} {kind}: "
-                f"max_abs_err vs plain {err_plain:.3e} (rel {rel_plain:.3e}")
-        if kind == "fp32":
-            bad = rel_plain > FLASH_PLAIN_TOL
-            line += f", tol {FLASH_PLAIN_TOL:g})"
-        else:
-            ok, mt = flash_bf16_check(got, plain, q, k, v)
-            bad = not ok
-            line += (f"), per element: at most {mt['ulps']:.3f} ulps from "
-                     f"plain (tol {FLASH_BF16_ULPS}), share differing {mt['flips']:.3e} (tol "
-                     f"{FLASH_FLIP_SHARE:g}), error vs exact fp32 "
-                     f"{mt['over']:.3f} of the bf16 rounding bound (tol "
-                     f"{FLASH_BOUND_SLACK:g})")
-        line += (f"; rel vs oracle {rel_oracle:.3e} (tol "
-                 f"{FLASH_ORACLE_TOL[kind]:g})")
-        if bad or rel_oracle > FLASH_ORACLE_TOL[kind]:
-            fail("kernels", line)
-        if Sq == S:
-            times, text = kernel_times(
-                lambda: fa.flash_attention_kernel(q, k, v))
-            plain_ms = median_ms(lambda: ref.flash_attention_plain(q, k, v),
-                                 reps=5, warmup=1)
-            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    rows = [_flash_case(*case, timed=case[1] == S) for case in cases]
+    return {"forward": rows[0]}
 
-            def sdpa():
-                return F.scaled_dot_product_attention(qt, kt, vt,
-                                                      is_causal=True)
-            lib_ms, lib_dev = median_ms(sdpa), device_ms(sdpa)[0]
-            bound, by = flash_bound_ms(B_, Sq, Sk, H_, hd_, kind,
-                                       q.element_size())
-            line += (f"; {text}, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} "
-                     f"ms ({lib_dev:.4f} on the device), bound {bound * 1e3:.1f} us ({by})")
-            if kind == "bf16":
-                main = dict(max_abs_err=err_plain, **times, plain_ms=plain_ms,
-                            bound_ms=bound, bound_by=by, library_ms=lib_ms)
-        log("kernels", line)
-    return {"forward": main}
+
+def _flash_case(B_, Sq, Sk, H_, hd_, kind, timed=False):
+    """Flash attention on one shape against its plain version (fp32 1e-5,
+    bf16 ``flash_bf16_check``) and the oracle; ``timed``: its times, the
+    plain version's and ``scaled_dot_product_attention``'s beside the
+    bound.  -> the kernels line's row when timed."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    dtype = torch.bfloat16 if kind == "bf16" else torch.float32
+    q, k, v = _flash_inputs(B_, Sq, Sk, H_, hd_, dtype)
+    got = fa.flash_attention_kernel(q, k, v)
+    torch.cuda.synchronize()
+    plain = ref.flash_attention_plain(q, k, v)
+    oracle = ref.flash_attention_ref(q, k, v)
+    if not torch.isfinite(got).all():
+        fail("kernels", f"flash non-finite output {(B_, Sq, Sk, H_, hd_)}")
+    err_plain = (got.float() - plain.float()).abs().max().item()
+    rel_plain, rel_oracle = rel_err(got, plain), rel_err(got, oracle)
+    line = (f"flash_attention B={B_} Sq={Sq} Sk={Sk} H={H_} hd={hd_} {kind}: "
+            f"max_abs_err vs plain {err_plain:.3e} (rel {rel_plain:.3e}")
+    if kind == "fp32":
+        bad = rel_plain > FLASH_PLAIN_TOL
+        line += f", tol {FLASH_PLAIN_TOL:g})"
+    else:
+        ok, mt = flash_bf16_check(got, plain, q, k, v)
+        bad = not ok
+        line += (f"), per element: at most {mt['ulps']:.3f} ulps from "
+                 f"plain (tol {FLASH_BF16_ULPS}), share differing {mt['flips']:.3e} (tol "
+                 f"{FLASH_FLIP_SHARE:g}), error vs exact fp32 "
+                 f"{mt['over']:.3f} of the bf16 rounding bound (tol "
+                 f"{FLASH_BOUND_SLACK:g})")
+    line += (f"; rel vs oracle {rel_oracle:.3e} (tol "
+             f"{FLASH_ORACLE_TOL[kind]:g})")
+    if bad or rel_oracle > FLASH_ORACLE_TOL[kind]:
+        fail("kernels", line)
+    row = None
+    if timed:
+        times, text = kernel_times(
+            lambda: fa.flash_attention_kernel(q, k, v))
+        plain_ms = median_ms(lambda: ref.flash_attention_plain(q, k, v),
+                             reps=5, warmup=1)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  is_causal=True)
+        lib_ms, lib_dev = median_ms(sdpa), device_ms(sdpa)[0]
+        bound, by = flash_bound_ms(B_, Sq, Sk, H_, hd_, kind,
+                                   q.element_size())
+        line += (f"; {text}, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} "
+                 f"ms ({lib_dev:.4f} on the device), bound {bound * 1e3:.1f} us ({by})")
+        row = dict(max_abs_err=err_plain, **times, plain_ms=plain_ms,
+                   bound_ms=bound, bound_by=by, library_ms=lib_ms)
+    log("kernels", line)
+    return row
 
 
 def _check_ssd():
@@ -2399,19 +2460,33 @@ def phase_features():
 
 def phase_ssm_kernels():
     """streamed_moe at Jamba's decode step (JAMBA_MOE), a shape no earlier
-    path reached: against its plain version (``moe_bf16_check``) and the
-    fp32 oracle (3e-2); every tile setting the default's bits (output and
-    scratch), each timed beside the planner's prediction and the bound.
-    Then SSD at the SSM serving prefill's shapes (d_state 16, c = 8 and c
-    = 1) against its plain version (1e-5) and the oracle.  -> the rows of
-    the streamed_moe serve_jamba path and the ssd serve_prefill paths."""
+    path reached (``_moe_decode_shape``).  Then SSD at the SSM serving
+    prefill's shapes (d_state 16, c = 8 and c = 1) against its plain
+    version (1e-5) and the oracle.  -> the rows of the streamed_moe
+    serve_jamba path and the ssd serve_prefill paths."""
+    moe_row = _moe_decode_shape(JAMBA_MOE, "Jamba decode")
+    ssd_rows = {}
+    for path, shape in SSD_SERVE_SHAPES:
+        row = _ssd_case(shape, timed=path is not None)
+        if path is not None:
+            ssd_rows[path] = row
+    return {"serve_jamba": moe_row}, ssd_rows
+
+
+def _moe_decode_shape(shape, label):
+    """streamed_moe at one decode step's (E, C, d, m), swiglu, bf16:
+    against its plain version (``moe_bf16_check``, the down product's
+    tolerance scaled to its K) and the fp32 oracle (3e-2); every tile
+    setting the default's bits (output and scratch), each timed beside the
+    planner's prediction and the bound; the analytic pick's device time
+    over the default's.  -> the kernels line's row."""
     import torch
     from repro_torch.core import autotune
     from repro_torch.kernels import ref
     from repro_torch.kernels import streamed_moe as sm
-    E, C, d, m = JAMBA_MOE
+    E, C, d, m = shape
     act = "swiglu"
-    what = f"streamed_moe E={E} C={C} d={d} m={m} {act} bf16 (Jamba decode)"
+    what = f"streamed_moe E={E} C={C} d={d} m={m} {act} bf16 ({label})"
     xe, wg, wu, wd = _moe_inputs(E, C, d, m, act, torch.bfloat16)
     ws, _ = _stream_operands(wg, wu, wd, "bf16")
     oracle = ref.streamed_moe_quant_ref(xe, wg, wu, wd, act, "bf16")
@@ -2455,21 +2530,18 @@ def phase_ssm_kernels():
         xe, *ws, activation=act, tiles=tiles))
     plain_ms = median_ms(lambda: ref.streamed_moe_plain(xe, *ws, act),
                          reps=5, warmup=1)
+    default = sm.DEFAULT_TILES(C, torch.bfloat16)
     log("tiles", f"{what}: all {len(times)} settings give the default's "
-                 f"bits; analytic pick {tiles}: {text}; fastest "
+                 f"bits; analytic pick {tiles}: {text}, "
+                 f"{times[tiles] / times[default]:.3f}x the default "
+                 f"{default}'s device time; fastest "
                  f"{min(times, key=times.get)} {min(times.values()):.4f} ms; "
                  f"plain {plain_ms:.4f} ms; bound {bound:.4f} ms ({by}), "
                  f"the pick at {row_times['device_ms'] / bound:.2f}x it")
-    moe_row = dict(max_abs_err=err_plain, **row_times, plain_ms=plain_ms,
-                   bound_ms=bound, bound_by=by, library_ms=None, tiles=tiles)
     del xe, ws, h0, out0
     torch.cuda.empty_cache()
-    ssd_rows = {}
-    for path, shape in SSD_SERVE_SHAPES:
-        row = _ssd_case(shape, timed=path is not None)
-        if path is not None:
-            ssd_rows[path] = row
-    return {"serve_jamba": moe_row}, ssd_rows
+    return dict(max_abs_err=err_plain, **row_times, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, library_ms=None, tiles=tiles)
 
 
 def _ssm_rows_equal(a, b):
@@ -2648,43 +2720,84 @@ def phase_mamba_serve():
 
 def phase_jamba():
     """Phase 12j: Jamba-v0.1 at its published widths, one period deep
-    (JAMBA_LAYERS), bf16, seed 0, ``capacity``; the parameters built once
-    and shared by every engine.  The slice (4 x 8 -> 16 tokens) on the
-    fused engine: a first run that captures, fused == eager on it, then a
-    warm run (streamed_moe at C = 16 on the 4 MoE layers, 5 host syncs an
-    iteration, no recapture, the SSD kernel on the 7 Mamba-2 layers of
-    every one-shot prefill), profiled once more; the slice under the
-    dynamic schedule, fused == eager; the preemption check; the
-    shared-prefix stream unbounded and with preemption and the prefix
-    cache (a hit restores the SSM snapshot), the same tokens.  -> the warm
-    run's streamed_moe and SSD launches."""
-    import dataclasses
-    import torch
+    (JAMBA_LAYERS; 1 attention and 7 Mamba-2 layers, 4 MoE and 4 dense
+    FFN), ``_serve_family`` with the SSM checks (the SSD kernel on the 7
+    Mamba-2 layers of every one-shot prefill, a prefill chunk step's
+    kernels, the preemption check) and the shared-prefix loops, whose
+    cache hits restore SSM snapshots.  -> the warm run's streamed_moe and
+    SSD launches."""
     from repro_torch.configs import get_config
+    return _serve_family(get_config(JAMBA).replace(num_layers=JAMBA_LAYERS),
+                         "jamba", prefix=True)
+
+
+# ---------------------------------------------------------------------------
+# the rest of the families: kernels at their shapes (3m), the paper's
+# Table I MoE models served (13, 13q), InternVL2's prefix scoring (14),
+# Whisper's encoder-decoder (15)
+# ---------------------------------------------------------------------------
+
+
+def phase_family_kernels():
+    """streamed_moe at the decode steps of DeepSeek-MoE-16B, Qwen3-30B-A3B,
+    Yuan2-M32 and Phi-3.5-MoE (FAMILY_MOE, ``_moe_decode_shape``), and
+    flash attention at InternVL2's scoring shape (hd = 128, bf16 and fp32)
+    against its plain version and the oracle.  -> (streamed_moe rows,
+    flash rows) by path."""
+    moe_rows = {path: _moe_decode_shape(shape, path)
+                for path, shape in FAMILY_MOE}
+    S = SCORE_S + 256
+    flash = _flash_case(SCORE_B, S, S, 16, 128, "bf16", timed=True)
+    _flash_case(SCORE_B, S, S, 16, 128, "fp32")
+    return moe_rows, {"forward_internvl2": flash}
+
+
+def _serve_family(cfg, phase, prefix=False):
+    """A MoE model served at full width, bf16, ``capacity``, seed 0, the
+    parameters built once and shared by every engine.  The slice (4 x 8 ->
+    16 tokens) on the fused engine: a first run that captures, fused ==
+    eager on it, a warm run (nb + 1 host syncs an iteration, no recapture,
+    one streamed_moe launch per MoE layer per prefill and step, the SSD
+    kernel once per Mamba-2 layer of each one-shot prefill), profiled; the
+    slice under the dynamic schedule, fused == eager; for a model with
+    Mamba-2 layers, a prefill chunk step's kernels and the preemption
+    check; with ``prefix``, phase 6b's shared-prefix stream unbounded and
+    with preemption + the prefix cache: the same tokens.  -> the warm
+    run's streamed_moe and SSD launches."""
+    import torch
     from repro_torch.core.strategy import ExecutionSpec
     from repro_torch.kernels import ssd
     from repro_torch.launch import serve
     from repro_torch.models import api
     from repro_torch.models.api import leaves
-    from repro_torch.serving import (Engine, Scheduler, SchedulerConfig,
-                                     ServeConfig, TrafficConfig,
-                                     make_traffic, run_closed_loop)
+    from repro_torch.serving import Engine, ServeConfig
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg = get_config(JAMBA).replace(num_layers=JAMBA_LAYERS)
-    n_moe = _n_moe(cfg)
-    n_ssm = sum(1 for k in cfg.layer_kinds() if k == "ssm")
+    n_moe, mcfg = _n_moe(cfg), cfg.moe
+    kinds = cfg.layer_kinds()
+    n_ssm = kinds.count("ssm")
     t0 = time.perf_counter()
     params = api.init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     n_params = sum(t.numel() for _, t in leaves(params))
-    log("jamba", f"{JAMBA} at published widths, {JAMBA_LAYERS} of 32 "
-                 f"layers (one period: {cfg.layer_kinds().count('attn')} "
-                 f"attention, {n_ssm} Mamba-2; {n_moe} MoE, "
-                 f"{cfg.ffn_kinds().count('dense')} dense FFN): "
-                 f"{n_params / 1e9:.3f} B params bf16 drawn in "
-                 f"{time.perf_counter() - t0:.2f}s")
-    args = serve.parse_args(["--arch", JAMBA, "--seed", "0"] + SLICE_ARGV)
+    shared = ""
+    if mcfg.num_shared_experts:
+        w = params["periods"][0]["moe"]["shared"]["w_up"]
+        want = (cfg.num_layers, cfg.d_model,
+                mcfg.num_shared_experts * mcfg.d_expert)
+        if tuple(w.shape) != want:
+            fail(phase, f"shared experts' w_up {tuple(w.shape)}, want {want}")
+        shared = (f", {mcfg.num_shared_experts} shared experts on every "
+                  f"layer (w_up {want})")
+    log(phase, f"{cfg.name}: {cfg.num_layers} layers ({kinds.count('attn')}"
+               f" attention, {n_ssm} Mamba-2; {n_moe} MoE, "
+               f"{cfg.ffn_kinds().count('dense')} dense FFN), d_model "
+               f"{cfg.d_model}, {mcfg.num_experts} experts top-"
+               f"{mcfg.top_k}, d_expert {mcfg.d_expert}{shared}: "
+               f"{n_params / 1e9:.3f} B params (param_count "
+               f"{cfg.param_count() / 1e9:.3f} B), bf16, drawn in "
+               f"{time.perf_counter() - t0:.2f}s")
+    args = serve.parse_args(["--arch", cfg.name, "--seed", "0"] + SLICE_ARGV)
 
     def engine(spec=None, **kw):
         return Engine(params, cfg, ServeConfig(
@@ -2699,19 +2812,19 @@ def phase_jamba():
         cold = serve.run(args, engine=eng)
         launches = _launches(eng)
         if launches != n_moe * (4 + eng.stats["iterations"]):
-            fail("jamba", f"{schedule} first run: {launches} streamed_moe "
-                          f"launches")
+            fail(phase, f"{schedule} first run: {launches} streamed_moe "
+                        f"launches")
         eager = engine(eng.scfg.spec, fused=False)
         got, secs = _serve_prompts(eager, cold["prompts"], cold["max_new"])
         outs = list(cold["outs"].values())
-        _same_run((eng, outs), (eager, got), f"{JAMBA} {schedule}")
+        _same_run((eng, outs), (eager, got), f"{cfg.name} {schedule}")
         ms = eng.megastep()
-        log("jamba", f"{schedule}: first run {cold['seconds']:.3f}s "
-                     f"({ms.captures} graphs captured in "
-                     f"{ms.capture_s:.3f}s); fused == eager (tokens, "
-                     f"{len(eng.trace)} trace records, stats), eager "
-                     f"{secs:.3f}s; dynamic schedules "
-                     f"{eng.stats['dynamic_schedules']}")
+        log(phase, f"{schedule}: first run {cold['seconds']:.3f}s "
+                   f"({ms.captures} graphs captured in {ms.capture_s:.3f}s);"
+                   f" fused == eager (tokens, {len(eng.trace)} trace "
+                   f"records, stats), eager {secs:.3f}s; dynamic schedules "
+                   f"{eng.stats['dynamic_schedules']}")
+        del eager
         return eng, outs
 
     eng, first = cold_run("static")
@@ -2730,39 +2843,68 @@ def phase_jamba():
     toks = [t for seq in outs for t in seq]
     if len(toks) != 64 or not all(0 <= t < cfg.vocab_size for t in toks) \
             or outs != first:
-        fail("jamba", f"warm slice: {len(toks)} tokens, the first run's "
-                      f"tokens {outs == first}")
+        fail(phase, f"warm slice: {len(toks)} tokens, the first run's "
+                    f"tokens {outs == first}")
     if nb != n_moe or syncs != iters * (nb + 1) or ms.captures != captures \
             or launches != n_moe * (4 + iters) or ssd_launches != 4 * n_ssm:
-        fail("jamba", f"warm slice: {nb} boundaries, {syncs} host syncs "
-                      f"over {iters} iterations (want {nb + 1} each), "
-                      f"captures {captures} -> {ms.captures}, streamed_moe "
-                      f"launches {launches} (want {n_moe * (4 + iters)}), "
-                      f"ssd launches {ssd_launches} (want {4 * n_ssm})")
-    _check_on_card(warm, "jamba")
-    log("jamba", f"static warm slice: 4 requests x 16 tokens = {len(toks)} "
-                 f"tokens in {warm['seconds']:.3f}s "
-                 f"({len(toks) / warm['seconds']:.1f} tok/s; the 4 one-shot "
-                 f"prefills of submit {warm['submit_seconds']:.3f}s, the "
-                 f"fused steps {warm['seconds'] - warm['submit_seconds']:.3f}"
-                 f"s), {iters} decode iterations, {syncs / iters:.1f} host "
-                 f"syncs per iteration (nb + 1 = {nb + 1}), captures "
-                 f"{ms.captures} (unchanged), streamed_moe launches "
-                 f"{launches} == {n_moe} MoE layers x (4 + {iters}) "
-                 f"({eng.graph_launches()} by graph replays), ssd launches "
-                 f"{ssd_launches} == 4 prompts x {n_ssm} Mamba-2 layers; the "
-                 f"first run's tokens")
-    _profile(f"{JAMBA} warm slice", lambda: serve.run(args, engine=eng), eng)
+        fail(phase, f"warm slice: {nb} boundaries, {syncs} host syncs over "
+                    f"{iters} iterations (want {nb + 1} each), captures "
+                    f"{captures} -> {ms.captures}, streamed_moe launches "
+                    f"{launches} (want {n_moe * (4 + iters)}), ssd launches "
+                    f"{ssd_launches} (want {4 * n_ssm})")
+    _check_on_card(warm, phase)
+    log(phase, f"static warm slice: 4 requests x 16 tokens = {len(toks)} "
+               f"tokens in {warm['seconds']:.3f}s "
+               f"({len(toks) / warm['seconds']:.1f} tok/s; the 4 one-shot "
+               f"prefills of submit {warm['submit_seconds']:.3f}s, the fused"
+               f" steps {warm['seconds'] - warm['submit_seconds']:.3f}s), "
+               f"{iters} decode iterations, {syncs / iters:.1f} host syncs "
+               f"per iteration (nb + 1 = {nb + 1}), captures {ms.captures} "
+               f"(unchanged), streamed_moe launches {launches} == {n_moe} "
+               f"MoE layers x (4 + {iters}) ({eng.graph_launches()} by "
+               f"graph replays) at C = {mcfg.top_k * args.max_batch} a "
+               f"decode step, ssd launches {ssd_launches} == 4 prompts x "
+               f"{n_ssm} Mamba-2 layers; the first run's tokens")
+    _profile(f"{cfg.name} warm slice", lambda: serve.run(args, engine=eng),
+             eng)
     del warm, eng, ms
     torch.cuda.empty_cache()
+    peaks = {"static": torch.cuda.max_memory_allocated()}
+    torch.cuda.reset_peak_memory_stats()
     eng, dynamic = cold_run("dynamic")
-    log("jamba", f"the dynamic schedule's tokens "
-                 f"{'equal' if dynamic == first else 'differ from'} the "
-                 f"static one's")
+    log(phase, f"the dynamic schedule's tokens "
+               f"{'equal' if dynamic == first else 'differ from'} the "
+               f"static one's")
     del eng
     torch.cuda.empty_cache()
-    _prefill_kernels(params, cfg, "jamba")
-    _preempt_check(params, cfg, "jamba")
+    peaks["dynamic"] = torch.cuda.max_memory_allocated()
+    if n_ssm:
+        _prefill_kernels(params, cfg, phase)
+        _preempt_check(params, cfg, phase)
+    if prefix:
+        torch.cuda.reset_peak_memory_stats()
+        _prefix_loops(params, cfg, phase)
+        peaks["prefix stream"] = torch.cuda.max_memory_allocated()
+    weights = sum(t.numel() * t.element_size() for _, t in leaves(params))
+    log(phase, f"peak device memory {max(peaks.values()) / 2**30:.2f} GiB ("
+               + ", ".join(f"{k} runs {v / 2**30:.2f}" for k, v in
+                           peaks.items())
+               + f"; the weights {weights / 2**30:.2f} GiB)")
+    del params
+    torch.cuda.empty_cache()
+    return launches, ssd_launches
+
+
+def _prefix_loops(params, cfg, phase):
+    """Phase 6b's shared-prefix stream, closed loops unbounded and with
+    ``preempt_queue_depth=0`` + the prefix cache on the fused engine: all
+    complete, preemptions and cache hits happen (each cache hit of a model
+    with Mamba-2 layers restores an SSM snapshot), the same tokens."""
+    import torch
+    from repro_torch.serving import (Engine, Scheduler, SchedulerConfig,
+                                     ServeConfig, TrafficConfig,
+                                     make_traffic, run_closed_loop,
+                                     statepool)
     traffic = make_traffic(TrafficConfig(vocab=cfg.vocab_size,
                                          **PREFIX_TRAFFIC))
     n_req = PREFIX_TRAFFIC["num_requests"]
@@ -2780,37 +2922,258 @@ def phase_jamba():
         secs = time.perf_counter() - t0
         m, s = res["metrics"], eng.stats
         if m.completed != n_req or res["dropped"]:
-            fail("jamba", f"prefix {name}: {m.completed}/{n_req} completed")
-        loop_launches, chunk = _check_traffic_launches(eng, n_moe, 0,
-                                                       "jamba")
+            fail(phase, f"prefix {name}: {m.completed}/{n_req} completed")
         hits = sum(1 for r in eng.trace if r.get("event") == "cache_hit")
+        snapshots = all(e.ssm != () for e in eng.pool.entries.values()) \
+            if statepool.has_ssm(eng.caches) else True
         if cache and (m.cache_hits == 0 or hits != m.cache_hits or
-                      not all(e.ssm != () for e in eng.pool.entries.values())):
-            fail("jamba", f"prefix {name}: {m.cache_hits} cache hits, "
-                          f"{hits} hit events, entries without an SSM "
-                          f"snapshot")
+                      m.preemptions == 0 or m.preemptions != m.restores or
+                      not snapshots):
+            fail(phase, f"prefix {name}: {m.cache_hits} cache hits "
+                        f"({hits} hit events), {m.preemptions} preemptions "
+                        f"/ {m.restores} restores, every entry with its SSM "
+                        f"snapshot {snapshots}")
+        loop_launches, chunk = _check_traffic_launches(eng, _n_moe(cfg), 0,
+                                                       phase)
         runs[name] = res["outputs"]
-        log("jamba", f"prefix {name}: {m.completed}/{n_req} completed in "
-                     f"{m.iterations} iterations, {secs:.3f}s; "
-                     f"{m.preemptions} preemptions / {m.restores} "
-                     f"restores, {m.cache_hits} cache hits (each restored "
-                     f"an SSM snapshot), {s['prefill_tokens_saved']} prefill"
-                     f" tokens saved; streamed_moe launches {loop_launches}"
-                     f" ({chunk} in prefill steps); peak resident state "
-                     f"{s['peak_resident_state_bytes']} bytes")
+        log(phase, f"prefix {name}: {m.completed}/{n_req} completed in "
+                   f"{m.iterations} iterations, {secs:.3f}s; "
+                   f"{m.preemptions} preemptions / {m.restores} restores, "
+                   f"{m.cache_hits} cache hits, {s['prefill_tokens_saved']} "
+                   f"prefill tokens saved; streamed_moe launches "
+                   f"{loop_launches} ({chunk} in prefill steps at C = "
+                   f"{TRAFFIC_BATCH * CHUNK * cfg.moe.top_k}); peak "
+                   f"resident state {s['peak_resident_state_bytes']} bytes")
         del eng, sched
         torch.cuda.empty_cache()
     want = runs["unbounded"]
     bad = [r for r in want if runs["preempt+cache"][r] != want[r]]
     if bad:
-        fail("jamba", f"prefix preempt+cache: {len(bad)} requests emit "
-                      f"other tokens than the unbounded run ({bad[:4]})")
-    peak = torch.cuda.max_memory_allocated()
-    log("jamba", f"prefix preempt+cache == unbounded token for token; peak "
-                 f"device memory of the phase {peak / 2**30:.2f} GiB")
+        fail(phase, f"prefix preempt+cache: {len(bad)} requests emit other "
+                    f"tokens than the unbounded run ({bad[:4]})")
+    log(phase, "prefix preempt+cache == unbounded token for token")
+
+
+def phase_deepseek():
+    """Phase 13: DeepSeek-MoE-16B at full width and depth (28 layers,
+    16.88 B parameters, 64 experts top-6 and two shared experts a layer),
+    ``_serve_family`` with the shared-prefix loops.  -> streamed_moe
+    launches of the warm slice (the serve_deepseek path)."""
+    from repro_torch.configs import get_config
+    return _serve_family(get_config(DEEPSEEK), "deepseek", prefix=True)[0]
+
+
+def phase_qwen3():
+    """Phase 13q: Qwen3-30B-A3B at its published widths (128 experts
+    top-8, d_expert 768), QWEN_LAYERS deep.  -> streamed_moe launches of
+    the warm slice (the serve_qwen3 path)."""
+    from repro_torch.configs import get_config
+    return _serve_family(get_config(QWEN).replace(num_layers=QWEN_LAYERS),
+                         "qwen3")[0]
+
+
+def phase_internvl2():
+    """Phase 14: InternVL2-2b at full width and depth (24 layers, 1.89 B
+    parameters): ``loss_fn`` over SCORE_B x SCORE_S text tokens behind 256
+    random patch embeddings through the flash kernel (hd = 128, GQA 16 /
+    8), bf16, then fp32 with kernels against ``use_kernels(False)`` (as
+    phase 9 holds granite); then in fp32 ``prefill_fn`` with the prefix
+    and DECODE_STEPS greedy ``decode_fn`` steps against the teacher-forced
+    forward (phase 7's tolerance).  -> flash launches of the bf16 loss."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import api, transformer
+    cfg = get_config(VLM)
+    P = cfg.frontend.num_prefix_tokens
+    n_attn = sum(1 for k in cfg.layer_kinds() if k == "attn")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = api.init_params(cfg, seed=0, device="cuda")
+    batch = _score_batch(cfg)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    prefix = torch.randn(SCORE_B, P, cfg.d_model, generator=g,
+                         device="cuda") * 0.02
+    batch["prefix_embeds"] = prefix.to(torch.bfloat16)
+    with torch.no_grad():
+        api.loss_fn(params, batch, cfg, use_flash=True)      # warm-up
+        torch.cuda.synchronize()
+        fa.LAUNCHES = 0
+        t0 = time.perf_counter()
+        loss, m = api.loss_fn(params, batch, cfg, use_flash=True)
+        loss = loss.item()
+        secs = time.perf_counter() - t0
+    launches = fa.LAUNCHES
+    T = SCORE_B * SCORE_S
+    if launches != n_attn or not math.isfinite(loss):
+        fail("internvl2", f"loss {loss}, flash launches {launches} (want "
+                          f"{n_attn})")
+    log("internvl2", f"{VLM} full width bf16 ({cfg.param_count() / 1e9:.3f}"
+                     f" B params), {SCORE_B} x ({P} patch embeddings + "
+                     f"{SCORE_S} text tokens): loss {loss:.4f} (only the "
+                     f"text scored) in {secs:.3f}s (warm) = {T / secs:.0f} "
+                     f"scored tok/s; flash launches {launches} at (B, S, H, "
+                     f"hd) = ({SCORE_B}, {P + SCORE_S}, {cfg.num_heads}, "
+                     f"{cfg.resolved_head_dim}); peak memory "
+                     f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del params
     torch.cuda.empty_cache()
-    return launches, ssd_launches
+
+    cfg32 = cfg.replace(dtype="float32")
+    params = api.init_params(cfg32, seed=0, device="cuda")
+    batch["prefix_embeds"] = prefix
+    out = {}
+    for kernels in (True, False):
+        with torch.no_grad(), ops.use_kernels(kernels):
+            loss32, _ = api.loss_fn(params, batch, cfg32, use_flash=True)
+            logits, _ = transformer.forward(params, batch["tokens"], cfg32,
+                                            prefix_embeds=prefix,
+                                            use_flash=True)
+            out[kernels] = (loss32.item(), logits[:, P:])
+            del logits
+    (lk, zk), (lp, zp) = out[True], out[False]
+    rel = abs(lk - lp) / abs(lp)
+    top2 = zp.topk(2, dim=-1).values
+    differ = zk.argmax(-1) != zp.argmax(-1)
+    miss = (differ & (top2[..., 0] - top2[..., 1] >= MARGIN_TOL)).float() \
+        .mean().item()
+    line = (f"fp32 parity: loss {lk:.6f} with kernels, {lp:.6f} with "
+            f"use_kernels(False), rel {rel:.3e} (tol {LOSS_TOL:g}); argmax "
+            f"differs where the plain top-2 margin is >= {MARGIN_TOL:g} at "
+            f"{miss:.4f} of the text positions (tol {ARGMAX_MISS:g}); "
+            f"logits rel err {rel_err(zk, zp):.3e}")
+    if rel > LOSS_TOL or miss > ARGMAX_MISS:
+        fail("internvl2", line)
+    log("internvl2", line)
+    del out, zk, zp, top2
+    torch.cuda.empty_cache()
+
+    B, S = SCORE_B, SCORE_S
+    max_seq = P + S + DECODE_STEPS
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        logits, caches = api.prefill_fn(
+            params, {"tokens": batch["tokens"], "prefix_embeds": prefix},
+            cfg32, max_seq)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        steps, toks = [logits[:, -1:]], []
+        t0 = time.perf_counter()
+        for i in range(DECODE_STEPS - 1):
+            toks.append(steps[-1].argmax(-1))
+            lg, caches = api.decode_fn(params, toks[-1], caches,
+                                       torch.full((B,), P + S + i,
+                                                  device="cuda"), cfg32)
+            steps.append(lg)
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter() - t0
+        del caches, logits
+        seq = torch.cat([batch["tokens"]] + toks, dim=1)
+        teacher, _ = transformer.forward(params, seq, cfg32,
+                                         prefix_embeds=prefix, use_flash=True)
+        teacher = teacher[:, P + S - 1:]
+    got = torch.cat(steps, 1)
+    rel = rel_err(got, teacher)
+    if not torch.isfinite(got).all() or rel > LOGIT_TOL:
+        fail("internvl2", f"decode vs teacher forcing rel {rel:.3e} (tol "
+                          f"{LOGIT_TOL:g})")
+    log("internvl2", f"fp32 prefill_fn with the prefix ({P} + {S} "
+                     f"positions) {t_pre:.3f}s, {DECODE_STEPS - 1} greedy "
+                     f"decode_fn steps {t_dec:.3f}s "
+                     f"({B * (DECODE_STEPS - 1) / t_dec:.1f} tok/s, dense "
+                     f"caches, eager): the {DECODE_STEPS} positions' "
+                     f"logits vs the teacher-forced forward rel {rel:.3e} "
+                     f"(tol {LOGIT_TOL:g})")
+    del params, teacher, steps, got
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_whisper():
+    """Phase 15: Whisper-base at full width and depth (6 + 6 layers,
+    d_model 512) over WHISPER_FRAMES frames, the 30 s window.  It runs no
+    TPU kernel (its attention is bidirectional in the encoder and never
+    flash in the decoder, as in the reference): ``loss_fn`` in bf16, then
+    in fp32 ``prefill_fn`` and DECODE_STEPS greedy ``decode_fn`` steps
+    whose logits equal ``decode_train``'s teacher-forced ones (the
+    reference's test_decode_matches_teacher_forcing, on the card)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import streamed_moe as sm
+    from repro_torch.models import api, whisper
+    cfg = get_config(WHISPER)
+    B, F = WHISPER_B, WHISPER_FRAMES
+    g = torch.Generator(device="cuda").manual_seed(2)
+    frames = torch.randn(B, F, cfg.d_model, generator=g, device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (B, WHISPER_TOKENS),
+                           generator=g, device="cuda")
+    labels = torch.cat([tokens[:, 1:], torch.full((B, 1), -1,
+                                                  device="cuda")], dim=1)
+    fa.LAUNCHES = sm.LAUNCHES = 0
+    params = api.init_params(cfg, seed=0, device="cuda")
+    batch = {"frames": frames.to(torch.bfloat16), "tokens": tokens,
+             "labels": labels}
+    with torch.no_grad():
+        api.loss_fn(params, batch, cfg)                      # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = api.loss_fn(params, batch, cfg)
+        loss = loss.item()
+        secs = time.perf_counter() - t0
+    if not math.isfinite(loss):
+        fail("whisper", f"loss {loss}")
+    log("whisper", f"{WHISPER} full width bf16 ({cfg.param_count() / 1e6:.1f}"
+                   f" M params; {cfg.encoder_layers} encoder + "
+                   f"{cfg.num_layers} decoder layers): loss over {B} clips x "
+                   f"{F} frames, {WHISPER_TOKENS} tokens each {loss:.4f} in "
+                   f"{secs:.3f}s (warm) = {B * WHISPER_TOKENS / secs:.0f} "
+                   f"scored tok/s")
+    del params
+    cfg32 = cfg.replace(dtype="float32")
+    params = api.init_params(cfg32, seed=0, device="cuda")
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        logits, caches = api.prefill_fn(
+            params, {"frames": frames, "tokens": tokens[:, :1]}, cfg32,
+            DECODE_STEPS)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        seq, steps = [tokens[:, :1]], []
+        t0 = time.perf_counter()
+        for t in range(DECODE_STEPS):
+            lg, caches = api.decode_fn(params, seq[-1], caches,
+                                       torch.full((B,), t, device="cuda"),
+                                       cfg32)
+            steps.append(lg)
+            seq.append(lg.argmax(-1))
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter() - t0
+        memory = whisper.encode(params, frames, cfg32)
+        teacher = whisper.decode_train(params, torch.cat(seq[:-1], 1),
+                                       memory, cfg32)
+    got = torch.cat(steps, 1)
+    over = ((got - teacher).abs() - TF_TOL * teacher.abs()).max().item()
+    first = (steps[0] - logits).abs().max().item()
+    if not torch.isfinite(got).all() or over > TF_TOL or first > TF_TOL:
+        fail("whisper", f"decode vs teacher forcing: max(|d| - rtol |tf|) "
+                        f"{over:.3e} (atol {TF_TOL:g}); step 0 vs prefill "
+                        f"{first:.3e}")
+    if fa.LAUNCHES or sm.LAUNCHES:
+        fail("whisper", f"kernel launches: flash {fa.LAUNCHES}, streamed_moe"
+                        f" {sm.LAUNCHES} (the path runs none)")
+    log("whisper", f"fp32 prefill_fn (encoder over {F} frames, the cross "
+                   f"K/V of {cfg.num_layers} layers) {t_pre:.3f}s; "
+                   f"{DECODE_STEPS} greedy decode_fn steps {t_dec:.3f}s "
+                   f"({B * DECODE_STEPS / t_dec:.1f} tok/s, eager): logits "
+                   f"== decode_train's teacher-forced ones, max abs err "
+                   f"{(got - teacher).abs().max().item():.3e}, max(|d| - "
+                   f"rtol |tf|) {over:.3e} (rtol = atol = {TF_TOL:g}); no "
+                   f"TPU kernel on this path (0 flash, 0 streamed_moe "
+                   f"launches)")
+    del params, caches, memory
+    torch.cuda.empty_cache()
 
 
 SOURCES = {"streamed_moe": "src/repro/kernels/streamed_moe.py:201",
@@ -2835,6 +3198,9 @@ def main():
         moe_rows, ssd_rows = phase_ssm_kernels()
         rows["streamed_moe"].update(moe_rows)
         rows["ssd"].update(ssd_rows)
+        moe_rows, flash_rows = phase_family_kernels()
+        rows["streamed_moe"].update(moe_rows)
+        rows["flash_attention"].update(flash_rows)
         rows["streamed_moe"].update(phase_tiers())
         with tempfile.TemporaryDirectory() as cache_root:
             launches = {("streamed_moe", "serve"): phase_slice(
@@ -2863,6 +3229,11 @@ def main():
         launches["ssd", "serve_prefill"] = phase_mamba_serve()
         (launches["streamed_moe", "serve_jamba"],
          launches["ssd", "serve_prefill_jamba"]) = phase_jamba()
+        launches["streamed_moe", "serve_deepseek"] = phase_deepseek()
+        launches["streamed_moe", "serve_qwen3"] = phase_qwen3()
+        launches["flash_attention", "forward_internvl2"] = \
+            phase_internvl2()
+        phase_whisper()
         phase_profile({path: eng for path, (eng, _, _) in traffic.items()})
         if "jax" in sys.modules:
             fail("summary", "jax was imported")

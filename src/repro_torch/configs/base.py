@@ -54,6 +54,16 @@ class SSMConfig:
 
 
 @dataclass(frozen=True)
+class FrontendConfig:
+    """Modality frontend stub (audio frames / vision patches): the backbone
+    takes precomputed embeddings, as in the reference."""
+
+    kind: str                          # "audio" | "vision"
+    num_prefix_tokens: int = 256       # vision: patch tokens prepended
+    frame_dim: int = 0                 # audio: dim of precomputed frames (=d_model)
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str                        # dense | moe | hybrid | ssm | audio | vlm
@@ -72,7 +82,8 @@ class ModelConfig:
     moe_every: int = 1
     ssm: Optional[SSMConfig] = None
     attn_every: int = 1
-    encoder_layers: int = 0
+    encoder_layers: int = 0            # encoder-decoder (Whisper): encoder depth
+    frontend: Optional[FrontendConfig] = None
     max_seq_len: int = 524_288
     dtype: str = "bfloat16"
     source: str = ""
@@ -87,6 +98,24 @@ class ModelConfig:
     @property
     def is_encoder_decoder(self) -> bool:
         return self.encoder_layers > 0
+
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def has_moe(self) -> bool:
+        return self.moe is not None
+
+    @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic decode: the SSM and hybrid families only."""
+        return self.family in ("ssm", "hybrid")
+
+    @property
+    def has_decode(self) -> bool:
+        """Every family decodes (encoder-decoder with its decoder)."""
+        return True
 
     def layer_kinds(self) -> Tuple[str, ...]:
         kinds = []
@@ -130,12 +159,28 @@ class ModelConfig:
             # in_proj (z, x, B, C, dt) + conv + out_proj + A, D
             ssm_p = d * (2 * di + 2 * gn + nh) + self.ssm.d_conv * (di + 2 * gn) \
                 + di * d + 2 * nh
+        dense_ffn = n_mats * d * self.d_ff
         total = embed
         for mix, ffn in zip(self.layer_kinds(), self.ffn_kinds()):
             total += (attn if mix == "attn" else ssm_p) + 2 * d
             total += moe_ffn if ffn == "moe" else (
-                n_mats * d * self.d_ff if ffn == "dense" else 0)
+                dense_ffn if ffn == "dense" else 0)
+        if self.encoder_layers:
+            # the encoder stack, and each decoder layer's cross-attention
+            # and its norm
+            total += self.encoder_layers * (attn + dense_ffn + 2 * d)
+            total += self.num_layers * (attn + d)
         return int(total)
+
+    def active_param_count(self) -> int:
+        """Parameters a token activates (top-k of the experts, not all)."""
+        if self.moe is None:
+            return self.param_count()
+        per_e = (3 if self.activation == "swiglu" else 2) * self.d_model \
+            * self.moe.d_expert
+        n_moe = sum(1 for f in self.ffn_kinds() if f == "moe")
+        return int(self.param_count()
+                   - n_moe * (self.moe.num_experts - self.moe.top_k) * per_e)
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
@@ -149,8 +194,13 @@ def register(cfg: ModelConfig) -> ModelConfig:
     return cfg
 
 
-# ported architectures; the reference registers thirteen
-_ARCH_MODULES = ["granite_moe_1b", "mamba2_370m", "jamba_v0_1_52b"]
+_ARCH_MODULES = [
+    "nemotron_4_15b", "yi_6b", "stablelm_1_6b", "nemotron_4_340b",
+    "jamba_v0_1_52b", "whisper_base", "granite_moe_1b", "phi3_5_moe",
+    "internvl2_2b", "mamba2_370m",
+    # the paper's Table I workload models
+    "deepseek_moe_16b", "qwen3_30b_a3b", "yuan2_m32",
+]
 _loaded = False
 
 
@@ -167,7 +217,7 @@ def _load_all():
 def get_config(name: str) -> ModelConfig:
     _load_all()
     if name not in _REGISTRY:
-        raise KeyError(f"unknown arch {name!r}; ported: {sorted(_REGISTRY)}")
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name]
 
 

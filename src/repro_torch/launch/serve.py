@@ -21,6 +21,12 @@ request to the state pool when the queue is deeper:
       --traffic-rate 0.8 --chunk-tokens 8 --traffic-mix poisson+zipf_prefix \\
       --prefix-cache --preempt-depth 0
 
+``--arch`` takes every registered config but the encoder-decoder one
+(``whisper-base``), which the engine does not serve; the MoE archs
+(granite, the paper's DeepSeek-MoE-16B, Qwen3-30B-A3B, Yuan2-M32 and
+Phi-3.5-MoE, Jamba) name ``fse_dp`` in their full configs and serve under
+``--strategy`` (``capacity`` by default).
+
 The engine runs its fused segments (CUDA graphs on the card).  Weights
 are random, drawn from ``--seed``.  ``--device`` defaults to ``cuda``
 (and fails where there is none).  MoE execution is one
@@ -151,6 +157,10 @@ def build(args):
         raise SystemExit(f"spec JSON round-trip mismatch: {spec}")
     spec.validate()
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
+    if cfg.is_encoder_decoder:
+        raise SystemExit(f"--arch {args.arch}: engine serves LM-family "
+                         f"models (encoder-decoder ones score and decode "
+                         f"through models.api)")
     if args.reduced:
         cfg = cfg.replace(dtype="float32")
     params = api.init_params(cfg, seed=args.seed, device=device)

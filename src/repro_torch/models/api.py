@@ -1,19 +1,23 @@
-"""Model API (port of the LM part of ``repro.models.api``): init, the
-scoring loss, one-shot and chunked prefill, and the per-layer
-``decode_*`` sub-steps the serving engine uses."""
+"""Model API (port of ``repro.models.api``): family dispatch for init, the
+scoring loss, one-shot and chunked prefill and the one-token decode step,
+and the per-layer ``decode_*`` sub-steps the serving engine uses.
+Batches are dicts: ``tokens`` and ``labels``, ``prefix_embeds`` (B, P, d)
+for a vision model, ``frames`` (B, F, d) for the encoder-decoder one."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.device import resolve_device
-from . import transformer
+from repro_torch.device import resolve_device, torch_dtype
+from . import transformer, whisper
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device=None):
     """Random parameters from ``seed``, drawn on ``device``."""
     device = resolve_device(device)
     generator = torch.Generator(device=device).manual_seed(seed)
+    if cfg.is_encoder_decoder:
+        return whisper.init_encdec(cfg, generator=generator, device=device)
     return transformer.init_lm(cfg, generator=generator, device=device)
 
 
@@ -57,23 +61,46 @@ def leaves(tree, prefix=""):
 
 def loss_fn(params, batch, cfg: ModelConfig, *, spec=None, use_flash=False):
     """Scoring loss (CE + MoE aux) over ``batch = {"tokens", "labels"}``
-    (labels -1 are not scored).  Returns (loss, {"ce", "aux"}).  Forward
-    only: the backward belongs to the training slice."""
+    (labels -1 are not scored), with ``prefix_embeds`` in front of the
+    tokens (only the text positions are scored) or, for the
+    encoder-decoder family, ``frames`` for the encoder.  Returns (loss,
+    {"ce", "aux"}).  Forward only: the backward belongs to the training
+    slice."""
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for _, t in leaves(params)):
         raise NotImplementedError("loss_fn is forward only; its backward "
                                   "belongs to the training slice (ROADMAP "
                                   "A.15): call it under torch.no_grad()")
-    h, aux = transformer.forward(params, batch["tokens"], cfg, spec=spec,
+    if cfg.is_encoder_decoder:
+        memory = whisper.encode(params, batch["frames"], cfg)
+        h = whisper.decode_train(params, batch["tokens"], memory, cfg,
+                                 return_hidden=True)
+        ce = fused_xent(h, params["embed"].T, batch["labels"])
+        return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}
+    prefix = batch.get("prefix_embeds")
+    h, aux = transformer.forward(params, batch["tokens"], cfg,
+                                 prefix_embeds=prefix, spec=spec,
                                  use_flash=use_flash, return_hidden=True)
+    if prefix is not None:              # score the text positions only
+        h = h[:, prefix.shape[1]:]
     ce = fused_xent(h, transformer.head_matrix(params), batch["labels"])
     coef = cfg.moe.aux_loss_coef if cfg.moe else 0.0
     return ce + coef * aux, {"ce": ce, "aux": aux}
 
 
 def prefill_fn(params, batch, cfg: ModelConfig, max_seq: int, *, spec=None):
-    """Prompt processing -> (logits, caches)."""
+    """Prompt processing -> (logits, caches).  The encoder-decoder family
+    encodes ``frames`` and returns the teacher-forced logits of the
+    tokens beside caches holding the cross-attention K/V and an empty
+    self-attention cache, as the reference does."""
+    if cfg.is_encoder_decoder:
+        memory = whisper.encode(params, batch["frames"], cfg)
+        caches = whisper.init_decode_caches(params, memory, cfg,
+                                            batch["frames"].shape[0], max_seq)
+        return whisper.decode_train(params, batch["tokens"], memory,
+                                    cfg), caches
     return transformer.prefill(params, batch["tokens"], cfg, max_seq,
+                               prefix_embeds=batch.get("prefix_embeds"),
                                spec=spec)
 
 
@@ -82,6 +109,8 @@ def prefill_chunk_fn(params, tokens, caches, cache_len, cfg: ModelConfig, *,
                      page_table=None):
     """Append one prompt chunk to the decode caches ->
     (logits or hidden, caches, per-layer expert counts)."""
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError("chunked prefill serves LM-family models")
     return transformer.prefill_chunk(params, tokens, caches, cache_len, cfg,
                                      spec=spec, token_mask=token_mask,
                                      return_hidden=return_hidden,
@@ -95,3 +124,25 @@ decode_moe_exec = transformer.decode_moe_exec
 decode_ffn = transformer.decode_ffn
 decode_span = transformer.decode_span
 decode_logits = transformer.decode_logits
+
+
+def decode_fn(params, token, caches, cache_len, cfg: ModelConfig, *,
+              spec=None):
+    """One decode step on dense caches -> (logits (B, 1, V), new caches)."""
+    if cfg.is_encoder_decoder:
+        return whisper.decode_step(params, token, caches, cache_len, cfg)
+    return transformer.decode_step(params, token, caches, cache_len, cfg,
+                                   spec=spec)
+
+
+def init_decode_caches(params, cfg: ModelConfig, batch: int, max_seq: int,
+                       memory_len: int = 1500):
+    """Empty decode caches on the parameters' device; the encoder-decoder
+    family's cross-attention K/V from a zero memory of ``memory_len``
+    frames."""
+    device = params["embed"].device
+    if cfg.is_encoder_decoder:
+        mem = torch.zeros((batch, memory_len, cfg.d_model),
+                          dtype=torch_dtype(cfg.dtype), device=device)
+        return whisper.init_decode_caches(params, mem, cfg, batch, max_seq)
+    return transformer.init_caches(cfg, batch, max_seq, device=device)

@@ -1,4 +1,5 @@
-"""GQA attention: full causal (prefill) and paged KV-cache decode (port of
+"""GQA attention: full causal or bidirectional (prefill, encoders), cross
+attention, and dense or paged KV-cache decode (port of
 ``repro.models.attention``).
 
 The reference's decode and prefill attention are plain einsums, not a
@@ -71,11 +72,42 @@ def causal_mask(sq: int, sk: int, device):
     return (j <= i + (sk - sq))[None, None]                      # (1,1,Sq,Sk)
 
 
+# above this length the query axis is taken QUERY_CHUNK rows at a time, so
+# the live scores are (B, H, QUERY_CHUNK, Sk) instead of (B, H, S, Sk), as
+# the reference's XLA path does for the 32k prefill cells
+CHUNKED_THRESHOLD = 4096
+QUERY_CHUNK = 1024
+
+
+def _chunked_sdpa(q, k, v, *, causal: bool):
+    """``_sdpa`` one QUERY_CHUNK of queries at a time (Sq a multiple of
+    it); each chunk's softmax is over every key, so the values are
+    ``_sdpa``'s."""
+    B, Sq, H, hd = q.shape
+    Sk = k.shape[1]
+    c = QUERY_CHUNK
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    out = []
+    for i in range(Sq // c):
+        qi = q[:, i * c:(i + 1) * c]
+        s = torch.einsum("bqhd,bkhd->bhqk", qi, k).float() / math.sqrt(hd)
+        if causal:
+            qpos = i * c + torch.arange(c, device=q.device)[:, None]
+            s = s.masked_fill(~(kpos <= qpos + (Sk - Sq))[None, None],
+                              NEG_INF)
+        p = torch.softmax(s, dim=-1).to(q.dtype)
+        out.append(torch.einsum("bhqk,bkhd->bqhd", p, v))
+    return torch.cat(out, dim=1)
+
+
 def attention(params, x, *, n_heads, n_kv, head_dim, rope_theta,
-              positions=None, use_flash=False):
-    """Full causal self-attention. x: (B, S, d).  ``use_flash`` runs the
-    flash kernel through ``kernels.ops`` (the reference's oracle under
-    ``use_kernels(False)``)."""
+              positions=None, causal=True, use_flash=False):
+    """Full self-attention, causal unless ``causal=False`` (an encoder).
+    x: (B, S, d).  ``use_flash`` runs a causal call through the flash
+    kernel (``kernels.ops``; the reference's oracle under
+    ``use_kernels(False)``); a bidirectional one never, as in the
+    reference.  At S >= CHUNKED_THRESHOLD (a multiple of QUERY_CHUNK) the
+    plain path takes the queries a chunk at a time."""
     B, S, _ = x.shape
     q = _split_heads(x @ params["wq"], n_heads, head_dim)
     k = _split_heads(x @ params["wk"], n_kv, head_dim)
@@ -86,12 +118,31 @@ def attention(params, x, *, n_heads, n_kv, head_dim, rope_theta,
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
     kf, vf = _repeat_kv(k, n_heads), _repeat_kv(v, n_heads)
-    if use_flash:
+    if use_flash and causal:
         from repro_torch.kernels import ops
         out = ops.flash_attention(q, kf, vf)
+    elif S >= CHUNKED_THRESHOLD and S % QUERY_CHUNK == 0:
+        out = _chunked_sdpa(q, kf, vf, causal=causal)
     else:
-        out = _sdpa(q, kf, vf, causal_mask(S, S, x.device))
+        out = _sdpa(q, kf, vf, causal_mask(S, S, x.device) if causal else None)
     return out.reshape(B, S, n_heads * head_dim) @ params["wo"]
+
+
+def cross_attention(params, x, memory, *, n_heads, n_kv, head_dim):
+    """x: (B, Sq, d) attends to memory (B, Sk, d); no rotary, no mask."""
+    B, Sq, _ = x.shape
+    q = _split_heads(x @ params["wq"], n_heads, head_dim)
+    k = _split_heads(memory @ params["wk"], n_kv, head_dim)
+    v = _split_heads(memory @ params["wv"], n_kv, head_dim)
+    out = _sdpa(q, _repeat_kv(k, n_heads), _repeat_kv(v, n_heads))
+    return out.reshape(B, Sq, n_heads * head_dim) @ params["wo"]
+
+
+def init_kv_cache(batch, seq, n_kv, head_dim, dtype, device, lead=()):
+    """An empty dense cache (…lead, batch, seq, n_kv, hd)."""
+    shape = (*lead, batch, seq, n_kv, head_dim)
+    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device))
 
 
 def attention_decode(params, x, cache: KVCache, cache_len, *, n_heads, n_kv,

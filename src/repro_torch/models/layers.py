@@ -1,5 +1,6 @@
 """Primitive layers (port of ``repro.models.layers``): init helpers,
-RMS norm, half-split rotary embedding, activations.
+RMS and layer norms, half-split rotary embedding, sinusoidal positions,
+activations.
 
 Functions take tensors and parameter dicts; initializers take an
 explicit ``torch.Generator`` and ``device``.  Norm statistics and rotary
@@ -13,10 +14,13 @@ import torch.nn.functional as F
 
 
 def normal(gen: torch.Generator, shape, *, scale: float, dtype, device):
-    """``N(0, 1) * scale`` drawn in fp32 on ``device``, cast to ``dtype``."""
+    """``N(0, 1) * scale`` drawn in fp32 on ``device``, cast to ``dtype``.
+    Scaled in place: a full-width expert stack in fp32 is 21 GB
+    (DeepSeek-MoE-16B), and a second fp32 copy would not fit beside the
+    model on one 80 GB card."""
     x = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
                     device=device)
-    return (x * scale).to(dtype)
+    return x.mul_(scale).to(dtype)
 
 
 def dense_init(gen, d_in, d_out, dtype, device, *, scale=None, lead=()):
@@ -42,16 +46,28 @@ def rmsnorm(params, x, eps=1e-6):
     return y.to(x.dtype)
 
 
+def layernorm_init(d, device, lead=()):
+    return {"scale": torch.ones((*lead, d), dtype=torch.float32,
+                                device=device),
+            "bias": torch.zeros((*lead, d), dtype=torch.float32,
+                                device=device)}
+
+
+def layernorm(params, x, eps=1e-5):
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps) * params["scale"] + params["bias"]
+    return y.to(x.dtype)
+
+
 def norm_init(kind: str, d, device, lead=()):
-    if kind != "rmsnorm":
-        raise NotImplementedError(f"norm {kind!r} is not ported (rmsnorm only)")
-    return rmsnorm_init(d, device, lead)
+    return rmsnorm_init(d, device, lead) if kind == "rmsnorm" \
+        else layernorm_init(d, device, lead)
 
 
 def apply_norm(kind: str, params, x):
-    if kind != "rmsnorm":
-        raise NotImplementedError(f"norm {kind!r} is not ported (rmsnorm only)")
-    return rmsnorm(params, x)
+    return rmsnorm(params, x) if kind == "rmsnorm" else layernorm(params, x)
 
 
 def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
@@ -83,6 +99,16 @@ def apply_rope(x, positions, theta: float):
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(length: int, d: int, device=None) -> torch.Tensor:
+    """(length, d) fp32 table: sin on even dims, cos on odd ones, built in
+    numpy (float64) as the reference builds it."""
+    pos = np.arange(length)[:, None]
+    dim = np.arange(d)[None, :]
+    ang = pos / np.power(10000, 2 * (dim // 2) / d)
+    enc = np.where(dim % 2 == 0, np.sin(ang), np.cos(ang))
+    return torch.from_numpy(enc.astype(np.float32)).to(device)
 
 
 def activation_fn(kind: str):

@@ -1,5 +1,6 @@
 """Decoder-only LM assembly (port of ``repro.models.transformer``: the
-attention + FFN/MoE, Mamba-2 and hybrid attention/Mamba-2/MoE families).
+dense, MoE, Mamba-2, hybrid attention/Mamba-2/MoE and vision-prefix
+families; the encoder-decoder one is ``models.whisper``).
 
 Layers are grouped into the smallest repeating period of identical
 structure and each slot's parameters are stacked over periods, exactly
@@ -7,7 +8,9 @@ as in the reference, so the weight bridge is a leaf-for-leaf copy.  A
 Python loop over periods replaces ``lax.scan``.  ``forward`` is the
 full-sequence (scoring) pass; the serving engine runs the network
 through ``prefill`` / ``prefill_chunk`` and, layer by layer or one span
-between MoE boundaries at a time, the ``decode_*`` entry points.  The
+between MoE boundaries at a time, the ``decode_*`` entry points;
+``init_caches`` / ``decode_step`` are the one-token step on dense caches
+(``api.decode_fn``).  The
 engine's caches are a per-slot tuple of :class:`SlotCache`: attention
 slots hold paged KV, SSM slots a dense per-row :class:`SSMState`, both
 stacked over periods and written in place.
@@ -38,10 +41,11 @@ def period_plan(cfg: ModelConfig):
 
 
 def _check_supported(cfg: ModelConfig):
-    """Encoder-decoder models (Whisper) are not ported yet."""
+    """The encoder-decoder family runs through ``models.whisper``
+    (``api`` dispatches), never through this module."""
     if cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models wait for ROADMAP A.13")
+        raise ValueError(f"{cfg.name} is an encoder-decoder model: use "
+                         f"models.whisper (models.api dispatches to it)")
 
 
 def _slot_init(gen, cfg: ModelConfig, mixer: str, ffn_kind: str,
@@ -130,8 +134,13 @@ def layer_slots(params, cfg: ModelConfig):
             yield c * p + s, _slot(params["periods"][s], c), mixer, ffn_kind
 
 
-def _embed(params, tokens):
-    return params["embed"][tokens]
+def _embed(params, tokens, prefix_embeds=None):
+    """Token embeddings, with ``prefix_embeds`` (B, P, d) in front (a
+    vision model's patch embeddings)."""
+    x = params["embed"][tokens]
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    return x
 
 
 def head_matrix(params):
@@ -182,17 +191,18 @@ def _apply_slot_full(slot, x, cfg: ModelConfig, mixer, ffn_kind, *,
     return x, aux
 
 
-def forward(params, tokens, cfg: ModelConfig, *, spec=None, use_flash=False,
-            return_hidden=False):
-    """tokens: (B, S) -> (logits (B, S, V) or, with ``return_hidden``, the
-    final-normed hidden states (B, S, d); MoE aux loss summed over layers).
+def forward(params, tokens, cfg: ModelConfig, *, prefix_embeds=None,
+            spec=None, use_flash=False, return_hidden=False):
+    """tokens: (B, S) -> (logits (B, P + S, V) or, with ``return_hidden``,
+    the final-normed hidden states (B, P + S, d); MoE aux loss summed over
+    layers).  ``prefix_embeds`` (B, P, d) go in front of the tokens.
 
     ``spec``: MoE execution spec (strategy name / dict / ExecutionSpec),
     resolved per layer at phase ``train``.  ``use_flash``: attention
     through the flash kernel."""
     _check_supported(cfg)
     sp = _coerce_spec(spec)
-    x = _embed(params, tokens)
+    x = _embed(params, tokens, prefix_embeds)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer, slot, mixer, ffn_kind in layer_slots(params, cfg):
@@ -222,15 +232,17 @@ def _stack_caches(per_slot):
     return tuple(out)
 
 
-def prefill(params, tokens, cfg: ModelConfig, max_seq: int, *, spec=None):
-    """tokens: (B, S) -> (logits (B, S, V), caches stacked over periods:
+def prefill(params, tokens, cfg: ModelConfig, max_seq: int, *,
+            prefix_embeds=None, spec=None):
+    """tokens: (B, S) -> (logits (B, S', V), caches stacked over periods:
     attention KV padded to max_seq, (n_periods, B, max_seq, n_kv, hd);
-    SSM states (n_periods, B, ...)).  On CUDA the SSM layers' intra-chunk
-    terms run through the SSD kernel."""
+    SSM states (n_periods, B, ...)).  S' = P + S with ``prefix_embeds``
+    (B, P, d) in front.  On CUDA the SSM layers' intra-chunk terms run
+    through the SSD kernel."""
     _check_supported(cfg)
     p, plan = period_plan(cfg)
     sp = _coerce_spec(spec)
-    x = _embed(params, tokens)
+    x = _embed(params, tokens, prefix_embeds)
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
     per_slot = [[] for _ in plan]
@@ -260,6 +272,67 @@ def prefill(params, tokens, cfg: ModelConfig, max_seq: int, *, spec=None):
             if ffn_kind == "moe":
                 h = moe_mod.moe_block(slot["moe"], h, cfg.moe, cfg.activation,
                                       spec=sp, phase="prefill", layer=layer)
+            else:
+                h = ffn(slot["ffn"], h, cfg.activation)
+            x = x + h
+    x = apply_norm(cfg.norm, params["final_norm"], x)
+    return _unembed(params, x), _stack_caches(per_slot)
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_seq: int, device=None):
+    """Empty dense decode caches, a SlotCache per slot stacked over
+    periods: attention KV (n_periods, batch, max_seq, n_kv, hd), SSM
+    states (n_periods, batch, ...)."""
+    _check_supported(cfg)
+    device = resolve_device(device)
+    p, plan = period_plan(cfg)
+    lead, dtype = (cfg.num_layers // p,), torch_dtype(cfg.dtype)
+    caches = []
+    for mixer, _ in plan:
+        if mixer == "attn":
+            caches.append(SlotCache(attn_mod.init_kv_cache(
+                batch, max_seq, cfg.num_kv_heads, cfg.resolved_head_dim,
+                dtype, device, lead=lead), ()))
+        else:
+            caches.append(SlotCache((), ssm_mod.init_ssm_state(
+                batch, cfg.d_model, cfg.ssm, dtype, device, lead=lead)))
+    return tuple(caches)
+
+
+def decode_step(params, token, caches, cache_len, cfg: ModelConfig, *,
+                spec=None):
+    """One token for every row against dense caches (``init_caches`` or
+    ``prefill``).  token: (B, 1); cache_len: (B,) tokens cached, where
+    the new one's K/V go.  Returns (logits (B, 1, V), new caches); the
+    given caches are not modified."""
+    _check_supported(cfg)
+    p, plan = period_plan(cfg)
+    sp = _coerce_spec(spec)
+    x = _embed(params, token)
+    kw = dict(n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads,
+              head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta)
+    per_slot = [[] for _ in plan]
+    for layer, slot, mixer, ffn_kind in layer_slots(params, cfg):
+        c, s = divmod(layer, p)
+        h = apply_norm(cfg.norm, slot["norm1"], x)
+        if mixer == "attn":
+            stack = caches[s].kv
+            h, kv = attn_mod.attention_decode(
+                slot["attn"], h, attn_mod.KVCache(stack.k[c], stack.v[c]),
+                cache_len, **kw)
+            per_slot[s].append(SlotCache(kv, ()))
+        else:
+            stack = caches[s].ssm
+            h, st = ssm_mod.mamba2_decode(
+                slot["ssm"], h, ssm_mod.SSMState(stack.conv[c], stack.ssd[c]),
+                cfg.ssm, cfg.d_model)
+            per_slot[s].append(SlotCache((), st))
+        x = x + h
+        if ffn_kind != "none":
+            h = apply_norm(cfg.norm, slot["norm2"], x)
+            if ffn_kind == "moe":
+                h = moe_mod.moe_block(slot["moe"], h, cfg.moe, cfg.activation,
+                                      spec=sp, phase="decode", layer=layer)
             else:
                 h = ffn(slot["ffn"], h, cfg.activation)
             x = x + h

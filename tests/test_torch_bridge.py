@@ -99,10 +99,23 @@ def _imported_names(path: Path):
             yield node.lineno, node.module or ""
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
-                         + [REPO / "chip_smoke.py",
-                            REPO / "tools" / "kernel_variants.py",
-                            REPO / "tools" / "fit_tile_model.py"],
+SCANNED = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                         REPO / "tools" / "kernel_variants.py",
+                                         REPO / "tools" / "fit_tile_model.py"]
+
+
+def test_scan_covers_every_port_module():
+    """The scan below walks every package of the port: the configs (each
+    arch and ``shapes.py``) and the encoder-decoder model among them."""
+    names = {str(p.relative_to(PORT)) for p in SCANNED if PORT in p.parents}
+    for want in ("configs/base.py", "configs/shapes.py",
+                 "configs/deepseek_moe_16b.py", "configs/whisper_base.py",
+                 "models/whisper.py", "models/api.py", "launch/serve.py"):
+        assert want in names, want
+    assert len([n for n in names if n.startswith("configs/")]) == 16
+
+
+@pytest.mark.parametrize("path", SCANNED,
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_or_reference_imports(path):
     bad = [f"{path.name}:{ln}: {name}" for ln, name in _imported_names(path)
