@@ -59,6 +59,16 @@ Phases, each printing its result on its own line; any failure exits 1:
    analytic pick's device time over the default's; flash attention at
    InternVL2's scoring shape (2, 2304, 16, 128), bf16 (timed, with SDPA)
    and fp32, against its plain version and the oracle;
+3r. ring widths: streamed_moe at the per-rank widths of the FSE-DP ring at
+   P = 8, m = d_expert / (8 micro-slices) on a decode step of 8 slots a
+   rank, drop-free: granite (E = 32, C = 64, d = 1024) at 1, 2, 4, 8 and
+   16 micro-slices (m = 64, 32, 16, 8, 4) and DeepSeek-MoE-16B (E = 64,
+   C = 48, d = 2048) at 2 (m = 88), bf16, plus int8 and fp8 weights at m
+   = 4 and 88; the wrapper zero-pads m to its path's multiple (8 for bf16,
+   16 for 8-bit weights): the padded launch held with phase 3's checks at
+   the default tile setting and at the planner's (the one the ring runs),
+   the wrapper's output its bits at each, each timed beside the bytes
+   bound with the padding's share of its device time;
 4. slice: ``repro_torch.launch.serve`` serves 4 requests x 16 tokens of
    granite-moe-1b-a400m at full width in bf16 on the default fused engine,
    under ``--autotune analytic`` (the default), ``off`` and ``measured``:
@@ -158,7 +168,8 @@ Phases, each printing its result on its own line; any failure exits 1:
    recapture, 28 streamed_moe launches a prefill and a step, profiled),
    the dynamic slice fused == eager, phase 6b's shared-prefix stream
    unbounded and with preemption + the prefix cache: the same tokens;
-   peak device memory;
+   peak device memory; and phase dist1's check: one ``decode_fn`` step
+   with no spec (``fse_dp``) == ``capacity`` bit for bit, 28 launches;
 13q. qwen3: Qwen3-30B-A3B at its published widths, 12 of 48 layers (the
    48 are 61 GB of bf16), the same slice checks without the stream;
 14. internvl2: InternVL2-2b at full width and depth: ``loss_fn`` over 2 x
@@ -171,6 +182,25 @@ Phases, each printing its result on its own line; any failure exits 1:
    ``loss_fn`` (bf16), then fp32 ``prefill_fn`` and 16 greedy
    ``decode_fn`` steps == ``decode_train``'s teacher-forced logits (rtol =
    atol = 2e-3, the reference's test); no TPU kernel on this path;
+dist1. (run after phase 11) one rank, full width: ``api.loss_fn`` on
+   granite (2 x 256 tokens, bf16) with no spec (its config names ``fse_dp``), ``ExecutionSpec()``
+   (``auto``), ``ep`` and ``tp``: ``capacity``'s bits, 24 streamed_moe
+   launches each; ``serve --moe-spec examples/moe-spec.json`` (``auto``,
+   ``fse_dp`` prefill, ``ep`` decode, a layer override, the dynamic
+   schedule) against the same spec with every strategy ``capacity``: the
+   same tokens, no recapture, the same host syncs an iteration (DeepSeek's
+   ``decode_fn`` with no spec runs in phase 13);
+dist2. (run after dist1) gloo ranks on the one card (``parallel.localrun``;
+   the CUDA payloads go through host buffers): 2 ranks, one full-width granite MoE layer
+   (drop-free) on 2 x 64 tokens a rank under ``fse_dp`` forced to stream and
+   index at 1 and 4 micro-slices and to slice, ``ep``, ``tp`` and ``auto``,
+   static and dynamic, fp32 within 2e-5 and bf16 within 3e-2 of the P = 1
+   ``capacity`` output in the same format, dynamic == static bit for bit,
+   each rank's launches exactly the case's (2 x micro-slices for stream
+   and index, 1 for slice, ep and tp, auto's by its plan); then 8 ranks running the ring at phase 3r's
+   widths (bf16; int8 and fp8 where 3r pads them), each within 3e-2 (fp8
+   6e-2) of ``capacity``, 8 x micro-slices launches a rank; the seconds a
+   call are gloo through host memory, no ring's speed;
 16. summary: one ``{"kernels": [...]}`` JSON line with one entry per
     kernel and path (``streamed_moe`` on the serve path in bf16 and in fp8,
     on the chunked-prefill path of the traffic run (``serve_chunked``, C =
@@ -184,8 +214,12 @@ Phases, each printing its result on its own line; any failure exits 1:
     ``ssd`` on the mamba path and on the one-shot serving prefill of
     mamba2-370m (``serve_prefill``) and of Jamba
     (``serve_prefill_jamba``), streamed_moe on the served DeepSeek and Qwen3
-    slices (``serve_deepseek``, ``serve_qwen3``, phase 3m's shapes) and
-    flash on InternVL2's scoring forward (``forward_internvl2``)),
+    slices (``serve_deepseek``, ``serve_qwen3``, phase 3m's shapes),
+    flash on InternVL2's scoring forward (``forward_internvl2``),
+    streamed_moe on the no-spec granite loss of phase dist1
+    (``dist1_loss``) and on the ring of phase dist2 at phase 3r's widths
+    (``ring_granite_p8_m64`` ... ``_m4``, ``ring_deepseek_p8_m88``, the
+    launches of all 8 ranks)),
     each with that path's launches and its shape's times (``ms`` one call
     with its host work, ``device_ms`` the device time per call) and bound,
     and for streamed_moe the tile setting the path ran (``tiles``); the
@@ -2752,7 +2786,7 @@ def phase_family_kernels():
     return moe_rows, {"forward_internvl2": flash}
 
 
-def _serve_family(cfg, phase, prefix=False):
+def _serve_family(cfg, phase, prefix=False, check=None):
     """A MoE model served at full width, bf16, ``capacity``, seed 0, the
     parameters built once and shared by every engine.  The slice (4 x 8 ->
     16 tokens) on the fused engine: a first run that captures, fused ==
@@ -2763,7 +2797,8 @@ def _serve_family(cfg, phase, prefix=False):
     Mamba-2 layers, a prefill chunk step's kernels and the preemption
     check; with ``prefix``, phase 6b's shared-prefix stream unbounded and
     with preemption + the prefix cache: the same tokens.  -> the warm
-    run's streamed_moe and SSD launches."""
+    run's streamed_moe and SSD launches.  ``check(params, cfg)`` runs on
+    the parameters once they are built."""
     import torch
     from repro_torch.core.strategy import ExecutionSpec
     from repro_torch.kernels import ssd
@@ -2797,6 +2832,8 @@ def _serve_family(cfg, phase, prefix=False):
                f"{n_params / 1e9:.3f} B params (param_count "
                f"{cfg.param_count() / 1e9:.3f} B), bf16, drawn in "
                f"{time.perf_counter() - t0:.2f}s")
+    if check is not None:
+        check(params, cfg)
     args = serve.parse_args(["--arch", cfg.name, "--seed", "0"] + SLICE_ARGV)
 
     def engine(spec=None, **kw):
@@ -2957,10 +2994,12 @@ def _prefix_loops(params, cfg, phase):
 def phase_deepseek():
     """Phase 13: DeepSeek-MoE-16B at full width and depth (28 layers,
     16.88 B parameters, 64 experts top-6 and two shared experts a layer),
-    ``_serve_family`` with the shared-prefix loops.  -> streamed_moe
-    launches of the warm slice (the serve_deepseek path)."""
+    ``_serve_family`` with the shared-prefix loops, and phase dist1's
+    decode_fn check (no spec == capacity) on its parameters.  ->
+    streamed_moe launches of the warm slice (the serve_deepseek path)."""
     from repro_torch.configs import get_config
-    return _serve_family(get_config(DEEPSEEK), "deepseek", prefix=True)[0]
+    return _serve_family(get_config(DEEPSEEK), "deepseek", prefix=True,
+                         check=_dist1_decode)[0]
 
 
 def phase_qwen3():
@@ -3176,6 +3215,473 @@ def phase_whisper():
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phases dist1, 3r and dist2: the distributed MoE families (ROADMAP A.14)
+# ---------------------------------------------------------------------------
+
+# phase dist1: api.loss_fn on full granite (bf16) over DIST1_B x DIST1_S
+# tokens under each spec a user can leave or give: no spec (the config
+# names fse_dp), ExecutionSpec() (auto), ep and tp; each must give
+# capacity's bits on one rank
+DIST1_B, DIST1_S = 2, 256
+MOE_SPEC = os.path.join(HERE, "examples", "moe-spec.json")
+# phase 3r and the ring run of phase dist2: streamed_moe at the per-rank
+# widths of the ring at P = 8, m = d_expert / (P micro-slices), on a decode
+# step of 8 slots a rank, drop-free as the engine serves it (capacity
+# factor E: C = 8 k rows an expert)
+RING_P, RING_SLOTS = 8, 8
+RING_LAYERS = (("granite", ARCH, (1, 2, 4, 8, 16)),
+               ("deepseek", DEEPSEEK, (2,)))
+# 8-bit weights through the ring at the widths that need padding for them
+RING_8BIT = {("granite", 16), ("deepseek", 2)}
+# the ring's output against the P = 1 capacity output in the same format:
+# the reference's bf16 tolerance; 8-bit formats quantize each micro-slice
+# of w_down on its own rows, so fp8 is held at the reference's fp8 one
+RING_TOL = {"bf16": 3e-2, "int8": 3e-2, "fp8": 6e-2}
+# phase dist2: DIST2_P gloo ranks on the one card, one full-width granite
+# MoE layer (drop-free) on DIST2_B x DIST2_S tokens a rank
+DIST2_P, DIST2_B, DIST2_S = 2, 2, 64
+DIST2_MICRO = (1, 4)
+DIST2_TOL = {"fp32": 2e-5, "bf16": 3e-2}
+
+
+def _granite_moe_layer(dtype, cfg_name=ARCH, seed=0):
+    """(moe config drop-free, one MoE layer's parameters) at full width on
+    the card, from ``seed``; routed experts only."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as moe_mod
+    cfg = get_config(cfg_name)
+    mcfg = dataclasses.replace(cfg.moe, num_shared_experts=0,
+                               capacity_factor=float(cfg.moe.num_experts))
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return cfg, mcfg, moe_mod.moe_init(g, cfg.d_model, mcfg, cfg.activation,
+                                       dtype, "cuda")
+
+
+def _width_case(E, C, d, m, wdt, label):
+    """streamed_moe at one (E, C, d, m), bf16 activations, ``wdt`` weights,
+    swiglu, through the wrapper, which zero-pads m to its path's multiple:
+    the padded launch against the plain version on the padded operands
+    (bf16: ``moe_bf16_check``; 8-bit: 1e-5) and the wrapper's output the
+    same bits; the output against the plain version and the fp32 oracle on
+    the unpadded operands; the planner's tile setting (the one the ring
+    runs) held the same way; the time of a call with the planner's tiles,
+    the padding's share of its device time, the bound of the unpadded
+    work.  -> (the kernels line's row, log line)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import streamed_moe as sm
+    act, bf = "swiglu", torch.bfloat16
+    xe, wg, wu, wd = _moe_inputs(E, C, d, m, act, bf)
+    ws, scales = _stream_operands(wg, wu, wd, wdt)
+    m_pad = sm.padded_width(m, bf, ws[1].dtype)
+    *pws, psg, psu = sm.pad_width(*ws, scales.get("s_g"), scales.get("s_u"),
+                                  m_pad=m_pad)
+    pscales = dict(s_g=psg, s_u=psu, s_d=scales["s_d"]) if scales else {}
+    tiles = _planned(E, C, d, m, act, "bf16", wdt)
+    plain = ref.streamed_moe_plain(xe, *ws, act, **scales)
+    oracle = ref.streamed_moe_quant_ref(xe, wg, wu, wd, act, wdt)
+    h_plain = ref.streamed_moe_plain_h(xe, *pws, act, s_g=psg, s_u=psu) \
+        if wdt == "bf16" else None
+    padded_plain = None if wdt == "bf16" else ref.streamed_moe_plain(
+        xe, *pws, act, **pscales)
+
+    def held(setting):
+        """The padded launch and the wrapper at one tile setting -> (ok,
+        the launch's output, text)."""
+        h, got = sm._launch(xe, *pws, act, tiles=setting, **pscales)
+        wrapped = sm.streamed_moe_kernel(xe, *ws, activation=act,
+                                         tiles=setting, **scales)
+        torch.cuda.synchronize()
+        rel_oracle = rel_err(got, oracle)
+        text = (f"max_abs_err vs plain {(got - plain).abs().max().item():.3e}"
+                f" (rel {rel_err(got, plain):.3e}")
+        if wdt == "bf16":
+            ok, mt = moe_bf16_check(h, got, h_plain, xe, *pws, act)
+            text += (f"), h at most {mt['over']:.3f} of its bound (tol 1), "
+                     f"share differing {mt['flips']:.3e}, down product rel "
+                     f"{mt['down']:.3e} (tol {mt['down_tol']:g})")
+        else:
+            ok = rel_err(got, padded_plain) <= PLAIN_TOL
+            text += f", padded plain tol {PLAIN_TOL:g})"
+        text += (f", rel vs oracle {rel_oracle:.3e} (tol "
+                 f"{ORACLE_TOL[wdt]:g}), wrapper == padded launch "
+                 f"{_same_bits(wrapped, got)}")
+        ok = ok and rel_oracle <= ORACLE_TOL[wdt] and \
+            _same_bits(wrapped, got) and bool(torch.isfinite(got).all())
+        return ok, got, text
+
+    what = f"streamed_moe E={E} C={C} d={d} m={m} w={wdt} x=bf16 ({label})"
+    ok, got, text = held(None)
+    ok_p, got_p, text_p = held(tiles)
+    err = (got - plain).abs().max().item()
+    line = (f"{what}: padded to m={m_pad}; default tiles: {text}; planned "
+            f"tiles {tiles}: {text_p}, the default's bits "
+            f"{_same_bits(got_p, got)}")
+    if not (ok and ok_p):
+        fail("ring", line)
+    times, text = kernel_times(lambda: sm.streamed_moe_kernel(
+        xe, *ws, activation=act, tiles=tiles, **scales))
+    pad_ms = device_ms(lambda: sm.pad_width(
+        *ws, scales.get("s_g"), scales.get("s_u"), m_pad=m_pad))[0] \
+        if m_pad != m else 0.0
+    plain_ms = median_ms(lambda: ref.streamed_moe_plain(xe, *ws, act,
+                                                        **scales))
+    bound, by = streamed_moe_bound_ms(E, C, d, m, wdt, 2)
+    line += (f"; timed at tiles {tiles}: {text}, the padding {pad_ms:.4f} ms "
+             f"({pad_ms / times['device_ms']:.3f} of the device time), "
+             f"plain {plain_ms:.4f} ms, bound {bound * 1e3:.2f} us ({by})")
+    row = dict(max_abs_err=err, **times, plain_ms=plain_ms, bound_ms=bound,
+               bound_by=by, library_ms=None, tiles=tiles, m_padded=m_pad,
+               pad_share=pad_ms / times["device_ms"])
+    return row, line
+
+
+def phase_ring_widths():
+    """Phase 3r: streamed_moe at the ring's per-rank widths at P = 8
+    (``_width_case``): granite at 1, 2, 4, 8 and 16 micro-slices (m = 64,
+    32, 16, 8, 4) and DeepSeek at 2 (m = 88), bf16, and int8 / fp8 weights
+    at m = 88 and m = 4.  -> the bf16 rows by path."""
+    import torch
+    from repro_torch.configs import get_config
+    rows = {}
+    for label, arch, micros in RING_LAYERS:
+        cfg = get_config(arch)
+        mcfg = cfg.moe
+        E, d = mcfg.num_experts, cfg.d_model
+        C = RING_SLOTS * mcfg.top_k          # capacity_of(8) at factor E
+        for M in micros:
+            m = mcfg.d_expert // (RING_P * M)
+            for wdt in ("bf16",) + (("int8", "fp8") if (label, M) in
+                                    RING_8BIT else ()):
+                row, line = _width_case(E, C, d, m, wdt, f"{label} P={RING_P}"
+                                        f" micro-slices {M}")
+                log("ring", line)
+                if wdt == "bf16":
+                    rows[f"ring_{label}_p{RING_P}_m{m}"] = row
+                torch.cuda.empty_cache()
+    return rows
+
+
+def _dist1_decode(params, cfg):
+    """decode_fn for one step at ``cfg``'s depth with no spec (the config
+    names fse_dp) against spec='capacity': the same logits bit for bit,
+    one streamed_moe launch per MoE layer."""
+    import torch
+    from repro_torch.kernels import streamed_moe as sm
+    from repro_torch.models import api
+    g = torch.Generator(device="cuda").manual_seed(0)
+    token = torch.randint(0, cfg.vocab_size, (2, 1), generator=g,
+                          device="cuda")
+    cache_len = torch.zeros((2,), dtype=torch.int32, device="cuda")
+    logits = {}
+    for spec in (None, "capacity"):
+        caches = api.init_decode_caches(params, cfg, 2, 16)
+        _zero_counts()
+        with torch.no_grad():
+            logits[spec], _ = api.decode_fn(params, token, caches, cache_len,
+                                            cfg, spec=spec)
+        torch.cuda.synchronize()
+        if spec is None:
+            n = sm.LAUNCHES
+    if not _same_bits(logits[None], logits["capacity"]) or n != _n_moe(cfg):
+        fail("dist1", f"{cfg.name} decode_fn: no spec == capacity "
+                      f"{_same_bits(logits[None], logits['capacity'])}, "
+                      f"{n} streamed_moe launches (want {_n_moe(cfg)})")
+    log("dist1", f"{cfg.name} ({cfg.num_layers} layers, moe.impl "
+                 f"{cfg.moe.impl}): decode_fn with no spec == "
+                 f"spec='capacity' bit for bit (logits "
+                 f"{tuple(logits[None].shape)}), {n} streamed_moe launches")
+
+
+def _spec_serve(spec_path):
+    """The slice on the fused engine under the spec at ``spec_path``: a
+    first run that captures, then a warm run on the same engine that must
+    not capture.  -> (the warm run's tokens, host syncs an iteration,
+    streamed_moe launches)."""
+    from repro_torch.launch import serve
+    argv = ["--moe-spec", spec_path] + SLICE_ARGV
+    _zero_counts()
+    cold = _serve(argv)
+    eng, cfg = cold["engine"], cold["cfg"]
+    ms = eng.megastep()
+    captures, syncs0, iters0 = ms.captures, eng.stats["host_syncs"], \
+        eng.stats["iterations"]
+    _zero_counts(eng)
+    warm = serve.run(serve.parse_args(["--arch", ARCH, "--seed", "0"] + argv),
+                     engine=eng)
+    iters = eng.stats["iterations"] - iters0
+    syncs = (eng.stats["host_syncs"] - syncs0) / iters
+    launches = _launches(eng)
+    if ms.captures != captures or launches != _n_moe(cfg) * (4 + iters):
+        fail("dist1", f"{spec_path}: captures {captures} -> {ms.captures}, "
+                      f"{launches} streamed_moe launches")
+    _check_on_card(warm, "dist1")
+    return list(warm["outs"].values()), syncs, launches
+
+
+def phase_dist1():
+    """Phase dist1: one rank, full width.  ``api.loss_fn`` on granite with
+    no spec (its config names fse_dp), ``ExecutionSpec()`` (auto), ep and
+    tp == spec='capacity' bit for bit; ``serve --moe-spec
+    examples/moe-spec.json`` (auto, fse_dp prefill, ep decode, a layer
+    override, the dynamic schedule) == the same spec with every strategy
+    capacity: the same tokens, no recapture, the same host syncs an
+    iteration.  (DeepSeek's decode_fn runs in phase 13.)  -> the kernels
+    line's row of the no-spec loss path, and its launches."""
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.strategy import ExecutionSpec
+    from repro_torch.kernels import streamed_moe as sm
+    from repro_torch.models import api
+    cfg = get_config(ARCH)
+    params = api.init_params(cfg, seed=0, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (DIST1_B, DIST1_S), generator=g,
+                           device="cuda")
+    batch = {"tokens": tokens, "labels": torch.cat([tokens[:, 1:], torch.full(
+        (DIST1_B, 1), -1, device="cuda")], 1)}
+    out, launches = {}, {}
+    for name, spec in (("capacity", "capacity"), ("no spec", None),
+                       ("ExecutionSpec()", ExecutionSpec()), ("ep", "ep"),
+                       ("tp", "tp")):
+        _zero_counts()
+        with torch.no_grad():
+            loss, m = api.loss_fn(params, batch, cfg, spec=spec)
+        torch.cuda.synchronize()
+        launches[name] = sm.LAUNCHES
+        out[name] = (loss, m["ce"], m["aux"])
+    n_moe = _n_moe(cfg)
+    for name, vals in out.items():
+        same = all(_same_bits(a, b) for a, b in zip(vals, out["capacity"]))
+        if not same or launches[name] != n_moe:
+            fail("dist1", f"granite loss_fn {name}: capacity's bits {same}, "
+                          f"{launches[name]} streamed_moe launches (want "
+                          f"{n_moe})")
+    log("dist1", f"{ARCH} full width bf16, {DIST1_B} x {DIST1_S} tokens, "
+                 f"moe.impl {cfg.moe.impl}: loss_fn with no spec, "
+                 f"ExecutionSpec() (auto), ep and tp == capacity bit for bit "
+                 f"(loss {out['capacity'][0].item():.6f}, aux "
+                 f"{out['capacity'][2].item():.6f}), {n_moe} streamed_moe "
+                 f"launches each")
+    C = cfg.moe.capacity_rows(DIST1_B * DIST1_S)
+    row, line = _width_case(cfg.moe.num_experts, C, cfg.d_model,
+                            cfg.moe.d_expert, "bf16", "dist1 loss")
+    log("dist1", line)
+    del params
+    torch.cuda.empty_cache()
+    with open(MOE_SPEC) as f:
+        spec = json.load(f)
+    cap = dict(spec, strategy="capacity", prefill="capacity",
+               decode="capacity",
+               layer_overrides={k: "capacity" for k in spec["layer_overrides"]})
+    with tempfile.TemporaryDirectory() as tmp:
+        cap_path = os.path.join(tmp, "capacity-spec.json")
+        with open(cap_path, "w") as f:
+            json.dump(cap, f)
+        got, syncs, n = _spec_serve(MOE_SPEC)
+        want, syncs_cap, n_cap = _spec_serve(cap_path)
+    if got != want or syncs != syncs_cap or n != n_cap:
+        fail("dist1", f"serve --moe-spec {MOE_SPEC}: tokens equal "
+                      f"{got == want}, host syncs an iteration {syncs} vs "
+                      f"{syncs_cap}, launches {n} vs {n_cap}")
+    log("dist1", f"serve --moe-spec examples/moe-spec.json ({spec}) == the "
+                 f"spec with every strategy capacity: the same "
+                 f"{sum(len(t) for t in got)} tokens, no recapture on the warm"
+                 f" run, {syncs:.1f} host syncs an iteration each, {n} "
+                 f"streamed_moe launches each")
+    torch.cuda.empty_cache()
+    return row, launches["no spec"]
+
+
+def _want_launches(plan, P):
+    """streamed_moe launches of one MoE layer call on a rank under
+    ``plan``: P M for the ring modes (stream, index), 1 for slice, EP and
+    TP."""
+    if plan.family in ("ep", "tp") or plan.mode == "slice":
+        return 1
+    return P * plan.micro_slices
+
+
+def _dist2_rank(rank, world, job):
+    """One gloo rank on the card: ``job`` 'p2' runs the strategies of phase
+    dist2 on a granite MoE layer, 'ring' the ring widths of phase 3r.  Each
+    rank computes the P = 1 ``capacity`` outputs itself (no mesh), and
+    counts its streamed_moe launches case by case.  -> picklable results."""
+    import dataclasses
+    import torch
+    from repro_torch.core import autotune, strategy
+    from repro_torch.core.strategy import ExecutionSpec
+    from repro_torch.kernels import streamed_moe as sm
+    from repro_torch.parallel import collectives, meshctx
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = meshctx.ProcessMesh.create((world,), ("model",))
+    res = {"transport": collectives.transport(mesh, "model", "cuda"),
+           "cases": {}}
+
+    def run(spec, params, x, mcfg, act, plan=None):
+        sm.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad(), meshctx.with_mesh(mesh):
+            y, _ = strategy.execute(spec, params, x, mcfg, act, plan=plan)
+        torch.cuda.synchronize()
+        return y, sm.LAUNCHES, time.perf_counter() - t0
+
+    def capacity(params, x, mcfg, act, wdt=None):
+        with torch.no_grad():
+            return strategy.execute(ExecutionSpec(strategy="capacity",
+                                                  weight_dtype=wdt),
+                                    params, x, mcfg, act)[0]
+
+    def err(y, want):
+        return ((y.float() - want.float()).abs().max()
+                / want.float().abs().max()).item()
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    if job == "p2":
+        cfg, mcfg, p32 = _granite_moe_layer(torch.float32)
+        act, d = cfg.activation, cfg.d_model
+        x32 = torch.randn(DIST2_B, DIST2_S, d, generator=g, device="cuda")
+        layers = {"fp32": (p32, x32), "bf16": (
+            {k: (v.to(torch.bfloat16) if torch.is_tensor(v) else
+                 {kk: vv.to(torch.bfloat16) for kk, vv in v.items()})
+             for k, v in p32.items()}, x32.to(torch.bfloat16))}
+        want = {fmt: capacity(params, x, mcfg, act)
+                for fmt, (params, x) in layers.items()}
+        cases = []
+        for mode in ("stream", "index", "slice"):
+            for M in (DIST2_MICRO if mode != "slice" else (1,)):
+                cases.append((f"{mode} M={M}", "fse_dp", mode, M))
+        cases += [(n, n, None, None) for n in ("ep", "tp", "auto")]
+        ys, res["auto"] = {}, {}
+        for fmt, (params, x) in layers.items():
+            for label, name, mode, M in cases:
+                plan = None
+                if mode is not None:
+                    plan = dataclasses.replace(autotune.plan_moe(
+                        DIST2_B, DIST2_S, d, mcfg, act, world,
+                        dtype_bytes=x.element_size(), mode=mode),
+                        micro_slices=M, tiles=None)
+                for sched in ("static", "dynamic"):
+                    spec = ExecutionSpec(strategy=name, schedule=sched)
+                    # the plan each case runs, for its launch count
+                    with spec.scope(), meshctx.with_mesh(mesh):
+                        ran = plan or strategy.get_strategy(name).plan(
+                            strategy.StrategyContext.from_inputs(
+                                x, mcfg, act))
+                    if name == "auto":
+                        res["auto"][fmt, sched] = (ran.family, ran.mode,
+                                                   ran.micro_slices)
+                    y, n, secs = run(spec, params, x, mcfg, act, plan)
+                    ys[fmt, label, sched] = y
+                    res["cases"][fmt, label, sched] = dict(
+                        launches=n, want=_want_launches(ran, world),
+                        seconds=secs, err=err(y, want[fmt]),
+                        same=sched == "static" or _same_bits(
+                            y, ys[fmt, label, "static"]))
+        return res
+    for label, arch, micros in RING_LAYERS:
+        cfg, mcfg, params = _granite_moe_layer(torch.bfloat16, arch)
+        act, d = cfg.activation, cfg.d_model
+        x = torch.randn(RING_SLOTS, world, d, generator=g,
+                        device="cuda").to(torch.bfloat16)
+        for M in micros:
+            for wdt in ("bf16",) + (("int8", "fp8") if (label, M) in
+                                    RING_8BIT else ()):
+                plan = dataclasses.replace(autotune.plan_moe(
+                    RING_SLOTS, world, d, mcfg, act, world, dtype_bytes=2,
+                    weight_bytes=WEIGHT_BYTES[wdt], mode="stream"),
+                    micro_slices=M, tiles=None)
+                y, n, secs = run(ExecutionSpec(strategy="fse_dp",
+                                               weight_dtype=wdt),
+                                 params, x, mcfg, act, plan)
+                res["cases"][label, M, wdt] = dict(
+                    launches=n, seconds=secs, m=mcfg.d_expert // (world * M),
+                    err=err(y, capacity(params, x, mcfg, act, wdt)))
+        del params
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_dist2():
+    """Phase dist2: gloo ranks on the one card (``parallel.localrun``; CUDA
+    payloads staged through host buffers, the ``gloo-host`` transport).
+    (a) DIST2_P ranks, one full-width granite MoE layer (E = 32, top-8, d =
+    1024, d_expert = 512, drop-free) on DIST2_B x DIST2_S tokens: fse_dp
+    forced to stream and index at 1 and 4 micro-slices and slice, ep, tp
+    and auto, static and dynamic, in fp32 and bf16, each within DIST2_TOL
+    (2e-5, 3e-2) of max |y| of the P = 1 capacity output in its format
+    (bf16 router logits route some tokens to other experts than fp32 ones
+    do, so bf16 is held against bf16), dynamic == static bit for bit, the
+    launches on each rank exactly the case's plan's (``_want_launches``).
+    (b) RING_P ranks, the ring (stream) at phase 3r's widths on a
+    decode step of 8 slots a rank: granite at 1-16 micro-slices, DeepSeek
+    at 2, bf16 (and int8 / fp8 where 3r pads them), each within RING_TOL of
+    the P = 1 capacity output in its format.  The times are gloo through
+    host memory on one card: no ring's speed.  -> streamed_moe launches of
+    the ring run by 3r path."""
+    import torch
+    from repro_torch.parallel import localrun
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    p2 = localrun.run(_dist2_rank, DIST2_P, "p2")
+    for key in p2[0]["cases"]:
+        fmt, label, sched = key
+        c = [r["cases"][key] for r in p2]
+        bad = [r for r, ci in enumerate(c) if ci["err"] > DIST2_TOL[fmt]
+               or not ci["same"] or ci["launches"] != ci["want"]]
+        if bad:
+            fail("dist2", f"P={DIST2_P} {fmt} {label} {sched}: ranks {bad}: "
+                          + "; ".join(f"err {ci['err']:.3e} (tol "
+                                      f"{DIST2_TOL[fmt]:g}), dynamic == "
+                                      f"static {ci['same']}, launches "
+                                      f"{ci['launches']} (want "
+                                      f"{ci['want']})" for ci in c))
+        log("dist2", f"P={DIST2_P} ({p2[0]['transport']}) {fmt} {label} "
+                     f"{sched}: rel err {max(ci['err'] for ci in c):.3e} "
+                     f"(tol {DIST2_TOL[fmt]:g}, vs the P = 1 capacity "
+                     f"output in {fmt}"
+                     + (", == static bit for bit" if sched == "dynamic"
+                        else "")
+                     + "), streamed_moe launches by rank "
+                     + str([ci["launches"] for ci in c])
+                     + f" (want {c[0]['want']} each)"
+                     + ", seconds a call by rank "
+                     + str([round(ci["seconds"], 4) for ci in c]))
+    log("dist2", f"P={DIST2_P}: auto planned {p2[0]['auto']}; every case "
+                 f"held on every rank in {time.perf_counter() - t0:.1f}s "
+                 f"(times: gloo through host buffers on one card, not a "
+                 f"ring speed)")
+    t0 = time.perf_counter()
+    ring = localrun.run(_dist2_rank, RING_P, "ring")
+    launches = {}
+    for key in ring[0]["cases"]:
+        label, M, wdt = key
+        c = [r["cases"][key] for r in ring]
+        m = c[0]["m"]
+        worst = max(ci["err"] for ci in c)
+        n = [ci["launches"] for ci in c]
+        if worst > RING_TOL[wdt] or min(n) != RING_P * M:
+            fail("dist2", f"ring P={RING_P} {label} M={M} m={m} {wdt}: rel "
+                          f"err {worst:.3e} (tol {RING_TOL[wdt]:g}), "
+                          f"launches by rank {n} (want {RING_P * M} each)")
+        log("dist2", f"ring P={RING_P} {label} micro-slices {M} (m = {m}) "
+                     f"{wdt}: rel err vs the P = 1 capacity output "
+                     f"{worst:.3e} (tol {RING_TOL[wdt]:g}), {RING_P * M} "
+                     f"streamed_moe launches on each rank, seconds a call "
+                     f"by rank {[round(ci['seconds'], 4) for ci in c]}")
+        if wdt == "bf16":
+            launches[f"ring_{label}_p{RING_P}_m{m}"] = sum(n)
+    log("dist2", f"ring run held on {RING_P} ranks in "
+                 f"{time.perf_counter() - t0:.1f}s")
+    return launches
+
+
 SOURCES = {"streamed_moe": "src/repro/kernels/streamed_moe.py:201",
            "flash_attention": "src/repro/kernels/flash_attention.py:81",
            "ssd": "src/repro/kernels/ssd.py:51"}
@@ -3202,6 +3708,7 @@ def main():
         rows["streamed_moe"].update(moe_rows)
         rows["flash_attention"].update(flash_rows)
         rows["streamed_moe"].update(phase_tiers())
+        rows["streamed_moe"].update(phase_ring_widths())
         with tempfile.TemporaryDirectory() as cache_root:
             launches = {("streamed_moe", "serve"): phase_slice(
                 rows["streamed_moe"]["serve"]["device_ms"], cache_root)}
@@ -3235,6 +3742,14 @@ def main():
             phase_internvl2()
         phase_whisper()
         phase_profile({path: eng for path, (eng, _, _) in traffic.items()})
+        del traffic
+        # after phase 11: with these phases before it, one run stamped a
+        # device record of its last profile 547 ms after the device went
+        # idle, past the window's 0.5 s (PROFILE_PAD_S)
+        rows["streamed_moe"]["dist1_loss"], \
+            launches["streamed_moe", "dist1_loss"] = phase_dist1()
+        for path, n in phase_dist2().items():
+            launches["streamed_moe", path] = n
         if "jax" in sys.modules:
             fail("summary", "jax was imported")
     except SystemExit:

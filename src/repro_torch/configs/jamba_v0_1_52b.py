@@ -2,9 +2,9 @@
 
 MoE 16 experts top-2 on every other layer. [arXiv:2403.19887; hf]
 Mamba-1 blocks are realized with the unified SSD block (d_state=16), as
-in the reference.  The full config's ``moe.impl`` is ``fse_dp``, which
-is not ported (ROADMAP A.14): serving runs under the engine's spec
-(``capacity`` by default) and never falls back to it.
+in the reference.  The full config's ``moe.impl`` is ``fse_dp``
+(``core.fse_dp``): on one device it runs ``capacity``; serving runs
+under the engine's spec (``capacity`` by default).
 """
 from .base import ModelConfig, MoEConfig, SSMConfig, register
 

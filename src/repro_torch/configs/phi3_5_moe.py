@@ -1,9 +1,9 @@
 """Phi-3.5-MoE 42B-A6.6B — 16 experts top-2. Also a paper Table-I model.
 
 [hf:microsoft/Phi-3.5-MoE-instruct; hf]
-The full config's ``moe.impl`` is ``fse_dp``, which is not ported
-(ROADMAP A.14): it serves under the engine's spec (``capacity`` by
-default) and scores only with a spec.
+The full config's ``moe.impl`` is ``fse_dp`` (``core.fse_dp``): on one
+device it runs ``capacity``; the engine serves under its own spec
+(``capacity`` by default).
 """
 from .base import ModelConfig, MoEConfig, register
 

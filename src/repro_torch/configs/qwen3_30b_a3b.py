@@ -1,9 +1,9 @@
 """Qwen3-30B-A3B — paper Table-I workload model (128 experts top-8).
 
 [arXiv:2505.09388 / paper Table I; hf]
-The full config's ``moe.impl`` is ``fse_dp``, which is not ported
-(ROADMAP A.14): it serves under the engine's spec (``capacity`` by
-default) and scores only with a spec.
+The full config's ``moe.impl`` is ``fse_dp`` (``core.fse_dp``): on one
+device it runs ``capacity``; the engine serves under its own spec
+(``capacity`` by default).
 """
 from .base import ModelConfig, MoEConfig, register
 

@@ -1,9 +1,9 @@
 """Yuan2.0-M32 — paper Table-I workload model (32 experts top-2).
 
 [arXiv:2405.17976 / paper Table I; unverified]
-The full config's ``moe.impl`` is ``fse_dp``, which is not ported
-(ROADMAP A.14): it serves under the engine's spec (``capacity`` by
-default) and scores only with a spec.
+The full config's ``moe.impl`` is ``fse_dp`` (``core.fse_dp``): on one
+device it runs ``capacity``; the engine serves under its own spec
+(``capacity`` by default).
 """
 from .base import ModelConfig, MoEConfig, register
 

@@ -1,6 +1,6 @@
-"""The autotune level, the Hopper tile planner of ``streamed_moe`` and the
-serving engine's modeled chiplet clock (port of ``repro.core.autotune``
-but for the distributed planner).
+"""The autotune level, the Hopper tile planner of ``streamed_moe``, the
+distributed planner and the serving engine's modeled chiplet clock (port
+of ``repro.core.autotune``).
 
 **The level** (``use_autotune``, ``autotune_level``; ``REPRO_AUTOTUNE``
 sets the default, ``analytic``): ``off`` launches the kernel's default
@@ -39,8 +39,19 @@ fast array against its cold tail executed in place near memory, and
 the same way; on homogeneous hardware the partition is placement only and
 ``hot`` is ignored.  :class:`Plan` carries the decision (its fields only:
 the Hopper planner's :func:`kernel_opts_for` stands where the reference's
-``Plan.kernel_opts`` would).  The distributed planner (``plan_moe``,
-``mode_cost``, ``ep_cost``) waits for ROADMAP A.14.
+``Plan.kernel_opts`` would).
+
+**The distributed planner** (:func:`plan_moe`, :func:`mode_cost`,
+:func:`ep_cost`, :func:`fallback_plan`) scores the FSE-DP modes
+{stream, index, slice} x micro-slices on a :class:`HardwareProfile`
+(``detect`` is the modeled chiplet, as the reference's off a TPU), so a
+plan's mode, micro-slices, predicted seconds and per-mode breakdown are
+the reference's.  Its tiles are not: the reference scores TPU tiles
+against VMEM (``tile_vmem_bytes``, ``kernel_tile_cost``, not ported),
+the port asks the Hopper planner (:func:`kernel_opts_for`) for the
+plan's kernel shape and keeps the setting in ``Plan.tiles``; the
+reference's tile fields (``token_tile``, ``dmodel_tile``,
+``dexpert_tile``, ``vmem_bytes``) stay at their defaults.
 """
 from __future__ import annotations
 
@@ -111,6 +122,14 @@ class HardwareProfile:
                    ndp_bw=0.0 if ndp is None else ndp.gbps)
 
     @classmethod
+    def detect(cls) -> "HardwareProfile":
+        """The profile the planner prices the distributed modes on: one
+        chiplet of the modeled array (Table I), the reference's choice on
+        every backend but a TPU, so the port plans exactly as the
+        reference does on the CPU and on the card."""
+        return cls.from_chiplet()
+
+    @classmethod
     def from_chiplet_array(cls, hw=None) -> "HardwareProfile":
         """The whole array (Table I, all chiplets summed): total MAC
         throughput feeding on total DDR bandwidth, the profile of the
@@ -146,6 +165,13 @@ class Plan:
     per_mode_s: Tuple[Tuple[str, float], ...] = ()
     source: str = "analytic"           # analytic | measured | fallback | forced
     hot_experts: Optional[int] = None  # hybrid family: fast-tier expert count
+    # the Hopper planner's streamed_moe setting for the plan's kernel shape
+    # (``kernels.streamed_moe.TILE_SETTINGS``); None: chosen per call
+    tiles: Optional[str] = None
+
+    def kernel_opts(self) -> Dict[str, str]:
+        """kwargs for ``kernels.ops.streamed_moe`` (``{}``: none planned)."""
+        return {} if self.tiles is None else {"tiles": self.tiles}
 
 
 def _cap(tokens: int, top_k: int, E: int, cf: float) -> int:
@@ -324,8 +350,8 @@ def hybrid_cost(B: int, S: int, d: int, E: int, de: int, top_k: int,
     (``profile.ndp_flops`` / ``ndp_bw``), and the layer finishes at
     ``max(tier_fast, tier_ndp)`` — the HD-MoE / GPU-NDP operating
     point.  Closed-form twin of ``sim.modes.simulate_hybrid`` (the
-    discrete referee; the reference asserts their rank agreement across
-    families, which needs ``family_costs``, ROADMAP A.14).
+    discrete referee, in rank agreement across families through
+    ``core.strategy.family_costs``).
 
     Global hot/cold placement is not aligned with any token sharding,
     so routing + capacity dispatch run un-sharded on ONE fast die
@@ -411,6 +437,218 @@ def _micro_candidates(de_loc: int, configured: int) -> List[int]:
     if 0 < configured <= de_loc and de_loc % configured == 0:
         cands.add(configured)
     return sorted(cands) or [1]
+
+
+# ---------------------------------------------------------------------------
+# the distributed planner: per-mode and EP cost curves, and plan_moe
+# ---------------------------------------------------------------------------
+
+MODES = ("stream", "index", "slice")
+
+
+def mode_cost(mode: str, B: int, S: int, d: int, E: int, de: int,
+              top_k: int, cf: float, n_mats: int, P: int,
+              profile: HardwareProfile, micro_slices: int,
+              dtype_bytes: int = 2,
+              load: Optional[Tuple[float, ...]] = None,
+              weight_bytes: Optional[int] = None) -> Dict[str, float]:
+    """Predicted per-device seconds for one MoE layer under ``mode``,
+    term by term the bodies of ``core.fse_dp``:
+
+    stream: tokens sequence-sharded (T/P local), weight micro-slices ring
+            over P·M steps overlapped with the grouped GEMM;
+    index:  tokens replicated, each rank takes a T/P slice, the same
+            ring, plus a token all-gather and an fp32 output psum;
+    slice:  weights stationary, every rank routes and computes all tokens
+            on its d_expert/P slice, fp32 output psum (no ring).
+
+    ``load`` (normalized per-expert shares, :func:`load_rows`) prices the
+    observed gating: rows follow the assignments and idle experts move
+    no weights.  ``weight_bytes`` scales the weight ring and DDR terms
+    (``None`` = ``dtype_bytes``)."""
+    T = B * S
+    ab = dtype_bytes
+    wb = dtype_bytes if weight_bytes is None else weight_bytes
+    de_loc = de / P
+    M = max(1, micro_slices)
+
+    if mode in ("stream", "index"):
+        T_loc = T / P
+        C = _cap(int(math.ceil(T_loc)), top_k, E, cf)
+        rows, active = load_rows(E, C, T_loc * top_k, load)
+        # the ring covers all P slices: full d_expert on the local rows
+        expert_flops = 2.0 * n_mats * rows * d * de
+        ring_bytes = n_mats * active * d * de_loc * wb * P
+        t_ring = ring_bytes / profile.link_bw + P * M * profile.link_latency
+        t_fill = ring_bytes / (P * M) / profile.link_bw
+        # the last micro-slice's P compute steps trail the weight stream
+        t_drain = (expert_flops / profile.peak_flops) / M
+    else:
+        T_loc = T
+        C = _cap(T, top_k, E, cf)
+        rows, active = load_rows(E, C, T_loc * top_k, load)
+        expert_flops = 2.0 * n_mats * rows * d * de_loc
+        ring_bytes = 0.0
+        t_ring = 0.0
+        t_fill = 0.0
+        t_drain = 0.0
+
+    # dispatch / combine one-hot products and the router, local tokens
+    dispatch_flops = 2.0 * T_loc * E * C * d * 2 + 2.0 * T_loc * d * E
+    t_comp = (expert_flops + dispatch_flops) / profile.peak_flops
+    hbm = n_mats * active * d * de_loc * wb
+    t_hbm = hbm / profile.mem_bw
+
+    t_gather = t_psum = 0.0
+    if mode in ("index", "slice"):
+        gather_bytes = (P - 1) / P * T * d * ab
+        psum_bytes = 2.0 * (P - 1) / P * T * d * 4
+        t_gather = gather_bytes / profile.link_bw \
+            + profile.link_latency * (P - 1)
+        t_psum = psum_bytes / profile.link_bw \
+            + 2 * profile.link_latency * (P - 1)
+
+    overlapped = max(t_comp, t_ring, t_hbm + t_drain)
+    total = overlapped + t_fill + t_gather + t_psum
+    return {"total_s": total, "compute_s": t_comp, "ring_s": t_ring,
+            "hbm_s": t_hbm, "gather_s": t_gather, "psum_s": t_psum,
+            "fill_s": t_fill, "ring_bytes": ring_bytes,
+            "flops": expert_flops + dispatch_flops, "capacity": C}
+
+
+def ep_cost(B: int, S: int, d: int, E: int, de: int, top_k: int, cf: float,
+            n_mats: int, P: int, profile: HardwareProfile,
+            dtype_bytes: int = 2,
+            load: Optional[Tuple[float, ...]] = None,
+            weight_bytes: Optional[int] = None) -> Dict[str, float]:
+    """Predicted per-device seconds for one MoE layer under expert
+    parallelism (``core.baselines.moe_ep``): tokens stay sharded, each
+    device owns E/P whole experts, and the dispatched rows go to their
+    owner and back by two all-to-alls; no weight moves."""
+    T = B * S
+    ab = dtype_bytes
+    wb = dtype_bytes if weight_bytes is None else weight_bytes
+    T_loc = T / P
+    C = _cap(int(math.ceil(T_loc)), top_k, E, cf)
+    E_loc = E / P
+    rows, active = load_rows(E, C, T_loc * top_k, load)
+    expert_flops = 2.0 * n_mats * (rows / E) * E_loc * P * d * de
+    dispatch_flops = 2.0 * T_loc * E * C * d * 2 + 2.0 * T_loc * d * E
+    t_comp = (expert_flops + dispatch_flops) / profile.peak_flops
+    hbm = n_mats * (active / E) * E_loc * d * de * wb
+    t_hbm = hbm / profile.mem_bw
+    a2a_bytes = 2.0 * (P - 1) / P * rows * d * ab
+    t_a2a = a2a_bytes / profile.link_bw + 2 * (P - 1) * profile.link_latency
+    total = max(t_comp, t_hbm) + t_a2a
+    return {"total_s": total, "compute_s": t_comp, "hbm_s": t_hbm,
+            "a2a_s": t_a2a, "a2a_bytes": a2a_bytes,
+            "flops": expert_flops + dispatch_flops, "capacity": C}
+
+
+def fallback_plan(B: int, S: int, P: int, micro_slices: int) -> Plan:
+    """The zero-knowledge plan: the first feasible mode in stream > index
+    > slice order, the configured micro-slice count, default tiles."""
+    return Plan(mode=feasible_modes(B, S, P)[0], micro_slices=micro_slices,
+                source="fallback")
+
+
+# the streamed_moe path a plan's kernel shape takes, by bytes per element
+_FORMAT_OF_BYTES = {1: "int8", 2: "bf16", 4: "fp32"}
+
+
+def _plan_tiles(E: int, C: int, d: int, m: int, activation: str,
+                level: str, dtype_bytes: int, weight_bytes: Optional[int],
+                card: Optional["CardProfile"]) -> Optional[str]:
+    """The Hopper planner's setting for the plan's kernel shape
+    (:func:`kernel_opts_for`), or None where there is neither a card nor
+    a given ``card`` profile: each call then plans its own tiles."""
+    if card is None:
+        import torch
+        if not torch.cuda.is_available():
+            return None
+    x_fmt = _FORMAT_OF_BYTES[dtype_bytes]
+    w_fmt = x_fmt if weight_bytes is None else _FORMAT_OF_BYTES[weight_bytes]
+    return kernel_opts_for(E, C, d, m, activation, level=level, profile=card,
+                           x_dtype=x_fmt, weight_dtype=w_fmt).get("tiles")
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan_moe_cached(B: int, S: int, d: int, E: int, de: int, top_k: int,
+                     cf: float, n_mats: int, micro_cfg: int, P: int,
+                     activation: str, profile: HardwareProfile,
+                     dtype_bytes: int, level: str,
+                     force_mode: Optional[str],
+                     load: Optional[Tuple[float, ...]],
+                     weight_bytes: Optional[int],
+                     card: Optional["CardProfile"]) -> Plan:
+    if level == "off" and force_mode is None:
+        return fallback_plan(B, S, P, micro_cfg)
+
+    feasible = feasible_modes(B, S, P)
+    if force_mode is not None:
+        if force_mode not in feasible:
+            raise ValueError(f"mode {force_mode!r} infeasible for "
+                             f"B={B} S={S} P={P} (feasible: {feasible})")
+        feasible = (force_mode,)
+
+    de_loc = max(1, de // P)
+    best = None
+    per_mode: Dict[str, float] = {}
+    for mode in feasible:
+        mode_best = None
+        micro_cands = _micro_candidates(de_loc, micro_cfg) \
+            if mode in ("stream", "index") else [1]
+        for M in micro_cands:
+            c = mode_cost(mode, B, S, d, E, de, top_k, cf, n_mats, P,
+                          profile, M, dtype_bytes, load, weight_bytes)
+            if mode_best is None or c["total_s"] < mode_best[0]:
+                mode_best = (c["total_s"], M)
+        per_mode[mode] = mode_best[0]
+        if best is None or mode_best[0] < best[0]:
+            best = (mode_best[0], mode, mode_best[1])
+    total_s, mode, M = best
+
+    # the winning plan's kernel shape, tiled by the Hopper planner
+    T_loc = (B * S) // P if mode in ("stream", "index") else B * S
+    C = _cap(max(1, T_loc), top_k, E, cf)
+    m_step = max(1, de_loc // M) if mode in ("stream", "index") else de_loc
+    tiles = _plan_tiles(E, C, d, m_step, activation, level, dtype_bytes,
+                        weight_bytes, card)
+    source = "measured" if level == "measured" else "analytic"
+    return Plan(mode=mode, micro_slices=M, predicted_s=total_s,
+                per_mode_s=tuple(sorted(per_mode.items())),
+                source=source if force_mode is None else "forced",
+                tiles=tiles)
+
+
+def plan_moe(B: int, S: int, d_model: int, moe, activation: str, P: int,
+             *, profile: Optional[HardwareProfile] = None,
+             dtype_bytes: int = 2, level: Optional[str] = None,
+             mode: Optional[str] = None,
+             load: Optional[Tuple[float, ...]] = None,
+             weight_bytes: Optional[int] = None,
+             card: Optional["CardProfile"] = None) -> Plan:
+    """Score every feasible (mode, micro_slices) and return the winner,
+    as the reference does; the kernel's tile setting comes from the
+    Hopper planner (``card``, else the card present; none on the CPU).
+
+    ``moe`` is a :class:`MoEConfig`, ``P`` the model-axis size; ``mode``
+    forces one mode (still optimizing the micro-slices); ``load`` prices
+    a normalized per-expert load vector; ``weight_bytes`` the streamed
+    expert-weight width.  Pure Python apart from the tiles; memoized."""
+    level = level or autotune_level()
+    profile = profile or HardwareProfile.detect()
+    n_mats = 3 if activation == "swiglu" else 2
+    if load is not None:
+        load = tuple(float(v) for v in load)
+    return _plan_moe_cached(int(B), int(S), int(d_model),
+                            int(moe.num_experts), int(moe.d_expert),
+                            int(moe.top_k), float(moe.capacity_factor),
+                            n_mats, int(moe.micro_slices), int(P),
+                            activation, profile, int(dtype_bytes), level,
+                            mode, load,
+                            None if weight_bytes is None else int(weight_bytes),
+                            card)
 
 
 # ---------------------------------------------------------------------------

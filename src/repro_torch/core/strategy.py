@@ -1,24 +1,27 @@
-"""MoE execution strategies: one spec, one registry (port of the
-single-device part of ``repro.core.strategy``).
+"""MoE execution strategies: one spec, one registry (port of
+``repro.core.strategy``).
 
 :class:`ExecutionSpec` keeps the reference's fields and JSON form, so it
-reads ``examples/moe-spec.json``.  The registry holds the single-device
-strategies ``dense``, ``capacity`` and ``hybrid`` (two-tier hot/cold
-placement: a hot prefix of the load-ordered experts on the fast array, a
-cold tail near memory, bit for bit the ``capacity`` output), which plans
-from a :class:`StrategyContext`.  The distributed reference strategies
-are known names that raise ``NotImplementedError`` naming the ROADMAP
-step that ports them.  The spec's scope enters its autotune level (the
-Hopper tile planner's, ``core.autotune.use_autotune``), then its kernels,
-sorted dispatch and weight-dtype toggles.
+reads ``examples/moe-spec.json``.  The registry holds every strategy the
+reference registers: the single-device ``dense``, ``capacity`` and
+``hybrid`` (two-tier hot/cold placement, bit for bit the ``capacity``
+output), the distributed ``fse_dp`` (the paper's expert streaming,
+``core.fse_dp``), ``ep`` and ``tp`` (``core.baselines``), and ``auto``,
+which scores the families' cost curves (:func:`family_costs`) and runs
+the winner.  Each plans from a :class:`StrategyContext` and executes on
+the mesh of ``parallel.meshctx``; with no model axis of size > 1 the
+distributed four run ``capacity``, as the reference's do.  The spec's
+scope enters its autotune level (``core.autotune.use_autotune``), then
+its kernels, sorted dispatch and weight-dtype toggles.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import json
+import functools
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Protocol, Tuple, runtime_checkable
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.core import autotune
@@ -45,15 +48,6 @@ def ep_feasible(B: int, S: int, E: int, P: int) -> bool:
     """EP lowers when experts split evenly and tokens can seq- or
     batch-shard over the model axis."""
     return P > 1 and E % P == 0 and (S % P == 0 or B % P == 0)
-
-
-# reference strategies not ported yet -> the ROADMAP step that ports them
-UNPORTED = {
-    "fse_dp": "ROADMAP A.14 (distributed families)",
-    "ep": "ROADMAP A.14 (distributed families)",
-    "tp": "ROADMAP A.14 (distributed families)",
-    "auto": "ROADMAP A.14 (distributed families)",
-}
 
 
 def _freeze_overrides(overrides) -> Tuple[Tuple[int, str], ...]:
@@ -203,17 +197,38 @@ class StrategyContext:
                     axis: str = "model", *,
                     load: Optional[Tuple[float, ...]] = None
                     ) -> "StrategyContext":
-        """From a (B, S, d) tensor on one device (``P`` = 1: the model
-        mesh comes with ROADMAP A.14); the streamed weight bytes are the
-        ambient ``quant.weight_dtype``'s."""
+        """From this model group's (B, S, d) rows (``core.fse_dp``'s
+        layout), P from the active mesh's ``axis``; the streamed weight
+        bytes are the ambient ``quant.weight_dtype``'s."""
+        from repro_torch.parallel import meshctx
         B, S, d = x.shape
         return cls(B=int(B), S=int(S), d_model=int(d), moe=moe,
-                   activation=activation, P=1,
+                   activation=activation, P=meshctx.model_axis_size(axis),
                    dtype_bytes=x.element_size(), load=load,
                    weight_bytes=quant.weight_bytes())
 
 
-_REGISTRY: Dict[str, Any] = {}
+@runtime_checkable
+class MoEStrategy(Protocol):
+    """One pluggable execution family."""
+
+    name: str
+
+    def plan(self, ctx: StrategyContext) -> Plan:
+        """The decision for one call (pure Python, memoizable)."""
+        ...
+
+    def execute(self, params, x, moe: MoEConfig, activation: str,
+                plan: Optional[Plan] = None, *, axis: str = "model",
+                routing=None, schedule=None, aux: bool = True):
+        """x: (B, S, d), this model group's rows.  Returns ``(y, aux)``
+        (aux None when ``aux`` is False).  ``routing`` pre-computes the
+        route stage (single-device strategies only), ``schedule`` the
+        schedule stage (``trajectory.Schedule``)."""
+        ...
+
+
+_REGISTRY: Dict[str, MoEStrategy] = {}
 
 
 def register(name: str):
@@ -225,22 +240,159 @@ def register(name: str):
     return deco
 
 
-def get_strategy(name: str):
-    if name in _REGISTRY:
+def get_strategy(name: str) -> MoEStrategy:
+    try:
         return _REGISTRY[name]
-    if name in UNPORTED:
-        raise NotImplementedError(
-            f"MoE strategy {name!r} is not ported yet: {UNPORTED[name]}")
-    raise KeyError(f"unknown MoE strategy {name!r}; registered: {available()}")
+    except KeyError:
+        raise KeyError(f"unknown MoE strategy {name!r}; "
+                       f"registered: {available()}") from None
 
 
 def available() -> Tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
 
 
+def execute(name_or_spec, params, x, moe: MoEConfig, activation: str, *,
+            plan: Optional[Plan] = None, axis: str = "model",
+            phase: Optional[str] = None, layer: Optional[int] = None,
+            routing=None, schedule=None):
+    """Functional entry: one MoE layer under a strategy name or an
+    :class:`ExecutionSpec` -> ``(y, aux)``.  With no ``schedule``, a spec
+    whose ``schedule`` is ``"dynamic"`` derives the trajectory from each
+    call's own routing."""
+    from . import trajectory
+    spec = ExecutionSpec.coerce(name_or_spec)
+    name = spec.resolve(phase=phase, layer=layer)
+    if schedule is None and spec.schedule == "dynamic":
+        schedule = trajectory.DYNAMIC
+    with spec.scope():
+        return get_strategy(name).execute(params, x, moe, activation, plan,
+                                          axis=axis, routing=routing,
+                                          schedule=schedule)
+
+
+# ---------------------------------------------------------------------------
+# cross-family cost curves and the auto planner
+# ---------------------------------------------------------------------------
+
+
+def family_costs(B: int, S: int, d_model: int, moe: MoEConfig,
+                 activation: str, P: int, *,
+                 profile: Optional[HardwareProfile] = None,
+                 dtype_bytes: int = 2,
+                 load: Optional[Tuple[float, ...]] = None,
+                 weight_bytes: Optional[int] = None) -> Dict[str, float]:
+    """Predicted seconds per candidate family for one MoE layer.
+
+    ``fse_dp`` is its best ring schedule (stream / index with their best
+    micro-slices) and leaves the race when no ring layout lowers (its
+    slice dataflow is ``tp``'s); ``ep`` races where it lowers; ``tp`` is
+    the weights-stationary curve; ``hybrid`` joins on a profile with a
+    near-memory tier.  ``load`` conditions every curve on a normalized
+    per-expert load vector."""
+    profile = profile or HardwareProfile.detect()
+    n_mats = 3 if activation == "swiglu" else 2
+    E, de = moe.num_experts, moe.d_expert
+    k, cf = moe.top_k, moe.capacity_factor
+    de_loc = max(1, de // P)
+    out: Dict[str, float] = {}
+
+    ring = [m for m in autotune.feasible_modes(B, S, P) if m != "slice"]
+    if ring:
+        out["fse_dp"] = min(
+            autotune.mode_cost(m, B, S, d_model, E, de, k, cf, n_mats, P,
+                               profile, M, dtype_bytes, load,
+                               weight_bytes)["total_s"]
+            for m in ring
+            for M in autotune._micro_candidates(de_loc, moe.micro_slices))
+    if ep_feasible(B, S, E, P):
+        out["ep"] = autotune.ep_cost(B, S, d_model, E, de, k, cf, n_mats,
+                                     P, profile, dtype_bytes, load,
+                                     weight_bytes)["total_s"]
+    out["tp"] = autotune.mode_cost("slice", B, S, d_model, E, de, k, cf,
+                                   n_mats, P, profile, 1, dtype_bytes, load,
+                                   weight_bytes)["total_s"]
+    if profile.ndp_flops and profile.ndp_bw:
+        out["hybrid"] = autotune.hybrid_cost(
+            B, S, d_model, E, de, k, cf, n_mats, P, profile,
+            dtype_bytes, load, weight_bytes)["total_s"]
+    return out
+
+
+def pick_family(costs: Dict[str, float]) -> str:
+    """Argmin in FAMILIES order (ties go to the earlier family)."""
+    return min((f for f in FAMILIES if f in costs), key=lambda f: costs[f])
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan_family_cached(B: int, S: int, d_model: int, moe: MoEConfig,
+                        activation: str, P: int,
+                        profile: Optional[HardwareProfile],
+                        dtype_bytes: int, level: str,
+                        load: Optional[Tuple[float, ...]],
+                        weight_bytes: Optional[int]) -> Plan:
+    if P == 1:
+        return Plan(mode="capacity", family="capacity", micro_slices=1,
+                    source="fallback")
+    if level == "off":
+        return autotune.fallback_plan(B, S, P, moe.micro_slices)
+    costs = family_costs(B, S, d_model, moe, activation, P,
+                         profile=profile, dtype_bytes=dtype_bytes, load=load,
+                         weight_bytes=weight_bytes)
+    family = pick_family(costs)
+    per_family = tuple(sorted((f, float(s)) for f, s in costs.items()))
+    if family == "fse_dp":
+        plan = autotune.plan_moe(B, S, d_model, moe, activation, P,
+                                 profile=profile, dtype_bytes=dtype_bytes,
+                                 level=level, load=load,
+                                 weight_bytes=weight_bytes)
+        return dataclasses.replace(plan, per_mode_s=plan.per_mode_s
+                                   + per_family)
+    if family == "hybrid":
+        c = autotune.hybrid_cost(
+            B, S, d_model, moe.num_experts, moe.d_expert, moe.top_k,
+            moe.capacity_factor, 3 if activation == "swiglu" else 2, P,
+            profile or HardwareProfile.detect(), dtype_bytes, load,
+            weight_bytes)
+        return Plan(mode="hybrid", family="hybrid", micro_slices=1,
+                    predicted_s=costs["hybrid"], per_mode_s=per_family,
+                    source="analytic", hot_experts=int(c["hot_n"]))
+    return Plan(mode=family, family=family, micro_slices=1,
+                predicted_s=costs[family], per_mode_s=per_family,
+                source="analytic")
+
+
+def plan_family(B: int, S: int, d_model: int, moe: MoEConfig,
+                activation: str, P: int, *,
+                profile: Optional[HardwareProfile] = None,
+                dtype_bytes: int = 2,
+                level: Optional[str] = None,
+                load: Optional[Tuple[float, ...]] = None,
+                weight_bytes: Optional[int] = None) -> Plan:
+    """The winning family's Plan for one shape: EP and TP curves scored
+    beside the FSE-DP ring modes; memoized."""
+    level = level or autotune.autotune_level()
+    if load is not None:
+        load = tuple(float(v) for v in load)
+    return _plan_family_cached(int(B), int(S), int(d_model), moe,
+                               activation, int(P), profile,
+                               int(dtype_bytes), level, load,
+                               None if weight_bytes is None
+                               else int(weight_bytes))
+
+
+# ---------------------------------------------------------------------------
+# the strategies
+# ---------------------------------------------------------------------------
+
+
 class _SingleDevice:
     """Global routing on one device: route (or accept the routing), then
     the dense, capacity or two-tier dataflow of ``models.moe``."""
+
+    def plan(self, ctx: StrategyContext) -> Plan:
+        return Plan(mode=self.name, family=self.name, micro_slices=1,
+                    source="analytic")
 
     def route(self, params, x, moe, routing=None):
         from . import gating
@@ -249,8 +401,8 @@ class _SingleDevice:
             routing = gating.route(params["router"], x2d, top_k=moe.top_k)
         return x2d, routing
 
-    def execute(self, params, x, moe, activation, *, routing=None,
-                schedule=None, aux=True):
+    def execute(self, params, x, moe, activation, plan=None, *,
+                axis="model", routing=None, schedule=None, aux=True):
         """-> (y, the load-balance loss, or None when ``aux`` is False:
         the serving paths skip its kernels, as XLA drops them unused)."""
         from . import gating
@@ -281,6 +433,78 @@ class CapacityStrategy(_SingleDevice):
                                     schedule=schedule)
 
 
+@register("fse_dp")
+class FseDpStrategy:
+    """The paper's expert streaming (the ring of ``core.fse_dp``)."""
+
+    def plan(self, ctx: StrategyContext) -> Plan:
+        if ctx.P == 1:
+            return Plan(mode="capacity", family="capacity", micro_slices=1,
+                        source="fallback")
+        return autotune.plan_moe(ctx.B, ctx.S, ctx.d_model, ctx.moe,
+                                 ctx.activation, ctx.P,
+                                 profile=ctx.profile,
+                                 dtype_bytes=ctx.dtype_bytes,
+                                 level=ctx.level, load=ctx.load,
+                                 weight_bytes=ctx.weight_bytes)
+
+    def execute(self, params, x, moe, activation, plan=None, *,
+                axis="model", routing=None, schedule=None, aux=True):
+        from . import fse_dp
+        return fse_dp.moe_fse_dp(params, x, moe, activation, axis=axis,
+                                 plan=plan, routing=routing,
+                                 schedule=schedule, aux=aux)
+
+
+@register("ep")
+class EpStrategy:
+    """Expert parallelism: all-to-all token exchange to expert owners."""
+
+    def plan(self, ctx: StrategyContext) -> Plan:
+        if ctx.P == 1 or not ep_feasible(ctx.B, ctx.S,
+                                         ctx.moe.num_experts, ctx.P):
+            return get_strategy("fse_dp").plan(ctx)
+        profile = ctx.profile or HardwareProfile.detect()
+        n_mats = 3 if ctx.activation == "swiglu" else 2
+        c = autotune.ep_cost(ctx.B, ctx.S, ctx.d_model,
+                             ctx.moe.num_experts, ctx.moe.d_expert,
+                             ctx.moe.top_k, ctx.moe.capacity_factor,
+                             n_mats, ctx.P, profile, ctx.dtype_bytes,
+                             ctx.load, ctx.weight_bytes)
+        return Plan(mode="ep", family="ep", micro_slices=1,
+                    predicted_s=c["total_s"], source="analytic")
+
+    def execute(self, params, x, moe, activation, plan=None, *,
+                axis="model", routing=None, schedule=None, aux=True):
+        from . import baselines
+        return baselines.moe_ep(params, x, moe, activation, axis=axis,
+                                routing=routing, schedule=schedule, aux=aux)
+
+
+@register("tp")
+class TpStrategy:
+    """Tensor parallelism: d_expert sliced, tokens replicated, psum."""
+
+    def plan(self, ctx: StrategyContext) -> Plan:
+        if ctx.P == 1:
+            return get_strategy("fse_dp").plan(ctx)
+        profile = ctx.profile or HardwareProfile.detect()
+        n_mats = 3 if ctx.activation == "swiglu" else 2
+        c = autotune.mode_cost("slice", ctx.B, ctx.S, ctx.d_model,
+                               ctx.moe.num_experts, ctx.moe.d_expert,
+                               ctx.moe.top_k, ctx.moe.capacity_factor,
+                               n_mats, ctx.P, profile, 1, ctx.dtype_bytes,
+                               ctx.load, ctx.weight_bytes)
+        return Plan(mode="tp", family="tp", micro_slices=1,
+                    predicted_s=c["total_s"], source="analytic")
+
+    def execute(self, params, x, moe, activation, plan=None, *,
+                axis="model", routing=None, schedule=None, aux=True):
+        from . import baselines
+        return baselines.moe_tp(params, x, moe, activation, axis=axis,
+                                routing=routing, schedule=schedule, aux=aux)
+
+
 @register("hybrid")
 class HybridStrategy(_SingleDevice):
     """Two-tier hot/cold placement: hot experts stream through the fast
@@ -288,12 +512,11 @@ class HybridStrategy(_SingleDevice):
     (``HardwareConfig.ndp``); the layer finishes at the slower tier.  The
     split is placement only: execution cuts the load-ordered expert axis
     into a hot prefix and a cold tail, bit for bit the ``capacity``
-    output.  (The reference delegates to ``fse_dp`` under a model mesh;
-    that branch comes with ROADMAP A.14.)"""
+    output.  Under a model axis of size > 1 the hot tier's flow is the
+    FSE-DP ring, so it runs ``fse_dp``, as the reference does."""
 
     def plan(self, ctx: StrategyContext) -> Plan:
-        # the modeled chiplet array, as the reference plans off a TPU
-        profile = ctx.profile or HardwareProfile.from_chiplet()
+        profile = ctx.profile or HardwareProfile.detect()
         E = ctx.moe.num_experts
         if not (profile.ndp_flops and profile.ndp_bw):
             # homogeneous hardware: placement-only plan, static top-N
@@ -309,6 +532,16 @@ class HybridStrategy(_SingleDevice):
                     predicted_s=c["total_s"], source="analytic",
                     hot_experts=int(c["hot_n"]))
 
+    def execute(self, params, x, moe, activation, plan=None, *,
+                axis="model", routing=None, schedule=None, aux=True):
+        from repro_torch.parallel import meshctx
+        if meshctx.model_axis_size(axis) > 1:
+            return get_strategy("fse_dp").execute(
+                params, x, moe, activation, None, axis=axis,
+                routing=routing, schedule=schedule, aux=aux)
+        return super().execute(params, x, moe, activation, plan, axis=axis,
+                               routing=routing, schedule=schedule, aux=aux)
+
     def run(self, params, x2d, routing, moe, activation, schedule):
         """H from the schedule's plan (the engine's EMA width on the eager
         path), else ``default_hot(E)``."""
@@ -319,3 +552,31 @@ class HybridStrategy(_SingleDevice):
             else default_hot(moe.num_experts)
         return moe_mod.moe_hybrid(params, x2d, routing, moe, activation,
                                   hot_experts=H, schedule=schedule)
+
+
+@register("auto")
+class AutoStrategy:
+    """Cross-family planner: the EP and TP cost curves scored beside the
+    FSE-DP ring modes; runs the winning family's strategy."""
+
+    def plan(self, ctx: StrategyContext) -> Plan:
+        return plan_family(ctx.B, ctx.S, ctx.d_model, ctx.moe,
+                           ctx.activation, ctx.P, profile=ctx.profile,
+                           dtype_bytes=ctx.dtype_bytes, level=ctx.level,
+                           load=ctx.load, weight_bytes=ctx.weight_bytes)
+
+    def execute(self, params, x, moe, activation, plan=None, *,
+                axis="model", routing=None, schedule=None, aux=True):
+        load = None if schedule is None else schedule.load
+        ctx = StrategyContext.from_inputs(x, moe, activation, axis, load=load)
+        if ctx.P == 1:
+            return get_strategy("capacity").execute(
+                params, x, moe, activation, axis=axis, routing=routing,
+                schedule=schedule, aux=aux)
+        plan = plan or (schedule.plan if schedule is not None
+                        and schedule.plan is not None else None) \
+            or self.plan(ctx)
+        inner = plan if plan.family == "fse_dp" else None
+        return get_strategy(plan.family).execute(
+            params, x, moe, activation, inner, axis=axis, routing=routing,
+            schedule=schedule, aux=aux)

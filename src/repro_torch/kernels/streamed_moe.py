@@ -195,20 +195,58 @@ def _check(xe, w_g, w_u, w_d, activation, s_g, s_u, s_d):
     return gated, quantized, tensors
 
 
+# d_expert (m) multiples the tensor-core paths take, by path
+M_MULTIPLE = {"bf16": 8, "8bit": 16, "simt": 1}
+
+
+def padded_width(m: int, x_dtype, w_dtype) -> int:
+    """m rounded up to its path's multiple (``M_MULTIPLE``)."""
+    k = M_MULTIPLE[tile_path(x_dtype, w_dtype)]
+    return -(-m // k) * k
+
+
+def pad_width(w_g, w_u, w_d, s_g=None, s_u=None, *, m_pad: int):
+    """The operands with d_expert zero-padded to ``m_pad``: w_g / w_u
+    columns and w_down rows of zeros, 8-bit scale columns of 1 (s_d is
+    per output column, d, and stays).  The output does not change: a
+    padded h column is act(0) * 0 = 0 for swiglu, relu2 and gelu-tanh,
+    and meets a zero row of w_down.  -> (w_g, w_u, w_d, s_g, s_u)."""
+    extra = m_pad - w_u.shape[-1]
+    if extra <= 0:
+        return w_g, w_u, w_d, s_g, s_u
+
+    def cols(t, value=0.0):
+        if t is None:
+            return None
+        return torch.cat([t, t.new_full((*t.shape[:-1], extra), value)], -1)
+
+    w_down = torch.cat([w_d, w_d.new_zeros((w_d.shape[0], extra,
+                                            w_d.shape[2]))], 1)
+    return cols(w_g), cols(w_u), w_down, cols(s_g, 1.0), cols(s_u, 1.0)
+
+
 def streamed_moe_kernel(xe, w_g, w_u, w_d, *, activation: str,
                         s_g=None, s_u=None, s_d=None, tiles=None):
     """xe: (E,C,d) fp32|bf16; w_g (swiglu only) / w_u: (E,d,m); w_d:
     (E,m,d), all fp32, bf16, int8 or float8_e4m3fn.  Quantized weights
     take fp32 scales s_g/s_u (E,1,m) and s_d (E,1,d).  ``tiles`` names a
     setting of the operands' path in ``TILE_SETTINGS`` (None: the
-    default).  Returns (E,C,d) fp32."""
+    default).  Returns (E,C,d) fp32.  On the card an m the tensor-core
+    path does not take is zero-padded to its multiple (:func:`pad_width`);
+    the reference's kernel takes any width."""
     checked = _check(xe, w_g, w_u, w_d, activation, s_g, s_u, s_d)
     tile_index(tiles, xe.dtype, w_u.dtype, xe.shape[1])   # raises if unknown
+    gated = checked[0]
+    if not gated:
+        w_g = s_g = None
     if xe.device.type == "cpu":
-        gated = checked[0]
-        return ref.streamed_moe_plain(
-            xe, w_g if gated else None, w_u, w_d, activation,
-            s_g=s_g if gated else None, s_u=s_u, s_d=s_d)
+        return ref.streamed_moe_plain(xe, w_g, w_u, w_d, activation,
+                                      s_g=s_g, s_u=s_u, s_d=s_d)
+    m_pad = padded_width(w_u.shape[-1], xe.dtype, w_u.dtype)
+    if m_pad != w_u.shape[-1]:
+        w_g, w_u, w_d, s_g, s_u = pad_width(w_g, w_u, w_d, s_g, s_u,
+                                            m_pad=m_pad)
+        checked = None
     return _launch(xe, w_g, w_u, w_d, activation, s_g, s_u, s_d, checked,
                    tiles)[1]
 

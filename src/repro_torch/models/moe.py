@@ -6,10 +6,12 @@ Weight layout, stacked over experts:
 
 ``moe_block`` looks the strategy up in ``core.strategy``: ``dense`` (the
 oracle), ``capacity`` (dispatch into (E, C, d) rows, the
-``streamed_moe`` kernel, weighted combine) or ``hybrid`` (the same rows
+``streamed_moe`` kernel, weighted combine), ``hybrid`` (the same rows
 in load order, the kernel once on a hot prefix and once on the cold
-tail).  Capacity dispatch and combine are one-hot products by default,
-or gathers under ``use_sorted_dispatch`` (``ExecutionSpec.sorted_dispatch``).
+tail), or the distributed ``fse_dp``, ``ep``, ``tp`` and ``auto``
+(``core.fse_dp``, ``core.baselines``; ``capacity`` on one device).
+Capacity dispatch and combine are one-hot products by default, or
+gathers under ``use_sorted_dispatch`` (``ExecutionSpec.sorted_dispatch``).
 """
 from __future__ import annotations
 
@@ -239,7 +241,10 @@ def use_sorted_dispatch(enabled: bool = True):
 
 
 def sorted_dispatch_enabled() -> bool:
-    return _SORTED.get()
+    """``use_sorted_dispatch``, or the mesh context's ``'sorted'`` option
+    (``meshctx.with_opts``), as the reference reads it."""
+    from repro_torch.parallel import meshctx
+    return _SORTED.get() or meshctx.opt_enabled("sorted")
 
 
 class DispatchTables(NamedTuple):
@@ -307,10 +312,13 @@ def scatter_combine(ye, rows, weights):
 
 
 def moe_block(params, x, moe: MoEConfig, activation, *, spec=None,
-              phase=None, layer=None, return_aux=False, routing=None,
-              schedule=None):
+              phase=None, layer=None, mesh_axis="model", return_aux=False,
+              routing=None, schedule=None):
     """x: (B, S, d) or (T, d); a lookup into the strategy registry.
-    With no ``spec``, ``moe.impl`` names the strategy."""
+    With no ``spec``, ``moe.impl`` names the strategy.  The distributed
+    strategies (fse_dp / ep / tp / auto) run over the active mesh's
+    ``mesh_axis`` (``parallel.meshctx``), on this model group's rows, and
+    as ``capacity`` without one."""
     from repro_torch.core import strategy as strat
     sp = strat.ExecutionSpec.coerce(spec, default=moe.impl)
     name = sp.resolve(phase=phase, layer=layer)
@@ -321,8 +329,8 @@ def moe_block(params, x, moe: MoEConfig, activation, *, spec=None,
         x = x[None]
     with sp.scope():
         y, aux = strat.get_strategy(name).execute(
-            params, x, moe, activation, routing=routing, schedule=schedule,
-            aux=return_aux)
+            params, x, moe, activation, axis=mesh_axis, routing=routing,
+            schedule=schedule, aux=return_aux)
     if moe.num_shared_experts:
         y = y + ffn(params["shared"], x, activation)
     y = y.reshape(shape)

@@ -1,0 +1,4 @@
+"""Process meshes, collectives and a local launcher (port of
+``repro.parallel``): ``meshctx`` lays the ``torch.distributed`` world out
+as named axes, ``collectives`` moves tensors along them, ``localrun``
+starts N gloo ranks on one host."""

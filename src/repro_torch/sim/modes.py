@@ -21,13 +21,12 @@ pipeline fill, DDR overlap) is deliberately *not* closed-form, so rank
 agreement between ``autotune.mode_cost`` and ``simulate_mode`` is a
 meaningful check rather than an identity.
 
-In the port, the FSE-DP modes and the closed-form costs named here
-(``mode_cost``, ``ep_cost``, ``family_costs``) are the reference's until
-the distributed families are ported (ROADMAP A.14).  What the port's
-serving stack already has a twin for: :func:`simulate_trajectory` and
-:func:`replay_trace` referee ``core.autotune.ServingCostModel`` (the
-``modeled_s`` of every trace record), and :func:`simulate_hybrid`
-referees ``core.autotune.hybrid_cost``.
+In the port, :func:`simulate_mode` and :func:`rank_families` referee
+``core.autotune.mode_cost`` / ``ep_cost`` and ``core.strategy.
+family_costs``; :func:`simulate_trajectory` and :func:`replay_trace`
+referee ``core.autotune.ServingCostModel`` (the ``modeled_s`` of every
+trace record), and :func:`simulate_hybrid` referees
+``core.autotune.hybrid_cost``.
 """
 from __future__ import annotations
 

@@ -220,7 +220,10 @@ def test_hybrid_plan_matches_reference():
                 activation="swiglu", P=4, profile=jprofile, load=load)
             got = strategy.get_strategy("hybrid").plan(ctx)
             want = jstrat.get_strategy("hybrid").plan(jctx)
-            assert dataclasses.asdict(got) == dataclasses.asdict(want)
+            # the port's Plan adds the Hopper planner's ``tiles`` (none
+            # for a hybrid plan) to the reference's fields
+            assert dataclasses.asdict(got) == dict(dataclasses.asdict(want),
+                                                   tiles=None)
             assert got.source == ("fallback" if profile is None
                                   else "analytic")
     x = torch.zeros((3, 5, 16), dtype=torch.bfloat16)

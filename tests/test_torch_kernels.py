@@ -201,3 +201,75 @@ def test_plain_hold_fails_8bit_shortcuts(d, wdt, shortcut):
         got = ref.streamed_moe_plain(x8, *ws, "swiglu", **scales)
     rel = ((got - plain).abs().max() / plain.abs().max()).item()
     assert rel > 100 * _chip_smoke().PLAIN_TOL, rel
+
+
+# ---------------------------------------------------------------------------
+# d_expert widths the tensor-core paths do not take: the ring's per-rank
+# micro-slices (granite at P = 8 with 16 micro-slices: m = 4; DeepSeek at
+# P = 8 with 2: m = 88, not a multiple of 16).  On the card the wrapper
+# zero-pads m (sm.pad_width); here the padded operands go through the
+# plain version and must give the unpadded output bit for bit.  The CPU
+# GEMMs sum in an order that depends on the matrix shapes, so the inputs
+# are chosen to make every sum exact in any order: small integers for x,
+# weights on a grid of 2^-3 (whose int8 / fp8 codes are exact too, the
+# scales applied after an exact sum), and a w_down with one non-zero per
+# output column (one product a sum, padded terms zero).  C = 16 makes
+# every h tensor a whole number of 64-element blocks, so each element's
+# activation takes the CPU's vectorized loop in both layouts (its scalar
+# tail rounds silu and gelu-tanh differently).
+# ---------------------------------------------------------------------------
+
+
+def _exact_moe_case(m, act, wdt, x_dtype, E=3, C=16, d=32):
+    g = torch.Generator().manual_seed(m)
+    xe = torch.randint(-4, 5, (E, C, d), generator=g).float().to(x_dtype)
+    w_up = [torch.randint(-3, 4, (E, d, m), generator=g).float() / 8
+            for _ in range(2)]
+    wd = torch.zeros(E, m, d)
+    rows = torch.randint(0, m, (E, d), generator=g)
+    wd.scatter_(1, rows[:, None, :], torch.randint(
+        1, 4, (E, 1, d), generator=g).float() / 8)
+    ws = [w_up[0] if act == "swiglu" else None, w_up[1], wd]
+    if wdt in quant.QUANTIZED:
+        (wg, sg), (wu, su), (wd, sd) = [
+            quant.quantize(w, wdt) if w is not None else (None, None)
+            for w in ws]
+        return xe, (wg, wu, wd), dict(s_g=sg, s_u=su, s_d=sd)
+    return xe, tuple(quant.storage_cast(w, wdt) for w in ws), {}
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("wdt", ["fp32", "bf16", "int8", "fp8"])
+@pytest.mark.parametrize("act", ["swiglu", "relu2", "gelu"])
+@pytest.mark.parametrize("m", [4, 12, 88])
+def test_padded_width_gives_the_same_bits(m, act, wdt, x_dtype):
+    xe, (wg, wu, wd), sc = _exact_moe_case(m, act, wdt, x_dtype)
+    want = ref.streamed_moe_plain(xe, wg, wu, wd, act, **sc)
+    h = ref.streamed_moe_plain_h(xe, wg, wu, wd, act, s_g=sc.get("s_g"),
+                                 s_u=sc.get("s_u"))
+    m_pad = sm.padded_width(m, x_dtype, wu.dtype)
+    assert m_pad % sm.M_MULTIPLE[sm.tile_path(x_dtype, wu.dtype)] == 0
+    m_pad = max(m_pad, m + 8)           # pad on every path here
+    pg, pu, pd, psg, psu = sm.pad_width(wg, wu, wd, sc.get("s_g"),
+                                        sc.get("s_u"), m_pad=m_pad)
+    assert pu.shape[-1] == pd.shape[1] == m_pad
+    assert not pd[:, m:].any() and not pu[..., m:].float().any()
+    hp = ref.streamed_moe_plain_h(xe, pg, pu, pd, act, s_g=psg, s_u=psu)
+    assert torch.equal(hp[..., :m], h) and not hp[..., m:].any()
+    got = ref.streamed_moe_plain(xe, pg, pu, pd, act, s_g=psg, s_u=psu,
+                                 s_d=sc.get("s_d"))
+    assert torch.equal(got, want)
+    assert torch.equal(sm.streamed_moe_kernel(xe, wg, wu, wd, activation=act,
+                                              **sc), want)
+
+
+def test_padded_widths_of_the_ring():
+    bf, f32 = torch.bfloat16, torch.float32
+    assert [sm.padded_width(m, bf, bf) for m in (4, 8, 16, 32, 64, 88)] == \
+        [8, 8, 16, 32, 64, 88]
+    assert [sm.padded_width(m, bf, torch.int8) for m in (4, 8, 88)] == \
+        [16, 16, 96]
+    assert sm.padded_width(4, f32, torch.float8_e4m3fn) == 16
+    assert sm.padded_width(4, f32, f32) == sm.padded_width(4, f32, bf) == 4
+    w = torch.ones(2, 8, 4)
+    assert sm.pad_width(None, w, w.transpose(1, 2), m_pad=4)[1] is w

@@ -172,24 +172,18 @@ def test_execution_spec_json_roundtrip():
 
 
 @pytest.mark.parametrize("name", ["fse_dp", "ep", "tp", "hybrid", "auto"])
-def test_unported_strategies_raise(name):
-    """The distributed strategies raise naming their ROADMAP step;
-    ``hybrid``, ported with the weight tiers (A.11b), is registered and
-    gives the ``capacity`` block's bits."""
+def test_strategies_single_device_equal_capacity(name):
+    """On one rank every registered strategy gives the ``capacity`` block's
+    bits, as the reference's do (``fse_dp`` / ``ep`` / ``tp`` / ``auto``
+    run ``capacity`` without a model axis; ``hybrid`` splits the same
+    rows into two tiers)."""
     x, _, tp, _, cfg = _moe_case()
-    if name == "hybrid":
-        assert strategy.ExecutionSpec(strategy=name).validate()
-        got = moe.moe_block(tp, torch.from_numpy(x), cfg, "swiglu", spec=name)
-        want = moe.moe_block(tp, torch.from_numpy(x), cfg, "swiglu",
-                             spec="capacity")
-        assert torch.equal(got, want)
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        strategy.get_strategy(name)
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        strategy.ExecutionSpec(strategy=name).validate()
-    with pytest.raises(NotImplementedError):
-        moe.moe_block(tp, torch.from_numpy(x), cfg, "swiglu", spec=name)
+    assert strategy.ExecutionSpec(strategy=name).validate()
+    got = moe.moe_block(tp, torch.from_numpy(x), cfg, "swiglu", spec=name,
+                        return_aux=True)
+    want = moe.moe_block(tp, torch.from_numpy(x), cfg, "swiglu",
+                         spec="capacity", return_aux=True)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_sorted_dispatch_and_unknown_strategy_raise():
@@ -204,12 +198,10 @@ def test_sorted_dispatch_and_unknown_strategy_raise():
     with pytest.raises(KeyError):
         strategy.get_strategy("nope")
     spec = strategy.ExecutionSpec.load(str(REPO / "examples" / "moe-spec.json"))
-    with pytest.raises(NotImplementedError):
-        spec.validate()
-    assert strategy.available() == ("capacity", "dense", "hybrid")
-    assert dataclasses.replace(spec, sorted_dispatch=None, strategy="dense",
-                               prefill=None, decode=None,
-                               layer_overrides=()).validate()
+    assert spec.validate() is spec
+    assert strategy.available() == jstrategy.available()
+    with pytest.raises(KeyError):
+        dataclasses.replace(spec, decode="nope").validate()
 
 
 # ---------------------------------------------------------------------------
@@ -309,6 +301,40 @@ def test_sorted_spec_scope_equals_context_toggle():
                                     "sorted_dispatch": False})
     assert torch.equal(y_off, moe.moe_block(tp, xt, cfg, "swiglu",
                                             spec="capacity"))
+
+
+@pytest.mark.parametrize("cf", [1.0, 4.0], ids=["overflow", "drop_free"])
+def test_mesh_sorted_option_matches_reference(cf, monkeypatch):
+    """``meshctx.with_opts('sorted')`` switches the dispatch to gathers as
+    the reference's does: the tables are built, the bits are
+    ``use_sorted_dispatch``'s, the values the reference's under its own
+    option; outside the option the one-hot path runs."""
+    from repro.parallel import meshctx as jmeshctx
+    from repro_torch.parallel import meshctx
+    x, jp, tp, jcfg, cfg = _moe_case(T=13, E=4, k=2, seed=3)
+    jcfg, cfg = (dataclasses.replace(c, capacity_factor=cf)
+                 for c in (jcfg, cfg))
+    jr = jgating.route(jp["router"], jnp.asarray(x), top_k=2)
+    r = gating.route(tp["router"], torch.from_numpy(x), top_k=2)
+    with jops.use_kernels(False), jmeshctx.with_opts("sorted"):
+        assert jmoe.sorted_dispatch_enabled()
+        want = np.asarray(jmoe.moe_capacity(jp, jnp.asarray(x), jr, jcfg,
+                                            "swiglu"))
+    built = []
+    tables = moe.dispatch_tables
+    monkeypatch.setattr(moe, "dispatch_tables",
+                        lambda *a: built.append(1) or tables(*a))
+    with meshctx.with_opts("sorted"):
+        assert moe.sorted_dispatch_enabled()
+        got = moe.moe_capacity(tp, torch.from_numpy(x), r, cfg, "swiglu")
+    assert built == [1] and not moe.sorted_dispatch_enabled()
+    with moe.use_sorted_dispatch(True):
+        assert torch.equal(got, moe.moe_capacity(tp, torch.from_numpy(x), r,
+                                                 cfg, "swiglu"))
+    moe.moe_capacity(tp, torch.from_numpy(x), r, cfg, "swiglu")
+    assert built == [1, 1]
+    np.testing.assert_allclose(got.numpy(), want, rtol=SORTED_TOL,
+                               atol=SORTED_TOL)
 
 
 @pytest.mark.parametrize("cf", [1.0, 8.0], ids=["overflow", "drop_free"])
