@@ -201,6 +201,20 @@ dist2. (run after dist1) gloo ranks on the one card (``parallel.localrun``;
    widths (bf16; int8 and fp8 where 3r pads them), each within 3e-2 (fp8
    6e-2) of ``capacity``, 8 x micro-slices launches a rank; the seconds a
    call are gloo through host memory, no ring's speed;
+train. (run after dist2) the training slice: (a) ``training.train`` on
+   granite at full width and depth, bf16, ``remat``, 20 AdamW steps on
+   2 x 2048 SyntheticLM tokens (C = 1280): median step, training tok/s,
+   peak memory, exactly 48 streamed_moe launches a step (forward and
+   recompute), the loss falls and every loss and grad norm is finite;
+   (b) fp32 at 4 layers, ``loss_fn`` gradients with kernels vs
+   ``use_kernels(False)`` on the plain run's top-k, every leaf within 2e-4
+   of its max; int8 weights within 5% relative norm (straight-through);
+   (c) ``remat`` == no remat within 1e-6; (d) a crash at step 2 of 4 and
+   an auto-resume through checkpoints == the straight run (1e-5); (e) the
+   ring (stream, index, slice) at P = 2 and on a (2, 4) mesh, ``ep`` and
+   ``tp`` at P = 2, on gloo ranks sharing the card: every rank's weight
+   gradients within rtol 5e-3, atol 5e-4 of one rank's ``capacity``
+   gradients;
 16. summary: one ``{"kernels": [...]}`` JSON line with one entry per
     kernel and path (``streamed_moe`` on the serve path in bf16 and in fp8,
     on the chunked-prefill path of the traffic run (``serve_chunked``, C =
@@ -217,9 +231,10 @@ dist2. (run after dist1) gloo ranks on the one card (``parallel.localrun``;
     slices (``serve_deepseek``, ``serve_qwen3``, phase 3m's shapes),
     flash on InternVL2's scoring forward (``forward_internvl2``),
     streamed_moe on the no-spec granite loss of phase dist1
-    (``dist1_loss``) and on the ring of phase dist2 at phase 3r's widths
+    (``dist1_loss``), on the ring of phase dist2 at phase 3r's widths
     (``ring_granite_p8_m64`` ... ``_m4``, ``ring_deepseek_p8_m88``, the
-    launches of all 8 ranks)),
+    launches of all 8 ranks), and on the training path (``train``, phase
+    train (a), with the C = 1280 row's times)),
     each with that path's launches and its shape's times (``ms`` one call
     with its host work, ``device_ms`` the device time per call) and bound,
     and for streamed_moe the tile setting the path ran (``tiles``); the
@@ -1312,9 +1327,10 @@ def _n_moe(cfg):
 
 
 def _check_on_card(res, phase):
-    from repro_torch.models.api import leaves
-    bad = [k for k, t in leaves(res["params"]) if not t.is_cuda]
-    bad += [k for k, t in leaves(res["engine"].caches) if not t.is_cuda]
+    from repro_torch.tree import leaves_with_path
+    bad = [k for k, t in leaves_with_path(res["params"]) if not t.is_cuda]
+    bad += [k for k, t in leaves_with_path(res["engine"].caches)
+            if not t.is_cuda]
     if bad:
         fail(phase, f"tensors on the CPU: {bad[:5]}")
 
@@ -1406,7 +1422,7 @@ def _slice_run(level, kernel_ms):
     import torch
     from repro_torch.core import autotune
     from repro_torch.launch import serve
-    from repro_torch.models.api import leaves
+    from repro_torch.tree import leaves
     argv = SLICE_ARGV + ["--autotune", level]
     torch.cuda.reset_peak_memory_stats()
     _zero_counts()
@@ -1454,7 +1470,7 @@ def _slice_run(level, kernel_ms):
         fail("slice", f"{syncs} host syncs over {iters} steady iterations, "
                       f"want {nb + 1} each")
     _check_on_card(res, "slice")
-    n_params = sum(t.numel() for _, t in leaves(res["params"]))
+    n_params = sum(t.numel() for t in leaves(res["params"]))
     tps = len(toks) / res["seconds"]
     log("slice", f"--autotune {level}: {ARCH} full width bf16 "
                  f"({n_params / 1e9:.3f} B params, "
@@ -2686,7 +2702,7 @@ def phase_mamba_serve():
     import torch
     from repro_torch.kernels import ssd
     from repro_torch.launch import serve
-    from repro_torch.models.api import leaves
+    from repro_torch.tree import leaves
     from repro_torch.serving import Engine
     args = serve.parse_args(["--arch", MAMBA, "--seed", "0"] + SLICE_ARGV)
     torch.cuda.reset_peak_memory_stats()
@@ -2728,7 +2744,7 @@ def phase_mamba_serve():
                             f"each)")
     _check_on_card(warm, "mamba-serve")
     peak = torch.cuda.max_memory_allocated()
-    n_params = sum(t.numel() for _, t in leaves(params))
+    n_params = sum(t.numel() for t in leaves(params))
     log("mamba-serve", f"{MAMBA} full width bf16 ({n_params / 1e9:.3f} B "
                        f"params), fused engine, graph captured: 4 requests x "
                        f"16 tokens = {len(toks)} tokens in "
@@ -2804,7 +2820,7 @@ def _serve_family(cfg, phase, prefix=False, check=None):
     from repro_torch.kernels import ssd
     from repro_torch.launch import serve
     from repro_torch.models import api
-    from repro_torch.models.api import leaves
+    from repro_torch.tree import leaves
     from repro_torch.serving import Engine, ServeConfig
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2814,7 +2830,7 @@ def _serve_family(cfg, phase, prefix=False, check=None):
     t0 = time.perf_counter()
     params = api.init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for _, t in leaves(params))
+    n_params = sum(t.numel() for t in leaves(params))
     shared = ""
     if mcfg.num_shared_experts:
         w = params["periods"][0]["moe"]["shared"]["w_up"]
@@ -2922,7 +2938,7 @@ def _serve_family(cfg, phase, prefix=False, check=None):
         torch.cuda.reset_peak_memory_stats()
         _prefix_loops(params, cfg, phase)
         peaks["prefix stream"] = torch.cuda.max_memory_allocated()
-    weights = sum(t.numel() * t.element_size() for _, t in leaves(params))
+    weights = sum(t.numel() * t.element_size() for t in leaves(params))
     log(phase, f"peak device memory {max(peaks.values()) / 2**30:.2f} GiB ("
                + ", ".join(f"{k} runs {v / 2**30:.2f}" for k, v in
                            peaks.items())
@@ -3682,6 +3698,333 @@ def phase_dist2():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase train: the training slice (ROADMAP A.15a)
+# ---------------------------------------------------------------------------
+
+# (a) ``training.train`` on full-width, full-depth granite in bf16 with
+# remat, on SyntheticLM batches of SCORE_B x SCORE_S tokens (C = 1280):
+# AdamW at TRAIN_LR, linear warmup over TRAIN_WARMUP steps, then a cosine
+# to 0 at TRAIN_STEPS; weight decay 0.1, clipping at 1.0 (TrainConfig's)
+TRAIN_STEPS, TRAIN_LR, TRAIN_WARMUP = 20, 1e-3, 5
+# (b), (c): fp32 granite at full width, TRAIN_GRAD_LAYERS deep, one batch.
+# Kernels vs use_kernels(False): max |g_k - g_p| / max |g_p| per leaf
+# within the reference's gradient rtol (tests/test_streamed_moe_parity.py),
+# both runs taking the plain run's top-k choices (an fp32 near-tie may
+# pick another expert where the forwards' last bits differ; the two
+# gradients are then those of different functions).  int8 weights: each
+# leaf within STE_DRIFT relative norm of the fp32-weight gradients (the
+# reference's straight-through bound).  remat == no remat: each leaf
+# within REMAT_TOL of its max |g| (embedding backward atomics, fp32
+# reassociation), the loss within REMAT_TOL relative
+TRAIN_GRAD_LAYERS = 4
+TRAIN_GRAD_TOL = 2e-4
+STE_DRIFT = 0.05
+REMAT_TOL = 1e-6
+# (d): crash at RESUME_CRASH of RESUME_STEPS (checkpoints every
+# RESUME_EVERY), auto-resume; the final loss within the reference's rtol
+# (tests/test_train.py)
+RESUME_LAYERS, RESUME_STEPS, RESUME_CRASH, RESUME_EVERY = 2, 4, 2, 2
+RESUME_RTOL = 1e-5
+# (e): the distributed bodies' gradients on gloo ranks sharing the card,
+# against one rank's capacity gradients, at the reference's
+# fsedp_grad.py setup (parallel.gradcheck) and tolerance
+DIST_GRAD_RTOL, DIST_GRAD_ATOL = 5e-3, 5e-4
+
+
+class _PinnedRouting:
+    """Patches ``gating.route`` while entered: records each call's top-k
+    indices and, with ``pinned`` (an earlier run's record), takes those
+    indices instead of its own (weights renormalized from this run's
+    probabilities, so the router's gradient is this run's), counting the
+    tokens whose own choice differs."""
+
+    def __init__(self, pinned=None):
+        self.pinned, self.record, self.flips = pinned, [], 0
+
+    def __enter__(self):
+        import torch
+        from repro_torch.core import gating
+        self._orig = orig = gating.route
+
+        def route(params, x, *, top_k):
+            r = orig(params, x, top_k=top_k)
+            if self.pinned is not None:
+                idx = self.pinned[len(self.record)]
+                own, want = torch.sort(r.indices, 1).values, \
+                    torch.sort(idx, 1).values
+                self.flips += int((own != want).any(1).sum())
+                w = r.probs.gather(1, idx)
+                w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+                combine = torch.zeros_like(r.probs).scatter_(1, idx, w)
+                r = gating.Routing(idx, w.to(x.dtype), r.probs,
+                                   combine.to(x.dtype))
+            self.record.append(r.indices.detach())
+            return r
+        gating.route = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import gating
+        gating.route = self._orig
+
+
+def _train_batch(cfg):
+    import torch
+    from repro_torch.data import DataConfig, SyntheticLM
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=SCORE_S,
+                                  global_batch=SCORE_B, seed=0))
+    return {k: torch.from_numpy(v).long().cuda()
+            for k, v in data.batch(0).items()}
+
+
+def _loss_grads(params, batch, cfg, *, kernels=True, weight_dtype=None,
+                remat=False, routing=None):
+    """(loss, every leaf's gradient, streamed_moe launches) of
+    ``api.loss_fn`` under ``capacity``."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.core.strategy import ExecutionSpec
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import streamed_moe as sm
+    from repro_torch.models import api
+    leaves = tree.leaves(params)
+    spec = ExecutionSpec(strategy="capacity", weight_dtype=weight_dtype)
+    n0 = sm.LAUNCHES
+    with ops.use_kernels(kernels), routing or _PinnedRouting():
+        loss, _ = api.loss_fn(params, batch, cfg, spec=spec, remat=remat)
+        grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), grads, sm.LAUNCHES - n0
+
+
+def _leaf_errs(got, want, norm=False):
+    """Per leaf max |got - want| / max |want| (``norm``: relative norms)."""
+    out = []
+    for g, w in zip(got, want):
+        if norm:
+            out.append(((g.float() - w.float()).norm()
+                        / w.float().norm()).item())
+        else:
+            out.append(((g.float() - w.float()).abs().max()
+                        / w.float().abs().max()).item())
+    return out
+
+
+def _train_run(cfg, dcfg, tcfg, crash_at_step=None):
+    """``training.train`` with a hook at every logged step -> (result, per
+    step (wall seconds, streamed_moe launches so far, metrics))."""
+    from repro_torch.kernels import streamed_moe as sm
+    from repro_torch.training import train
+    marks = []
+
+    def hook(step, metrics):
+        marks.append((time.perf_counter(), sm.LAUNCHES, metrics))
+    res = train(cfg, dcfg, tcfg, seed=0, hooks=hook, device="cuda",
+                crash_at_step=crash_at_step)
+    return res, marks
+
+
+def phase_train():
+    """Phase train: (a) the training path at full width and depth, (b)
+    kernel vs plain gradients, (c) remat == no remat, (d) crash and
+    resume, (e) the distributed bodies' gradients on the card.  ->
+    streamed_moe launches of (a)."""
+    import tempfile
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig
+    from repro_torch.kernels import streamed_moe as sm
+    from repro_torch.models import api
+    from repro_torch.training import TrainConfig
+    cfg = get_config(ARCH)
+    T = SCORE_B * SCORE_S
+    n_moe = _n_moe(cfg)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=SCORE_S,
+                      global_batch=SCORE_B, seed=0)
+    tcfg = TrainConfig(lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                       total_steps=TRAIN_STEPS, remat=True, log_every=1)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sm.LAUNCHES = 0
+    t0 = time.perf_counter()
+    res, marks = _train_run(cfg, dcfg, tcfg)
+    torch.cuda.synchronize()
+    launches = sm.LAUNCHES
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in tree.leaves(res.params))
+    del res
+    torch.cuda.empty_cache()
+    step_s = [b[0] - a[0] for a, b in zip(marks, marks[1:])]
+    per_step = [marks[0][1]] + [b[1] - a[1] for a, b in zip(marks, marks[1:])]
+    losses = [m[2]["loss"] for m in marks]
+    gnorms = [m[2]["grad_norm"] for m in marks]
+    med = statistics.median(step_s)
+    line = (f"{ARCH} full width and depth ({n_params} parameters), bf16, "
+            f"remat, {SCORE_B} x {SCORE_S} tokens a step (C = "
+            f"{cfg.moe.capacity_rows(T)}), {TRAIN_STEPS} AdamW steps (lr "
+            f"{TRAIN_LR:g}, warmup {TRAIN_WARMUP}): median step "
+            f"{med:.4f}s over steps 1-{TRAIN_STEPS - 1} (min "
+            f"{min(step_s):.4f}, max {max(step_s):.4f}) = {T / med:.0f} "
+            f"training tok/s; {wall:.1f}s in all; peak memory "
+            f"{peak / 2**30:.2f} GiB; streamed_moe launches a step "
+            f"{sorted(set(per_step))} (want {2 * n_moe}: forward + remat "
+            f"recompute); loss {losses[0]:.4f} -> {losses[-1]:.4f} (by step: "
+            f"{[round(v, 4) for v in losses]}); grad norm "
+            f"{gnorms[0]:.3f} -> {gnorms[-1]:.3f}")
+    finite = all(math.isfinite(v) for v in losses + gnorms)
+    if per_step != [2 * n_moe] * TRAIN_STEPS or not finite \
+            or not losses[-1] < losses[0]:
+        fail("train", line)
+    log("train", line)
+
+    # (b) kernels vs plain, and int8 weights, fp32 at reduced depth
+    cfg32 = cfg.replace(dtype="float32", num_layers=TRAIN_GRAD_LAYERS)
+    params = api.init_params(cfg32, seed=0, device="cuda")
+    for p in tree.leaves(params):
+        p.requires_grad_(True)
+    paths = [k for k, _ in tree.leaves_with_path(params)]
+    batch = _train_batch(cfg32)
+    plain = _PinnedRouting()
+    loss_p, g_p, _ = _loss_grads(params, batch, cfg32, kernels=False,
+                                 routing=plain)
+    pinned = _PinnedRouting(plain.record)
+    loss_k, g_k, n_k = _loss_grads(params, batch, cfg32, routing=pinned)
+    errs = _leaf_errs(g_k, g_p)
+    worst = max(range(len(errs)), key=errs.__getitem__)
+    line = (f"fp32 {TRAIN_GRAD_LAYERS} layers, {T} tokens: loss_fn gradients "
+            f"with kernels ({n_k} streamed_moe launches) vs "
+            f"use_kernels(False), {len(paths)} leaves: worst {paths[worst]} "
+            f"max|g_k - g_p| / max|g_p| {errs[worst]:.3e} (tol "
+            f"{TRAIN_GRAD_TOL:g}); loss {loss_k.item():.6f} vs "
+            f"{loss_p.item():.6f}; tokens whose own top-k differs from the "
+            f"plain run's (pinned to it) {pinned.flips} of "
+            f"{T * TRAIN_GRAD_LAYERS}")
+    ok = errs[worst] <= TRAIN_GRAD_TOL and n_k == TRAIN_GRAD_LAYERS and \
+        all(torch.isfinite(g).all() for g in g_k)
+    if not ok:
+        fail("train", line)
+    log("train", line)
+    q = _PinnedRouting(plain.record)
+    _, g_q, n_q = _loss_grads(params, batch, cfg32, weight_dtype="int8",
+                              routing=q)
+    drift = _leaf_errs(g_q, g_k, norm=True)
+    worst = max(range(len(drift)), key=drift.__getitem__)
+    line = (f"int8 weights ({n_q} launches): straight-through gradients, "
+            f"worst leaf {paths[worst]} at {drift[worst]:.3e} relative norm "
+            f"from the fp32-weight ones (tol {STE_DRIFT:g}); tokens whose "
+            f"own top-k differs from the plain run's {q.flips}")
+    if drift[worst] > STE_DRIFT or not all(torch.isfinite(g).all()
+                                           for g in g_q):
+        fail("train", line)
+    log("train", line)
+    del g_p, g_q
+
+    # (c) remat == no remat, kernels on, each run its own routing
+    loss_n, g_n, n_n = _loss_grads(params, batch, cfg32)
+    loss_r, g_r, n_r = _loss_grads(params, batch, cfg32, remat=True)
+    errs = _leaf_errs(g_r, g_n)
+    worst = max(range(len(errs)), key=errs.__getitem__)
+    rel = abs(loss_r.item() - loss_n.item()) / abs(loss_n.item())
+    line = (f"remat vs no remat (fp32, {TRAIN_GRAD_LAYERS} layers): loss "
+            f"{'bit for bit' if torch.equal(loss_r, loss_n) else f'rel {rel:.3e}'}"
+            f", leaves bit for bit {sum(torch.equal(a, b) for a, b in zip(g_r, g_n))}"
+            f" of {len(paths)}, worst {paths[worst]} {errs[worst]:.3e} of its "
+            f"max (tol {REMAT_TOL:g}); streamed_moe launches {n_r} with remat, "
+            f"{n_n} without (want {2 * TRAIN_GRAD_LAYERS}, "
+            f"{TRAIN_GRAD_LAYERS})")
+    if errs[worst] > REMAT_TOL or rel > REMAT_TOL or \
+            (n_r, n_n) != (2 * TRAIN_GRAD_LAYERS, TRAIN_GRAD_LAYERS):
+        fail("train", line)
+    log("train", line)
+    del params, g_k, g_n, g_r
+    torch.cuda.empty_cache()
+
+    # (d) crash and resume through checkpoints
+    cfg_r = cfg.replace(num_layers=RESUME_LAYERS)
+    tc = dict(lr=TRAIN_LR, warmup=2, total_steps=RESUME_STEPS, remat=True,
+              log_every=1, ckpt_every=RESUME_EVERY)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d1, \
+            tempfile.TemporaryDirectory() as d2:
+        straight, _ = _train_run(cfg_r, dcfg, TrainConfig(ckpt_dir=d1, **tc))
+        try:
+            _train_run(cfg_r, dcfg, TrainConfig(ckpt_dir=d2, **tc),
+                       crash_at_step=RESUME_CRASH)
+            fail("train", "the simulated preemption did not happen")
+        except RuntimeError as e:
+            if "preemption" not in str(e):
+                raise
+        resumed, _ = _train_run(cfg_r, dcfg, TrainConfig(ckpt_dir=d2, **tc))
+    want, got = straight.losses[-1][1], resumed.losses[-1][1]
+    rel = abs(got - want) / abs(want)
+    line = (f"crash at step {RESUME_CRASH} of {RESUME_STEPS} ({ARCH} "
+            f"{RESUME_LAYERS} layers, bf16, checkpoints every {RESUME_EVERY}"
+            f" steps), resumed from step {resumed.resumed_from}: final loss "
+            f"{got:.6f} vs the straight run's {want:.6f}, rel {rel:.3e} (tol "
+            f"{RESUME_RTOL:g}); {time.perf_counter() - t0:.1f}s")
+    if resumed.resumed_from != RESUME_CRASH or rel > RESUME_RTOL:
+        fail("train", line)
+    log("train", line)
+    del straight, resumed
+    torch.cuda.empty_cache()
+
+    # (e) the distributed bodies' gradients, gloo ranks on the card
+    from repro_torch.parallel import localrun
+    for shape in ((2,), (2, 4)):
+        t0 = time.perf_counter()
+        ranks = localrun.run(_dist_grad_rank, math.prod(shape), shape)
+        for case in ranks[0]["cases"]:
+            worst = max(r["cases"][case] for r in ranks)
+            line = (f"mesh {shape}: {case} gradients on every rank vs one "
+                    f"rank's capacity gradients: worst |g - g1| / (atol + "
+                    f"rtol |g1|) {worst:.3e} (rtol {DIST_GRAD_RTOL:g}, atol "
+                    f"{DIST_GRAD_ATOL:g}; want <= 1)")
+            if not worst <= 1.0:
+                fail("train", line)
+            log("train", line)
+        log("train", f"mesh {shape}: {math.prod(shape)} ranks "
+                     f"({ranks[0]['transport']}) held in "
+                     f"{time.perf_counter() - t0:.1f}s")
+    return launches
+
+
+def _dist_grad_rank(rank, world, shape):
+    """One gloo rank of phase train (e): the ring's stream / index / slice
+    modes on the ``shape`` mesh, and ``ep`` and ``tp`` on a one-axis mesh,
+    through ``parallel.gradcheck`` (each rank takes its share of the loss
+    and sums the weight gradients over the mesh), held to the capacity
+    gradients this rank computes alone over every row.
+    -> {case: worst |g - g1| / (atol + rtol |g1|)}."""
+    import torch
+    from repro_torch.core import strategy
+    from repro_torch.parallel import collectives, gradcheck, meshctx
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    names = ("model",) if len(shape) == 1 else ("data", "model")
+    mesh = meshctx.ProcessMesh.create(shape, names)
+    arrays = gradcheck.inputs()
+    p = gradcheck.params(arrays, lambda a: torch.from_numpy(a).cuda()
+                         .requires_grad_(True))
+    y, _ = strategy.execute("capacity", p, torch.from_numpy(arrays["x"])
+                            .cuda(), gradcheck.moe_config(), "swiglu")
+    want = torch.autograd.grad(torch.sum(y ** 2), [
+        gradcheck.leaf(p, k) for k in gradcheck.LEAVES])
+    cases = [("fse_dp", m, "onehot", "static")
+             for m in ("stream", "index", "slice")]
+    if len(shape) == 1:
+        cases += [("ep", None, "onehot", "static"),
+                  ("tp", None, "onehot", "static")]
+    got = gradcheck.rank_grads(mesh, arrays, cases, device="cuda")
+    return {"transport": collectives.transport(mesh, "model", "cuda"),
+            "cases": {case: max(
+                ((g[k] - w).abs() / (DIST_GRAD_ATOL + DIST_GRAD_RTOL
+                                     * w.abs())).max().item()
+                for k, w in zip(gradcheck.LEAVES, want))
+                for case, g in got.items()}}
+
+
 SOURCES = {"streamed_moe": "src/repro/kernels/streamed_moe.py:201",
            "flash_attention": "src/repro/kernels/flash_attention.py:81",
            "ssd": "src/repro/kernels/ssd.py:51"}
@@ -3750,6 +4093,10 @@ def main():
             launches["streamed_moe", "dist1_loss"] = phase_dist1()
         for path, n in phase_dist2().items():
             launches["streamed_moe", path] = n
+        # the training path's forward runs the scoring forward's C = 1280
+        # shape: its row's times and bound
+        rows["streamed_moe"]["train"] = dict(rows["streamed_moe"]["forward"])
+        launches["streamed_moe", "train"] = phase_train()
         if "jax" in sys.modules:
             fail("summary", "jax was imported")
     except SystemExit:

@@ -40,3 +40,12 @@ def from_reference_params(tree, device=None):
     if isinstance(tree, (tuple, list)):
         return type(tree)(from_reference_params(v, device) for v in tree)
     return to_tensor(tree, device)
+
+
+def from_reference_opt_state(state, device=None):
+    """A reference ``optim.adamw.AdamWState`` of numpy leaves -> the port's
+    ``AdamWState`` (step, m and v as tensors)."""
+    from repro_torch.optim.adamw import AdamWState
+    return AdamWState(to_tensor(state.step, device),
+                      from_reference_params(state.m, device),
+                      from_reference_params(state.v, device))

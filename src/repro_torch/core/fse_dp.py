@@ -50,9 +50,6 @@ def _expert_partial(xe, w_g, w_u, w_d, activation, kopts=None):
     """xe: (E, C, d); w_g / w_u: (E, d, m); w_d: (E, m, d) -> (E, C, d)
     fp32 through ``kernels.ops``: the plan's tile setting (``kopts``,
     ``Plan.kernel_opts()``), or the tile planner per call when none."""
-    if torch.is_grad_enabled() and (xe.requires_grad or w_u.requires_grad):
-        raise NotImplementedError("the distributed bodies' backward belongs "
-                                  "to the training slice (ROADMAP A.15)")
     xe, w_u, w_d = xe.contiguous(), w_u.contiguous(), w_d.contiguous()
     w_g = None if w_g is None else w_g.contiguous()
     if not kopts:

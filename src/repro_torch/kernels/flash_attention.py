@@ -55,8 +55,9 @@ def _check(q, k, v):
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must lie on one device")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError("the flash kernel has no backward; "
-                                  "training is ROADMAP A.15")
+        raise NotImplementedError(
+            "the flash kernel has no backward: the reference defines no "
+            "VJP for it and trains without it")
 
 
 def flash_attention_kernel(q, k, v):

@@ -11,6 +11,11 @@ never a fallback.  ``streamed_moe`` takes an explicit tile setting;
 ``streamed_moe_autotuned``, the entry point the MoE block calls, asks the
 Hopper tile planner (``core.autotune.kernel_opts_for``) for the setting
 of each call's shape under the ambient autotune level.
+
+With kernels on, ``streamed_moe`` is differentiable through
+:class:`StreamedMoE`: the forward is the kernel (its plain version on the
+CPU), the backward the straight-through VJP of the fp32 oracle on the
+original weights, as the reference's custom VJP is; no backward kernel.
 """
 from __future__ import annotations
 
@@ -56,6 +61,11 @@ def streamed_moe(xe, w_g, w_u, w_d, activation: str, weight_dtype=None,
         return ref.streamed_moe_quant_ref(xe, w_g, w_u, w_d, activation, wdt)
     if activation != "swiglu":
         w_g = None
+    return StreamedMoE.apply(xe, w_g, w_u, w_d, activation, wdt, tiles)
+
+
+def _streamed_moe_raw(xe, w_g, w_u, w_d, activation, wdt, tiles):
+    """The kernel on the weights quantized or cast to the format ``wdt``."""
     if wdt in quant.QUANTIZED:
         s_g = None
         if w_g is not None:
@@ -68,6 +78,36 @@ def streamed_moe(xe, w_g, w_u, w_d, activation: str, weight_dtype=None,
                                quant.storage_cast(w_u, wdt),
                                quant.storage_cast(w_d, wdt),
                                activation=activation, tiles=tiles)
+
+
+class StreamedMoE(torch.autograd.Function):
+    """The kernel forward with a straight-through backward (the reference's
+    ``_streamed_moe_diff``).  The forward quantizes or casts the detached
+    operands and launches the kernel; the backward differentiates
+    ``ref.streamed_moe_ref`` on the saved original operands, whatever the
+    streamed format, so 8-bit weights get the gradient of their fp32
+    values.  A gateless call (``w_g`` None) gets no ``w_g`` gradient."""
+
+    @staticmethod
+    def forward(ctx, xe, w_g, w_u, w_d, activation, wdt, tiles):
+        ctx.activation = activation
+        ctx.save_for_backward(xe, w_g, w_u, w_d)
+        w_g = None if w_g is None else w_g.contiguous()
+        return _streamed_moe_raw(xe.contiguous(), w_g, w_u.contiguous(),
+                                 w_d.contiguous(), activation, wdt, tiles)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = [None if t is None else t.detach().requires_grad_(True)
+                 for t in ctx.saved_tensors]
+        need = [t is not None and n
+                for t, n in zip(saved, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            y = ref.streamed_moe_ref(*saved, ctx.activation)
+            grads = iter(torch.autograd.grad(
+                y, [t for t, n in zip(saved, need) if n], g))
+        return (*(next(grads) if n else None for n in need), None, None,
+                None)
 
 
 def _streamed_format(weight_dtype=None):

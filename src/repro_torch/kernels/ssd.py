@@ -60,8 +60,9 @@ def _check(xc, Bc, Cc, Ac, A_cumsum):
         raise ValueError("all operands must lie on one device")
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in (xc, Bc, Cc, A_cumsum)):
-        raise NotImplementedError("the SSD kernel has no backward; "
-                                  "training is ROADMAP A.15")
+        raise NotImplementedError(
+            "the SSD kernel has no backward: the reference defines no "
+            "VJP for it and trains without it")
 
 
 def ssd_intra_chunk_kernel(xc, Bc, Cc, Ac, A_cumsum):

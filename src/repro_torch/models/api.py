@@ -10,6 +10,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device, torch_dtype
 from . import transformer, whisper
+from .layers import checkpointed
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device=None):
@@ -35,52 +36,43 @@ CE_CHUNK = 512
 
 
 def fused_xent(h, head, labels, ignore_label=-1):
-    """Unembed + mean cross-entropy, CE_CHUNK positions at a time, so the
-    full (B, S, V) fp32 logits are never held; a ragged tail is one more
-    chunk."""
+    """Unembed + mean cross-entropy, CE_CHUNK positions at a time, each
+    chunk recomputed in the backward, so the full (B, S, V) fp32 logits
+    are never held; a ragged tail is one more chunk."""
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for s0 in range(0, h.shape[1], CE_CHUNK):
-        t, c = _xent(h[:, s0:s0 + CE_CHUNK] @ head,
-                     labels[:, s0:s0 + CE_CHUNK], ignore_label)
+        t, c = checkpointed(_xent_chunk, h[:, s0:s0 + CE_CHUNK], head,
+                            labels[:, s0:s0 + CE_CHUNK], ignore_label)
         tot, cnt = tot + t, cnt + c
     return tot / torch.clamp(cnt, min=1.0)
 
 
-def leaves(tree, prefix=""):
-    """(path, tensor) for every tensor in a tree of dicts and sequences."""
-    if isinstance(tree, torch.Tensor):
-        yield prefix, tree
-    elif isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from leaves(v, f"{prefix}/{k}")
-    else:
-        for i, v in enumerate(tree):
-            yield from leaves(v, f"{prefix}/{i}")
+def _xent_chunk(h, head, labels, ignore_label):
+    return _xent(h @ head, labels, ignore_label)
 
 
-def loss_fn(params, batch, cfg: ModelConfig, *, spec=None, use_flash=False):
-    """Scoring loss (CE + MoE aux) over ``batch = {"tokens", "labels"}``
-    (labels -1 are not scored), with ``prefix_embeds`` in front of the
-    tokens (only the text positions are scored) or, for the
+def loss_fn(params, batch, cfg: ModelConfig, *, spec=None, remat=False,
+            use_flash=False):
+    """Training and scoring loss (CE + MoE aux) over ``batch = {"tokens",
+    "labels"}`` (labels -1 are not scored), with ``prefix_embeds`` in
+    front of the tokens (only the text positions are scored) or, for the
     encoder-decoder family, ``frames`` for the encoder.  Returns (loss,
-    {"ce", "aux"}).  Forward only: the backward belongs to the training
-    slice."""
-    if torch.is_grad_enabled() and any(t.requires_grad
-                                       for _, t in leaves(params)):
-        raise NotImplementedError("loss_fn is forward only; its backward "
-                                  "belongs to the training slice (ROADMAP "
-                                  "A.15): call it under torch.no_grad()")
+    {"ce", "aux"}).  Differentiable; ``remat`` recomputes each period's
+    (the encoder-decoder family: each layer's) activations in the
+    backward.  The flash kernel has no backward: train with ``use_flash``
+    off, as the reference does."""
     if cfg.is_encoder_decoder:
-        memory = whisper.encode(params, batch["frames"], cfg)
+        memory = whisper.encode(params, batch["frames"], cfg, remat=remat)
         h = whisper.decode_train(params, batch["tokens"], memory, cfg,
-                                 return_hidden=True)
+                                 remat=remat, return_hidden=True)
         ce = fused_xent(h, params["embed"].T, batch["labels"])
         return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}
     prefix = batch.get("prefix_embeds")
     h, aux = transformer.forward(params, batch["tokens"], cfg,
                                  prefix_embeds=prefix, spec=spec,
-                                 use_flash=use_flash, return_hidden=True)
+                                 use_flash=use_flash, remat=remat,
+                                 return_hidden=True)
     if prefix is not None:              # score the text positions only
         h = h[:, prefix.shape[1]:]
     ce = fused_xent(h, transformer.head_matrix(params), batch["labels"])

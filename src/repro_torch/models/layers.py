@@ -5,12 +5,16 @@ activations.
 Functions take tensors and parameter dicts; initializers take an
 explicit ``torch.Generator`` and ``device``.  Norm statistics and rotary
 angles are computed in fp32 and cast back, as in the reference.
+:func:`checkpointed` is the port's ``jax.checkpoint``.
 """
 from __future__ import annotations
+
+import contextvars
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 
 def normal(gen: torch.Generator, shape, *, scale: float, dtype, device):
@@ -119,3 +123,16 @@ def activation_fn(kind: str):
     if kind == "gelu":                # jax.nn.gelu's tanh approximation
         return lambda x: F.gelu(x, approximate="tanh")
     raise ValueError(kind)
+
+
+def checkpointed(fn, *args):
+    """``fn(*args)`` with its activations dropped after the forward and
+    recomputed in the backward (``jax.checkpoint``; non-reentrant
+    ``torch.utils.checkpoint``).  The recompute runs under the context
+    variables of this call (kernels on or off, sorted dispatch, the weight
+    format, the mesh), since the backward may run outside their scope.
+    With autograd off it is ``fn(*args)``."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return torch.utils.checkpoint.checkpoint(
+        contextvars.copy_context().run, fn, *args, use_reentrant=False)

@@ -33,7 +33,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import SSMConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import segsum, ssd_intra_chunk_ref
-from .layers import dense_init, normal
+from .layers import checkpointed, dense_init, normal
 
 
 class SSMState(NamedTuple):
@@ -63,6 +63,13 @@ def mamba2_init(gen, d_model, ssm: SSMConfig, dtype, device, lead=()):
         "D": torch.ones((*lead, nh), dtype=torch.float32, device=device),
         "dt_bias": dt_bias,
     }
+
+
+def _intra_chunk(xc, Bc, Cc, Ac, A_cumsum):
+    """One chunk's intra-chunk terms, the operands widened to fp32 here so
+    that a checkpoint saves them in the model dtype."""
+    return ssd_intra_chunk_ref(xc.float(), Bc.float(), Cc.float(), Ac,
+                               A_cumsum)
 
 
 def ssd_chunked(x, dt, A, Bm, Cm, chunk, initial_state=None, use_kernel=False):
@@ -99,12 +106,13 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk, initial_state=None, use_kernel=False):
             .reshape(b, nc, chunk, h, n)
         if nc >= 16:
             # long sequences: one chunk at a time, so only one (c, c) mask
-            # is live (O(nc c^2) -> O(c^2) memory)
+            # is live (O(nc c^2) -> O(c^2) memory), recomputed in the
+            # backward instead of saving every chunk's (c, c, h) scores
             ys, sts = [], []
             for i in range(nc):
-                yi, si = ssd_intra_chunk_ref(
-                    xc[:, i:i + 1].float(), Bc[:, i:i + 1].float(),
-                    Cc[:, i:i + 1].float(), Ac[:, :, i:i + 1],
+                yi, si = checkpointed(
+                    _intra_chunk, xc[:, i:i + 1], Bc[:, i:i + 1],
+                    Cc[:, i:i + 1], Ac[:, :, i:i + 1],
                     A_cumsum[:, :, i:i + 1])
                 ys.append(yi)
                 sts.append(si)

@@ -119,9 +119,6 @@ def moe_capacity(params, x2d, routing, moe: MoEConfig, activation,
     dtype: the reference's sorted path returns fp32, which would promote
     a bf16 residual stream, and the fused segments' buffers keep one
     dtype."""
-    if torch.is_grad_enabled() and x2d.requires_grad:
-        raise NotImplementedError("the streamed_moe backward belongs to the "
-                                  "training slice (ROADMAP A.15)")
     T, d = x2d.shape
     E = moe.num_experts
     C = moe.capacity_rows(T)
@@ -194,9 +191,6 @@ def moe_hybrid(params, x2d, routing, moe: MoEConfig, activation, *,
     through a stable sort on the device, so the fused segments need no
     new host input.  The ``hot_experts`` hottest form the fast-tier
     prefix, and canonical order is restored before the combine."""
-    if torch.is_grad_enabled() and x2d.requires_grad:
-        raise NotImplementedError("the streamed_moe backward belongs to the "
-                                  "training slice (ROADMAP A.15)")
     T, d = x2d.shape
     E = moe.num_experts
     C = moe.capacity_rows(T)

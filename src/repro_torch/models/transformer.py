@@ -26,7 +26,8 @@ from repro_torch.device import resolve_device, torch_dtype
 from . import attention as attn_mod
 from . import mamba2 as ssm_mod
 from . import moe as moe_mod
-from .layers import apply_norm, dense_init, embed_init, norm_init
+from .layers import (apply_norm, checkpointed, dense_init, embed_init,
+                     norm_init)
 from .mlp import ffn, ffn_init
 
 
@@ -192,24 +193,35 @@ def _apply_slot_full(slot, x, cfg: ModelConfig, mixer, ffn_kind, *,
 
 
 def forward(params, tokens, cfg: ModelConfig, *, prefix_embeds=None,
-            spec=None, use_flash=False, return_hidden=False):
+            spec=None, use_flash=False, remat=False, return_hidden=False):
     """tokens: (B, S) -> (logits (B, P + S, V) or, with ``return_hidden``,
     the final-normed hidden states (B, P + S, d); MoE aux loss summed over
     layers).  ``prefix_embeds`` (B, P, d) go in front of the tokens.
 
     ``spec``: MoE execution spec (strategy name / dict / ExecutionSpec),
     resolved per layer at phase ``train``.  ``use_flash``: attention
-    through the flash kernel."""
+    through the flash kernel.  ``remat``: each period's activations are
+    recomputed in the backward (the reference's ``jax.checkpoint`` of its
+    period body)."""
     _check_supported(cfg)
+    p, plan = period_plan(cfg)
     sp = _coerce_spec(spec)
     x = _embed(params, tokens, prefix_embeds)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
+
+    def period(c, x, aux):
+        for s, (mixer, ffn_kind) in enumerate(plan):
+            x, a = _apply_slot_full(_slot(params["periods"][s], c), x, cfg,
+                                    mixer, ffn_kind, positions=positions,
+                                    spec=sp, layer=c * p + s,
+                                    use_flash=use_flash)
+            aux = aux + a
+        return x, aux
+
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for layer, slot, mixer, ffn_kind in layer_slots(params, cfg):
-        x, a = _apply_slot_full(slot, x, cfg, mixer, ffn_kind,
-                                positions=positions, spec=sp, layer=layer,
-                                use_flash=use_flash)
-        aux = aux + a
+    for c in range(cfg.num_layers // p):
+        x, aux = checkpointed(period, c, x, aux) if remat \
+            else period(c, x, aux)
     x = apply_norm(cfg.norm, params["final_norm"], x)
     if return_hidden:
         return x, aux

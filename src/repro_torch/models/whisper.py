@@ -20,7 +20,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device, torch_dtype
 from . import attention as attn_mod
-from .layers import apply_norm, embed_init, norm_init, sinusoidal_positions
+from .layers import (apply_norm, checkpointed, embed_init, norm_init,
+                     sinusoidal_positions)
 from .mlp import ffn, ffn_init
 from .transformer import _slot as _layer
 
@@ -64,29 +65,36 @@ def _heads(cfg: ModelConfig):
                 head_dim=cfg.resolved_head_dim)
 
 
-def encode(params, frames, cfg: ModelConfig):
-    """frames: (B, F, d) precomputed embeddings -> memory (B, F, d)."""
+def encode(params, frames, cfg: ModelConfig, remat: bool = False):
+    """frames: (B, F, d) precomputed embeddings -> memory (B, F, d).
+    ``remat``: each layer's activations are recomputed in the backward."""
     F = frames.shape[1]
     x = frames + sinusoidal_positions(F, cfg.d_model, frames.device) \
         .to(frames.dtype)[None]
-    for i in range(cfg.encoder_layers):
+
+    def layer(i, x):
         lp = _layer(params["enc_layers"], i)
         h = apply_norm(cfg.norm, lp["norm1"], x)
         x = x + attn_mod.attention(lp["attn"], h, rope_theta=0.0,
                                    causal=False, **_heads(cfg))
         h = apply_norm(cfg.norm, lp["norm2"], x)
-        x = x + ffn(lp["ffn"], h, cfg.activation)
+        return x + ffn(lp["ffn"], h, cfg.activation)
+
+    for i in range(cfg.encoder_layers):
+        x = checkpointed(layer, i, x) if remat else layer(i, x)
     return apply_norm(cfg.norm, params["enc_norm"], x)
 
 
 def decode_train(params, tokens, memory, cfg: ModelConfig,
-                 return_hidden: bool = False):
+                 remat: bool = False, return_hidden: bool = False):
     """Teacher-forced decoder. tokens: (B, S); memory: (B, F, d) -> logits
-    (B, S, V), or the final-normed hidden states with ``return_hidden``."""
+    (B, S, V), or the final-normed hidden states with ``return_hidden``.
+    ``remat``: each layer's activations are recomputed in the backward."""
     S = tokens.shape[1]
     x = params["embed"][tokens]
     x = x + sinusoidal_positions(S, cfg.d_model, x.device).to(x.dtype)[None]
-    for i in range(cfg.num_layers):
+
+    def layer(i, x, memory):
         lp = _layer(params["dec_layers"], i)
         h = apply_norm(cfg.norm, lp["norm1"], x)
         x = x + attn_mod.attention(lp["self_attn"], h, rope_theta=0.0,
@@ -95,7 +103,11 @@ def decode_train(params, tokens, memory, cfg: ModelConfig,
         x = x + attn_mod.cross_attention(lp["cross_attn"], h, memory,
                                          **_heads(cfg))
         h = apply_norm(cfg.norm, lp["norm2"], x)
-        x = x + ffn(lp["ffn"], h, cfg.activation)
+        return x + ffn(lp["ffn"], h, cfg.activation)
+
+    for i in range(cfg.num_layers):
+        x = checkpointed(layer, i, x, memory) if remat \
+            else layer(i, x, memory)
     x = apply_norm(cfg.norm, params["dec_norm"], x)
     if return_hidden:
         return x

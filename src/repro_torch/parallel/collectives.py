@@ -9,7 +9,19 @@ card, where NCCL cannot run) each collective copies its payload to a
 host buffer, runs there and copies the result back to the card.  That
 transport, ``gloo-host``, moves the same values; only the compute stays
 on the card, and its times are no ring's speed.  ``COUNTS`` counts the
-collectives this process issued, by name.
+collectives this process issued, by name, backward ones included.
+
+**Gradients.**  Each collective is differentiable, its backward the
+transpose of its forward as a linear map over all the ranks' inputs:
+the ring shift's is the shift back, the all-to-all's the all-to-all
+back, the all-gather's the reduce-scatter (each rank keeps its slice of
+the sum over the axis) and the sum's the sum (``shard_map``'s transposes
+with replication checks off).  A rank's backward so gives the gradient
+of the sum of every rank's loss with respect to its own inputs: a rank
+takes its share of the loss (its own rows, or a replicated loss divided
+by the ranks that hold it), and a parameter every rank holds gets its
+gradient summed over the ranks by :func:`psum_grads`, as a data-parallel
+trainer sums them.  The backward runs its collectives synchronously.
 """
 from __future__ import annotations
 
@@ -37,66 +49,143 @@ def _host(t: torch.Tensor, backend: str) -> torch.Tensor:
 
 class RingShift:
     """Receives posted by :func:`ring_shift`; ``wait()`` returns them on
-    the payloads' device."""
+    the payloads' device (differentiable when a payload requires grad)."""
 
-    def __init__(self, works, recvs, sends, device):
-        self._works, self._recvs, self._device = works, recvs, device
+    def __init__(self, works, recvs, sends, tensors, mesh, axis, reverse):
+        self._works, self._recvs = works, recvs
         self._sends = sends          # kept alive until the sends complete
+        self._tensors, self._mesh, self._axis = tensors, mesh, axis
+        self._reverse = reverse
 
     def wait(self) -> List[torch.Tensor]:
         for w in self._works:
             w.wait()
         self._sends = None
-        return [r.to(self._device) for r in self._recvs]
+        device = self._tensors[0].device
+        recvs = [r.to(device) for r in self._recvs]
+        if not (torch.is_grad_enabled()
+                and any(t.requires_grad for t in self._tensors)):
+            return recvs
+        return list(_Shifted.apply(self._mesh, self._axis, self._reverse,
+                                   recvs, *self._tensors))
 
 
-def ring_shift(tensors: Sequence[torch.Tensor], mesh,
-               axis: str) -> RingShift:
+class _Shifted(torch.autograd.Function):
+    """The received payloads of a ring shift as a function of the sent
+    ones; the backward shifts the gradients back the other way."""
+
+    @staticmethod
+    def forward(ctx, mesh, axis, reverse, recvs, *sent):
+        ctx.mesh, ctx.axis, ctx.reverse = mesh, axis, reverse
+        return tuple(recvs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        back = ring_shift(grads, ctx.mesh, ctx.axis,
+                          reverse=not ctx.reverse).wait()
+        return (None, None, None, None, *back)
+
+
+def ring_shift(tensors: Sequence[torch.Tensor], mesh, axis: str, *,
+               reverse: bool = False) -> RingShift:
     """Post the sends of ``tensors`` to the next rank of the ``axis`` ring,
     (i + 1) % P, and the receives of the previous rank's, without
-    waiting: the reference's ``ppermute`` over ``[(i, (i + 1) % P)]``."""
+    waiting: the reference's ``ppermute`` over ``[(i, (i + 1) % P)]``.
+    ``reverse`` shifts the other way."""
     group = mesh.group(axis)
     backend = dist.get_backend(group)
     line, i = mesh.line(axis), mesh.index(axis)
-    nxt, prv = line[(i + 1) % len(line)], line[(i - 1) % len(line)]
-    sends = [_host(t, backend) for t in tensors]
+    step = -1 if reverse else 1
+    nxt, prv = line[(i + step) % len(line)], line[(i - step) % len(line)]
+    sends = [_host(t.detach(), backend) for t in tensors]
     recvs = [torch.empty_like(s) for s in sends]
     ops = [dist.P2POp(dist.isend, s, nxt, group) for s in sends]
     ops += [dist.P2POp(dist.irecv, r, prv, group) for r in recvs]
     COUNTS["ring_shift"] += 1
     return RingShift(dist.batch_isend_irecv(ops), recvs, sends,
-                     tensors[0].device)
+                     list(tensors), mesh, axis, reverse)
+
+
+def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+    buf = _host(t.detach(), dist.get_backend(group)).clone()
+    dist.all_reduce(buf, group=group)
+    COUNTS["psum"] += 1
+    return buf.to(t.device)
+
+
+def _all_to_all(t: torch.Tensor, group) -> torch.Tensor:
+    src = _host(t.detach(), dist.get_backend(group))
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=group)
+    COUNTS["all_to_all"] += 1
+    return out.to(t.device)
+
+
+def _all_gather(t: torch.Tensor, group, P: int, dim: int) -> torch.Tensor:
+    src = _host(t.detach(), dist.get_backend(group))
+    parts = [torch.empty_like(src) for _ in range(P)]
+    dist.all_gather(parts, src, group=group)
+    COUNTS["all_gather"] += 1
+    return torch.cat(parts, dim).to(t.device)
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return _all_reduce(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return _all_to_all(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g.contiguous(), ctx.group), None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, P, index, dim):
+        ctx.group, ctx.index, ctx.dim, ctx.n = group, index, dim, t.shape[dim]
+        return _all_gather(t, group, P, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        total = _all_reduce(g, ctx.group)
+        return (total.narrow(ctx.dim, ctx.index * ctx.n, ctx.n),
+                None, None, None, None)
 
 
 def psum(t: torch.Tensor, mesh, axis: Optional[str] = None) -> torch.Tensor:
     """Sum over the ``axis`` line (``None``: over the whole mesh)."""
-    group = None if axis is None else mesh.group(axis)
-    buf = _host(t, dist.get_backend(group)).clone()
-    dist.all_reduce(buf, group=group)
-    COUNTS["psum"] += 1
-    return buf.to(t.device)
+    return _Psum.apply(t, None if axis is None else mesh.group(axis))
 
 
 def all_to_all(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     """Split ``t`` along dim 0 into P equal chunks, send chunk j to rank j
     of the ``axis`` line and stack what arrives in rank order (the
     reference's tiled ``all_to_all`` over dim 0)."""
-    backend = dist.get_backend(mesh.group(axis))
-    src = _host(t, backend)
-    out = torch.empty_like(src)
-    dist.all_to_all_single(out, src, group=mesh.group(axis))
-    COUNTS["all_to_all"] += 1
-    return out.to(t.device)
+    return _AllToAll.apply(t, mesh.group(axis))
 
 
 def all_gather(t: torch.Tensor, mesh, axis: str, dim: int = 0
                ) -> torch.Tensor:
     """The ``axis`` line's tensors, concatenated along ``dim`` in rank
     order."""
-    group = mesh.group(axis)
-    P = mesh.size(axis)
-    src = _host(t, dist.get_backend(group))
-    parts = [torch.empty_like(src) for _ in range(P)]
-    dist.all_gather(parts, src, group=group)
-    COUNTS["all_gather"] += 1
-    return torch.cat(parts, dim).to(t.device)
+    return _AllGather.apply(t, mesh.group(axis), mesh.size(axis),
+                            mesh.index(axis), dim)
+
+
+def psum_grads(grads, mesh):
+    """Each gradient summed over every rank of the mesh: the gradient of a
+    parameter that every rank holds.  ``grads`` is a sequence of tensors
+    (None kept); -> a list."""
+    return [None if g is None else _all_reduce(g, None) for g in grads]

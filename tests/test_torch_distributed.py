@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import tree
 from repro_torch.configs import reduced_config
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.models import api
@@ -90,8 +91,8 @@ def _inputs():
     out["tokens"] = tokens
     out["labels"] = np.concatenate([tokens[:, 1:], np.full((B, 1), -1)], 1)
     params = api.init_params(cfg, seed=0, device="cpu")
-    for path, t in api.leaves(params):
-        out["granite" + path] = t.numpy()
+    for path, t in tree.leaves_with_path(params):
+        out["granite/" + path] = t.numpy()
     return out
 
 
@@ -105,13 +106,13 @@ def _moe_params(arrays, act, to):
 
 
 def _unflatten(arrays, prefix, to):
-    """The ``prefix`` leaves of ``api.leaves`` paths back into a tree
-    (levels with integer keys become tuples)."""
-    tree = {}
+    """The ``prefix`` leaves of ``tree.leaves_with_path`` paths back into
+    a tree (levels with integer keys become tuples)."""
+    root = {}
     for key, v in arrays.items():
         if not key.startswith(prefix + "/"):
             continue
-        node, parts = tree, key[len(prefix) + 1:].split("/")
+        node, parts = root, key[len(prefix) + 1:].split("/")
         for p in parts[:-1]:
             node = node.setdefault(p, {})
         node[parts[-1]] = to(v)
@@ -123,7 +124,7 @@ def _unflatten(arrays, prefix, to):
         if n and all(k.isdigit() for k in n):
             return tuple(n[str(i)] for i in range(len(n)))
         return n
-    return fix(tree)
+    return fix(root)
 
 
 # ---------------------------------------------------------------------------
@@ -376,12 +377,25 @@ def test_mesh_context_without_ranks():
 
 
 def test_distributed_bodies_refuse_autograd():
-    """Their backward belongs to the training slice."""
+    """The bodies' grouped GEMM is differentiable: its gradients are the
+    reference oracle's VJP (the streamed_moe backward), to fp32 rounding.
+    (The name is the test's from when the port had no backward and the
+    bodies raised under autograd.)"""
     from repro_torch.core import fse_dp
-    xe = torch.zeros((2, 3, 8), requires_grad=True)
-    w = torch.zeros((2, 8, 4))
-    with pytest.raises(NotImplementedError, match="A.15"):
-        fse_dp._expert_partial(xe, None, w, w.transpose(1, 2), "relu2")
+    from repro_torch.kernels import ref
+    g = torch.Generator().manual_seed(0)
+    xe = torch.randn((2, 3, 8), generator=g, requires_grad=True)
+    wu = torch.randn((2, 8, 4), generator=g, requires_grad=True)
+    wd = torch.randn((2, 4, 8), generator=g, requires_grad=True)
+    got = torch.autograd.grad(
+        fse_dp._expert_partial(xe, None, wu, wd, "relu2").square().sum(),
+        (xe, wu, wd))
+    want = torch.autograd.grad(
+        ref.streamed_moe_ref(xe, None, wu, wd, "relu2").square().sum(),
+        (xe, wu, wd))
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
+                                   atol=1e-6)
 
 
 def test_layer_overrides_match_forced_layers(runs):

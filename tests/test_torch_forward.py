@@ -5,8 +5,8 @@ through the flash kernel on both sides: Pallas in interpret mode, the
 port's plain version) and reduced mamba2-370m, fp32, the same weights
 (JAX init, bridged leaf for leaf) and tokens: ``transformer.forward``
 logits and hidden states, the MoE aux loss and ``api.loss_fn`` agree
-within 1e-4 (both accumulate in fp32, in other orders).  ``loss_fn`` is
-forward only and raises under autograd.
+within 1e-4 (both accumulate in fp32, in other orders).  ``loss_fn``
+runs under autograd (its gradients: ``test_torch_train_loss.py``).
 """
 import jax
 import jax.numpy as jnp
@@ -92,13 +92,17 @@ def test_fused_xent_chunks_match_one_pass():
 
 
 def test_loss_fn_raises_under_autograd():
+    """loss_fn under autograd: the same loss as under no_grad, bit for
+    bit, and finite gradients.  (The name is the test's from when the
+    port had no backward and loss_fn raised here.)"""
     _, cfg, _, params = _setup("mamba2-370m")
     tokens, labels = _batch(cfg, 1, 32, seed=0)
     params["embed"].requires_grad_(True)
     batch = {"tokens": torch.from_numpy(tokens),
              "labels": torch.from_numpy(labels)}
-    with pytest.raises(NotImplementedError, match="A.15"):
-        api.loss_fn(params, batch, cfg)
+    loss, _ = api.loss_fn(params, batch, cfg)
+    (grad,) = torch.autograd.grad(loss, [params["embed"]])
+    assert torch.isfinite(grad).all() and grad.abs().max() > 0
     with torch.no_grad():
-        loss, _ = api.loss_fn(params, batch, cfg)
-    assert torch.isfinite(loss)
+        loss_ng, _ = api.loss_fn(params, batch, cfg)
+    assert torch.isfinite(loss) and torch.equal(loss.detach(), loss_ng)

@@ -46,11 +46,11 @@ from repro.serving import Engine as JEngine
 from repro.serving import ServeConfig as JServeConfig
 from repro.serving import statepool as jstatepool
 from repro.sim import hardware as jhw
-from repro_torch import bridge
+from repro_torch import bridge, tree
 from repro_torch.configs import SSMConfig, reduced_config
 from repro_torch.kernels import ssd
 from repro_torch.launch import serve
-from repro_torch.models import api, mamba2, transformer
+from repro_torch.models import mamba2, transformer
 from repro_torch.serving import Engine, ServeConfig, statepool
 from repro_torch.sim import hardware
 
@@ -312,7 +312,7 @@ def test_bridge_copies_ssm_trees_leaf_for_leaf(models, arch):
         np.testing.assert_array_equal(bridge.to_numpy(node),
                                       np.asarray(leaf, np.float32))
         n += 1
-    assert n == sum(1 for _ in api.leaves(params))
+    assert n == len(tree.leaves(params))
     for s, (mixer, _) in enumerate(plan):
         assert ("ssm" in params["periods"][s]) == (mixer == "ssm")
 

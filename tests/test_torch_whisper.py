@@ -18,7 +18,7 @@ import torch
 from repro.configs import reduced_config as jreduced
 from repro.models import api as japi
 from repro.models import whisper as jwhisper
-from repro_torch import bridge
+from repro_torch import bridge, tree
 from repro_torch.configs import reduced_config
 from repro_torch.launch import serve
 from repro_torch.models import api, transformer, whisper
@@ -58,7 +58,7 @@ def test_bridge_copies_the_whisper_tree(model):
     init draws the same tree (keys, shapes, dtypes)."""
     jcfg, cfg, jparams, params = model
     flat = dict(jax.tree_util.tree_leaves_with_path(jparams))
-    assert len(flat) == sum(1 for _ in api.leaves(params))
+    assert len(flat) == len(tree.leaves(params))
     for path, leaf in flat.items():
         node = params
         for p in path:
@@ -68,9 +68,9 @@ def test_bridge_copies_the_whisper_tree(model):
     assert tuple(params["enc_layers"]["norm1"]["bias"].shape) == \
         (cfg.encoder_layers, cfg.d_model)
     own = api.init_params(cfg, seed=0, device="cpu")
-    assert sorted((k, tuple(t.shape), t.dtype) for k, t in api.leaves(own)) \
+    assert sorted((k, tuple(t.shape), t.dtype) for k, t in tree.leaves_with_path(own)) \
         == sorted((k, tuple(t.shape), t.dtype)
-                  for k, t in api.leaves(params))
+                  for k, t in tree.leaves_with_path(params))
 
 
 def test_encode_and_decode_train_match_reference(model):
