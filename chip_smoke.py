@@ -215,6 +215,25 @@ train. (run after dist2) the training slice: (a) ``training.train`` on
    ``tp`` at P = 2, on gloo ranks sharing the card: every rank's weight
    gradients within rtol 5e-3, atol 5e-4 of one rank's ``capacity``
    gradients;
+mesh. (run after train) the mesh machinery: streamed_moe timed alone at
+   the ring's per-rank call of (a) (E = 32, C = 320, d = 1024, m = 16);
+   (a) ``launch.steps.build_train_step`` on granite at full width and
+   depth, bf16, remat, lr 1e-4, on a (2, 2) ("data", "model") mesh of 4
+   gloo ranks sharing the card (gloo-host), 5 steps of 2 x 2048
+   SyntheticLM tokens (a row a data group): finite losses, the same on
+   every rank, each rank's streamed_moe launches a step exactly its
+   plan's (forward and recompute), each rank storing the d_expert slice
+   of every expert; stored bytes of params + AdamW state a rank against
+   one device's, peak memory by rank, the median step; (b) fp32 at 4
+   layers, drop-free, aux coefficient 0, one step with fsdp off and
+   forced on against one device's step: every gathered leaf of params,
+   m and v within 2e-4 of its max, the loss within 1e-5 relative; (c) a
+   checkpoint saved from (2, 2) restored onto (1, 4) and onto one device
+   bit for bit; (d) the dry run: 15 reduced cells (granite, Jamba,
+   mamba2-370m, Whisper, InternVL2 x train / prefill / decode at (64,
+   8)) on a (2, 4) mesh of 8 ranks on the card, all ok, and shape-only
+   every assigned arch x shape on pod16x16 / pod2x16x16 with no error;
+   ``python3 chip_smoke.py --only mesh`` runs it alone after the build;
 16. summary: one ``{"kernels": [...]}`` JSON line with one entry per
     kernel and path (``streamed_moe`` on the serve path in bf16 and in fp8,
     on the chunked-prefill path of the traffic run (``serve_chunked``, C =
@@ -233,8 +252,10 @@ train. (run after dist2) the training slice: (a) ``training.train`` on
     streamed_moe on the no-spec granite loss of phase dist1
     (``dist1_loss``), on the ring of phase dist2 at phase 3r's widths
     (``ring_granite_p8_m64`` ... ``_m4``, ``ring_deepseek_p8_m88``, the
-    launches of all 8 ranks), and on the training path (``train``, phase
-    train (a), with the C = 1280 row's times)),
+    launches of all 8 ranks), on the training path (``train``, phase
+    train (a), with the C = 1280 row's times), and on the mesh train step
+    (``mesh_train``, phase mesh (a), the launches of all 4 ranks, with
+    the per-rank call's times)),
     each with that path's launches and its shape's times (``ms`` one call
     with its host work, ``device_ms`` the device time per call) and bound,
     and for streamed_moe the tile setting the path ran (``tiles``); the
@@ -4025,12 +4046,367 @@ def _dist_grad_rank(rank, world, shape):
                 for case, g in got.items()}}
 
 
+# ---------------------------------------------------------------------------
+# phase mesh: the mesh machinery (ROADMAP A.15b)
+# ---------------------------------------------------------------------------
+
+# (a) launch.steps.build_train_step on granite at full width and depth,
+# bf16, remat, on a MESH_SHAPE ("data", "model") mesh of gloo ranks sharing
+# the card (the gloo-host transport): MESH_B x MESH_S SyntheticLM tokens a
+# step, one row a data group, AdamW at MESH_LR, MESH_STEPS steps
+MESH_SHAPE = (2, 2)
+MESH_B, MESH_S, MESH_STEPS, MESH_LR = 2, 2048, 5, 1e-4
+# (b) the same granite in fp32 at MESH_GRAD_LAYERS layers (widths not cut),
+# one step on MESH_SHAPE with fsdp off and forced on, against one device's
+# step (loss_fn's gradients and adamw.apply): every gathered leaf of the
+# params, m and v within MESH_LEAF_TOL of the leaf's max |.|, the loss
+# within MESH_LOSS_TOL relative.  Drop-free (capacity factor E / k: a rank
+# sizes its capacity from its own tokens) and with aux_loss_coef 0 (on a
+# mesh the FSE-DP load-balance loss is the mean of each rank's own, the
+# reference's pmean_all, not one device's)
+MESH_GRAD_LAYERS = 4
+MESH_LEAF_TOL, MESH_LOSS_TOL = 2e-4, 1e-5
+# (d) the dry run on DRY_MESH ranks: the five archs of the reference's
+# tests/distributed_scripts/dryrun_small.py, reduced, x train / prefill /
+# decode at (seq 64, batch 8)
+DRY_MESH = (2, 4)
+DRY_ARCHS = ("granite-moe-1b-a400m", "jamba-v0.1-52b", "mamba2-370m",
+             "whisper-base", "internvl2-2b")
+
+
+def _tree_bytes(t):
+    from repro_torch import tree
+    return sum(x.numel() * x.element_size() for x in tree.leaves(t))
+
+
+class _Margins:
+    """Patches ``gating.route`` while entered: the smallest gap between
+    the k-th and the (k+1)-th router probability of any token (a top-k
+    choice another run's last bits could flip only below that)."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.core import gating
+        self._orig = orig = gating.route
+        self.least = float("inf")
+
+        def route(params, x, *, top_k):
+            r = orig(params, x, top_k=top_k)
+            top = torch.topk(r.probs.float(), top_k + 1, dim=-1).values
+            self.least = min(self.least, (top[:, top_k - 1]
+                                          - top[:, top_k]).min().item())
+            return r
+        gating.route = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import gating
+        gating.route = self._orig
+
+
+def _mesh_train(mesh, cfg):
+    """(a) on this rank -> its record."""
+    import torch
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.core import autotune
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels import quant
+    from repro_torch.kernels import streamed_moe as sm
+    from repro_torch.launch import specs, steps
+    from repro_torch.models import api
+    from repro_torch.optim import adamw
+    shape = ShapeSpec("mesh_train", MESH_S, MESH_B, "train")
+    fn, (psh, osh, bsh), _, (pstruct, ostruct, _) = steps.build_train_step(
+        cfg, shape, mesh, lr=MESH_LR, remat=True)
+    full = api.init_params(cfg, seed=0, device="cuda")
+    params = steps.shard_tree(full, psh)
+    del full
+    torch.cuda.empty_cache()
+    opt = adamw.init(params, state_dtype=steps.state_dtype(cfg))
+    P = mesh.size("model")
+    plan = autotune.plan_moe(MESH_B // mesh.size("data"), MESH_S,
+                             cfg.d_model, cfg.moe, cfg.activation, P,
+                             dtype_bytes=2, weight_bytes=quant.weight_bytes())
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=MESH_S,
+                                  global_batch=MESH_B, seed=0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sm.LAUNCHES = 0
+    losses, secs, launches = [], [], []
+    for step in range(MESH_STEPS):
+        batch = steps.shard_tree({k: torch.from_numpy(v).cuda() for k, v
+                                  in data.batch(step).items()}, bsh)
+        torch.cuda.synchronize()
+        n0, t0 = sm.LAUNCHES, time.perf_counter()
+        params, opt, loss = fn(params, opt, batch)
+        losses.append(loss.item())
+        secs.append(time.perf_counter() - t0)
+        launches.append(sm.LAUNCHES - n0)
+    w_up = params["periods"][0]["moe"]["w_up"]
+    rec = dict(losses=losses, secs=secs, launches=launches,
+               want=2 * _n_moe(cfg) * _want_launches(plan, P),
+               plan=(plan.mode, plan.micro_slices, plan.tiles),
+               stored=_tree_bytes((params, opt)),
+               one_device=_tree_bytes((pstruct, ostruct)),
+               w_up=tuple(w_up.shape), peak=torch.cuda.max_memory_allocated())
+    del params, opt, batch
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _leaf_worst(got, want):
+    """(worst path, max |got - want| / max |want| there) over two trees."""
+    from repro_torch import tree
+    worst = ("", 0.0)
+    for (k, g), w in zip(tree.leaves_with_path(got), tree.leaves(want)):
+        e = ((g.float() - w.float()).abs().max()
+             / w.float().abs().max().clamp(min=1e-30)).item()
+        if e > worst[1] or not math.isfinite(e):
+            worst = (k, e)
+    return worst
+
+
+def _mesh_parity(mesh, cfg, ckpt_dir):
+    """(b) and (c) on this rank -> its record (rank 0's holds the
+    comparisons)."""
+    import dataclasses
+    import torch
+    from repro_torch import tree
+    from repro_torch.checkpointing import manager
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch import specs, steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import api
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding as shd
+    moe = cfg.moe
+    cfg = cfg.replace(dtype="float32", num_layers=MESH_GRAD_LAYERS,
+                      moe=dataclasses.replace(
+                          moe, aux_loss_coef=0.0,
+                          capacity_factor=moe.num_experts / moe.top_k))
+    shape = ShapeSpec("mesh_parity", MESH_S, MESH_B, "train")
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=MESH_S,
+                                  global_batch=MESH_B, seed=0))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in data.batch(0).items()}
+    rec, want = {}, None
+    if mesh.rank == 0:        # one device's step, kernels on (capacity)
+        params = api.init_params(cfg, seed=0, device="cuda")
+        leaves = tree.leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        with _Margins() as mg:          # the recompute routes again
+            loss, _ = api.loss_fn(params, {k: v.long() for k, v in
+                                           batch.items()}, cfg, remat=True)
+            grads = torch.autograd.grad(loss, leaves)
+        opt = adamw.init(params)
+        adamw.apply(params, tree.unflatten(params, list(grads)), opt,
+                    lr=MESH_LR)
+        want = (loss.item(), params, opt.m, opt.v)
+        rec["margin"] = mg.least
+        del grads
+    for fsdp in (False, True):
+        fn, (psh, osh, bsh), _, _ = steps.train_step_for(
+            cfg, shape, mesh, fsdp=fsdp, lr=MESH_LR, remat=True)
+        full = api.init_params(cfg, seed=0, device="cuda")
+        params = steps.shard_tree(full, psh)
+        opt = steps.shard_tree(adamw.init(full), osh)
+        del full
+        params, opt, loss = fn(params, opt, steps.shard_tree(batch, bsh))
+        got = (steps.gather_tree(params, psh), steps.gather_tree(opt.m, psh),
+               steps.gather_tree(opt.v, psh))
+        if want is not None:
+            rec[fsdp] = dict(
+                loss=loss.item(), want_loss=want[0],
+                **{part: _leaf_worst(g, w) for part, g, w in
+                   zip(("params", "m", "v"), got, want[1:])})
+        if not fsdp:          # (c) the elastic checkpoint
+            t0 = time.perf_counter()
+            manager.save(ckpt_dir, 1, params, shardings=psh)
+            saved = got[0]
+            mesh14 = make_mesh((1, 4), ("data", "model"))
+            psh14 = shd.param_shardings(specs.params_struct(cfg), mesh14,
+                                        fsdp=False)
+            blocks, _, _ = manager.restore(ckpt_dir, saved, shardings=psh14)
+            back = steps.gather_tree(blocks, psh14)
+            rec["restore_1x4"] = all(torch.equal(a, b) for a, b in zip(
+                tree.leaves(back), tree.leaves(saved)))
+            if mesh.rank == 0:
+                one, _, _ = manager.restore(ckpt_dir, saved)
+                rec["restore_one"] = all(torch.equal(a, b) for a, b in zip(
+                    tree.leaves(one), tree.leaves(saved)))
+                del one
+            rec["ckpt_s"] = time.perf_counter() - t0
+            del blocks, back
+        del params, opt, got
+        torch.cuda.empty_cache()
+    return rec
+
+
+def _mesh_rank(rank, world, ckpt_dir):
+    """One gloo rank of phase mesh: (a), then (b) and (c)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import collectives
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(MESH_SHAPE, ("data", "model"))
+    cfg = get_config(ARCH)
+    t0 = time.perf_counter()
+    out = {"transport": collectives.transport(mesh, "model", "cuda"),
+           "train": _mesh_train(mesh, cfg)}
+    out["train_s"] = time.perf_counter() - t0
+    out["parity"] = _mesh_parity(mesh, cfg, ckpt_dir)
+    out["total_s"] = time.perf_counter() - t0
+    return out
+
+
+def phase_mesh():
+    """Phase mesh: (a) the sharded train step on full-width granite on a
+    (2, 2) mesh of gloo ranks sharing the card, (b) its fp32 parity with
+    one device's step, fsdp off and on, (c) a checkpoint saved from (2, 2)
+    restored onto one device and onto (1, 4), (d) the dry run on 8 ranks
+    and shape-only on the production meshes.  -> (the kernels line's
+    mesh_train row, the streamed_moe launches of (a))."""
+    import tempfile
+    import torch
+    from repro_torch.configs import ASSIGNED_ARCHS, get_config
+    from repro_torch.configs.shapes import SHAPE_ORDER
+    from repro_torch.core import autotune
+    from repro_torch.kernels import quant
+    from repro_torch.launch import dryrun
+    from repro_torch.parallel import localrun
+    t_phase = time.perf_counter()
+    cfg = get_config(ARCH)
+    mcfg = cfg.moe
+    P, n_data = MESH_SHAPE[1], MESH_SHAPE[0]
+    plan = autotune.plan_moe(MESH_B // n_data, MESH_S, cfg.d_model, mcfg,
+                             cfg.activation, P, dtype_bytes=2,
+                             weight_bytes=quant.weight_bytes())
+    # the per-rank call of the ring at the plan's width, timed alone
+    T_loc = MESH_B // n_data * MESH_S // P if plan.mode == "stream" else \
+        MESH_B // n_data * MESH_S
+    m = mcfg.d_expert // (P * plan.micro_slices)
+    row, line = _width_case(mcfg.num_experts, mcfg.capacity_rows(T_loc),
+                            cfg.d_model, m, "bf16",
+                            f"mesh_train P={P} {plan.mode} micro-slices "
+                            f"{plan.micro_slices}")
+    log("mesh", line)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as ckpt:
+        ranks = localrun.run(_mesh_rank, math.prod(MESH_SHAPE), ckpt)
+    wall = time.perf_counter() - t0
+    a = [r["train"] for r in ranks]
+    losses = [r["losses"] for r in a]
+    med = statistics.median(s for r in a for s in r["secs"][1:])
+    T = MESH_B * MESH_S
+    line = (f"{ARCH} full width and depth, bf16, remat, build_train_step on "
+            f"a {MESH_SHAPE} (data, model) mesh of gloo ranks on the card "
+            f"({ranks[0]['transport']}), fse_dp plan {a[0]['plan']}: "
+            f"{MESH_STEPS} steps of {MESH_B} x {MESH_S} tokens (lr "
+            f"{MESH_LR:g}); losses {[round(v, 4) for v in losses[0]]}, "
+            f"the same on every rank {all(l == losses[0] for l in losses)}; "
+            f"median step {med:.3f}s over steps 2-{MESH_STEPS} = "
+            f"{T / med:.0f} tok/s (gloo through host memory: no link "
+            f"speed); streamed_moe launches a step by rank "
+            f"{[r['launches'] for r in a]} (want {a[0]['want']}: forward + "
+            f"remat recompute, {_n_moe(cfg)} MoE layers x "
+            f"{_want_launches(plan, P)}); stored params + AdamW state a rank "
+            f"{[round(r['stored'] / 1e9, 3) for r in a]} GB vs one device's "
+            f"{a[0]['one_device'] / 1e9:.3f} GB ({a[0]['stored'] / a[0]['one_device']:.3f}); "
+            f"w_up block {a[0]['w_up']} (d_expert {mcfg.d_expert} over "
+            f"{P}); peak memory by rank "
+            f"{[round(r['peak'] / 2**30, 2) for r in a]} GiB; the ranks' "
+            f"(a) {max(r['train_s'] for r in ranks):.1f}s, all of it "
+            f"{wall:.1f}s")
+    finite = all(math.isfinite(v) for v in losses[0])
+    if not finite or any(l != losses[0] for l in losses) or any(
+            n != r["want"] for r in a for n in r["launches"]) or any(
+            r["w_up"][-1] != mcfg.d_expert // P for r in a):
+        fail("mesh", line)
+    log("mesh", line)
+    b = ranks[0]["parity"]
+    for fsdp in (False, True):
+        c = b[fsdp]
+        rel = abs(c["loss"] - c["want_loss"]) / abs(c["want_loss"])
+        line = (f"fp32 {MESH_GRAD_LAYERS} layers, one step on {MESH_SHAPE}, "
+                f"fsdp {'on' if fsdp else 'off'}, vs one device's step: loss "
+                f"{c['loss']:.6f} vs {c['want_loss']:.6f} (rel {rel:.3e}, "
+                f"tol {MESH_LOSS_TOL:g}); worst leaf of params "
+                f"{c['params'][0]} {c['params'][1]:.3e}, m {c['m'][0]} "
+                f"{c['m'][1]:.3e}, v {c['v'][0]} {c['v'][1]:.3e} of its max "
+                f"(tol {MESH_LEAF_TOL:g}); the one-device run's least top-k "
+                f"margin {b['margin']:.3e}")
+        if rel > MESH_LOSS_TOL or max(c[p][1] for p in ("params", "m", "v")) \
+                > MESH_LEAF_TOL:
+            fail("mesh", line)
+        log("mesh", line)
+    ok = all(r["parity"]["restore_1x4"] for r in ranks) and \
+        b["restore_one"]
+    line = (f"checkpoint saved from {MESH_SHAPE}, restored onto (1, 4) and "
+            f"onto one device: bit for bit {ok} "
+            f"({max(r['parity']['ckpt_s'] for r in ranks):.1f}s)")
+    if not ok:
+        fail("mesh", line)
+    log("mesh", line)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        recs = dryrun.run_on_ranks([(x, s) for x in DRY_ARCHS
+                                    for s in dryrun.SMALL_ORDER], DRY_MESH,
+                                   device="cuda", out_dir=out, verbose=False)
+        for r in recs:
+            line = (f"dry run {r['arch']} {r['kind']} on {DRY_MESH} ranks: "
+                    f"{r['status']}" + (
+                        f", step {r['step_s']:.2f}s, args "
+                        f"{r['per_device_bytes']} B, peak "
+                        f"{r['peak_bytes']} B, flops "
+                        f"{r['cost_flops_per_device']:.3e}, collectives "
+                        f"{r['collectives_per_device']['total']:.3e} B a rank"
+                        if r["status"] == "ok" else f": {r.get('error')}"))
+            if r["status"] != "ok":
+                fail("mesh", line)
+            log("mesh", line)
+        n_ranks = time.perf_counter() - t0
+        shape_only = [dryrun.run_cell(x, s, multi_pod=mp, out_dir=out,
+                                      verbose=False)
+                      for x in ASSIGNED_ARCHS for s in SHAPE_ORDER
+                      for mp in (False, True)]
+    bad = [(r["arch"], r["shape"], r["mesh"]) for r in shape_only
+           if r["status"] == "error"]
+    big = {r["mesh"]: r["per_device_bytes"] for r in shape_only
+           if r["arch"] == "nemotron-4-340b" and r["shape"] == "train_4k"}
+    line = (f"dry run: 15 cells ok on {DRY_MESH} ranks in {n_ranks:.1f}s; "
+            f"shape-only {len(shape_only)} cells on pod16x16 / pod2x16x16: "
+            f"{sum(r['status'] == 'ok' for r in shape_only)} ok, "
+            f"{sum(r['status'] == 'skip' for r in shape_only)} skip, "
+            f"errors {bad}; nemotron-4-340b train_4k arguments a rank "
+            f"{big} B; phase mesh {time.perf_counter() - t_phase:.1f}s")
+    if bad:
+        fail("mesh", line)
+    log("mesh", line)
+    return row, sum(sum(r["launches"]) for r in a)
+
+
 SOURCES = {"streamed_moe": "src/repro/kernels/streamed_moe.py:201",
            "flash_attention": "src/repro/kernels/flash_attention.py:81",
            "ssd": "src/repro/kernels/ssd.py:51"}
 
 
+ONLY = {"mesh": lambda: phase_mesh()}
+
+
 def main():
+    if sys.argv[1:2] == ["--only"]:
+        # development: the environment, the build and the named phases
+        # (comma-separated), without the summary lines
+        phase_env()
+        phase_build()
+        for name in sys.argv[2].split(","):
+            ONLY[name]()
+        print("only: done", flush=True)
+        return
     try:
         card = phase_env()
         import tempfile
@@ -4097,6 +4473,8 @@ def main():
         # shape: its row's times and bound
         rows["streamed_moe"]["train"] = dict(rows["streamed_moe"]["forward"])
         launches["streamed_moe", "train"] = phase_train()
+        rows["streamed_moe"]["mesh_train"], \
+            launches["streamed_moe", "mesh_train"] = phase_mesh()
         if "jax" in sys.modules:
             fail("summary", "jax was imported")
     except SystemExit:

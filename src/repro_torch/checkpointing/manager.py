@@ -12,6 +12,13 @@ params checkpoint the reference wrote therefore restores here.  bf16
 tensors are stored as fp32 arrays (numpy has no bf16; fp32 holds them
 exactly) and cast back on restore; a bf16 array the reference wrote is
 read by its bits.
+
+On a mesh of ranks (``launch.steps``), :func:`save` with ``shardings``
+gathers each leaf from the ranks' blocks and rank 0 writes the same
+layout and keys, and :func:`restore` with ``shardings`` gives each rank
+its block of every leaf on whatever mesh the shardings name: the elastic
+reshard (a checkpoint taken on one mesh reloads onto another, or onto one
+device).
 """
 from __future__ import annotations
 
@@ -30,7 +37,8 @@ def _to_numpy(t) -> np.ndarray:
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
-def _from_numpy(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+def _from_numpy(a: np.ndarray, like: torch.Tensor,
+                sharding=None) -> torch.Tensor:
     if a.dtype.name == "bfloat16" or (a.dtype.kind == "V"
                                       and a.dtype.itemsize == 2):
         # a bf16 leaf the reference wrote (read back as 2-byte void
@@ -39,11 +47,27 @@ def _from_numpy(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
             .view(torch.bfloat16)
     else:
         t = torch.from_numpy(np.ascontiguousarray(a))
-    return t.to(device=like.device, dtype=like.dtype)
+    if sharding is not None:                 # this rank's block, cut on the host
+        t = sharding.shard(t).contiguous()
+    device = "cpu" if like.device.type == "meta" else like.device
+    return t.to(device=device, dtype=like.dtype)
 
 
 def save(ckpt_dir: str, step: int, tree: Any,
-         extra: Optional[dict] = None) -> str:
+         extra: Optional[dict] = None, shardings: Any = None) -> str:
+    """Write ``tree`` as step ``step``.  ``shardings`` (a matching tree of
+    ``parallel.sharding.NamedSharding``): ``tree`` holds this rank's
+    blocks; every rank of the world must call, rank 0 writes, and all
+    return once the step is published."""
+    if shardings is not None:
+        import torch.distributed as dist
+        from repro_torch.parallel.sharding import gather_tree
+        full = gather_tree(tree, shardings)
+        path = os.path.join(ckpt_dir, f"step_{step:08d}")
+        if dist.get_rank() == 0:
+            path = save(ckpt_dir, step, full, extra)
+        dist.barrier()
+        return path
     os.makedirs(ckpt_dir, exist_ok=True)
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = final + f".tmp-{os.getpid()}"
@@ -82,9 +106,13 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return int(name.split("_")[1])
 
 
-def restore(ckpt_dir: str, like: Any, step: Optional[int] = None):
+def restore(ckpt_dir: str, like: Any, step: Optional[int] = None,
+            shardings: Any = None):
     """Restore into the structure of ``like``: each tensor takes the dtype
-    and device of its ``like`` leaf.  -> (tree, step, extra)."""
+    and device of its ``like`` leaf (the CPU for a ``meta`` one).
+    ``shardings``: a matching tree of ``parallel.sharding.NamedSharding``
+    on this rank's mesh; each leaf is then this rank's block of the
+    stored one.  -> (tree, step, extra)."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -98,7 +126,10 @@ def restore(ckpt_dir: str, like: Any, step: Optional[int] = None):
     missing = {k for k, _ in flat} - set(data)
     if missing:
         raise KeyError(f"checkpoint missing keys: {sorted(missing)[:5]} ...")
-    restored = [_from_numpy(data[k], leaf) for k, leaf in flat]
+    shards = tree_mod.leaves(shardings) if shardings is not None \
+        else [None] * len(flat)
+    restored = [_from_numpy(data[k], leaf, sh)
+                for (k, leaf), sh in zip(flat, shards)]
     return (tree_mod.unflatten(like, restored), meta["step"],
             meta.get("extra", {}))
 

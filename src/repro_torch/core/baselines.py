@@ -11,14 +11,17 @@ model axis, tokens are replicated, partial outputs are psum'd.
 Both run their expert GEMMs through ``fse_dp._expert_partial`` with no
 tile setting, so the tile planner picks per call as it does for the
 FSE-DP modes.  The layout is ``core.fse_dp``'s: each rank holds its data
-group's rows and the full parameters and returns y as it received x.
+group's rows and returns y as it received x.  Under the mesh steps'
+sharding layout the expert stacks are the rank's stored d_expert slices:
+TP takes them as they are, EP gathers them over the model axis first
+and takes its owned experts (``shard_map``'s reshard; the same values).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import MoEConfig
-from repro_torch.parallel import collectives, meshctx
+from repro_torch.parallel import collectives, meshctx, sharding
 from . import gating, trajectory
 from .fse_dp import (_aux, _expert_partial, _route, moe_fse_dp,
                      shard_expert_weights)
@@ -101,6 +104,7 @@ def moe_ep(params, x, moe: MoEConfig, activation, *, axis="model",
                           schedule=schedule, aux=aux)
     E_loc = moe.num_experts // P_
     owned = slice(r * E_loc, (r + 1) * E_loc)
+    params = sharding.gather_experts(params, axis)
     w_g = params.get("w_gate")
     y, a = _local_ep(x_loc, params["router"]["w_router"],
                      None if w_g is None else w_g[owned],
@@ -150,7 +154,7 @@ def moe_tp(params, x, moe: MoEConfig, activation, *, axis="model",
         raise ValueError("precomputed Routing is only supported on the "
                          "single-device path")
     mesh = meshctx.get_mesh()
-    w_g, w_u, w_d = shard_expert_weights(params, mesh.index(axis), P_)
+    w_g, w_u, w_d = shard_expert_weights(params, mesh.index(axis), P_, axis)
     return _local_tp(x, params["router"]["w_router"], w_g, w_u, w_d, moe=moe,
                      activation=activation, mesh=mesh, axis=axis,
                      schedule=schedule, aux=aux)

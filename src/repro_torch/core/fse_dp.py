@@ -21,10 +21,12 @@ Three modes, from the token layout (paper Fig. 3):
 
 **Layout.** ``shard_map`` takes global arrays and slices them; here each
 rank of a model group holds its data group's rows of x (all of B when
-the data axes do not divide it) and the full parameters, slices its own
-shard, and returns y in the layout it received: ``stream`` ends with an
-all-gather of the sequence shards over the model group, the reshard XLA
-inserts when the next layer reads x whole.
+the data axes do not divide it) and returns y in the layout it received:
+``stream`` ends with an all-gather of the sequence shards over the model
+group, the reshard XLA inserts when the next layer reads x whole.  The
+expert weights are the full stacks, which a rank slices, or, under the
+mesh steps' sharding layout (``parallel.sharding.with_layout``), the
+rank's stored d_expert slices, taken as they are.
 """
 from __future__ import annotations
 
@@ -208,8 +210,14 @@ BODIES = {"stream": _local_moe_stream, "index": _local_moe_index,
           "slice": _local_moe_slice}
 
 
-def shard_expert_weights(params, r, P_):
-    """(w_gate or None, w_up, w_down) of rank ``r``'s 1/P d_expert slice."""
+def shard_expert_weights(params, r, P_, axis="model"):
+    """(w_gate or None, w_up, w_down) of rank ``r``'s 1/P d_expert slice:
+    the stacks as given where the sharding layout stores them split on
+    ``axis`` (they are that slice), else sliced from the full stacks."""
+    from repro_torch.parallel import sharding
+    lay = sharding.get_layout()
+    if lay is not None and lay.experts_on(axis):
+        return params.get("w_gate"), params["w_up"], params["w_down"]
     de = params["w_up"].shape[-1]
     if de % P_:
         raise ValueError(f"d_expert {de} does not split over {P_} ranks")
@@ -262,7 +270,7 @@ def moe_fse_dp(params, x, moe: MoEConfig, activation, *, axis="model",
                                  dtype_bytes=x.element_size(),
                                  weight_bytes=quant.weight_bytes())
     r = mesh.index(axis)
-    w_g, w_u, w_d = shard_expert_weights(params, r, P_)
+    w_g, w_u, w_d = shard_expert_weights(params, r, P_, axis)
     x_loc = x
     if plan.mode == "stream":
         if S % P_:

@@ -404,8 +404,12 @@ class _SingleDevice:
     def execute(self, params, x, moe, activation, plan=None, *,
                 axis="model", routing=None, schedule=None, aux=True):
         """-> (y, the load-balance loss, or None when ``aux`` is False:
-        the serving paths skip its kernels, as XLA drops them unused)."""
+        the serving paths skip its kernels, as XLA drops them unused).
+        Expert stacks stored split on ``axis`` (the mesh steps' layout)
+        are gathered whole first."""
+        from repro_torch.parallel import sharding
         from . import gating
+        params = sharding.gather_experts(params, axis)
         x2d, routing = self.route(params, x, moe, routing)
         y = self.run(params, x2d, routing, moe, activation, schedule)
         return (y.reshape(x.shape),

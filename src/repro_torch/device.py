@@ -17,6 +17,15 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def resolve_init_device(device=None) -> torch.device:
+    """:func:`resolve_device` for the parameter and cache initializers,
+    which also take ``meta``: shapes and dtypes with nothing allocated,
+    the port's ``jax.eval_shape`` (``launch.specs``)."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.device("meta")
+    return resolve_device(device)
+
+
 def torch_dtype(name: str) -> torch.dtype:
     """Config dtype string (``"bfloat16"``, ``"float32"``) -> torch dtype."""
     try:

@@ -53,7 +53,7 @@ def _xent_chunk(h, head, labels, ignore_label):
 
 
 def loss_fn(params, batch, cfg: ModelConfig, *, spec=None, remat=False,
-            use_flash=False):
+            use_flash=False, unshard=False):
     """Training and scoring loss (CE + MoE aux) over ``batch = {"tokens",
     "labels"}`` (labels -1 are not scored), with ``prefix_embeds`` in
     front of the tokens (only the text positions are scored) or, for the
@@ -61,8 +61,11 @@ def loss_fn(params, batch, cfg: ModelConfig, *, spec=None, remat=False,
     {"ce", "aux"}).  Differentiable; ``remat`` recomputes each period's
     (the encoder-decoder family: each layer's) activations in the
     backward.  The flash kernel has no backward: train with ``use_flash``
-    off, as the reference does."""
+    off, as the reference does.  Under a sharding layout (the mesh steps)
+    ``params`` are this rank's blocks, gathered as they are used;
+    ``unshard``: ``transformer.forward``'s per-period gather."""
     if cfg.is_encoder_decoder:
+        params = transformer.gathered(params)
         memory = whisper.encode(params, batch["frames"], cfg, remat=remat)
         h = whisper.decode_train(params, batch["tokens"], memory, cfg,
                                  remat=remat, return_hidden=True)
@@ -72,10 +75,10 @@ def loss_fn(params, batch, cfg: ModelConfig, *, spec=None, remat=False,
     h, aux = transformer.forward(params, batch["tokens"], cfg,
                                  prefix_embeds=prefix, spec=spec,
                                  use_flash=use_flash, remat=remat,
-                                 return_hidden=True)
+                                 unshard=unshard, return_hidden=True)
     if prefix is not None:              # score the text positions only
         h = h[:, prefix.shape[1]:]
-    ce = fused_xent(h, transformer.head_matrix(params), batch["labels"])
+    ce = fused_xent(h, transformer.gathered_head(params), batch["labels"])
     coef = cfg.moe.aux_loss_coef if cfg.moe else 0.0
     return ce + coef * aux, {"ce": ce, "aux": aux}
 
@@ -86,6 +89,7 @@ def prefill_fn(params, batch, cfg: ModelConfig, max_seq: int, *, spec=None):
     tokens beside caches holding the cross-attention K/V and an empty
     self-attention cache, as the reference does."""
     if cfg.is_encoder_decoder:
+        params = transformer.gathered(params)
         memory = whisper.encode(params, batch["frames"], cfg)
         caches = whisper.init_decode_caches(params, memory, cfg,
                                             batch["frames"].shape[0], max_seq)
@@ -119,12 +123,14 @@ decode_logits = transformer.decode_logits
 
 
 def decode_fn(params, token, caches, cache_len, cfg: ModelConfig, *,
-              spec=None):
-    """One decode step on dense caches -> (logits (B, 1, V), new caches)."""
+              spec=None, unshard=False):
+    """One decode step on dense caches -> (logits (B, 1, V), new caches).
+    ``unshard``: ``transformer.decode_step``'s per-period gather."""
     if cfg.is_encoder_decoder:
-        return whisper.decode_step(params, token, caches, cache_len, cfg)
+        return whisper.decode_step(transformer.gathered(params), token,
+                                   caches, cache_len, cfg)
     return transformer.decode_step(params, token, caches, cache_len, cfg,
-                                   spec=spec)
+                                   spec=spec, unshard=unshard)
 
 
 def init_decode_caches(params, cfg: ModelConfig, batch: int, max_seq: int,

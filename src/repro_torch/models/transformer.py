@@ -22,7 +22,9 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.device import resolve_device, torch_dtype
+from repro_torch.device import (resolve_device, resolve_init_device,
+                                torch_dtype)
+from repro_torch.parallel import sharding
 from . import attention as attn_mod
 from . import mamba2 as ssm_mod
 from . import moe as moe_mod
@@ -72,9 +74,10 @@ def _slot_init(gen, cfg: ModelConfig, mixer: str, ffn_kind: str,
 
 
 def init_lm(cfg: ModelConfig, *, generator: torch.Generator, device=None):
-    """Random parameters: {"embed", "final_norm", "lm_head", "periods"}."""
+    """Random parameters: {"embed", "final_norm", "lm_head", "periods"}
+    (``device="meta"``: their shapes and dtypes only)."""
     _check_supported(cfg)
-    device = resolve_device(device)
+    device = resolve_init_device(device)
     p, plan = period_plan(cfg)
     n_periods = cfg.num_layers // p
     dtype = torch_dtype(cfg.dtype)
@@ -127,12 +130,44 @@ def _slot(period_params, c: int):
     return period_params[c]
 
 
-def layer_slots(params, cfg: ModelConfig):
-    """(layer, slot parameters, mixer, ffn_kind) for every layer in order."""
+def _layer_params(params, s: int, c: int, gather: bool = False):
+    """Slot ``s``'s parameters at period ``c``; ``gather``: gathered from
+    the stored blocks of the sharding layout (the per-period ZeRO-3
+    gather, ``parallel.sharding.unshard_slot_params``)."""
+    slot = _slot(params["periods"][s], c)
+    return sharding.unshard_slot_params(slot, f"periods/{s}") if gather \
+        else slot
+
+
+def layer_slots(params, cfg: ModelConfig, gather: bool = False):
+    """(layer, slot parameters, mixer, ffn_kind) for every layer in order
+    (``gather``: see :func:`_layer_params`)."""
     p, plan = period_plan(cfg)
     for c in range(cfg.num_layers // p):
         for s, (mixer, ffn_kind) in enumerate(plan):
-            yield c * p + s, _slot(params["periods"][s], c), mixer, ffn_kind
+            yield (c * p + s, _layer_params(params, s, c, gather), mixer,
+                   ffn_kind)
+
+
+def gathered(params, per_period: bool = False):
+    """Under a sharding layout (``parallel.sharding.with_layout``), the
+    parameters gathered whole from this rank's stored blocks (the MoE
+    expert stacks stay split on ``model``, as the FSE-DP bodies take
+    them); with ``per_period`` the period stacks are left stored, for the
+    period bodies to gather one period at a time.  With no layout:
+    ``params``."""
+    if sharding.get_layout() is None:
+        return params
+    return {k: v if per_period and k == "periods"
+            else sharding.gather_params(v, k) for k, v in params.items()}
+
+
+def gathered_head(params):
+    """The unembedding (d, V) gathered from the stored blocks (as
+    :func:`head_matrix`, which it is with no layout)."""
+    if "lm_head" in params:
+        return sharding.gather_params(params["lm_head"], "lm_head")
+    return sharding.gather_params(params["embed"], "embed").T
 
 
 def _embed(params, tokens, prefix_embeds=None):
@@ -193,7 +228,8 @@ def _apply_slot_full(slot, x, cfg: ModelConfig, mixer, ffn_kind, *,
 
 
 def forward(params, tokens, cfg: ModelConfig, *, prefix_embeds=None,
-            spec=None, use_flash=False, remat=False, return_hidden=False):
+            spec=None, use_flash=False, remat=False, unshard=False,
+            return_hidden=False):
     """tokens: (B, S) -> (logits (B, P + S, V) or, with ``return_hidden``,
     the final-normed hidden states (B, P + S, d); MoE aux loss summed over
     layers).  ``prefix_embeds`` (B, P, d) go in front of the tokens.
@@ -202,19 +238,25 @@ def forward(params, tokens, cfg: ModelConfig, *, prefix_embeds=None,
     resolved per layer at phase ``train``.  ``use_flash``: attention
     through the flash kernel.  ``remat``: each period's activations are
     recomputed in the backward (the reference's ``jax.checkpoint`` of its
-    period body)."""
+    period body).  Under a sharding layout (the mesh steps') the
+    parameters are this rank's blocks: ``unshard`` gathers each period's
+    inside the period body (so the remat recompute gathers again and no
+    gathered period is saved), else the whole stack is gathered before
+    the loop; the values are the same.  With no layout ``unshard`` does
+    nothing, as in the reference."""
     _check_supported(cfg)
     p, plan = period_plan(cfg)
     sp = _coerce_spec(spec)
+    params = gathered(params, per_period=unshard)
     x = _embed(params, tokens, prefix_embeds)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
 
     def period(c, x, aux):
         for s, (mixer, ffn_kind) in enumerate(plan):
-            x, a = _apply_slot_full(_slot(params["periods"][s], c), x, cfg,
-                                    mixer, ffn_kind, positions=positions,
-                                    spec=sp, layer=c * p + s,
-                                    use_flash=use_flash)
+            x, a = _apply_slot_full(_layer_params(params, s, c, unshard),
+                                    x, cfg, mixer, ffn_kind,
+                                    positions=positions, spec=sp,
+                                    layer=c * p + s, use_flash=use_flash)
             aux = aux + a
         return x, aux
 
@@ -250,10 +292,12 @@ def prefill(params, tokens, cfg: ModelConfig, max_seq: int, *,
     attention KV padded to max_seq, (n_periods, B, max_seq, n_kv, hd);
     SSM states (n_periods, B, ...)).  S' = P + S with ``prefix_embeds``
     (B, P, d) in front.  On CUDA the SSM layers' intra-chunk terms run
-    through the SSD kernel."""
+    through the SSD kernel.  Under a sharding layout the parameters are
+    gathered from this rank's blocks first."""
     _check_supported(cfg)
     p, plan = period_plan(cfg)
     sp = _coerce_spec(spec)
+    params = gathered(params)
     x = _embed(params, tokens, prefix_embeds)
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
@@ -296,7 +340,7 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int, device=None):
     periods: attention KV (n_periods, batch, max_seq, n_kv, hd), SSM
     states (n_periods, batch, ...)."""
     _check_supported(cfg)
-    device = resolve_device(device)
+    device = resolve_init_device(device)
     p, plan = period_plan(cfg)
     lead, dtype = (cfg.num_layers // p,), torch_dtype(cfg.dtype)
     caches = []
@@ -312,19 +356,20 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int, device=None):
 
 
 def decode_step(params, token, caches, cache_len, cfg: ModelConfig, *,
-                spec=None):
+                spec=None, unshard=False):
     """One token for every row against dense caches (``init_caches`` or
     ``prefill``).  token: (B, 1); cache_len: (B,) tokens cached, where
     the new one's K/V go.  Returns (logits (B, 1, V), new caches); the
-    given caches are not modified."""
+    given caches are not modified.  ``unshard``: as :func:`forward`'s."""
     _check_supported(cfg)
     p, plan = period_plan(cfg)
     sp = _coerce_spec(spec)
+    params = gathered(params, per_period=unshard)
     x = _embed(params, token)
     kw = dict(n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads,
               head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta)
     per_slot = [[] for _ in plan]
-    for layer, slot, mixer, ffn_kind in layer_slots(params, cfg):
+    for layer, slot, mixer, ffn_kind in layer_slots(params, cfg, unshard):
         c, s = divmod(layer, p)
         h = apply_norm(cfg.norm, slot["norm1"], x)
         if mixer == "attn":

@@ -18,7 +18,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.device import resolve_device, torch_dtype
+from repro_torch.device import resolve_init_device, torch_dtype
 from . import attention as attn_mod
 from .layers import (apply_norm, checkpointed, embed_init, norm_init,
                      sinusoidal_positions)
@@ -36,7 +36,7 @@ def init_encdec(cfg: ModelConfig, *, generator: torch.Generator,
                 device=None):
     """Random parameters: {"embed", "enc_layers", "dec_layers", "enc_norm",
     "dec_norm"}, each stack's leaves (n_layers, ...)."""
-    device = resolve_device(device)
+    device = resolve_init_device(device)
     dtype, d = torch_dtype(cfg.dtype), cfg.d_model
     enc, dec = (cfg.encoder_layers,), (cfg.num_layers,)
     return {

@@ -81,14 +81,17 @@ def clip_by_global_norm(grads, max_norm: float):
 
 @torch.no_grad()
 def apply(params, grads, state: AdamWState, *, lr, b1=0.9, b2=0.95,
-          eps=1e-8, weight_decay=0.1, max_grad_norm=1.0):
+          eps=1e-8, weight_decay=0.1, max_grad_norm=1.0, grad_norm=None):
     """One AdamW update, written into ``params``, ``state.m`` and
     ``state.v``.  ``lr`` is a scalar or a schedule(step) -> scalar, read at
-    the step count before this update.  -> (params, AdamWState with the
-    step count advanced, {"grad_norm": norm before clipping})."""
+    the step count before this update.  ``grad_norm``: the global norm to
+    clip by, where ``grads`` are blocks of a gradient sharded over a mesh
+    (``launch.steps``; the norm of the whole gradient, which no rank's
+    blocks give), else the norm of ``grads``.  -> (params, AdamWState with
+    the step count advanced, {"grad_norm": norm before clipping})."""
     if callable(lr):
         lr = lr(state.step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = _clip_scale(gnorm, max_grad_norm)
     step = state.step + 1
     b1c = 1.0 - b1 ** step.float()

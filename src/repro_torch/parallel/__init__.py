@@ -2,3 +2,5 @@
 ``repro.parallel``): ``meshctx`` lays the ``torch.distributed`` world out
 as named axes, ``collectives`` moves tensors along them, ``localrun``
 starts N gloo ranks on one host."""
+from . import meshctx, sharding
+from .meshctx import get_mesh, with_mesh

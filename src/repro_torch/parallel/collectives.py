@@ -10,6 +10,12 @@ host buffer, runs there and copies the result back to the card.  That
 transport, ``gloo-host``, moves the same values; only the compute stays
 on the card, and its times are no ring's speed.  ``COUNTS`` counts the
 collectives this process issued, by name, backward ones included.
+``BYTES`` sums the bytes each one delivered to this rank (its output's
+size, as the reference's ``launch.analysis.collective_bytes`` sums the
+output shapes of the compiled program's collectives), by the reference's
+categories: ``all-gather``, ``all-reduce`` (a psum), ``reduce-scatter``
+(an all-gather's backward: the rank's slice of the sum), ``all-to-all``
+and ``collective-permute`` (a ring shift's receives).
 
 **Gradients.**  Each collective is differentiable, its backward the
 transpose of its forward as a linear map over all the ranks' inputs:
@@ -32,6 +38,13 @@ import torch
 import torch.distributed as dist
 
 COUNTS: Counter = Counter()
+BYTES: Counter = Counter()
+CATEGORIES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+              "collective-permute")
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def transport(mesh, axis: str, device) -> str:
@@ -63,6 +76,10 @@ class RingShift:
         self._sends = None
         device = self._tensors[0].device
         recvs = [r.to(device) for r in self._recvs]
+        if len(recvs) < len(self._tensors):          # one packed payload
+            sizes = [t.numel() for t in self._tensors]
+            recvs = [r.view(t.shape) for r, t in
+                     zip(torch.split(recvs[0], sizes), self._tensors)]
         if not (torch.is_grad_enabled()
                 and any(t.requires_grad for t in self._tensors)):
             return recvs
@@ -91,25 +108,34 @@ def ring_shift(tensors: Sequence[torch.Tensor], mesh, axis: str, *,
     """Post the sends of ``tensors`` to the next rank of the ``axis`` ring,
     (i + 1) % P, and the receives of the previous rank's, without
     waiting: the reference's ``ppermute`` over ``[(i, (i + 1) % P)]``.
-    ``reverse`` shifts the other way."""
+    ``reverse`` shifts the other way.  Payloads of one dtype travel as
+    one flat message (the ring's weight slices: one send a hop, not
+    three)."""
     group = mesh.group(axis)
     backend = dist.get_backend(group)
     line, i = mesh.line(axis), mesh.index(axis)
     step = -1 if reverse else 1
     nxt, prv = line[(i + step) % len(line)], line[(i - step) % len(line)]
-    sends = [_host(t.detach(), backend) for t in tensors]
+    payload = [t.detach() for t in tensors]
+    if len(payload) > 1 and len({t.dtype for t in payload}) == 1:
+        payload = [torch.cat([t.reshape(-1) for t in payload])]
+    sends = [_host(t, backend) for t in payload]
     recvs = [torch.empty_like(s) for s in sends]
     ops = [dist.P2POp(dist.isend, s, nxt, group) for s in sends]
     ops += [dist.P2POp(dist.irecv, r, prv, group) for r in recvs]
     COUNTS["ring_shift"] += 1
+    BYTES["collective-permute"] += sum(_nbytes(r) for r in recvs)
     return RingShift(dist.batch_isend_irecv(ops), recvs, sends,
                      list(tensors), mesh, axis, reverse)
 
 
-def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+def _all_reduce(t: torch.Tensor, group, category="all-reduce"
+                ) -> torch.Tensor:
     buf = _host(t.detach(), dist.get_backend(group)).clone()
     dist.all_reduce(buf, group=group)
     COUNTS["psum"] += 1
+    if category:
+        BYTES[category] += _nbytes(buf)
     return buf.to(t.device)
 
 
@@ -118,6 +144,7 @@ def _all_to_all(t: torch.Tensor, group) -> torch.Tensor:
     out = torch.empty_like(src)
     dist.all_to_all_single(out, src, group=group)
     COUNTS["all_to_all"] += 1
+    BYTES["all-to-all"] += _nbytes(out)
     return out.to(t.device)
 
 
@@ -126,7 +153,9 @@ def _all_gather(t: torch.Tensor, group, P: int, dim: int) -> torch.Tensor:
     parts = [torch.empty_like(src) for _ in range(P)]
     dist.all_gather(parts, src, group=group)
     COUNTS["all_gather"] += 1
-    return torch.cat(parts, dim).to(t.device)
+    out = torch.cat(parts, dim)
+    BYTES["all-gather"] += _nbytes(out)
+    return out.to(t.device)
 
 
 class _Psum(torch.autograd.Function):
@@ -159,9 +188,10 @@ class _AllGather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        total = _all_reduce(g, ctx.group)
-        return (total.narrow(ctx.dim, ctx.index * ctx.n, ctx.n),
-                None, None, None, None)
+        total = _all_reduce(g, ctx.group, category=None)
+        mine = total.narrow(ctx.dim, ctx.index * ctx.n, ctx.n)
+        BYTES["reduce-scatter"] += _nbytes(mine)
+        return mine, None, None, None, None
 
 
 def psum(t: torch.Tensor, mesh, axis: Optional[str] = None) -> torch.Tensor:
@@ -182,6 +212,12 @@ def all_gather(t: torch.Tensor, mesh, axis: str, dim: int = 0
     order."""
     return _AllGather.apply(t, mesh.group(axis), mesh.size(axis),
                             mesh.index(axis), dim)
+
+
+def reset_counters():
+    """Zero ``COUNTS`` and ``BYTES``."""
+    COUNTS.clear()
+    BYTES.clear()
 
 
 def psum_grads(grads, mesh):

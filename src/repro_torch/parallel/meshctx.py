@@ -68,6 +68,11 @@ class ProcessMesh:
     def world_size(self) -> int:
         return math.prod(self.axis_sizes)
 
+    @property
+    def shape(self) -> dict:
+        """Axis name -> size, as ``jax.sharding.Mesh.shape``."""
+        return dict(zip(self.axis_names, self.axis_sizes))
+
     def _axis(self, axis: str) -> int:
         return self.axis_names.index(axis)
 
@@ -84,6 +89,36 @@ class ProcessMesh:
     def line(self, axis: str) -> Tuple[int, ...]:
         """Global ranks of this rank's line along ``axis``, in order."""
         return self.lines[self._axis(axis)]
+
+
+@dataclass(frozen=True)
+class MeshShape:
+    """A mesh as names and sizes only, with no process group: the port's
+    ``jax.sharding.AbstractMesh``.  The sharding rules and the shape-only
+    dry run take it where no world of ranks exists (the 256- and 512-rank
+    production meshes)."""
+
+    axis_names: Tuple[str, ...]
+    axis_sizes: Tuple[int, ...]
+
+    def __post_init__(self):
+        object.__setattr__(self, "axis_names", tuple(self.axis_names))
+        object.__setattr__(self, "axis_sizes",
+                           tuple(int(s) for s in self.axis_sizes))
+        if len(self.axis_names) != len(self.axis_sizes):
+            raise ValueError(f"{len(self.axis_sizes)} sizes for axes "
+                             f"{self.axis_names}")
+
+    @property
+    def world_size(self) -> int:
+        return math.prod(self.axis_sizes)
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    def size(self, axis: str) -> int:
+        return self.axis_sizes[self.axis_names.index(axis)]
 
 
 def _unravel(rank: int, sizes):

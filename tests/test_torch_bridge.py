@@ -106,11 +106,16 @@ SCANNED = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
 
 def test_scan_covers_every_port_module():
     """The scan below walks every package of the port: the configs (each
-    arch and ``shapes.py``) and the encoder-decoder model among them."""
+    arch and ``shapes.py``), the encoder-decoder model and the mesh
+    machinery (sharding rules, meshes, specs, steps, analysis, dry run)
+    among them."""
     names = {str(p.relative_to(PORT)) for p in SCANNED if PORT in p.parents}
     for want in ("configs/base.py", "configs/shapes.py",
                  "configs/deepseek_moe_16b.py", "configs/whisper_base.py",
-                 "models/whisper.py", "models/api.py", "launch/serve.py"):
+                 "models/whisper.py", "models/api.py", "launch/serve.py",
+                 "parallel/sharding.py", "launch/mesh.py", "launch/specs.py",
+                 "launch/steps.py", "launch/analysis.py",
+                 "launch/dryrun.py"):
         assert want in names, want
     assert len([n for n in names if n.startswith("configs/")]) == 16
 
