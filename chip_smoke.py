@@ -16,7 +16,9 @@ Phases, each printing its result on its own line; any failure exits 1:
    g = h), with the time of one call of each
    kernel with its host work beside its device time per call, the bound,
    and for flash attention the times of ``F.scaled_dot_product_attention``
-   on the same tensors;
+   on the same tensors and the kernel's device time over SDPA's (flash
+   in bf16 also at InternVL2's (2, 2304, 16, 128) and at hd 128 with Sq
+   not a multiple of 128 and Sk > Sq);
 3b. dispatch: ``moe_capacity`` with one-hot and with sorted dispatch on
    one routing at granite width, at C = 64 (a decode step), C = 1024 (a
    traffic prefill step) and C = 1280 (the scoring forward, with
@@ -805,14 +807,18 @@ def flash_bf16_check(got, plain, q, k, v):
 
 def _check_flash():
     """The scoring path's (2, 2048, 16, 64) in bf16 and fp32, odd S,
-    Sk = 2 Sq, and in bf16 hd = 16 and ragged Sk > Sq; the bf16 path shape
-    is the one the summary reports."""
+    Sk = 2 Sq, and in bf16 hd = 16 and ragged Sk > Sq, InternVL2's
+    (2, 2304, 16, 128) (timed in phase 3m) and hd = 128 with Sq not a
+    multiple of the 128-row query tile and Sk > Sq; the bf16 path shape is
+    the one the summary reports."""
     B, S, H, hd = SCORE_B, SCORE_S, 16, 64
     cases = [(B, S, S, H, hd, "bf16"), (B, S, S, H, hd, "fp32"),
              (1, 17, 17, 3, 64, "fp32"), (2, 100, 100, 4, 64, "bf16"),
              (1, 100, 200, 2, 64, "fp32"), (2, 64, 128, 4, 128, "bf16"),
              (2, 77, 77, 3, 16, "bf16"), (1, 100, 165, 2, 32, "bf16"),
-             (1, 130, 301, 2, 64, "bf16")]
+             (1, 130, 301, 2, 64, "bf16"),
+             (B, S + 256, S + 256, H, 128, "bf16"),
+             (1, 200, 331, 2, 128, "bf16")]
     rows = [_flash_case(*case, timed=case[1] == S) for case in cases]
     return {"forward": rows[0]}
 
@@ -868,9 +874,12 @@ def _flash_case(B_, Sq, Sk, H_, hd_, kind, timed=False):
         bound, by = flash_bound_ms(B_, Sq, Sk, H_, hd_, kind,
                                    q.element_size())
         line += (f"; {text}, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} "
-                 f"ms ({lib_dev:.4f} on the device), bound {bound * 1e3:.1f} us ({by})")
+                 f"ms ({lib_dev:.4f} on the device; the kernel's device "
+                 f"time over sdpa's {times['device_ms'] / lib_dev:.3f}), "
+                 f"bound {bound * 1e3:.1f} us ({by})")
         row = dict(max_abs_err=err_plain, **times, plain_ms=plain_ms,
-                   bound_ms=bound, bound_by=by, library_ms=lib_ms)
+                   bound_ms=bound, bound_by=by, library_ms=lib_ms,
+                   library_device_ms=lib_dev)
     log("kernels", line)
     return row
 

@@ -657,18 +657,21 @@ def plan_moe(B: int, S: int, d_model: int, moe, activation: str, P: int,
 
 # What torch's device properties do not say, by device name: the
 # data-sheet device-memory bandwidth and bf16 / fp32 peaks (NVIDIA's H100
-# SXM data sheet), and three rates of the streamed_moe kernel on the card
-# as tools/fit_tile_model.py fits them (least squares in log time) to the
-# device times of its 12 bf16 settings at (E, d, m) = (32, 1024, 512) and
-# C = 64, 1024 and 1280 (H100 80GB HBM3 at a 700 W limit): the mma.sync
-# rate, the L2-to-SM rate of the tiles the blocks load, and the seconds a
-# ring stage costs a block slot (its wait and barrier).  The fit's rms
-# error is 11.6%.
+# SXM data sheet), and rates of the streamed_moe kernel on the card as
+# tools/fit_tile_model.py fits them (least squares in log time) to the
+# device times of a path's settings at (E, d, m) = (32, 1024, 512) and C =
+# 64, 1024 and 1280 (H100 80GB HBM3 at a 700 W limit).  The 8-bit path
+# (mma.sync) keeps the constants fitted on an earlier 12-setting bf16
+# mma.sync table (rms error 11.6%): the mma rate, the L2-to-SM rate of the
+# tiles the blocks load, and the seconds a ring stage costs a block slot
+# (its wait and barrier).  The bf16 path (wgmma + TMA) has its own rate and stage cost,
+# fitted on its 8 settings with that L2 rate (rms error 23.0%).
 _CARDS = {
     "NVIDIA H100 80GB HBM3": dict(
         sms=132, smem_block=232448, smem_sm=233472, regs_sm=65536,
         l2_bytes=50 * 2 ** 20, mem_bw=3.35e12, bf16_peak=989e12,
-        fp32_peak=67e12, mma_rate=450e12, l2_bw=16e12, stage_s=0.55e-6),
+        fp32_peak=67e12, mma_rate=450e12, l2_bw=16e12, stage_s=0.55e-6,
+        wgmma_rate=750e12, wgmma_stage_s=0.12e-6),
 }
 
 
@@ -686,9 +689,11 @@ class CardProfile:
     mem_bw: float              # device-memory bytes/s
     bf16_peak: float           # tensor-core bf16 FLOP/s, data sheet
     fp32_peak: float           # CUDA-core fp32 FLOP/s, data sheet
-    mma_rate: float            # bf16 mma.sync FLOP/s the kernel reaches
+    mma_rate: float            # bf16 mma.sync FLOP/s of the 8-bit path
     l2_bw: float               # L2-to-SM bytes/s of the tiles blocks load
     stage_s: float             # seconds a ring stage costs a block slot
+    wgmma_rate: float          # bf16 wgmma FLOP/s of the bf16 path
+    wgmma_stage_s: float       # ... and its seconds a ring stage
     device: Optional[int] = None   # a card's index: read compiled resources
     regs_thread: int = 255
     threads_sm: int = 2048
@@ -774,11 +779,15 @@ def _phases(path: str, row, gated: bool, x_dtype: str):
     from repro_torch.kernels import streamed_moe as sm
     n_up = 2 if gated else 1
     if path == "bf16":
-        bm, bn, wm, wn, bk, st = row
-        threads = 32 * (bm // wm) * (bn // wn)
-        return [(bm, bn, bk, threads,
-                 2 * st * (bm * (bk + 8) + n * bk * (bn + 8)),
-                 n * wm * wn // 32, 1) for n in (n_up, 1)]
+        # wgmma: consumer warpgroups of 64 rows and a producer warp; a
+        # stage is the activation tile and n weight tiles, 128-byte
+        # swizzled (no padding), beside a full and an empty barrier; each
+        # consumer thread keeps BN / 2 accumulators a weight matrix
+        wgs, bn, bk, st = row
+        bm = 64 * wgs
+        return [(bm, bn, bk, 128 * wgs + 32,
+                 st * (2 * bm * bk + n * 2 * bk * bn + 16) + 1024,
+                 n * bn // 2, 1) for n in (n_up, 1)]
     if path == "8bit":
         bm = sm.Q_ROWS_A_BLOCK
         parts_x = 3 if x_dtype == "fp32" else 1
@@ -804,9 +813,10 @@ def _compiled(tiles: str, x_dtype: str, weight_dtype: str):
 
 
 def _estimated_regs(acc: int, parts: int) -> int:
-    """Registers a thread on the CPU: the accumulators, the A fragments
-    (four a 16-row tile and plane) and about 40 for addresses, B
-    fragments and the loop."""
+    """Registers a thread on the CPU: the accumulators, the mma.sync A
+    fragments (four a 16-row tile and plane; ``parts`` 0 for wgmma, which
+    reads A from shared memory) and about 40 for addresses, B fragments
+    and the loop."""
     return acc + 16 * parts + 40
 
 
@@ -829,9 +839,11 @@ def tile_cost(E: int, C: int, d: int, m: int, activation: str, tiles: str,
 
     Per phase, the larger of two times.  Compute: the tensor-core work
     (padded rows and columns, each mma pass counted) over
-    ``profile.mma_rate`` (the fp32 peak on the CUDA-core path), plus the
+    ``profile.wgmma_rate`` on the bf16 path, ``profile.mma_rate`` on the
+    8-bit one (the fp32 peak on the CUDA-core path), plus the
     tiles every block loads into shared memory over ``profile.l2_bw``
-    (smaller blocks re-read more), plus ``profile.stage_s`` for each ring
+    (smaller blocks re-read more), plus ``profile.stage_s`` (on the bf16
+    path ``profile.wgmma_stage_s``) for each ring
     stage a block slot runs; times the waves of blocks the grid needs (the
     tail wave counted whole) over the waves it fills, a wave being the SMs
     times the blocks an SM holds, or times ceil(blocks / SMs) when that is
@@ -856,7 +868,9 @@ def tile_cost(E: int, C: int, d: int, m: int, activation: str, tiles: str,
     compiled = None if profile.device is None else \
         _compiled(tiles, x_dtype, weight_dtype)
     attr_key = ("up_swiglu" if gated else f"up_{activation}", "down")
-    rate = profile.fp32_peak if path == "simt" else profile.mma_rate
+    rate = {"simt": profile.fp32_peak, "bf16": profile.wgmma_rate,
+            "8bit": profile.mma_rate}[path]
+    stage_s = profile.wgmma_stage_s if path == "bf16" else profile.stage_s
     phases = []
     # (contraction, columns, weight matrices, bytes in besides weights,
     # bytes out)
@@ -868,7 +882,8 @@ def tile_cost(E: int, C: int, d: int, m: int, activation: str, tiles: str,
             (K, N, n_w, b_in, b_out) in zip(
                 _phases(path, row, gated, x_dtype), attr_key, shapes):
         if compiled is None:
-            regs, spill = _estimated_regs(acc, parts), 0
+            regs, spill = _estimated_regs(
+                acc, 0 if path == "bf16" else parts), 0
         else:
             regs, spill = compiled[key]["regs"], compiled[key]["spill_bytes"]
         row_tiles, col_tiles = -(-C // bm), -(-N // bn)
@@ -884,7 +899,7 @@ def tile_cost(E: int, C: int, d: int, m: int, activation: str, tiles: str,
         loaded = blocks * K * (bm * ab * parts + n_w * bn * wb)
         stages = blocks * -(-K // bk) / slots
         t_ops = (ops / rate + loaded / profile.l2_bw
-                 + stages * profile.stage_s) * math.ceil(filled) / filled
+                 + stages * stage_s) * math.ceil(filled) / filled
         together = row_tiles * col_tiles <= slots
         weights = n_w * K * N * wb * E * (1 if together else row_tiles)
         moved = weights / min(1.0, bn * wb / LINE_BYTES) + b_in + b_out

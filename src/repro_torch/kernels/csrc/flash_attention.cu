@@ -10,7 +10,9 @@
 // Bound: at the scoring path's shape (B=2, S=2048, H=16, hd=64, bf16) the
 // causal half of the two products is about 17 GFLOP, 17 us at the bf16
 // tensor-core rate of 989 TFLOP/s; q, k, v read once and o written once are
-// about 34 MB, 10 us at 3.35 TB/s.  So it is bound by operations.
+// about 34 MB, 10 us at 3.35 TB/s.  At InternVL2's (2, 2304, 16, 128) the
+// products are 44 us and the bytes 23 us.  So it is bound by operations,
+// and only wgmma reaches the tensor cores' full rate.
 //
 // Design.  The TPU kernel walks the key tiles as its sequential innermost grid
 // axis and keeps m / l / acc in VMEM scratch revisited across grid steps.  On
@@ -22,25 +24,45 @@
 // zeros and are masked like the causal ones, so nothing is padded.  The
 // heaviest query tiles (at the end of the sequence) are scheduled first.
 //
-// bf16 (the scoring path) runs on the tensor cores: four warps, each owning
-// 32 query rows (two m16 tiles, so every K / V fragment serves both; 16 rows
-// at hd 128, for registers); a block covers 128 rows (64 at hd 128).  The Q
-// tile stays in shared memory for the whole key loop and its fragments are
-// read by ldmatrix at each tile, which frees 16 registers a thread.  K and V
-// tiles stay bf16 in shared memory (rows padded by 16 bytes, so ldmatrix is
-// free of bank conflicts) and arrive through a three-stage cp.async ring:
-// the next two tiles' copies are in flight while this one is used, and one
-// barrier a tile suffices.  S = Q K^T is mma.sync.m16n8k16 (bf16 in, fp32
-// out); the online softmax runs on the accumulator fragments, a row's max
-// and sum reduced over the 4 lanes that hold it; p is rounded to bf16 in
-// registers and is directly the A operand of the PV mma, with V read by
-// ldmatrix.trans.  Each tile's PV starts from zero and is added to acc in
-// fp32 (acc * corr + pv, as the plain version adds it, in one fma): the
-// tensor cores' fp32 accumulation, which truncates, then spans one 64-key
-// tile, not thousands of keys.  Scores are kept in log2 units (the scale
-// folded with log2 e, as in the plain version), so p = 2^(s - m) is one
-// MUFU.EX2.  A warp whose rows see no key of a tile skips it (an exact
-// no-op: 2^(-1e30 - m) == 0).
+// bf16 at hd 64 and 128 (the scoring paths: granite, InternVL2) runs on
+// Hopper's own machinery.  A block owns one (batch*head, 128-query-row)
+// tile and is two consumer warpgroups of 64 query rows each, 256 threads.
+// There is no producer warpgroup: ptxas gives a 288- or 384-thread block
+// 168 registers a thread whatever setmaxnreg asks (measured), too few for
+// a consumer's accumulators, and then serializes its wgmmas; at 256
+// threads a consumer has 255.  One thread of consumer 1 (whose rows see
+// every key tile of the block) issues the TMA copies: the Q tile once,
+// then K and V tiles of 64 keys through a four-stage ring with a full and
+// an empty mbarrier a stage.  It refills a stage once both consumers have
+// released it, so the next three tiles' copies are in flight while one is
+// used, and no other thread spends an instruction on a copy.  Tensor maps
+// read the (B, S, H, hd) layout in place through its row stride H*hd, in
+// 64-column boxes that TMA writes 128-byte swizzled; keys past Sk arrive
+// as TMA's zeros and are masked like the causal ones, and query rows past
+// Sq are computed from zeros and not stored.  S = Q K^T is wgmma m64n64k16
+// with both operands in shared memory (hd / 16 steps).  The online
+// softmax runs on the accumulator registers: scores in log2 units with the
+// scale folded in (the fp32 product by scale_log2, as the plain version),
+// one MUFU.EX2 each, a row's max and sum reduced as a tree over the 16
+// values a thread holds and then over the four lanes that hold the row.
+// p is rounded to bf16 in registers and is the register A operand of wgmma
+// P V (m64n{hd}k16, four steps), with V a transposed (MN-major) B from
+// shared memory.  Each tile's PV starts from zero (scale-d 0 on its first
+// step) and is added to acc in fp32 as acc * corr + pv in one fma, as the
+// plain version adds it; l sums the unrounded p; the output is acc /
+// max(l, 1e-30).  The tensor cores' own accumulation thus spans one
+// 64-key tile, not thousands of keys.  A consumer issues the next tile's S
+// before it runs this tile's softmax, so the tensor cores work while the
+// exponentials run; at hd 64 it also waits for the previous tile's P V
+// only after the softmax (at hd 128 that would pass 255 registers).  Tiles
+// that cross neither the diagonal nor Sk skip the mask.  A consumer whose
+// rows see no key of a tile skips it (it still waits for the tile and
+// releases it), and the heaviest query tiles are scheduled first.
+//
+// bf16 at hd 16 and 32 (the configs' reduced widths and the edge cases,
+// no full-width path) keeps the Ampere-generation body: four warps of 32
+// query rows, mma.sync.m16n8k16 on ldmatrix fragments, K / V through a
+// three-stage cp.async ring, the same arithmetic as above.
 //
 // fp32 keeps the products as fp32 FMAs on CUDA cores, in ascending order
 // (64-row blocks, 4 query rows x hd/16 columns a thread; scores in log2
@@ -48,12 +70,14 @@
 // 1e-5 rule out TF32.
 //
 // Plain C interface for ctypes: one launch function on the caller's stream
-// that allocates nothing and returns cudaGetLastError().
+// that allocates nothing (the bf16 tensor maps are encoded on the host at
+// each call) and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "tensor_core.cuh"
 
 namespace {
@@ -192,15 +216,14 @@ using bf16 = __nv_bfloat16;
 constexpr int NW = 4;           // warps per block
 constexpr int NT_TC = 32 * NW;
 
-// Query rows per warp, in m16 tiles: two up to hd 64 (the K / V fragments
-// then serve two tiles), one at hd 128, where two would not fit the
-// registers.
-__host__ __device__ constexpr int m_tiles(int hd) { return hd <= 64 ? 2 : 1; }
-__host__ __device__ constexpr int bq_tc(int hd) { return NW * 16 * m_tiles(hd); }
+// hd 16 and 32: each warp owns two m16 tiles of query rows (the K / V
+// fragments then serve both), so a block covers 128 rows.
+constexpr int MT_TC = 2;
+constexpr int BQ_TC = NW * 16 * MT_TC;
 __host__ __device__ constexpr int stride_tc(int hd) { return hd + 8; }   // +16 bytes a row
 constexpr int KV_STAGES = 3;    // the K / V cp.async ring
 constexpr int smem_bytes_bf16(int hd) {
-  return 2 * (bq_tc(hd) + 2 * KV_STAGES * BKV) * stride_tc(hd);
+  return 2 * (BQ_TC + 2 * KV_STAGES * BKV) * stride_tc(hd);
 }
 
 // 2^x as one MUFU.EX2 (flushing results below 2^-126 to zero): for every
@@ -217,8 +240,9 @@ __global__ void __launch_bounds__(NT_TC)
 flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const bf16* __restrict__ v, bf16* __restrict__ o, int H, int Sq, int Sk,
                float scale_log2) {
-  constexpr int MT = m_tiles(HD);
-  constexpr int BQT = bq_tc(HD);  // query rows per block
+  static_assert(HD <= 32, "hd 64 and 128 take flash_fwd_wg");
+  constexpr int MT = MT_TC;
+  constexpr int BQT = BQ_TC;      // query rows per block
   constexpr int STR = stride_tc(HD);
   constexpr int CH = HD / 8;      // 16-byte chunks per row
   constexpr int NK = HD / 16;     // k16 steps over hd in S = Q K^T
@@ -414,13 +438,371 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 }
 
-// ------------------------------------------------------------- launches ----
+// ------------------------------------------------- bf16, wgmma + TMA ----
 
 template <typename Kernel>
 void allow_smem(Kernel kernel, int bytes) {
   if (bytes > 48 * 1024)
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
+
+constexpr int WG_BQ = 128;           // query rows a block: two consumers of 64
+constexpr int WG_STAGES = 4;         // the K / V ring
+constexpr int WG_THREADS = 256;      // consumer warpgroups 0 and 1
+constexpr int WG_CONSUMER_WARPS = 8; // each arrives once on a stage's empty barrier
+constexpr int TILE_BYTES = 64 * 64 * 2;   // one 64 x 64 bf16 swizzled box
+
+template <int HD>
+struct WgSmem {
+  static constexpr int CH = HD / 64;                 // 64-column boxes across hd
+  static constexpr int KV = CH * TILE_BYTES;         // a K or V tile: [CH][64 keys][64]
+  static constexpr int Q = 2 * KV;                   // [consumer][CH][64 rows][64]
+  static constexpr int K_OFF = Q;
+  static constexpr int V_OFF = Q + WG_STAGES * KV;
+  static constexpr int BARS = Q + 2 * WG_STAGES * KV;
+  static constexpr int BYTES = BARS + 8 * (1 + 2 * WG_STAGES) + 1024;   // + alignment
+};
+
+// S = Q K^T of one key tile (hd / 16 steps), from zero, issued and
+// committed; qs and ks are the consumer's Q rows and the tile's K.
+template <int HD>
+__device__ __forceinline__ void wg_issue_s(float (&sc)[BKV / 2], const unsigned char* qs,
+                                           const unsigned char* ks) {
+  hop::fence_regs(sc);
+  hop::wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const int off = (kk / 4) * TILE_BYTES + (kk % 4) * 32;
+    hop::wgmma_ss<BKV, 0>(sc, hop::desc_sw128(qs + off, 16, 1024),
+                          hop::desc_sw128(ks + off, 16, 1024), kk > 0);
+  }
+  hop::wg_commit();
+}
+
+// pv = P V of one key tile from zero (four steps, P from registers, V
+// transposed from shared memory), issued and committed.
+template <int HD>
+__device__ __forceinline__ void wg_issue_pv(float (&pv)[HD / 2], uint32_t (&pa)[BKV / 16][4],
+                                            const unsigned char* vs) {
+  hop::fence_regs(pv);
+#pragma unroll
+  for (int kk = 0; kk < BKV / 16; ++kk) hop::fence_regs(pa[kk]);
+  hop::wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < BKV / 16; ++kk)
+    hop::wgmma_rs<HD, 1>(pv, pa[kk], hop::desc_sw128(vs + kk * 16 * 128, TILE_BYTES, 1024),
+                         kk > 0);
+  hop::wg_commit();
+}
+
+// The max (MAX) or sum of the 16 values of row hr a thread holds in sc
+// (sc[4j + 2hr + e]), as a balanced tree.
+template <bool MAX>
+__device__ __forceinline__ float row_reduce(const float (&sc)[BKV / 2], int hr) {
+  float t[BKV / 8];
+#pragma unroll
+  for (int j = 0; j < BKV / 8; ++j)
+    t[j] = MAX ? fmaxf(sc[4 * j + 2 * hr], sc[4 * j + 2 * hr + 1])
+               : sc[4 * j + 2 * hr] + sc[4 * j + 2 * hr + 1];
+#pragma unroll
+  for (int w = BKV / 16; w >= 1; w /= 2)
+#pragma unroll
+    for (int j = 0; j < w; ++j) t[j] = MAX ? fmaxf(t[j], t[j + w]) : t[j] + t[j + w];
+  return t[0];
+}
+
+// The online softmax of one tile on its scores sc (sc[4j + e]: row
+// rw + g + 8 (e / 2), key k0 + 8j + 2 t4 + e % 2): scores in log2 units,
+// masked keys at NEG_INF, the running max and sum, and p rounded to bf16
+// into the A fragments of the PV steps (keys 16 kk .. + 15).
+__device__ __forceinline__ void wg_softmax(float (&sc)[BKV / 2], uint32_t (&pa)[BKV / 16][4],
+                                           float (&corr)[2], float (&m_run)[2],
+                                           float (&l_run)[2], int k0, int rw, int g, int t4,
+                                           int shift, int Sk, float scale_log2) {
+  if (k0 + BKV - 1 > rw + shift || k0 + BKV > Sk) {   // crosses the diagonal or Sk
+#pragma unroll
+    for (int i = 0; i < BKV / 2; ++i) {
+      const int kpos = k0 + (i / 4) * 8 + 2 * t4 + (i & 1);
+      const int qpos = rw + g + 8 * ((i / 2) & 1);
+      sc[i] = kpos <= qpos + shift && kpos < Sk ? __fmul_rn(sc[i], scale_log2) : NEG_INF;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < BKV / 2; ++i) sc[i] = __fmul_rn(sc[i], scale_log2);
+  }
+  // a row's 16 values a thread reduced as a tree (short dependency chains)
+  float mx[2] = {row_reduce<true>(sc, 0), row_reduce<true>(sc, 1)};
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 1));
+    mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 2));
+    const float m_new = fmaxf(m_run[hr], mx[hr]);
+    corr[hr] = fast_exp2(m_run[hr] - m_new);
+    m_run[hr] = m_new;
+  }
+#pragma unroll
+  for (int i = 0; i < BKV / 2; ++i) sc[i] = fast_exp2(sc[i] - m_run[(i / 2) & 1]);
+  float sum[2] = {row_reduce<false>(sc, 0), row_reduce<false>(sc, 1)};
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    sum[hr] += __shfl_xor_sync(0xffffffffu, sum[hr], 1);
+    sum[hr] += __shfl_xor_sync(0xffffffffu, sum[hr], 2);
+    l_run[hr] = l_run[hr] * corr[hr] + sum[hr];   // the unrounded p
+  }
+#pragma unroll
+  for (int kk = 0; kk < BKV / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      pa[kk][r] = tc::pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+}
+
+// What the thread that issues the copies needs.
+struct WgLoads {
+  const CUtensorMap* kmap;
+  const CUtensorMap* vmap;
+  unsigned char* smem;
+  uint64_t* full;
+  uint64_t* empty;
+  int h, b, n_tiles;
+};
+
+// Tile `it`'s K and V into stage it % WG_STAGES.
+template <int HD>
+__device__ __forceinline__ void wg_load_kv(const WgLoads& ld, int it) {
+  using L = WgSmem<HD>;
+  const int s = it % WG_STAGES;
+  hop::mbar_expect_tx(&ld.full[s], 2 * L::KV);
+#pragma unroll
+  for (int ch = 0; ch < L::CH; ++ch) {
+    hop::tma_load_4d(ld.smem + L::K_OFF + s * L::KV + ch * TILE_BYTES, ld.kmap, &ld.full[s],
+                     ch * 64, ld.h, it * BKV, ld.b);
+    hop::tma_load_4d(ld.smem + L::V_OFF + s * L::KV + ch * TILE_BYTES, ld.vmap, &ld.full[s],
+                     ch * 64, ld.h, it * BKV, ld.b);
+  }
+}
+
+// Once this thread has released tile `done`: the issuing thread waits for
+// the other consumer to release it too and refills its stage with tile
+// done + WG_STAGES.
+template <int HD>
+__device__ __forceinline__ void wg_refill(const WgLoads& ld, bool issuer, int done) {
+  if (issuer && done + WG_STAGES < ld.n_tiles) {
+    hop::mbar_wait(&ld.empty[done % WG_STAGES], (done / WG_STAGES) & 1);
+    wg_load_kv<HD>(ld, done + WG_STAGES);
+  }
+}
+
+// A consumer warpgroup's state across its key tiles.
+template <int HD>
+struct WgConsumer {
+  float acc[HD / 2];
+  float pv[HD / 2];         // a tile's P V
+  float corr_prev[2];       // the correction of the tile whose P V is in flight
+  float m_run[2], l_run[2];
+};
+
+// acc = acc * corr + pv, the plain version's per-tile update, in one fma.
+template <int HD>
+__device__ __forceinline__ void wg_fold(WgConsumer<HD>& st, const float (&corr)[2]) {
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) st.acc[i] = fmaf(st.acc[i], corr[(i / 2) & 1], st.pv[i]);
+}
+
+__device__ __forceinline__ void wg_release(uint64_t* empty, int it) {
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) hop::mbar_arrive(&empty[it % WG_STAGES]);   // this warp is done
+}
+
+// Whether a consumer leaves a tile's P V in flight through the next tile's
+// softmax: at hd 64; at hd 128 the two accumulators, two S tiles and the p
+// fragments would pass 255 registers (measured: 860 bytes spilled), so the
+// P V is waited for at once there.
+template <int HD>
+constexpr bool kDeferPv = HD <= 64;
+
+// Tile `it` of a consumer, its S complete in cur.  MORE: issue the next
+// tile's S into nxt first, so it runs on the tensor cores during this
+// tile's softmax.  With kDeferPv the previous tile's P V (none when FIRST)
+// is waited for only after the softmax, then folded into acc (acc * corr +
+// pv, as the plain version adds it) and its stage released, and this
+// tile's P V is issued and left in flight; else this tile's P V is issued,
+// waited for and folded at once.
+template <int HD, bool FIRST, bool MORE>
+__device__ __forceinline__ void wg_step(WgConsumer<HD>& st, float (&cur)[BKV / 2],
+                                        float (&nxt)[BKV / 2], int it, const WgLoads& ld,
+                                        bool issuer, const unsigned char* qs, int rw, int g,
+                                        int t4, int shift, int Sk, float scale_log2) {
+  using L = WgSmem<HD>;
+  unsigned char* smem = ld.smem;
+  uint64_t* full = ld.full;
+  uint64_t* empty = ld.empty;
+  if constexpr (MORE) {
+    const int s = (it + 1) % WG_STAGES;
+    hop::mbar_wait(&full[s], ((it + 1) / WG_STAGES) & 1);
+    wg_issue_s<HD>(nxt, qs, smem + L::K_OFF + s * L::KV);
+  }
+  uint32_t pa[BKV / 16][4];
+  float corr[2];
+  wg_softmax(cur, pa, corr, st.m_run, st.l_run, it * BKV, rw, g, t4, shift, Sk, scale_log2);
+  if constexpr (kDeferPv<HD>) {
+    if constexpr (!FIRST) {
+      if constexpr (MORE) hop::wg_wait<1>();   // the previous P V (committed before the next S)
+      else hop::wg_wait<0>();
+      hop::fence_regs(st.pv);
+      wg_fold<HD>(st, st.corr_prev);
+      wg_release(empty, it - 1);
+      wg_refill<HD>(ld, issuer, it - 1);
+    }
+    wg_issue_pv<HD>(st.pv, pa, smem + L::V_OFF + (it % WG_STAGES) * L::KV);
+    if constexpr (MORE) {
+      hop::wg_wait<1>();   // the next tile's S
+      hop::fence_regs(nxt);
+    }
+    st.corr_prev[0] = corr[0];
+    st.corr_prev[1] = corr[1];
+  } else {
+    wg_issue_pv<HD>(st.pv, pa, smem + L::V_OFF + (it % WG_STAGES) * L::KV);
+    hop::wg_wait<0>();
+    if constexpr (MORE) hop::fence_regs(nxt);
+    hop::fence_regs(st.pv);
+    wg_fold<HD>(st, corr);
+    wg_release(empty, it);
+    wg_refill<HD>(ld, issuer, it);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_fwd_wg(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+             const __grid_constant__ CUtensorMap vmap, bf16* __restrict__ o, int H, int Sq,
+             int Sk, float scale_log2) {
+  using L = WgSmem<HD>;
+  constexpr int CH = L::CH;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* full = q_full + 1;              // [WG_STAGES]
+  uint64_t* empty = full + WG_STAGES;       // [WG_STAGES]
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * WG_BQ;
+  const int shift = Sk - Sq;
+  const int n_tiles = (min(q0 + WG_BQ, Sq) - 1 + shift) / BKV + 1;
+  if (threadIdx.x == 0) {
+    hop::mbar_init(q_full, 1);
+    for (int s = 0; s < WG_STAGES; ++s) {
+      hop::mbar_init(&full[s], 1);
+      hop::mbar_init(&empty[s], WG_CONSUMER_WARPS);
+    }
+    hop::fence_barrier_init();
+  }
+  __syncthreads();
+
+  // consumer c: query rows q0 + 64 c .. + 63; warp w of it rows 16 w .. + 15
+  const int c = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int rw = q0 + 64 * c + 16 * warp;   // the warp's first row
+  // these rows see keys up to tile n_my - 1; later tiles are only waited
+  // for and released.  Consumer 1 sees every tile of the block, so one of
+  // its threads issues the copies.
+  const int n_my = (min(q0 + 64 * c + 63, Sq - 1) + shift) / BKV + 1;
+  const bool issuer = threadIdx.x == 128;
+  const WgLoads ld{&kmap, &vmap, smem, full, empty, h, b, n_tiles};
+  if (issuer) {
+    hop::prefetch_map(&qmap);
+    hop::prefetch_map(&kmap);
+    hop::prefetch_map(&vmap);
+    hop::mbar_expect_tx(q_full, L::Q);
+    for (int cc = 0; cc < 2; ++cc)
+      for (int ch = 0; ch < CH; ++ch)
+        hop::tma_load_4d(smem + (cc * CH + ch) * TILE_BYTES, &qmap, q_full, ch * 64, h,
+                         q0 + 64 * cc, b);
+    for (int it = 0; it < min(WG_STAGES, n_tiles); ++it) wg_load_kv<HD>(ld, it);
+  }
+  const unsigned char* qs = smem + c * CH * TILE_BYTES;
+  WgConsumer<HD> st;
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) st.acc[i] = 0.0f;
+  st.m_run[0] = st.m_run[1] = NEG_INF;
+  st.l_run[0] = st.l_run[1] = 0.0f;
+
+  hop::mbar_wait(q_full, 0);
+  hop::mbar_wait(&full[0], 0);
+  float s0[BKV / 2], s1[BKV / 2];
+  wg_issue_s<HD>(s0, qs, smem + L::K_OFF);
+  hop::wg_wait<0>();
+  hop::fence_regs(s0);
+#define WG_STEP(FIRST, MORE, CUR, NXT, IT) \
+  wg_step<HD, FIRST, MORE>(st, CUR, NXT, IT, ld, issuer, qs, rw, g, t4, shift, Sk, scale_log2)
+  // S of tile it is in s0 for even it, s1 for odd it
+  if (n_my == 1) {
+    WG_STEP(true, false, s0, s1, 0);
+  } else {
+    WG_STEP(true, true, s0, s1, 0);
+    int it = 1;
+    for (; it + 2 < n_my; it += 2) {
+      WG_STEP(false, true, s1, s0, it);
+      WG_STEP(false, true, s0, s1, it + 1);
+    }
+    if (it + 2 == n_my) {
+      WG_STEP(false, true, s1, s0, it);
+      WG_STEP(false, false, s0, s1, it + 1);
+    } else {
+      WG_STEP(false, false, s1, s0, it);
+    }
+  }
+#undef WG_STEP
+  if constexpr (kDeferPv<HD>) {
+    hop::wg_wait<0>();   // the last tile's P V
+    hop::fence_regs(st.pv);
+    wg_fold<HD>(st, st.corr_prev);
+    wg_release(empty, n_my - 1);
+  }
+  for (int it = n_my; it < n_tiles; ++it) {   // consumer 0 only
+    hop::mbar_wait(&full[it % WG_STAGES], (it / WG_STAGES) & 1);
+    wg_release(empty, it);
+  }
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = rw + g + 8 * hr;
+    if (r >= Sq) continue;
+    const float den = fmaxf(st.l_run[hr], 1e-30f);
+    bf16* orow = o + ((size_t)b * Sq + r) * H * HD + (size_t)h * HD;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + 2 * t4) = __floats2bfloat162_rn(
+          st.acc[4 * j + 2 * hr] / den, st.acc[4 * j + 2 * hr + 1] / den);
+  }
+}
+
+// The tensor map of q, k or v (B, S, H, hd) bf16: 64 x 64 boxes of one
+// (batch, head), 128-byte swizzled.
+int flash_map(CUtensorMap* map, const void* base, int B, int S, int H, int hd) {
+  const uint64_t dims[4] = {(uint64_t)hd, (uint64_t)H, (uint64_t)S, (uint64_t)B};
+  const uint64_t strides[3] = {(uint64_t)hd * 2, (uint64_t)H * hd * 2, (uint64_t)S * H * hd * 2};
+  const uint32_t box[4] = {64, 1, 64, 1};
+  return hop::encode_bf16_map(map, base, 4, dims, strides, box);
+}
+
+template <int HD>
+int launch_wg(const void* q, const void* k, const void* v, void* o, int B, int H, int Sq, int Sk,
+              float scale_log2, cudaStream_t s) {
+  const int q_tiles = (Sq + WG_BQ - 1) / WG_BQ;
+  if (q_tiles > 65535) return -1;
+  CUtensorMap qm, km, vm;
+  if (flash_map(&qm, q, B, Sq, H, HD) || flash_map(&km, k, B, Sk, H, HD) ||
+      flash_map(&vm, v, B, Sk, H, HD))
+    return -1;
+  constexpr int bytes = WgSmem<HD>::BYTES;
+  allow_smem(flash_fwd_wg<HD>, bytes);
+  // (batch*head) fastest, so every head's heaviest query tile goes first
+  flash_fwd_wg<HD><<<dim3(B * H, q_tiles), WG_THREADS, bytes, s>>>(
+      qm, km, vm, static_cast<bf16*>(o), H, Sq, Sk, scale_log2);
+  return 0;
+}
+
+// ------------------------------------------------------------- launches ----
 
 template <int HD>
 int launch(int dtype, const void* q, const void* k, const void* v, void* o, int B, int H,
@@ -435,15 +817,19 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* o, int 
         static_cast<const float*>(v), static_cast<float*>(o), H, Sq, Sk, scale_log2);
     return 0;
   }
-  // (batch*head) fastest, so every head's heaviest query tile goes first
-  const int q_tiles_tc = (Sq + bq_tc(HD) - 1) / bq_tc(HD);
-  if (q_tiles_tc > 65535) return -1;
-  const int bytes = smem_bytes_bf16(HD);
-  allow_smem(flash_fwd_bf16<HD>, bytes);
-  flash_fwd_bf16<HD><<<dim3(B * H, q_tiles_tc), NT_TC, bytes, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), H, Sq, Sk, scale_log2);
-  return 0;
+  if constexpr (HD >= 64) {
+    return launch_wg<HD>(q, k, v, o, B, H, Sq, Sk, scale_log2, s);
+  } else {
+    // (batch*head) fastest, so every head's heaviest query tile goes first
+    const int q_tiles_tc = (Sq + BQ_TC - 1) / BQ_TC;
+    if (q_tiles_tc > 65535) return -1;
+    const int bytes = smem_bytes_bf16(HD);
+    allow_smem(flash_fwd_bf16<HD>, bytes);
+    flash_fwd_bf16<HD><<<dim3(B * H, q_tiles_tc), NT_TC, bytes, s>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<bf16*>(o), H, Sq, Sk, scale_log2);
+    return 0;
+  }
 }
 
 }  // namespace

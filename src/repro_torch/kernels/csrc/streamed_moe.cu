@@ -29,22 +29,39 @@
 // and from L2 by its other row tiles.
 //
 // The tiles are chosen at launch: each tensor-core path has a table of
-// settings (TC_SETTINGS, Q_SETTINGS below; the counterpart of the Pallas
+// settings (WG_SETTINGS, Q_SETTINGS below; the counterpart of the Pallas
 // kernel's token_tile / dmodel_tile / dexpert_tile), the caller passes a
 // row of it, and core/autotune.py plans which.  No setting splits K or
 // reorders a sum, so every setting gives the same bits.
 //
-// bf16 activations x bf16 weights (the serving and scoring paths) run on the
-// tensor cores: mma.sync.m16n8k16 with fp32 accumulation, bf16 tiles read by
-// ldmatrix, warps of WM x WN outputs (the default: 32 x 32, BM = 64 rows and
-// 4 warps when C <= 64, else BM = 128 and 8 warps; BN = 64).  The activation
-// and weight tiles stream through a cp.async ring (the default: four stages
-// of 32 k-rows, three in flight per block while the fourth is multiplied).
-// h is bf16 here (exact: it is rounded to bf16 before the down product
-// anyway).  This path takes d and m multiples of 8 (16-byte rows).
+// bf16 activations x bf16 weights (the serving, scoring and training paths)
+// run on Hopper's own machinery, warp-specialised.  A block has one
+// producer warp, one thread of which keeps TMA loads in flight, and one or
+// two consumer warpgroups of 64 rows each that issue wgmma.m64n{BN}k16.  A
+// stage of the ring holds the BM x BK activation tile (x in phase 1, the
+// bf16 h scratch in phase 2) and each weight matrix's BK x BN tile, all
+// 128-byte swizzled by TMA, with a full and an empty mbarrier; the weights
+// are N-major, so wgmma takes B transposed.  Tensor maps of (E, rows,
+// columns) read each expert's slice in place: rows past C, columns past N
+// and k past K arrive as zeros (no bytes are read for them: C = 16 decode
+// fills 48 of 64 rows so, and a K of 8 in phase 2 is filled to the
+// stage), and the epilogue masks its stores.  A consumer keeps one stage's
+// products in flight while it issues the next and releases a stage once
+// its products are done.  swiglu keeps the gate and up products in two
+// accumulators (BN / 2 floats each a thread); phase 1's epilogue applies
+// the activation and writes h in bf16 (exact: it is rounded to bf16 before
+// the down product anyway), phase 2's writes out in fp32.  Decode (C <=
+// 64) takes one warpgroup of 64 rows and stays bound by the weight bytes,
+// which TMA streams without a thread's copy instructions; C = 1024 / 1280
+// take two warpgroups of 128 x 128 tiles (the gate and up products make
+// the first phase's tile 128 x 256).  The maps are encoded on the host at
+// each call (the operands move from call to call; a CUDA graph captures
+// them by value with the fixed addresses it replays).  This path takes d
+// and m multiples of 8 (16-byte rows).
 //
-// int8 / fp8-e4m3 weights (bf16 or fp32 activations) run on the same
-// mma.sync bf16 tensor cores with the reference's fp32 accuracy: every 8-bit
+// int8 / fp8-e4m3 weights (bf16 or fp32 activations) run on the
+// Ampere-generation mma.sync bf16 tensor cores (csrc/tensor_core.cuh, a
+// cp.async ring) with the reference's fp32 accuracy: every 8-bit
 // value is exact in bf16, a product of two bf16 values is exact in fp32, and
 // the per-(expert, column) scale multiplies the fp32 sum in the epilogue
 // (before the activation in phase 1, before the store in phase 2).  The
@@ -84,6 +101,7 @@
 
 #include <type_traits>
 
+#include "hopper.cuh"
 #include "tensor_core.cuh"
 
 namespace {
@@ -324,188 +342,9 @@ down_kernel(const float* __restrict__ h, const TW* __restrict__ wd, float* __res
   }
 }
 
-// ------------------------------------------ bf16 x bf16 on the tensor cores
+// ------------------------------------------ bf16 x bf16: wgmma + TMA
 
 using bf16 = __nv_bfloat16;
-
-// The settings of the bf16 tensor-core path, one per row: BM rows and BN
-// columns a block, warps of WM x WN outputs, BK k-rows a stage, STAGES
-// stages in the cp.async ring.  Row i is setting i of streamed_moe_forward's
-// `tiles`; repro_torch.kernels.streamed_moe.TILE_SETTINGS["bf16"] holds the
-// same rows in the same order (a CPU test parses this list).  Rows 0 and 1
-// are the default rule's: 64-row blocks when C <= 64, else 128.  Every
-// setting sums each output's k16 products in ascending k into one fp32
-// accumulator, so all give the same bits.
-#define TC_SETTINGS(X)        \
-  X(64, 64, 32, 32, 32, 4)    \
-  X(128, 64, 32, 32, 32, 4)   \
-  X(64, 32, 32, 32, 32, 4)    \
-  X(64, 32, 32, 32, 64, 4)    \
-  X(64, 64, 32, 32, 64, 4)    \
-  X(64, 64, 64, 32, 32, 4)    \
-  X(64, 128, 32, 64, 32, 4)   \
-  X(128, 64, 64, 32, 32, 4)   \
-  X(128, 64, 32, 32, 64, 3)   \
-  X(128, 128, 64, 32, 32, 4)  \
-  X(128, 128, 32, 64, 32, 4)  \
-  X(128, 128, 64, 32, 64, 3)
-
-template <int BM_, int BN_, int WM_, int WN_, int BK_, int STAGES_>
-struct TcCfg {
-  static constexpr int BM = BM_, BN = BN_, WM = WM_, WN = WN_, BK = BK_, STAGES = STAGES_;
-  static constexpr int WARPS_N = BN / WN;
-  static constexpr int NT = 32 * (BM / WM) * WARPS_N;
-  static constexpr int MI = WM / 16;   // m16 tiles a warp
-  static constexpr int NJ = WN / 8;    // n8 tiles a warp
-  static constexpr int XS = BK + 8;    // activation tile row stride (bf16)
-  static constexpr int WS = BN + 8;    // weight tile row stride (bf16)
-  static_assert(BM % WM == 0 && BN % WN == 0 && WM % 16 == 0 && WN % 16 == 0 && BK % 16 == 0 &&
-                    STAGES >= 2,
-                "bad tensor-core tile setting");
-};
-
-// A stage holds a BM x BK activation tile and NMAT BK x BN weight tiles,
-// rows padded by 16 bytes so that ldmatrix's eight rows hit distinct banks.
-template <class Cfg, int NMAT>
-struct TcShape {
-  static constexpr int X_ELEMS = Cfg::BM * Cfg::XS;
-  static constexpr int W_ELEMS = Cfg::BK * Cfg::WS;
-  static constexpr int STAGE = X_ELEMS + NMAT * W_ELEMS;
-  static constexpr int SMEM = 2 * Cfg::STAGES * STAGE;
-};
-
-// acc[mat] += x[r0 : r0+BM, :] @ w[mat][:, c0 : c0+BN] for row-major
-// x (R, K) and w (K, N), each warp keeping its WM x WN share: acc[mat][i][j]
-// is the warp's m16 tile i, n8 tile j.  Rows past R, columns past N and k
-// past K load as zeros (K and N multiples of 8).  Each output's k16 steps
-// run in ascending k whatever the setting.
-template <class Cfg, int NMAT>
-__device__ __forceinline__ void tc_mainloop(float (&acc)[NMAT][Cfg::MI][Cfg::NJ][4], bf16* smem,
-                                            const bf16* __restrict__ x, int R, int K, int r0,
-                                            const bf16* const (&w)[NMAT], int N, int c0) {
-  using S = TcShape<Cfg, NMAT>;
-  constexpr int BM = Cfg::BM, BN = Cfg::BN, BK = Cfg::BK, STAGES = Cfg::STAGES;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wm = warp / Cfg::WARPS_N, wn = warp % Cfg::WARPS_N;
-  const int nk = (K + BK - 1) / BK;
-  auto load = [&](int kt, int stage) {
-    bf16* xs = smem + stage * S::STAGE;
-    const int k0 = kt * BK;
-    for (int i = tid; i < BM * (BK / 8); i += Cfg::NT) {
-      const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
-      const bool ok = r0 + r < R && k0 + c < K;
-      tc::cp_async16(xs + r * Cfg::XS + c, ok ? x + (size_t)(r0 + r) * K + k0 + c : x, ok);
-    }
-#pragma unroll
-    for (int mat = 0; mat < NMAT; ++mat) {
-      bf16* ws = xs + S::X_ELEMS + mat * S::W_ELEMS;
-      for (int i = tid; i < BK * (BN / 8); i += Cfg::NT) {
-        const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
-        const bool ok = k0 + r < K && c0 + c < N;
-        tc::cp_async16(ws + r * Cfg::WS + c, ok ? w[mat] + (size_t)(k0 + r) * N + c0 + c : w[mat],
-                       ok);
-      }
-    }
-  };
-  // Prologue: stages 0 .. STAGES-2 in flight (a group per stage, empty
-  // past the last tile, so the group count stays fixed).
-#pragma unroll
-  for (int st = 0; st < STAGES - 1; ++st) {
-    if (st < nk) load(st, st);
-    tc::cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    tc::cp_async_wait<STAGES - 2>();   // tile kt has landed (this thread's copies)
-    __syncthreads();                   // ... everyone's; stage (kt-1) is free again
-    const int next = kt + STAGES - 1;
-    if (next < nk) load(next, next % STAGES);
-    tc::cp_async_commit();
-    const bf16* xs = smem + (kt % STAGES) * S::STAGE;
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t a[Cfg::MI][4];
-#pragma unroll
-      for (int i = 0; i < Cfg::MI; ++i)
-        tc::ldmatrix_x4(a[i], xs + (wm * Cfg::WM + i * 16 + lane % 16) * Cfg::XS + kk * 16 +
-                                  (lane / 16) * 8);
-#pragma unroll
-      for (int mat = 0; mat < NMAT; ++mat) {
-        const bf16* ws = xs + S::X_ELEMS + mat * S::W_ELEMS;
-#pragma unroll
-        for (int jp = 0; jp < Cfg::NJ / 2; ++jp) {
-          uint32_t b[4];
-          tc::ldmatrix_x4_trans(b, ws + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * Cfg::WS +
-                                       wn * Cfg::WN + jp * 16 + (lane / 16) * 8);
-#pragma unroll
-          for (int i = 0; i < Cfg::MI; ++i) {
-            tc::mma_bf16(acc[mat][i][2 * jp], a[i], b[0], b[1]);
-            tc::mma_bf16(acc[mat][i][2 * jp + 1], a[i], b[2], b[3]);
-          }
-        }
-      }
-    }
-  }
-  tc::cp_async_wait<0>();   // only empty groups are left; retire them
-}
-
-// Phase 1 on the tensor cores: h[e, rows, cols] = bf16(act(x w_g, x w_u)).
-template <class Cfg, int ACT>
-__global__ void __launch_bounds__(Cfg::NT)
-up_kernel_tc(const bf16* __restrict__ xe, const bf16* __restrict__ wg,
-             const bf16* __restrict__ wu, bf16* __restrict__ h, int C, int d, int m) {
-  constexpr int NMAT = ACT == ACT_SWIGLU ? 2 : 1;   // [0] up, [1] gate
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int e = blockIdx.z, c0 = blockIdx.x * Cfg::BN, r0 = blockIdx.y * Cfg::BM;
-  const bf16* w[NMAT];
-  w[0] = wu + (size_t)e * d * m;
-  if constexpr (NMAT == 2) w[1] = wg + (size_t)e * d * m;
-  float acc[NMAT][Cfg::MI][Cfg::NJ][4] = {};
-  tc_mainloop<Cfg, NMAT>(acc, reinterpret_cast<bf16*>(smem_raw), xe + (size_t)e * C * d, C, d,
-                         r0, w, m, c0);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int rw = r0 + (warp / Cfg::WARPS_N) * Cfg::WM + lane / 4;
-  const int cw = c0 + (warp % Cfg::WARPS_N) * Cfg::WN + 2 * (lane % 4);
-#pragma unroll
-  for (int i = 0; i < Cfg::MI; ++i)
-#pragma unroll
-    for (int j = 0; j < Cfg::NJ; ++j)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = rw + i * 16 + half * 8, c = cw + j * 8;
-        if (r >= C || c >= m) continue;
-        const float* u = &acc[0][i][j][2 * half];
-        const float* g = &acc[NMAT - 1][i][j][2 * half];
-        *reinterpret_cast<__nv_bfloat162*>(h + ((size_t)e * C + r) * m + c) =
-            __floats2bfloat162_rn(activate<ACT>(g[0], u[0]), activate<ACT>(g[1], u[1]));
-      }
-}
-
-// Phase 2 on the tensor cores: out[e, rows, cols] = h[e] @ w_d[e], fp32.
-template <class Cfg>
-__global__ void __launch_bounds__(Cfg::NT)
-down_kernel_tc(const bf16* __restrict__ h, const bf16* __restrict__ wd,
-               float* __restrict__ out, int C, int d, int m) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int e = blockIdx.z, c0 = blockIdx.x * Cfg::BN, r0 = blockIdx.y * Cfg::BM;
-  const bf16* w[1] = {wd + (size_t)e * m * d};
-  float acc[1][Cfg::MI][Cfg::NJ][4] = {};
-  tc_mainloop<Cfg, 1>(acc, reinterpret_cast<bf16*>(smem_raw), h + (size_t)e * C * m, C, m, r0,
-                      w, d, c0);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int rw = r0 + (warp / Cfg::WARPS_N) * Cfg::WM + lane / 4;
-  const int cw = c0 + (warp % Cfg::WARPS_N) * Cfg::WN + 2 * (lane % 4);
-#pragma unroll
-  for (int i = 0; i < Cfg::MI; ++i)
-#pragma unroll
-    for (int j = 0; j < Cfg::NJ; ++j)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = rw + i * 16 + half * 8, c = cw + j * 8;
-        if (r >= C || c >= d) continue;
-        *reinterpret_cast<float2*>(out + ((size_t)e * C + r) * d + c) =
-            make_float2(acc[0][i][j][2 * half], acc[0][i][j][2 * half + 1]);
-      }
-}
 
 // Launch with dynamic shared memory; above the 48 KB default the kernel
 // must be allowed more first.
@@ -532,47 +371,271 @@ void kernel_attrs(Kernel kernel, int dyn_smem, int threads, int* out) {
   out[4] = threads;
 }
 
+// The settings of the bf16 path, one per row: consumer warpgroups (64 rows
+// each, so BM = 64 WG rows a block), BN columns a block (64 or 128), BK
+// k-rows a stage (64 or 128) and STAGES stages in the TMA ring.  Row i is
+// setting i of streamed_moe_forward's `tiles`;
+// repro_torch.kernels.streamed_moe.TILE_SETTINGS["bf16"] holds the same rows
+// in the same order (a CPU test parses this list).  Rows 0 and 1 are the
+// default rule's: 64-row blocks when C <= 64, else 128.  Every setting runs
+// the same body and sums each output's k16 products in ascending k into one
+// fp32 accumulator, so all give the same bits.
+#define WG_SETTINGS(X) \
+  X(1, 64, 64, 4)      \
+  X(2, 128, 64, 4)     \
+  X(1, 128, 64, 4)     \
+  X(2, 64, 64, 4)      \
+  X(1, 64, 64, 2)      \
+  X(1, 128, 64, 2)     \
+  X(2, 64, 64, 3)      \
+  X(2, 128, 64, 3)
+
+template <int NWG_, int BN_, int BK_, int STAGES_>
+struct WgCfg {
+  static constexpr int NWG = NWG_, BN = BN_, BK = BK_, STAGES = STAGES_;
+  static constexpr int BM = 64 * NWG;
+  static constexpr int NT = 128 * NWG + 32;   // the consumers and one producer warp
+  static constexpr int A_BYTES = BM * BK * 2;  // BK / 64 boxes of [BM][64]
+  static constexpr int B_BYTES = BK * BN * 2;  // BN / 64 boxes of [BK][64]
+  static_assert((NWG == 1 || NWG == 2) && (BN == 64 || BN == 128) && (BK == 64 || BK == 128) &&
+                    STAGES >= 2,
+                "bad wgmma tile setting");
+};
+
+// A stage holds the activation tile and NMAT weight tiles, each 1024-byte
+// aligned; the stages' full and empty barriers follow the ring.
+template <class Cfg, int NMAT>
+struct WgShape {
+  static constexpr int STAGE = Cfg::A_BYTES + NMAT * Cfg::B_BYTES;
+  static constexpr int BARS = Cfg::STAGES * STAGE;
+  static constexpr int SMEM = BARS + 16 * Cfg::STAGES + 1024;   // + alignment
+};
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (hop::smem_u32(p) & 1023)) & 1023);
+}
+
+// The ring's barriers: full[s] completes when stage s's bytes have landed,
+// empty[s] when every consumer warp is done with it.
+template <class Cfg, int NMAT>
+__device__ __forceinline__ uint64_t* wg_barriers(unsigned char* smem) {
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + WgShape<Cfg, NMAT>::BARS);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < Cfg::STAGES; ++s) {
+      hop::mbar_init(&full[s], 1);
+      hop::mbar_init(&full[Cfg::STAGES + s], 4 * Cfg::NWG);
+    }
+    hop::fence_barrier_init();
+  }
+  __syncthreads();
+  return full;
+}
+
+// The producer thread: for each k-step, when its stage is free, the BM x BK
+// activation tile at (rows r0, k0) of expert e through amap and each
+// weight's BK x BN tile at (k0, columns c0) through wmap[mat].  Rows,
+// columns and k past the tensor arrive as zeros.
+template <class Cfg, int NMAT>
+__device__ __forceinline__ void wg_produce(unsigned char* smem, uint64_t* full,
+                                           const CUtensorMap* amap,
+                                           const CUtensorMap* const (&wmap)[NMAT], int nk, int r0,
+                                           int c0, int e) {
+  using S = WgShape<Cfg, NMAT>;
+  uint64_t* empty = full + Cfg::STAGES;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % Cfg::STAGES, k0 = kt * Cfg::BK;
+    hop::mbar_wait(&empty[s], ((kt / Cfg::STAGES) & 1) ^ 1);
+    hop::mbar_expect_tx(&full[s], S::STAGE);
+    unsigned char* st = smem + s * S::STAGE;
+    for (int kb = 0; kb < Cfg::BK / 64; ++kb)
+      hop::tma_load_3d(st + kb * Cfg::BM * 128, amap, &full[s], k0 + 64 * kb, r0, e);
+    for (int mat = 0; mat < NMAT; ++mat)
+      for (int nb = 0; nb < Cfg::BN / 64; ++nb)
+        hop::tma_load_3d(st + Cfg::A_BYTES + mat * Cfg::B_BYTES + nb * Cfg::BK * 128, wmap[mat],
+                         &full[s], c0 + 64 * nb, k0, e);
+  }
+}
+
+// Consumer warpgroup wg: acc[mat] = its 64 rows of the activation tile times
+// weight mat's BN columns, summed over the nk k-steps in ascending k, each
+// k16 step one wgmma.m64n{BN}k16 (A K-major, B MN-major, both from shared
+// memory).  One step's products stay in flight while the next is issued;
+// a stage is released once its products are done.
+template <class Cfg, int NMAT>
+__device__ __forceinline__ void wg_consume(float (&acc)[NMAT][Cfg::BN / 2],
+                                           const unsigned char* smem, uint64_t* full, int nk,
+                                           int wg) {
+  using S = WgShape<Cfg, NMAT>;
+  uint64_t* empty = full + Cfg::STAGES;
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int mat = 0; mat < NMAT; ++mat)
+#pragma unroll
+    for (int i = 0; i < Cfg::BN / 2; ++i) acc[mat][i] = 0.0f;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % Cfg::STAGES;
+    hop::mbar_wait(&full[s], (kt / Cfg::STAGES) & 1);
+    const unsigned char* st = smem + s * S::STAGE;
+#pragma unroll
+    for (int mat = 0; mat < NMAT; ++mat) hop::fence_regs(acc[mat]);
+    hop::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < Cfg::BK / 16; ++kk) {
+      const uint64_t da = hop::desc_sw128(
+          st + (kk / 4) * Cfg::BM * 128 + wg * 64 * 128 + (kk % 4) * 32, 16, 1024);
+#pragma unroll
+      for (int mat = 0; mat < NMAT; ++mat)
+        hop::wgmma_ss<Cfg::BN, 1>(
+            acc[mat], da,
+            hop::desc_sw128(st + Cfg::A_BYTES + mat * Cfg::B_BYTES + kk * 16 * 128,
+                            Cfg::BK * 128, 1024),
+            1);
+    }
+    hop::wg_commit();
+#pragma unroll
+    for (int mat = 0; mat < NMAT; ++mat) hop::fence_regs(acc[mat]);
+    if (kt > 0) {
+      hop::wg_wait<1>();   // step kt-1's products are done: free its stage
+      __syncwarp();
+      if (lane == 0) hop::mbar_arrive(&empty[(kt - 1) % Cfg::STAGES]);
+    }
+  }
+  hop::wg_wait<0>();
+#pragma unroll
+  for (int mat = 0; mat < NMAT; ++mat) hop::fence_regs(acc[mat]);
+}
+
+// Phase 1: h[e, rows, cols] = bf16(act(x w_g, x w_u)).  acc[mat][4j + 2hr +
+// q] is row r0 + 64 wg + 16 warp + g + 8 hr, column c0 + 8 j + 2 t + q.
+template <class Cfg, int ACT>
+__global__ void __launch_bounds__(Cfg::NT)
+up_kernel_wg(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap umap,
+             const __grid_constant__ CUtensorMap gmap, bf16* __restrict__ h, int C, int d, int m) {
+  constexpr int NMAT = ACT == ACT_SWIGLU ? 2 : 1;   // [0] up, [1] gate
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = wg_barriers<Cfg, NMAT>(smem);
+  const int e = blockIdx.z, c0 = blockIdx.x * Cfg::BN, r0 = blockIdx.y * Cfg::BM;
+  const int nk = (d + Cfg::BK - 1) / Cfg::BK;
+  if (threadIdx.x >= 128 * Cfg::NWG) {
+    if (threadIdx.x == 128 * Cfg::NWG) {
+      const CUtensorMap* w[NMAT];
+      w[0] = &umap;
+      if constexpr (NMAT == 2) w[1] = &gmap;
+      wg_produce<Cfg, NMAT>(smem, full, &xmap, w, nk, r0, c0, e);
+    }
+    return;
+  }
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  float acc[NMAT][Cfg::BN / 2];
+  wg_consume<Cfg, NMAT>(acc, smem, full, nk, wg);
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = r0 + 64 * wg + 16 * warp + lane / 4 + 8 * hr;
+    if (r >= C) continue;
+#pragma unroll
+    for (int j = 0; j < Cfg::BN / 8; ++j) {
+      const int c = c0 + 8 * j + 2 * (lane % 4);
+      if (c >= m) continue;
+      const float* u = &acc[0][4 * j + 2 * hr];
+      const float* g = &acc[NMAT - 1][4 * j + 2 * hr];
+      *reinterpret_cast<__nv_bfloat162*>(h + ((size_t)e * C + r) * m + c) =
+          __floats2bfloat162_rn(activate<ACT>(g[0], u[0]), activate<ACT>(g[1], u[1]));
+    }
+  }
+}
+
+// Phase 2: out[e, rows, cols] = h[e] @ w_d[e], fp32.
 template <class Cfg>
-void launch_tc_cfg(const bf16* x, const bf16* g, const bf16* u, const bf16* wd, bf16* h,
-                   float* out, int E, int C, int d, int m, int act, cudaStream_t s) {
+__global__ void __launch_bounds__(Cfg::NT)
+down_kernel_wg(const __grid_constant__ CUtensorMap hmap, const __grid_constant__ CUtensorMap dmap,
+               float* __restrict__ out, int C, int d, int m) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = wg_barriers<Cfg, 1>(smem);
+  const int e = blockIdx.z, c0 = blockIdx.x * Cfg::BN, r0 = blockIdx.y * Cfg::BM;
+  const int nk = (m + Cfg::BK - 1) / Cfg::BK;
+  if (threadIdx.x >= 128 * Cfg::NWG) {
+    if (threadIdx.x == 128 * Cfg::NWG) {
+      const CUtensorMap* w[1] = {&dmap};
+      wg_produce<Cfg, 1>(smem, full, &hmap, w, nk, r0, c0, e);
+    }
+    return;
+  }
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  float acc[1][Cfg::BN / 2];
+  wg_consume<Cfg, 1>(acc, smem, full, nk, wg);
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = r0 + 64 * wg + 16 * warp + lane / 4 + 8 * hr;
+    if (r >= C) continue;
+#pragma unroll
+    for (int j = 0; j < Cfg::BN / 8; ++j) {
+      const int c = c0 + 8 * j + 2 * (lane % 4);
+      if (c < d)
+        *reinterpret_cast<float2*>(out + ((size_t)e * C + r) * d + c) =
+            make_float2(acc[0][4 * j + 2 * hr], acc[0][4 * j + 2 * hr + 1]);
+    }
+  }
+}
+
+// The tensor map of a bf16 (E, R, K) tensor, read in boxes of `rows` rows x
+// 64 columns of one expert, 128-byte swizzled.
+int moe_map(CUtensorMap* map, const void* base, int E, int R, int K, int rows) {
+  const uint64_t dims[3] = {(uint64_t)K, (uint64_t)R, (uint64_t)E};
+  const uint64_t strides[2] = {(uint64_t)K * 2, (uint64_t)R * K * 2};
+  const uint32_t box[3] = {64, (uint32_t)rows, 1};
+  return hop::encode_bf16_map(map, base, 3, dims, strides, box);
+}
+
+template <class Cfg>
+int launch_wg_cfg(const bf16* x, const bf16* g, const bf16* u, const bf16* wd, bf16* h,
+                  float* out, int E, int C, int d, int m, int act, cudaStream_t s) {
+  // the maps are encoded at every call: the operands' addresses change
+  CUtensorMap xm, um, gm, hm, dm;
+  if (moe_map(&xm, x, E, C, d, Cfg::BM) || moe_map(&um, u, E, d, m, Cfg::BK) ||
+      moe_map(&gm, act == ACT_SWIGLU ? g : u, E, d, m, Cfg::BK) ||
+      moe_map(&hm, h, E, C, m, Cfg::BM) || moe_map(&dm, wd, E, m, d, Cfg::BK))
+    return -1;
   const dim3 g_up((m + Cfg::BN - 1) / Cfg::BN, (C + Cfg::BM - 1) / Cfg::BM, E);
   const dim3 g_down((d + Cfg::BN - 1) / Cfg::BN, (C + Cfg::BM - 1) / Cfg::BM, E);
   switch (act) {
     case ACT_SWIGLU:
-      launch_dyn(up_kernel_tc<Cfg, ACT_SWIGLU>, TcShape<Cfg, 2>::SMEM, g_up, Cfg::NT, s, x, g, u,
-                 h, C, d, m);
+      launch_dyn(up_kernel_wg<Cfg, ACT_SWIGLU>, WgShape<Cfg, 2>::SMEM, g_up, Cfg::NT, s, xm, um,
+                 gm, h, C, d, m);
       break;
     case ACT_RELU2:
-      launch_dyn(up_kernel_tc<Cfg, ACT_RELU2>, TcShape<Cfg, 1>::SMEM, g_up, Cfg::NT, s, x, g, u,
-                 h, C, d, m);
+      launch_dyn(up_kernel_wg<Cfg, ACT_RELU2>, WgShape<Cfg, 1>::SMEM, g_up, Cfg::NT, s, xm, um,
+                 gm, h, C, d, m);
       break;
     default:
-      launch_dyn(up_kernel_tc<Cfg, ACT_GELU>, TcShape<Cfg, 1>::SMEM, g_up, Cfg::NT, s, x, g, u,
-                 h, C, d, m);
+      launch_dyn(up_kernel_wg<Cfg, ACT_GELU>, WgShape<Cfg, 1>::SMEM, g_up, Cfg::NT, s, xm, um,
+                 gm, h, C, d, m);
       break;
   }
-  launch_dyn(down_kernel_tc<Cfg>, TcShape<Cfg, 1>::SMEM, g_down, Cfg::NT, s,
-             static_cast<const bf16*>(h), wd, out, C, d, m);
+  launch_dyn(down_kernel_wg<Cfg>, WgShape<Cfg, 1>::SMEM, g_down, Cfg::NT, s, hm, dm, out, C, d,
+             m);
+  return 0;
 }
 
 // Attributes of a setting's kernels: up swiglu, up relu2, up gelu, down.
 template <class Cfg>
-void tc_cfg_attrs(int* out) {
-  kernel_attrs(up_kernel_tc<Cfg, ACT_SWIGLU>, TcShape<Cfg, 2>::SMEM, Cfg::NT, out);
-  kernel_attrs(up_kernel_tc<Cfg, ACT_RELU2>, TcShape<Cfg, 1>::SMEM, Cfg::NT, out + ATTR_FIELDS);
-  kernel_attrs(up_kernel_tc<Cfg, ACT_GELU>, TcShape<Cfg, 1>::SMEM, Cfg::NT,
+void wg_cfg_attrs(int* out) {
+  kernel_attrs(up_kernel_wg<Cfg, ACT_SWIGLU>, WgShape<Cfg, 2>::SMEM, Cfg::NT, out);
+  kernel_attrs(up_kernel_wg<Cfg, ACT_RELU2>, WgShape<Cfg, 1>::SMEM, Cfg::NT, out + ATTR_FIELDS);
+  kernel_attrs(up_kernel_wg<Cfg, ACT_GELU>, WgShape<Cfg, 1>::SMEM, Cfg::NT,
                out + 2 * ATTR_FIELDS);
-  kernel_attrs(down_kernel_tc<Cfg>, TcShape<Cfg, 1>::SMEM, Cfg::NT, out + 3 * ATTR_FIELDS);
+  kernel_attrs(down_kernel_wg<Cfg>, WgShape<Cfg, 1>::SMEM, Cfg::NT, out + 3 * ATTR_FIELDS);
 }
 
-using TcLaunch = void (*)(const bf16*, const bf16*, const bf16*, const bf16*, bf16*, float*, int,
-                          int, int, int, int, cudaStream_t);
+using WgLaunch = int (*)(const bf16*, const bf16*, const bf16*, const bf16*, bf16*, float*, int,
+                         int, int, int, int, cudaStream_t);
 using AttrsFn = void (*)(int*);
-#define TC_LAUNCH_ENTRY(...) &launch_tc_cfg<TcCfg<__VA_ARGS__>>,
-#define TC_ATTRS_ENTRY(...) &tc_cfg_attrs<TcCfg<__VA_ARGS__>>,
-const TcLaunch kTcLaunch[] = {TC_SETTINGS(TC_LAUNCH_ENTRY)};
-const AttrsFn kTcAttrs[] = {TC_SETTINGS(TC_ATTRS_ENTRY)};
-constexpr int N_TC = sizeof(kTcLaunch) / sizeof(kTcLaunch[0]);
+#define WG_LAUNCH_ENTRY(...) &launch_wg_cfg<WgCfg<__VA_ARGS__>>,
+#define WG_ATTRS_ENTRY(...) &wg_cfg_attrs<WgCfg<__VA_ARGS__>>,
+const WgLaunch kWgLaunch[] = {WG_SETTINGS(WG_LAUNCH_ENTRY)};
+const AttrsFn kWgAttrs[] = {WG_SETTINGS(WG_ATTRS_ENTRY)};
+constexpr int N_WG = sizeof(kWgLaunch) / sizeof(kWgLaunch[0]);
 
 // bf16 x bf16: 16-byte rows and operands and a setting of the table, or
 // cudaErrorInvalidValue.
@@ -581,11 +644,10 @@ int launch_tc(const void* xe, const void* wg, const void* wu, const void* wd, vo
   const uintptr_t bits = reinterpret_cast<uintptr_t>(xe) | reinterpret_cast<uintptr_t>(wg) |
                          reinterpret_cast<uintptr_t>(wu) | reinterpret_cast<uintptr_t>(wd) |
                          reinterpret_cast<uintptr_t>(h);
-  if (d % 8 != 0 || m % 8 != 0 || bits % 16 != 0 || tiles < 0 || tiles >= N_TC) return -1;
-  kTcLaunch[tiles](static_cast<const bf16*>(xe), static_cast<const bf16*>(wg),
-                   static_cast<const bf16*>(wu), static_cast<const bf16*>(wd),
-                   static_cast<bf16*>(h), out, E, C, d, m, act, s);
-  return 0;
+  if (d % 8 != 0 || m % 8 != 0 || bits % 16 != 0 || tiles < 0 || tiles >= N_WG) return -1;
+  return kWgLaunch[tiles](static_cast<const bf16*>(xe), static_cast<const bf16*>(wg),
+                          static_cast<const bf16*>(wu), static_cast<const bf16*>(wd),
+                          static_cast<bf16*>(h), out, E, C, d, m, act, s);
 }
 
 // ----------------------------- int8 / fp8 weights on the tensor cores
@@ -1048,7 +1110,7 @@ int launch_w(int w_dtype, const void* xe, const void* wg, const void* wu,
 // 8 and every operand 16-byte aligned); with int8 / fp8 weights three bf16
 // planes of h (3,E,C,m), then, for fp32 xe, three of xe (3,E,C,d) (d and m
 // multiples of 16, every operand 16-byte aligned); else fp32 (E,C,m); out
-// (E,C,d) fp32.  `tiles` is a row of the path's settings table: TC_SETTINGS
+// (E,C,d) fp32.  `tiles` is a row of the path's settings table: WG_SETTINGS
 // (bf16 x bf16), Q_SETTINGS (int8 / fp8 weights), or 0 (the CUDA-core
 // path's one setting).  Returns a cudaError_t (0 on success), or
 // cudaErrorInvalidValue for a dtype, activation, size or setting it does
@@ -1090,8 +1152,8 @@ extern "C" int streamed_moe_tile_attrs(int x_dtype, int w_dtype, int tiles, int*
     if (tiles < 0 || tiles >= N_Q) return static_cast<int>(cudaErrorInvalidValue);
     kQAttrs[tiles][x_f32][w_dtype == DT_F8](out);
   } else if (w_dtype == DT_BF16 && !x_f32) {
-    if (tiles < 0 || tiles >= N_TC) return static_cast<int>(cudaErrorInvalidValue);
-    kTcAttrs[tiles](out);
+    if (tiles < 0 || tiles >= N_WG) return static_cast<int>(cudaErrorInvalidValue);
+    kWgAttrs[tiles](out);
   } else if (tiles == 0 && (w_dtype == DT_F32 || w_dtype == DT_BF16)) {
     if (x_f32)
       w_dtype == DT_F32 ? simt_attrs<float, float>(out) : simt_attrs<float, bf16>(out);

@@ -2,12 +2,13 @@
 
 Replaces ``repro/kernels/streamed_moe.py::streamed_moe_kernel`` (Pallas,
 TPU).  The kernel (``csrc/streamed_moe.cu``) is bound by the weight
-stream at serving shapes; its note says how the design spreads that
-stream over the card.  bf16 activations with bf16 weights run on the
-tensor cores (d and m multiples of 8), and so do int8 / fp8 weights with
-either activation dtype (d and m multiples of 16; fp32 operands split
-into three bf16 parts, so the products keep fp32 accuracy); fp32 weights,
-or bf16 weights with fp32 activations, on CUDA cores.  For a CUDA tensor
+stream at serving shapes and by operations at large C; its note says what
+the design does about each.  bf16 activations with bf16 weights run on
+Hopper's wgmma fed by TMA (d and m multiples of 8); int8 / fp8 weights
+with either activation dtype on mma.sync (d and m multiples of 16; fp32
+operands split into three bf16 parts, so the products keep fp32
+accuracy); fp32 weights, or bf16 weights with fp32 activations, on CUDA
+cores.  For a CUDA tensor
 the wrapper launches the kernel or raises; for
 a CPU tensor it runs the plain version (``kernels.ref.streamed_moe_plain``),
 which repeats the kernel's arithmetic.  The tiles are chosen at launch:
@@ -40,18 +41,14 @@ W_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
 QUANT_DTYPES = (torch.int8, torch.float8_e4m3fn)
 
 # The kernel's tile settings, path by path, in the order of its tables
-# (TC_SETTINGS and Q_SETTINGS in csrc/streamed_moe.cu; a CPU test holds the
-# two equal).  bf16 x bf16: rows and columns a block, the warp's rows and
-# columns, k-rows a stage, ring depth.  8-bit weights: per phase (up, then
-# down) columns a block, columns a warp, k-rows a stage, ring depth (64
-# rows a block).  The CUDA-core path (fp32 weights, or fp32 x x bf16
-# weights) has one setting.
-_TC_ROWS = ((64, 64, 32, 32, 32, 4), (128, 64, 32, 32, 32, 4),
-            (64, 32, 32, 32, 32, 4), (64, 32, 32, 32, 64, 4),
-            (64, 64, 32, 32, 64, 4), (64, 64, 64, 32, 32, 4),
-            (64, 128, 32, 64, 32, 4), (128, 64, 64, 32, 32, 4),
-            (128, 64, 32, 32, 64, 3), (128, 128, 64, 32, 32, 4),
-            (128, 128, 32, 64, 32, 4), (128, 128, 64, 32, 64, 3))
+# (WG_SETTINGS and Q_SETTINGS in csrc/streamed_moe.cu; a CPU test holds the
+# two equal).  bf16 x bf16 (wgmma + TMA): consumer warpgroups (64 rows
+# each), columns a block, k-rows a stage, ring depth.  8-bit weights: per
+# phase (up, then down) columns a block, columns a warp, k-rows a stage,
+# ring depth (64 rows a block).  The CUDA-core path (fp32 weights, or fp32
+# x x bf16 weights) has one setting.
+_WG_ROWS = ((1, 64, 64, 4), (2, 128, 64, 4), (1, 128, 64, 4), (2, 64, 64, 4),
+            (1, 64, 64, 2), (1, 128, 64, 2), (2, 64, 64, 3), (2, 128, 64, 3))
 _Q_ROWS = (((64, 16, 64, 4), (128, 32, 64, 3)),
            ((64, 16, 128, 3), (128, 32, 64, 3)),
            ((64, 16, 64, 4), (128, 16, 64, 3)),
@@ -61,8 +58,8 @@ _Q_ROWS = (((64, 16, 64, 4), (128, 32, 64, 3)),
 Q_ROWS_A_BLOCK = 64                 # Q_BM: rows a block on the 8-bit path
 
 
-def _tc_name(bm, bn, wm, wn, bk, stages):
-    return f"bf16:{bm}x{bn}:w{wm}x{wn}:k{bk}s{stages}"
+def _wg_name(warpgroups, bn, bk, stages):
+    return f"wg:{warpgroups}x{bn}:k{bk}s{stages}"
 
 
 def _q_name(up, down):
@@ -71,7 +68,7 @@ def _q_name(up, down):
 
 
 TILE_SETTINGS = {
-    "bf16": {_tc_name(*row): row for row in _TC_ROWS},
+    "bf16": {_wg_name(*row): row for row in _WG_ROWS},
     "8bit": {_q_name(*row): row for row in _Q_ROWS},
     "simt": {"simt:64x64:k32": (64, 64, 32)},
 }

@@ -215,6 +215,47 @@ def test_planner_drops_settings_that_cannot_fit():
     assert at.blocks_per_sm(H100, 256, 240 * 1024, 128) == 0
 
 
+# (setting, threads, shared bytes up / down, accumulators a thread up /
+# down) of the wgmma path: consumer warpgroups of 64 rows and a producer
+# warp; a stage holds the activation tile and the weight tiles, 128-byte
+# swizzled, no padding, with its two 8-byte barriers; swiglu keeps two
+# accumulators of BN / 2 a thread
+WG_PHASES = (("wg:1x64:k64s4", 160, 4 * (8192 + 2 * 8192 + 16) + 1024,
+              4 * (8192 + 8192 + 16) + 1024, 64, 32),
+             ("wg:2x128:k64s4", 288, 4 * (16384 + 2 * 16384 + 16) + 1024,
+              4 * (16384 + 16384 + 16) + 1024, 128, 64))
+
+
+@pytest.mark.parametrize("name,threads,smem_up,smem_down,acc_up,acc_down",
+                         WG_PHASES)
+def test_wgmma_phases(name, threads, smem_up, smem_down, acc_up, acc_down):
+    wgs, bn, bk, _ = sm.TILE_SETTINGS["bf16"][name]
+    up, down = at._phases("bf16", (wgs, bn, bk, _), True, "bf16")
+    assert up == (64 * wgs, bn, bk, threads, smem_up, acc_up, 1)
+    assert down == (64 * wgs, bn, bk, threads, smem_down, acc_down, 1)
+    cost = at.tile_cost(32, 1024, 1024, 512, "swiglu", name, H100)
+    for phase, acc, smem in zip(cost["phases"], (acc_up, acc_down),
+                                (smem_up, smem_down)):
+        # wgmma reads A from shared memory: no A fragments in registers
+        assert phase["regs"] == at._estimated_regs(acc, 0) == acc + 40
+        assert phase["threads"] == threads and phase["smem"] == smem
+        assert phase["blocks_per_sm"] == at.blocks_per_sm(
+            H100, threads, smem, acc + 40) >= 1
+
+
+def test_planner_drops_a_ring_over_the_shared_memory(monkeypatch):
+    """Five 48 KB stages (241 KB) cannot fit the card's 227 KB a block:
+    such a setting is scored as not fitting and is never a candidate."""
+    big = "wg:2x128:k64s5"
+    monkeypatch.setitem(sm.TILE_SETTINGS["bf16"], big, (2, 128, 64, 5))
+    cost = at.tile_cost(32, 1024, 1024, 512, "swiglu", big, H100)
+    assert not cost["fits"]
+    assert cost["phases"][0]["smem"] > H100.smem_block
+    plan = at.plan_kernel_tiles(32, 1024, 1024, 512, "swiglu", H100)
+    assert plan["fits"] and big not in dict(plan["ranked"])
+    assert plan["tiles"] != big
+
+
 def test_planner_default_wins_ties(monkeypatch):
     def flat(E, C, d, m, activation, tiles, profile, x_dtype="bf16",
              weight_dtype="bf16"):
@@ -238,7 +279,7 @@ def test_planner_default_wins_ties(monkeypatch):
 
 def test_planner_shrinks_under_small_shared_memory():
     """The counterpart of the reference's tiny-VMEM test: with 60 KB a
-    block, the default's four 19 KB stages no longer fit at C = 1024."""
+    block, the default's four 48 KB stages no longer fit at C = 1024."""
     import dataclasses
     small = dataclasses.replace(H100, smem_block=60 * 1024)
     big = at.plan_kernel_tiles(32, 1024, 1024, 512, "swiglu", H100)
@@ -274,14 +315,14 @@ def _cu_table(macro):
 
 
 def test_tile_settings_mirror_the_kernel_source():
-    assert _cu_table("TC_SETTINGS") == list(sm.TILE_SETTINGS["bf16"].values())
+    assert _cu_table("WG_SETTINGS") == list(sm.TILE_SETTINGS["bf16"].values())
     assert _cu_table("Q_SETTINGS") == [
         up + down for up, down in sm.TILE_SETTINGS["8bit"].values()]
     assert len(sm.TILE_SETTINGS["simt"]) == 1
     # the defaults: the rule the kernel had before it took settings
     names = list(sm.TILE_SETTINGS["bf16"])
     assert sm.TILE_SETTINGS["bf16"][sm.DEFAULT_TILES(64, torch.bfloat16)] \
-        == (64, 64, 32, 32, 32, 4) and names.index(
+        == (1, 64, 64, 4) and names.index(
             sm.DEFAULT_TILES(65, torch.bfloat16)) == 1
     assert sm.TILE_SETTINGS["8bit"][sm.DEFAULT_TILES(64, torch.int8)] == \
         ((64, 16, 64, 4), (128, 32, 64, 3))
@@ -336,7 +377,7 @@ def _fake_card(monkeypatch, times=None):
 
 def test_measured_cache_roundtrip(fresh_caches, monkeypatch):
     default = sm.DEFAULT_TILES(1024, torch.bfloat16)
-    fastest = "bf16:128x128:w64x32:k32s4"
+    fastest = "wg:2x64:k64s3"
     asked = _fake_card(monkeypatch, {fastest: 0.5})
     plan = at.plan_kernel_tiles(32, 1024, 1024, 512, "swiglu", H100)
     before = at.TIMINGS

@@ -54,7 +54,7 @@ def _both(arrays, dtype):
 @pytest.mark.parametrize("B,Sq,Sk,H,hd", [(1, 64, 64, 2, 16), (2, 100, 100, 4, 32),
                                           (1, 256, 256, 1, 64), (1, 17, 17, 2, 8),
                                           (1, 32, 64, 2, 16), (1, 64, 128, 2, 128),
-                                          (1, 40, 80, 2, 16)])
+                                          (1, 40, 80, 2, 16), (1, 200, 331, 2, 128)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_plain_matches_pallas_and_oracle(B, Sq, Sk, H, hd, dtype):
     j, t = _both(_qkv(B, Sq, Sk, H, hd, seed=B * 100 + Sq), dtype)

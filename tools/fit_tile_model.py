@@ -1,17 +1,18 @@
 #!/usr/bin/env python3
-"""Fit the tile planner's three rates of the card to the streamed_moe
+"""Fit the tile planner's rates of the bf16 path to the streamed_moe
 kernel's device times, on one GPU.
 
     python3 tools/fit_tile_model.py
 
 Times every bf16 setting of ``TILE_SETTINGS`` at granite width (E, d, m)
 = (32, 1024, 512), swiglu, C = 64, 1024 and 1280 (``chip_smoke.device_ms``),
-then searches a grid for the ``mma_rate``, ``l2_bw`` and ``stage_s`` of
-``core.autotune.CardProfile`` that minimise the squared log error of
-``core.autotune.tile_cost`` (with the compiled kernels' registers) against
-those times.  It prints the fitted rates, the rms error, and each
-setting's time beside its prediction.  The rates in
-``core.autotune._CARDS`` are this script's output.
+then searches a grid for the ``wgmma_rate`` and ``wgmma_stage_s`` of
+``core.autotune.CardProfile`` (``l2_bw`` kept) that minimise the squared
+log error of ``core.autotune.tile_cost`` (with the compiled kernels'
+registers) against those times.  It prints the fitted rates, the rms
+error, and each setting's time beside its prediction.  The rates in
+``core.autotune._CARDS`` are this script's output (the 8-bit path's
+``mma_rate``, ``l2_bw`` and ``stage_s`` are not refitted here).
 """
 import dataclasses
 import itertools
@@ -32,9 +33,8 @@ from repro_torch.kernels import streamed_moe as sm  # noqa: E402
 
 E, D, M, ACT = 32, 1024, 512, "swiglu"
 CS = (64, 1024, 1280)
-GRID = dict(mma_rate=[r * 1e12 for r in range(400, 901, 25)],
-            l2_bw=[b * 1e11 for b in range(60, 161, 5)],
-            stage_s=[c * 1e-8 for c in range(20, 121, 5)])
+GRID = dict(wgmma_rate=[r * 1e12 for r in range(300, 990, 25)],
+            wgmma_stage_s=[c * 1e-8 for c in range(2, 121, 2)])
 
 
 def main():
@@ -56,8 +56,8 @@ def main():
         dataclasses.replace(profile, **dict(zip(GRID, values)))
         for values in itertools.product(*GRID.values())))
     err, p = best
-    print(f"fitted on {profile.name}: mma_rate {p.mma_rate:.4g}, l2_bw "
-          f"{p.l2_bw:.4g}, stage_s {p.stage_s:.4g}; rms log error "
+    print(f"fitted on {profile.name}: wgmma_rate {p.wgmma_rate:.4g}, "
+          f"wgmma_stage_s {p.wgmma_stage_s:.4g}; rms log error "
           f"{math.sqrt(err / len(times)):.4f} over {len(times)} times",
           flush=True)
     for (C, name), t in times.items():

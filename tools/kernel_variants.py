@@ -142,7 +142,9 @@ def ssd_kernel(name):
 def main():
     cs.phase_env()
     os.makedirs(OUT, exist_ok=True)
-    shutil.copy(os.path.join(CSRC, "tensor_core.cuh"), OUT)
+    for header in os.listdir(CSRC):
+        if header.endswith(".cuh"):
+            shutil.copy(os.path.join(CSRC, header), OUT)
     arg = sys.argv[1] if len(sys.argv) > 1 else ""
     known = [n for table in sm.TILE_SETTINGS.values() for n in table]
     moe_names = known if arg == "all" else [n for n in arg.split(",") if n]
