@@ -12,7 +12,8 @@ Phases, each printing its result on its own line; any failure exits 1:
    reference oracle on the card, at its path's shapes and at small odd
    ones (the bf16 tensor-core paths of flash attention and streamed_moe
    included, held element by element; streamed_moe's int8 / fp8 weights
-   with bf16 and fp32 activations; SSD with B and C per group, g = 1 and
+   with bf16 and fp32 activations, timed at C = 64 and 1024 beside the
+   bf16 body's device time; SSD with B and C per group, g = 1 and
    g = h), with the time of one call of each
    kernel with its host work beside its device time per call, the bound,
    and for flash attention the times of ``F.scaled_dot_product_attention``
@@ -39,7 +40,7 @@ Phases, each printing its result on its own line; any failure exits 1:
    prediction and its compiled registers, spills and shared memory, the
    analytic and the measured picks, and three ``torch.bmm`` plus the
    activation as a yardstick; the analytic pick must take at most 1.10
-   times the default's device time at the three bf16 shapes;
+   times the default's device time at each of these five;
 3d. tiers: one granite MoE layer at C = 64 and C = 1024 (drop-free), one-hot
    and sorted: ``moe_hybrid`` (8 hot experts, 24 cold) against
    ``moe_capacity`` on the same routing and schedule bit for bit; the
@@ -50,7 +51,10 @@ Phases, each printing its result on its own line; any failure exits 1:
    4096, m = 14336, bf16, 5.64 GB of weights) against its plain version
    (``moe_bf16_check``, the down product's tolerance scaled to its K) and
    the fp32 oracle (3e-2), every tile setting the default's bits, each
-   timed beside the planner's prediction and the 1.68 ms bytes bound; SSD
+   timed beside the planner's prediction and the 1.68 ms bytes bound;
+   then with int8 and fp8 weights against plain (1e-5) and the oracle
+   (2e-5), every 8-bit setting the default's bits, timed beside the 8-bit
+   bytes bound and the bf16 call's device time; SSD
    at the SSM serving prefill's shapes (one 8-token chunk of mamba2-370m
    and of Jamba, d_state 128 and 16; Jamba's heads at c = 1) against its
    plain version (1e-5) and the oracle;
@@ -58,7 +62,8 @@ Phases, each printing its result on its own line; any failure exits 1:
    MoE models (DeepSeek-MoE-16B E = 64, C = 48, d = 2048, m = 1408;
    Qwen3-30B-A3B 128, 64, 2048, 768; Yuan2-M32 32, 16, 2048, 4096;
    Phi-3.5-MoE 16, 16, 4096, 6400; bf16, swiglu) held as in phase 3j, the
-   analytic pick's device time over the default's; flash attention at
+   analytic pick's device time over the default's, and with int8 and fp8
+   weights as in phase 3j; flash attention at
    InternVL2's scoring shape (2, 2304, 16, 128), bf16 (timed, with SDPA)
    and fp32, against its plain version and the oracle;
 3r. ring widths: streamed_moe at the per-rank widths of the FSE-DP ring at
@@ -145,7 +150,9 @@ Phases, each printing its result on its own line; any failure exits 1:
     captured, and the scoring losses (one-hot and sorted) and mamba's,
     once more under ``torch.profiler`` — device kernel time by name, the
     device's busy share of the wall time, and the profiler's ``up_kernel``
-    launches against the counted ones;
+    launches against the counted ones; on the fp8 slice the 8-bit kernel's
+    share of the device time beside ``quant.quantize``'s (each call
+    quantizes its three weight stacks first);
 12. mamba-serve (run after phase 10): mamba2-370m at full width on the
    serve CLI's fused engine (the ``only`` segment): a first run that
    captures, fused == eager on it, a warm run that only replays (1 host
@@ -391,7 +398,7 @@ TILE_BITS_CASES = tuple(
     + [(4, 64, 512, 1024, "swiglu", w, "bf16")
        for w in ("bf16", "int8", "fp8")])
 # ... and is timed at these (bf16 activations); the analytic pick must take
-# at most TILE_GATE times the default's device time on the bf16 ones
+# at most TILE_GATE times the default's device time on each of them
 TILE_TIME_CASES = tuple(
     [(32, C_, 1024, 512, "swiglu", "bf16") for C_ in (64, 1024, 1280)]
     + [(32, 64, 1024, 512, "swiglu", w) for w in ("int8", "fp8")])
@@ -703,12 +710,15 @@ def _check_streamed_moe():
     from repro_torch.kernels import ref
     from repro_torch.kernels import streamed_moe as sm
     paths = {}
+    bf16_device = {}                        # the bf16 body's device ms by C
     E, C, d, m = 32, 64, 1024, 512          # granite, 8 slot rows, top-8
     C_SCORE = 1280                          # the scoring forward's capacity
     bf, f32 = torch.bfloat16, torch.float32
     cases = [(E, C, d, m, "swiglu", wdt, f32 if wdt == "fp32" else bf)
              for wdt in ("bf16", "fp32", "int8", "fp8")]
     cases += [(E, C_, d, m, "swiglu", "bf16", bf) for C_ in (C_CHUNK, C_SCORE)]
+    # the 8-bit body at the traffic prefill's C, timed beside the bf16 one
+    cases += [(E, C_CHUNK, d, m, "swiglu", wdt, bf) for wdt in ("int8", "fp8")]
     cases += [(4, 37, 256, 96, act, wdt, f32) for act in ("relu2", "gelu")
               for wdt in ("fp32", "bf16", "int8", "fp8")]
     # the tensor-core paths at ragged edges, and a down product with K = 1024
@@ -759,7 +769,13 @@ def _check_streamed_moe():
             bound, by = streamed_moe_bound_ms(E_, C_, d_, m_, wdt,
                                               xe.element_size())
             line += (f"; tiles {tiles}: {text}, plain {plain_ms:.4f} ms, "
-                     f"bound {bound * 1e3:.1f} us ({by})")
+                     f"bound {bound * 1e3:.1f} us ({by}), "
+                     f"{times['device_ms'] / bound:.2f}x it")
+            if wdt == "bf16":
+                bf16_device[C_] = times["device_ms"]
+            elif wdt in ("int8", "fp8"):
+                line += (f"; the bf16 body's device time here "
+                         f"{bf16_device[C_]:.4f} ms")
             path = {("bf16", C): "serve", ("fp8", C): "serve_fp8",
                     ("bf16", C_CHUNK): "serve_chunked",
                     ("bf16", C_SCORE): "forward"}.get((wdt, C_))
@@ -1211,9 +1227,9 @@ def phase_tiles():
                 return torch.bmm(h, ws[2]).float()
             line += (f"; bmm_chain_ms (3 torch.bmm + silu, a yardstick the "
                      f"port never calls) {device_ms(chain)[0]:.4f}")
-            if times[pick] > TILE_GATE * times[default]:
-                fail("tiles", f"{line}: the analytic pick is over "
-                              f"{TILE_GATE:g} times the default's time")
+        if times[pick] > TILE_GATE * times[default]:
+            fail("tiles", f"{line}: the analytic pick is over "
+                          f"{TILE_GATE:g} times the default's time")
         log("tiles", line)
 
 
@@ -2135,6 +2151,30 @@ def _profile(label, fn, eng=None):
     return busy, rows
 
 
+def _fp8_shares(rows, busy_ms, launches):
+    """The fp8 slice's device time: the 8-bit kernel's share (its two
+    phases' profiled records), and quant.quantize's, each call quantizing
+    the layer's three bf16 weight stacks before its launch: ``launches``
+    times the device time of quantizing granite's three stacks, timed
+    here alone."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import quant
+    mc, d = get_config(ARCH).moe, get_config(ARCH).d_model
+    E, m = mc.num_experts, mc.d_expert
+    g = torch.Generator(device="cuda").manual_seed(0)
+    stacks = [torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+              for shape in ((E, d, m), (E, d, m), (E, m, d))]
+    q_ms = device_ms(lambda: [quant.quantize(w, "fp8") for w in stacks])[0]
+    k_ms = sum(ms for ms, _, name in rows
+               if "up_kernel_q" in name or "down_kernel_q" in name)
+    log("profile", f"slice fp8: the 8-bit streamed_moe kernels {k_ms:.2f} ms "
+                   f"of {busy_ms:.2f} ms device time ({k_ms / busy_ms:.3f}); "
+                   f"quant.quantize before each of the {launches} launches "
+                   f"{q_ms:.4f} ms a call (timed alone), {launches * q_ms:.2f}"
+                   f" ms ({launches * q_ms / busy_ms:.3f})")
+
+
 def _index_select_ms(rows):
     """Device ms of the kernels ``index_select`` runs as (a vectorized
     gather, or indexSelect*) among profiled rows: the expert reorder
@@ -2163,6 +2203,8 @@ def phase_profile(traffic_engines):
             ["--arch", ARCH, "--seed", "0"] + SLICE_ARGV + argv), engine=eng),
             eng)
         selected[label] = (_index_select_ms(rows), busy * 1e3)
+        if label == "slice fp8":
+            _fp8_shares(rows, busy * 1e3, _launches(eng))
         del eng
     (s_ms, _), (d_ms, _), (h_ms, h_busy) = (selected[k] for k in (
         "slice", "slice capacity dynamic", "slice hybrid"))
@@ -2545,6 +2587,7 @@ def phase_ssm_kernels():
     version (1e-5) and the oracle.  -> the rows of the streamed_moe
     serve_jamba path and the ssd serve_prefill paths."""
     moe_row = _moe_decode_shape(JAMBA_MOE, "Jamba decode")
+    _moe_decode_8bit(JAMBA_MOE, "Jamba decode", moe_row["device_ms"])
     ssd_rows = {}
     for path, shape in SSD_SERVE_SHAPES:
         row = _ssd_case(shape, timed=path is not None)
@@ -2622,6 +2665,54 @@ def _moe_decode_shape(shape, label):
     torch.cuda.empty_cache()
     return dict(max_abs_err=err_plain, **row_times, plain_ms=plain_ms,
                 bound_ms=bound, bound_by=by, library_ms=None, tiles=tiles)
+
+
+def _moe_decode_8bit(shape, label, bf16_ms):
+    """streamed_moe at one decode step's (E, C, d, m), swiglu, bf16 x, with
+    int8 and with fp8 weights: against its plain version (PLAIN_TOL) and
+    the oracle (ORACLE_TOL); every 8-bit tile setting the default's bits
+    (output and scratch); the analytic pick's device time beside the 8-bit
+    bytes bound and ``bf16_ms``, the bf16 call's device time at the shape."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import streamed_moe as sm
+    E, C, d, m = shape
+    act = "swiglu"
+    xe, wg, wu, wd = _moe_inputs(E, C, d, m, act, torch.bfloat16)
+    for wdt in ("int8", "fp8"):
+        what = f"streamed_moe E={E} C={C} d={d} m={m} {act} w={wdt} ({label})"
+        ws, scales = _stream_operands(wg, wu, wd, wdt)
+        oracle = ref.streamed_moe_quant_ref(xe, wg, wu, wd, act, wdt)
+        h0, out0 = sm._launch(xe, *ws, act, **scales)
+        torch.cuda.synchronize()
+        plain = ref.streamed_moe_plain(xe, *ws, act, **scales)
+        err_plain = (out0 - plain).abs().max().item()
+        rel_plain, rel_oracle = rel_err(out0, plain), rel_err(out0, oracle)
+        del oracle, plain
+        line = (f"{what}: max_abs_err vs plain {err_plain:.3e} (rel "
+                f"{rel_plain:.3e}, tol {PLAIN_TOL:g}), rel vs oracle "
+                f"{rel_oracle:.3e} (tol {ORACLE_TOL[wdt]:g})")
+        if rel_plain > PLAIN_TOL or rel_oracle > ORACLE_TOL[wdt] or \
+                not torch.isfinite(out0).all():
+            fail("kernels", line)
+        for name in sm.TILE_SETTINGS["8bit"]:
+            h, out = sm._launch(xe, *ws, act, tiles=name, **scales)
+            torch.cuda.synchronize()
+            if not (_same_bits(out, out0) and _same_bits(h, h0)):
+                fail("tiles", f"{what} tiles {name}: not the default's bits")
+        tiles = _planned(E, C, d, m, act, "bf16", wdt)
+        dev = device_ms(lambda: sm.streamed_moe_kernel(
+            xe, *ws, activation=act, tiles=tiles, **scales))[0]
+        bound, by = streamed_moe_bound_ms(E, C, d, m, wdt, xe.element_size())
+        log("kernels", f"{line}; all {len(sm.TILE_SETTINGS['8bit'])} 8-bit "
+                       f"settings give the default's bits; analytic pick "
+                       f"{tiles}: {dev:.4f} ms on the device, {dev / bound:.2f}x"
+                       f" the {bound:.4f} ms bound ({by}), {dev / bf16_ms:.3f}"
+                       f" of the bf16 call's {bf16_ms:.4f} ms")
+        del ws, scales, h0, out0
+        torch.cuda.empty_cache()
+    del xe, wg, wu, wd
+    torch.cuda.empty_cache()
 
 
 def _ssm_rows_equal(a, b):
@@ -2826,6 +2917,8 @@ def phase_family_kernels():
     flash rows) by path."""
     moe_rows = {path: _moe_decode_shape(shape, path)
                 for path, shape in FAMILY_MOE}
+    for path, shape in FAMILY_MOE:
+        _moe_decode_8bit(shape, path, moe_rows[path]["device_ms"])
     S = SCORE_S + 256
     flash = _flash_case(SCORE_B, S, S, 16, 128, "bf16", timed=True)
     _flash_case(SCORE_B, S, S, 16, 128, "fp32")

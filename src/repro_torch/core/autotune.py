@@ -660,17 +660,18 @@ def plan_moe(B: int, S: int, d_model: int, moe, activation: str, P: int,
 # SXM data sheet), and rates of the streamed_moe kernel on the card as
 # tools/fit_tile_model.py fits them (least squares in log time) to the
 # device times of a path's settings at (E, d, m) = (32, 1024, 512) and C =
-# 64, 1024 and 1280 (H100 80GB HBM3 at a 700 W limit).  The 8-bit path
-# (mma.sync) keeps the constants fitted on an earlier 12-setting bf16
-# mma.sync table (rms error 11.6%): the mma rate, the L2-to-SM rate of the
-# tiles the blocks load, and the seconds a ring stage costs a block slot
-# (its wait and barrier).  The bf16 path (wgmma + TMA) has its own rate and stage cost,
-# fitted on its 8 settings with that L2 rate (rms error 23.0%).
+# 64, 1024 and 1280 (H100 80GB HBM3 at a 700 W limit).  The L2-to-SM rate
+# of the tiles the blocks load and the CUDA-core path's seconds a ring
+# stage costs a block slot (its wait and barrier) were fitted on an earlier
+# 12-setting bf16 mma.sync table (rms error 11.6%).  The wgmma paths (bf16,
+# and the 8-bit one, whose weights meet the same bf16 wgmma from registers)
+# share a rate and a stage cost, fitted on the bf16 path's 8 settings with
+# that L2 rate (rms error 23.0%).
 _CARDS = {
     "NVIDIA H100 80GB HBM3": dict(
         sms=132, smem_block=232448, smem_sm=233472, regs_sm=65536,
         l2_bytes=50 * 2 ** 20, mem_bw=3.35e12, bf16_peak=989e12,
-        fp32_peak=67e12, mma_rate=450e12, l2_bw=16e12, stage_s=0.55e-6,
+        fp32_peak=67e12, l2_bw=16e12, stage_s=0.55e-6,
         wgmma_rate=750e12, wgmma_stage_s=0.12e-6),
 }
 
@@ -689,11 +690,10 @@ class CardProfile:
     mem_bw: float              # device-memory bytes/s
     bf16_peak: float           # tensor-core bf16 FLOP/s, data sheet
     fp32_peak: float           # CUDA-core fp32 FLOP/s, data sheet
-    mma_rate: float            # bf16 mma.sync FLOP/s of the 8-bit path
     l2_bw: float               # L2-to-SM bytes/s of the tiles blocks load
-    stage_s: float             # seconds a ring stage costs a block slot
-    wgmma_rate: float          # bf16 wgmma FLOP/s of the bf16 path
-    wgmma_stage_s: float       # ... and its seconds a ring stage
+    stage_s: float             # seconds a ring stage costs a CUDA-core block
+    wgmma_rate: float          # bf16 wgmma FLOP/s of the bf16 and 8-bit paths
+    wgmma_stage_s: float       # ... and their seconds a ring stage
     device: Optional[int] = None   # a card's index: read compiled resources
     regs_thread: int = 255
     threads_sm: int = 2048
@@ -771,11 +771,11 @@ def default_tiles(C: int, x_dtype: str = "bf16",
                             _torch_dtype(x_dtype))
 
 
-def _phases(path: str, row, gated: bool, x_dtype: str):
-    """Per phase (up, down) of a setting: (rows a block, columns a block,
-    k-rows a stage, threads, ring shared bytes, accumulator registers a
-    thread, mma passes over the activations: 3 for an operand taken as
-    three bf16 planes)."""
+def _phases(path: str, row, gated: bool, x_dtype: str, C: int = 64):
+    """Per phase (up, down) of a setting at C rows: (rows a block, columns
+    a block, k-rows a stage, threads, ring shared bytes, accumulator
+    registers a thread, mma passes over the activations: 3 for an operand
+    taken as three bf16 planes)."""
     from repro_torch.kernels import streamed_moe as sm
     n_up = 2 if gated else 1
     if path == "bf16":
@@ -789,14 +789,18 @@ def _phases(path: str, row, gated: bool, x_dtype: str):
                  st * (2 * bm * bk + n * 2 * bk * bn + 16) + 1024,
                  n * bn // 2, 1) for n in (n_up, 1)]
     if path == "8bit":
-        bm = sm.Q_ROWS_A_BLOCK
-        parts_x = 3 if x_dtype == "fp32" else 1
+        # wgmma with the weights in registers: consumer warpgroups of 64
+        # weight columns, no producer warp; a block's rows are the C tile;
+        # a stage is the activation planes' tiles (128-byte swizzled) and n
+        # raw 8-bit weight tiles, beside a full and an empty barrier; each
+        # thread keeps a partial and a promoted sum of C_tile / 2 a matrix
+        bm = sm.q_c_tile(C, _torch_dtype(x_dtype))
         out = []
-        for (bn, wn, bk, st), n, parts in ((row[0], n_up, parts_x),
-                                           (row[1], 1, 3)):
-            smem = st * (parts * bm * (bk + 8) * 2 + n * bk * (bn + 16))
-            acc = (2 if parts > 1 else 1) * n * 4 * (wn // 8) * 4
-            out.append((bm, bn, bk, 32 * bn // wn, smem, acc, parts))
+        for (wgs, bk, st), n, parts in ((row[0], n_up, 3 if x_dtype == "fp32"
+                                         else 1), (row[1], 1, 3)):
+            bn = sm.Q_WG_COLS * wgs
+            smem = st * (parts * bk * bm * 2 + n * bk * bn + 16) + 1024
+            out.append((bm, bn, bk, 128 * wgs, smem, n * bm, parts))
         return out
     bm, bn, bk = row
     return [(bm, bn, bk, 256, 4 * (2 * bk * (bm + 4) + 2 * n * bk * bn),
@@ -804,20 +808,19 @@ def _phases(path: str, row, gated: bool, x_dtype: str):
 
 
 @functools.lru_cache(maxsize=None)
-def _compiled(tiles: str, x_dtype: str, weight_dtype: str):
-    """The compiled resources of a setting's kernels on the card
-    (``kernels.streamed_moe.tile_attrs``), read once."""
+def _compiled(tiles: str, x_dtype: str, weight_dtype: str, C: int):
+    """The compiled resources of a setting's kernels on the card at C
+    rows (``kernels.streamed_moe.tile_attrs``), read once."""
     from repro_torch.kernels import streamed_moe as sm
     return sm.tile_attrs(tiles, _torch_dtype(x_dtype),
-                         _torch_dtype(weight_dtype))
+                         _torch_dtype(weight_dtype), C)
 
 
-def _estimated_regs(acc: int, parts: int) -> int:
-    """Registers a thread on the CPU: the accumulators, the mma.sync A
-    fragments (four a 16-row tile and plane; ``parts`` 0 for wgmma, which
-    reads A from shared memory) and about 40 for addresses, B fragments
-    and the loop."""
-    return acc + 16 * parts + 40
+def _estimated_regs(acc: int, a_regs: int) -> int:
+    """Registers a thread on the CPU: the accumulators, the A fragments
+    held in registers (``a_regs``: 0 where wgmma reads A from shared
+    memory) and about 40 for addresses, B fragments and the loop."""
+    return acc + a_regs + 40
 
 
 def blocks_per_sm(profile: CardProfile, threads: int, smem: int,
@@ -839,11 +842,11 @@ def tile_cost(E: int, C: int, d: int, m: int, activation: str, tiles: str,
 
     Per phase, the larger of two times.  Compute: the tensor-core work
     (padded rows and columns, each mma pass counted) over
-    ``profile.wgmma_rate`` on the bf16 path, ``profile.mma_rate`` on the
-    8-bit one (the fp32 peak on the CUDA-core path), plus the
+    ``profile.wgmma_rate`` on the bf16 and 8-bit paths (the fp32 peak on
+    the CUDA-core path), plus the
     tiles every block loads into shared memory over ``profile.l2_bw``
-    (smaller blocks re-read more), plus ``profile.stage_s`` (on the bf16
-    path ``profile.wgmma_stage_s``) for each ring
+    (smaller blocks re-read more), plus ``profile.wgmma_stage_s`` (on the
+    CUDA-core path ``profile.stage_s``) for each ring
     stage a block slot runs; times the waves of blocks the grid needs (the
     tail wave counted whole) over the waves it fills, a wave being the SMs
     times the blocks an SM holds, or times ceil(blocks / SMs) when that is
@@ -866,11 +869,10 @@ def tile_cost(E: int, C: int, d: int, m: int, activation: str, tiles: str,
     hb = {"bf16": 2, "8bit": 6, "simt": 4}[path]       # h as the kernel keeps it
     ab = 4 if path == "simt" else 2                    # a shared activation element
     compiled = None if profile.device is None else \
-        _compiled(tiles, x_dtype, weight_dtype)
+        _compiled(tiles, x_dtype, weight_dtype, C)
     attr_key = ("up_swiglu" if gated else f"up_{activation}", "down")
-    rate = {"simt": profile.fp32_peak, "bf16": profile.wgmma_rate,
-            "8bit": profile.mma_rate}[path]
-    stage_s = profile.wgmma_stage_s if path == "bf16" else profile.stage_s
+    rate = profile.fp32_peak if path == "simt" else profile.wgmma_rate
+    stage_s = profile.stage_s if path == "simt" else profile.wgmma_stage_s
     phases = []
     # (contraction, columns, weight matrices, bytes in besides weights,
     # bytes out)
@@ -880,10 +882,12 @@ def tile_cost(E: int, C: int, d: int, m: int, activation: str, tiles: str,
               (m, d, 1, E * C * m * hb, E * C * d * 4))
     for (bm, bn, bk, threads, smem, acc, parts), key, \
             (K, N, n_w, b_in, b_out) in zip(
-                _phases(path, row, gated, x_dtype), attr_key, shapes):
+                _phases(path, row, gated, x_dtype, C), attr_key, shapes):
+        # A fragments in registers: the 8-bit path's two of 4 a weight
+        # matrix, the CUDA-core path's 16
+        a_regs = {"bf16": 0, "8bit": 8 * n_w, "simt": 16}[path]
         if compiled is None:
-            regs, spill = _estimated_regs(
-                acc, 0 if path == "bf16" else parts), 0
+            regs, spill = _estimated_regs(acc, a_regs), 0
         else:
             regs, spill = compiled[key]["regs"], compiled[key]["spill_bytes"]
         row_tiles, col_tiles = -(-C // bm), -(-N // bn)

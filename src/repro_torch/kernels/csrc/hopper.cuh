@@ -1,5 +1,6 @@
-// Hopper (sm_90a) building blocks shared by the kernels' bf16 paths:
-// mbarriers, TMA tile loads described by tensor maps, and wgmma (the
+// Hopper (sm_90a) building blocks shared by the kernels' wgmma paths:
+// mbarriers, TMA tile loads described by tensor maps (bf16, and the 8-bit
+// weights' raw bytes), programmatic dependent launch, and wgmma (the
 // warpgroup's asynchronous matrix product) with its shared-memory matrix
 // descriptors.
 //
@@ -82,6 +83,18 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// Programmatic dependent launch: a grid launched after this one with the
+// programmatic stream serialization attribute may start once every block
+// of this grid has called launch_dependents (or exited); it calls
+// grid_dependency_wait before it reads what this grid writes, which
+// returns once this grid has completed and its writes are visible.
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
 // ------------------------------------------------------------------ TMA
 
 // Copy the box at coordinates (c0 innermost, c1, ...) of the tensor map
@@ -108,12 +121,14 @@ __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
 
-// Host: a bf16 tensor map of `rank` dimensions (dims innermost first, in
-// elements; strides of dims 1.. in bytes, multiples of 16) read in boxes
-// of `box` elements, 128-byte swizzled (box[0] = 64), zeros outside.
-// Returns 0, or the CUDA driver's error.
-inline int encode_bf16_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
-                           const uint64_t* strides, const uint32_t* box) {
+// Host: a tensor map of `rank` dimensions (dims innermost first, in
+// elements; strides of dims 1.. in bytes, multiples of 16) of elements of
+// `type`, read in boxes of `box` elements, swizzled by `swizzle` (the box's
+// inner bytes at most the swizzle's span), zeros outside.  Returns 0, or
+// the CUDA driver's error.
+inline int encode_map(CUtensorMap* map, CUtensorMapDataType type, const void* base, int rank,
+                      const uint64_t* dims, const uint64_t* strides, const uint32_t* box,
+                      CUtensorMapSwizzle swizzle) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                               const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                               const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -131,11 +146,17 @@ inline int encode_bf16_map(CUtensorMap* map, const void* base, int rank, const u
   }();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  const CUresult rc = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
-                             dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult rc = encode(map, type, rank, const_cast<void*>(base), dims, strides, box, ones,
+                             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return rc == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A bf16 map, 128-byte swizzled (box[0] = 64).
+inline int encode_bf16_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
+                           const uint64_t* strides, const uint32_t* box) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims, strides, box,
+                    CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // ---------------------------------------------------------------- wgmma
@@ -214,12 +235,42 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_
   }
 }
 
-// The same with A from registers (the fragment layout above).
+// The same with A from registers (the fragment layout above), N of 16, 32,
+// 48, 64 or 128.
 template <int N, int TRANS_B>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db,
                                          int scale_d) {
-  static_assert(N == 64 || N == 128, "wgmma_rs: N of 64 or 128");
-  if constexpr (N == 64) {
+  static_assert(N == 16 || N == 32 || N == 48 || N == 64 || N == 128,
+                "wgmma_rs: N of 16, 32, 48, 64 or 128");
+  if constexpr (N == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TRANS_B));
+  } else if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TRANS_B));
+  } else if constexpr (N == 48) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23}, "
+        "{%24, %25, %26, %27}, %28, p, 1, 1, %30;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TRANS_B));
+  } else if constexpr (N == 64) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"

@@ -59,27 +59,39 @@
 // them by value with the fixed addresses it replays).  This path takes d
 // and m multiples of 8 (16-byte rows).
 //
-// int8 / fp8-e4m3 weights (bf16 or fp32 activations) run on the
-// Ampere-generation mma.sync bf16 tensor cores (csrc/tensor_core.cuh, a
-// cp.async ring) with the reference's fp32 accuracy: every 8-bit
-// value is exact in bf16, a product of two bf16 values is exact in fp32, and
-// the per-(expert, column) scale multiplies the fp32 sum in the epilogue
-// (before the activation in phase 1, before the store in phase 2).  The
-// weight tiles go through the cp.async ring as raw bytes (half the ring's
-// weight bytes of bf16), and the B fragments are built from those bytes in
-// registers (prmt, then an exact widening: a magic-number add for int8, cvt
-// for e4m3), so a k step needs one barrier and no shared-memory pass; each
-// warp owns all 64 rows of its columns, so each byte is widened once a
-// block.  (Widening each stage into a bf16 shared tile for ldmatrix took a
-// second barrier and pass a step and ran at 0.104 ms against 0.054 here.)
-// h is fp32 in the reference and stays exact: phase 1 writes it as three
-// bf16 planes, h = hi + mid + lo (24 significant bits), and phase 2 runs
-// three mma a k step against one q fragment (hi, and mid + lo, in two fp32
-// accumulators).  Planes, not fp32 split on load, because the split would
-// be redone by every column block of an expert.  fp32 activations are split
-// into planes the same way by a small kernel first.  Rows of d and m bytes
-// must be multiples of 16.  Rounding h or x to fewer bits would be a
-// different function, so neither is done.
+// int8 / fp8-e4m3 weights (bf16 or fp32 activations) run on wgmma too, with
+// the reference's fp32 accuracy: every 8-bit value is exact in bf16, a
+// product of two bf16 values is exact in fp32, and the per-(expert, column)
+// scale multiplies the fp32 sum in the epilogue (before the activation in
+// phase 1, before the store in phase 2).  wgmma takes its B operand only
+// from shared memory, in bf16, so the products are transposed: the weights
+// are the A operand, from registers, and the activations (x, or h's planes)
+// the B operand, TMA tiles of C-tile rows.  The raw 8-bit weight tiles come
+// through the same kind of TMA ring (half the bytes of bf16), and each
+// thread widens its own A fragment from them (a 2-byte load from each of
+// four rows, paired by prmt, then exactly: a magic-number add for int8, cvt
+// for e4m3), so no shared-memory pass widens them (on the earlier
+// warp-level tensor-core body, one that did ran at 0.104 ms against 0.054
+// without).  A consumer warpgroup
+// owns 64 weight columns; N, the C tile, is C rounded up to 16 (16 at the
+// Yuan2 / Phi-3.5 / Jamba decode steps, 48 at DeepSeek's, 64 at granite's),
+// so decode multiplies no padding rows.  h is fp32 in the reference and
+// stays exact: phase 1 writes it as three bf16 planes, h = hi + mid + lo
+// (24 significant bits), and phase 2 runs three wgmmas a k16 step against
+// one widened fragment; fp32 x is split into planes the same way by a
+// small kernel first.  The tensor cores' sums truncate, so each 64 k-rows'
+// products go into a partial that is then added, rounded to nearest, into
+// the thread's fp32 sum; a long K (Jamba's m = 14336) stays within 1e-6 of
+// the plain version.  Bound: the weight bytes at decode (0.019 ms at
+// granite's (32, 64, 1024, 512), 0.84 ms at Jamba's); the kernel runs at
+// 1.3-1.9x it at the Table I and Jamba decode shapes and 2.3x at granite's,
+// where the consumers (widening, a wgmma and a wait each k16 step, three h
+// planes in phase 2) take most of the time and the weight stream and the
+// epilogues the rest (PERF.md).  Phase 2 is a programmatic dependent
+// launch: its blocks stream their first weight stages while phase 1
+// finishes, and wait for it before they read h.  Rows of d and m bytes
+// must be multiples of 16 (TMA's row strides).  Rounding h or x to fewer
+// bits would be a different function, so neither is done.
 //
 // fp32 weights, and bf16 weights with fp32 activations, keep the CUDA-core
 // path: each step's global loads for the next tile are issued into
@@ -102,7 +114,6 @@
 #include <type_traits>
 
 #include "hopper.cuh"
-#include "tensor_core.cuh"
 
 namespace {
 
@@ -356,6 +367,27 @@ void launch_dyn(Kernel kernel, int bytes, dim3 grid, int threads, cudaStream_t s
   kernel<<<grid, threads, bytes, s>>>(args...);
 }
 
+// The same as a programmatic dependent launch: the kernel may start while
+// the stream's previous kernel runs, and waits for it (griddepcontrol.wait)
+// before it reads that kernel's output.
+template <typename Kernel, typename... Args>
+void launch_dependent(Kernel kernel, int bytes, dim3 grid, int threads, cudaStream_t s,
+                      Args... args) {
+  if (bytes > 48 * 1024)
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
 // One kernel's compiled resources, as the planner reads them: registers a
 // thread, local (spill) bytes a thread, static and dynamic shared bytes a
 // block, threads a block.
@@ -415,20 +447,26 @@ __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
   return p + ((1024 - (hop::smem_u32(p) & 1023)) & 1023);
 }
 
-// The ring's barriers: full[s] completes when stage s's bytes have landed,
-// empty[s] when every consumer warp is done with it.
-template <class Cfg, int NMAT>
-__device__ __forceinline__ uint64_t* wg_barriers(unsigned char* smem) {
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + WgShape<Cfg, NMAT>::BARS);
+// A ring's barriers, `bars` bytes into shared memory: full[s] (one arrival,
+// the producer's expect_tx) completes when stage s's bytes have landed,
+// empty[s] = full[stages + s] when each of the nwg consumer warpgroups' four
+// warps is done with it.
+__device__ __forceinline__ uint64_t* ring_barriers(unsigned char* smem, int bars, int stages,
+                                                   int nwg) {
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + bars);
   if (threadIdx.x == 0) {
-    for (int s = 0; s < Cfg::STAGES; ++s) {
+    for (int s = 0; s < stages; ++s) {
       hop::mbar_init(&full[s], 1);
-      hop::mbar_init(&full[Cfg::STAGES + s], 4 * Cfg::NWG);
+      hop::mbar_init(&full[stages + s], 4 * nwg);
     }
     hop::fence_barrier_init();
   }
   __syncthreads();
   return full;
+}
+template <class Cfg, int NMAT>
+__device__ __forceinline__ uint64_t* wg_barriers(unsigned char* smem) {
+  return ring_barriers(smem, WgShape<Cfg, NMAT>::BARS, Cfg::STAGES, Cfg::NWG);
 }
 
 // The producer thread: for each k-step, when its stage is free, the BM x BK
@@ -650,60 +688,88 @@ int launch_tc(const void* xe, const void* wg, const void* wu, const void* wd, vo
                           static_cast<bf16*>(h), out, E, C, d, m, act, s);
 }
 
-// ----------------------------- int8 / fp8 weights on the tensor cores
+// ------------------------------ int8 / fp8 weights: wgmma + TMA, A from registers
 //
 // Every int8 value (|q| <= 127) and every e4m3 value is exact in bf16, and a
-// bf16 times a bf16 is exact in fp32, so x q runs on mma.sync bf16 with the
+// bf16 times a bf16 is exact in fp32, so x q runs on the bf16 wgmma with the
 // fp32 accuracy of the reference; the per-(expert, column) scale multiplies
 // the fp32 sum in the epilogue.  An fp32 operand (h in the down phase, x
 // when the activations are fp32) comes as three bf16 planes, a = hi + mid +
-// lo exactly, and each plane meets the same q fragment.
+// lo exactly, and each plane meets the same widened weight fragment.
+//
+// The products are transposed, so that the weights are wgmma's A operand
+// (from registers) and the activations its B operand (from shared memory):
+// phase 1 computes h^T[e] = w_u^T x^T (M = weight columns, N = the C tile, K
+// = d), phase 2 out^T[e] = w_d^T h^T (K = m).  A thread's A fragment of a
+// k16 step covers two weight columns at k-rows 2t, 2t+1, 2t+8, 2t+9 (t =
+// lane % 4): which accumulator row stands for which column is free, as the
+// epilogue reads the scale of, and writes, the column the row stands for, so
+// row 16w + g + 8 half of the warpgroup's m64 product (w its warp, g = lane
+// / 4) is column 2 (8 w + g) + half of its 64.  The fragment is then four
+// 2-byte loads from the raw 8-bit tile that TMA landed, paired and widened
+// in registers; the tile's 64 NWG-byte rows are held as boxes of 64 or 128
+// bytes, swizzled over their width, so a warp's loads fall in distinct
+// banks.  wgmma reads the
+// fragment asynchronously, so two are kept: one is built while the other's
+// products run.
 
-constexpr int Q_BM = 64;          // rows per block; each warp owns all 64 rows of WN columns
+// Columns a consumer warpgroup owns (one m64 product a weight matrix).
+constexpr int Q_WG_COLS = 64;
+// k16 steps a tensor-core partial sum runs before it is added into the
+// thread's fp32 sum (round to nearest).  The tensor cores' own sums
+// truncate, so a long K summed there alone drifts by up to K/16 ulps of the
+// sum; in chunks of 64 k-rows the drift stays at a few ulps of a chunk.  A
+// fixed chunk, not a stage, so every setting gives the same bits.
+constexpr int Q_PROMOTE = 4;
 
 // The settings of the 8-bit path, one per row: for phase 1 (up) and then
-// phase 2 (down), the columns a block, the columns a warp (16 or 32), the
-// k-rows a stage and the ring depth.  Row i is setting i of
-// streamed_moe_forward's `tiles`; TILE_SETTINGS["8bit"] in the wrapper holds
-// the same rows in the same order.  Row 0 is the default: the fastest of the
-// settings timed at (E, C, d, m) = (32, 64, 1024, 512) (PERF.md).
-// Phase 1 keeps 64-column blocks, so E m / 64 blocks fill the card, with
-// 16-column warps; phase 2 reads three h planes for each k step, so its warps
-// take 32 columns (half the activation reads of a block) and its blocks 128
-// (half the blocks that re-read an expert's h from L2).  The others are the
-// runners-up of that timing.  An output's k16 steps run in ascending k in
-// every setting, so all give the same bits.
-#define Q_SETTINGS(X)                   \
-  X(64, 16, 64, 4, 128, 32, 64, 3)      \
-  X(64, 16, 128, 3, 128, 32, 64, 3)     \
-  X(64, 16, 64, 4, 128, 16, 64, 3)      \
-  X(64, 16, 64, 4, 64, 32, 64, 3)       \
-  X(64, 32, 64, 4, 128, 32, 64, 3)      \
-  X(128, 16, 64, 4, 128, 32, 64, 4)
+// phase 2 (down), the consumer warpgroups of a block (64 weight columns
+// each, so 64 NWG columns a block), the k-rows a stage and the ring depth.
+// Row i is setting i of streamed_moe_forward's `tiles`; TILE_SETTINGS["8bit"]
+// in the wrapper holds the same rows in the same order.  Row 0 is the
+// default: the fastest of the settings timed at (E, C, d, m) = (32, 64,
+// 1024, 512) (row 5 ties it), and within 3% of the fastest at the Table I
+// and Jamba decode shapes (PERF.md).  Two 128-column warpgroups up and four
+// down share each activation tile, so the blocks re-read x and h from L2
+// the fewest times.  The C tile (wgmma's N) is not a setting: it is C
+// rounded up to 16, at most 64 (32 for fp32 x), so decode computes no
+// padding rows.  Every setting sums each output's k16 steps in ascending k
+// into Q_PROMOTE-step chunks, so all give the same bits.
+#define Q_SETTINGS(X)       \
+  X(2, 128, 3, 4, 128, 2)   \
+  X(2, 128, 3, 2, 128, 2)   \
+  X(1, 64, 6, 2, 64, 3)     \
+  X(2, 128, 4, 4, 128, 2)   \
+  X(2, 64, 6, 4, 64, 4)     \
+  X(1, 128, 3, 4, 64, 3)
 
-template <int UBN, int UWN, int UBK, int UST, int DBN, int DWN, int DBK, int DST>
+template <int UWG, int UBK, int UST, int DWG, int DBK, int DST>
 struct QCfg {
-  static constexpr int UP_BN = UBN, UP_WN = UWN, UP_BK = UBK, UP_STAGES = UST;
-  static constexpr int DN_BN = DBN, DN_WN = DWN, DN_BK = DBK, DN_STAGES = DST;
+  static constexpr int UP_WG = UWG, UP_BK = UBK, UP_STAGES = UST;
+  static constexpr int DN_WG = DWG, DN_BK = DBK, DN_STAGES = DST;
 };
 
-// A stage holds PARTS bf16 activation tiles (Q_BM x BK) and NMAT 8-bit
-// weight tiles (BK x BN bytes, rows padded by 16 bytes so that a warp's
-// fragment loads hit distinct banks).
-template <int PARTS, int NMAT, int BN_, int WN_, int BK_, int STAGES_>
+// A stage holds PARTS bf16 activation tiles (N rows of BK, as BK / 64 boxes
+// of N x 64, 128-byte swizzled) and NMAT raw 8-bit weight tiles (BK rows of
+// BN bytes, as BN / SUB boxes of BK rows x SUB bytes, swizzled over SUB =
+// 64 or 128 bytes), each 1024-byte aligned; the stages' full and empty
+// barriers follow the ring.
+template <int NWG_, int BK_, int STAGES_, int N_, int PARTS_, int NMAT_>
 struct QShape {
-  static constexpr int BN = BN_, WN = WN_, BK = BK_, STAGES = STAGES_;
-  static constexpr int NJ = WN / 8;                 // n8 tiles a warp
-  static constexpr int NT = 32 * BN / WN;
-  static constexpr int XS = BK + 8;                 // bf16 tile row stride
-  static constexpr int WS = BN + 16;                // weight tile row stride (bytes)
-  static constexpr int NACC = PARTS > 1 ? 2 : 1;    // [0] hi, [1] mid + lo
-  static constexpr int A_BYTES = PARTS * Q_BM * XS * 2;
-  static constexpr int W_BYTES = BK * WS;
-  static constexpr int STAGE = A_BYTES + NMAT * W_BYTES;
-  static constexpr int SMEM = STAGES * STAGE;
-  static_assert((WN == 16 || WN == 32) && BN % WN == 0 && BK % 16 == 0 && STAGES >= 2,
+  static constexpr int NWG = NWG_, BK = BK_, STAGES = STAGES_, N = N_, PARTS = PARTS_,
+                       NMAT = NMAT_;
+  static constexpr int BN = Q_WG_COLS * NWG;
+  static constexpr int SUB = BN < 128 ? BN : 128;
+  static constexpr int NT = 128 * NWG;
+  static constexpr int B_BYTES = PARTS * (BK / 64) * N * 128;
+  static constexpr int W_BYTES = BK * BN;
+  static constexpr int STAGE = B_BYTES + NMAT * W_BYTES;
+  static constexpr int BARS = STAGES * STAGE;
+  static constexpr int SMEM = BARS + 16 * STAGES + 1024;   // + alignment
+  static_assert((NWG == 1 || NWG == 2 || NWG == 4) && (BK == 64 || BK == 128) && STAGES >= 2 &&
+                    N % 16 == 0 && N <= 64 && (BK / 16) % Q_PROMOTE == 0,
                 "bad 8-bit tile setting");
+  static_assert(SMEM <= 232448, "an 8-bit setting over the card's shared memory");
 };
 
 // v = hi + mid + lo with each part exact in bf16: hi rounds v to 8 bits, the
@@ -715,212 +781,268 @@ __device__ __forceinline__ void split3(float v, float& hi, float& mid, float& lo
   lo = r - mid;
 }
 
-// p holds bytes {a, b} in its low half: two weights of one column from two
-// k rows.  -> the bf16 pair {a, b} (a in the low half), exact.
-template <typename TW> __device__ __forceinline__ uint32_t widen2(uint32_t p);
-// int8 without I2F (a quarter-rate instruction): byte ^ 0x80 = q + 128 goes
-// into the mantissa of 2^23, and subtracting 2^23 + 128 leaves q exactly;
-// q has at most 8 significant bits, so the upper half of each float is its
-// bf16.
-template <> __device__ __forceinline__ uint32_t widen2<int8_t>(uint32_t p) {
-  const uint32_t u = p ^ 0x8080u;
-  const float a = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - 8388736.0f;
-  const float b = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - 8388736.0f;
-  return __byte_perm(__float_as_uint(a), __float_as_uint(b), 0x7632);
-}
-template <> __device__ __forceinline__ uint32_t widen2<__nv_fp8_e4m3>(uint32_t p) {
-  const __half2_raw h2 =
-      __nv_cvt_fp8x2_to_halfraw2(static_cast<__nv_fp8x2_storage_t>(p & 0xffffu), __NV_E4M3);
-  const float2 f = __half22float2(__half2(h2));
-  return tc::pack_bf16(f.x, f.y);
+// Round two floats to bf16 (nearest even) and pack them, lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// WN / 8 bytes of one weight row (the thread's columns), zero-extended.
-template <int WN>
-__device__ __forceinline__ uint32_t load_row(const unsigned char* p) {
-  if constexpr (WN == 32) return *reinterpret_cast<const uint32_t*>(p);
-  else return *reinterpret_cast<const unsigned short*>(p);
-}
-
-// acc[0 or 1][mat] += a[r0 : r0+Q_BM, :] @ q[mat][:, c0 : c0+BN] over K,
-// unscaled; a is PARTS bf16 planes (R, K), `plane` elements apart, and q an
-// 8-bit (K, N).  Warp w owns all Q_BM rows of columns WN w .. WN w + WN-1:
-// four m16 tiles from ldmatrix, and NJ = WN / 8 n8 weight tiles built from
-// bytes, so each weight byte is widened once a block.  For a k16 step a
-// thread reads the NJ bytes at columns NJ g .. NJ g + NJ-1 of rows 2t, 2t+1,
-// 2t+8, 2t+9 (g = lane / 4, t = lane % 4) and pairs byte j of two rows into
-// n8 tile j, which thus holds the columns NJ n + j: accumulator
-// acc[.][.][i][j][2 half + e] is row 16i + 8half + g, column
-// WN w + 2 NJ t + NJ e + j.  Rows past R, columns past N and k past K load
-// as zeros (K a multiple of 8, N of 16).
-template <typename S, typename TW, int PARTS, int NMAT>
-__device__ __forceinline__ void q_mainloop(float (&acc)[S::NACC][NMAT][4][S::NJ][4],
-                                           unsigned char* smem, const bf16* __restrict__ a,
-                                           size_t plane, int R, int K, int r0,
-                                           const TW* const (&w)[NMAT], int N, int c0) {
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int nk = (K + S::BK - 1) / S::BK;
-  auto load = [&](int kt, int stage) {
-    unsigned char* st = smem + stage * S::STAGE;
-    bf16* as = reinterpret_cast<bf16*>(st);
-    const int k0 = kt * S::BK;
-    for (int i = tid; i < PARTS * Q_BM * (S::BK / 8); i += S::NT) {
-      const int pr = i / (S::BK / 8), c = (i % (S::BK / 8)) * 8;   // pr: part * Q_BM + row
-      const int r = pr % Q_BM;
-      const bool ok = r0 + r < R && k0 + c < K;
-      const bf16* src = a + (pr / Q_BM) * plane + (size_t)(r0 + r) * K + k0 + c;
-      tc::cp_async16(as + pr * S::XS + c, ok ? src : a, ok);
-    }
-#pragma unroll
-    for (int mat = 0; mat < NMAT; ++mat) {
-      unsigned char* ws = st + S::A_BYTES + mat * S::W_BYTES;
-      const unsigned char* src = reinterpret_cast<const unsigned char*>(w[mat]);
-      for (int i = tid; i < S::BK * (S::BN / 16); i += S::NT) {
-        const int r = i / (S::BN / 16), c = (i % (S::BN / 16)) * 16;
-        const bool ok = k0 + r < K && c0 + c < N;
-        tc::cp_async16(ws + r * S::WS + c, ok ? src + (size_t)(k0 + r) * N + c0 + c : src, ok);
-      }
-    }
-  };
-#pragma unroll
-  for (int st = 0; st < S::STAGES - 1; ++st) {
-    if (st < nk) load(st, st);
-    tc::cp_async_commit();
+// Bytes J0 and J1 of w -> the bf16 pair {w[J0], w[J1]} (w[J0] in the low
+// half), exact.  int8 without I2F (a quarter-rate instruction): the byte
+// with its top bit flipped (pre-flipped in w), q + 128, goes into the
+// mantissa of 2^23, and subtracting 2^23 + 128 leaves q exactly; q has at
+// most 8 significant bits, so the upper half of each float is its bf16.
+// e4m3 through cvt to f16 (exact), then fp32 and bf16.
+template <typename TW, int J0, int J1>
+__device__ __forceinline__ uint32_t widen_pair(uint32_t w) {
+  if constexpr (std::is_same<TW, int8_t>::value) {
+    const float a = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540 | J0)) - 8388736.0f;
+    const float b = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540 | J1)) - 8388736.0f;
+    return __byte_perm(__float_as_uint(a), __float_as_uint(b), 0x7632);
+  } else {
+    const __half2_raw h2 = __nv_cvt_fp8x2_to_halfraw2(
+        static_cast<__nv_fp8x2_storage_t>(__byte_perm(w, 0, J0 | J1 << 4) & 0xffffu), __NV_E4M3);
+    const float2 f = __half22float2(__half2(h2));
+    return pack_bf16(f.x, f.y);
   }
+}
+
+// Two weight rows' 2-byte column pairs -> one word, bytes {c0 r0, c1 r0, c0
+// r1, c1 r1}; for int8 with the top bits flipped (widen_pair's offset).
+template <typename TW>
+__device__ __forceinline__ uint32_t pair_rows(uint32_t r0, uint32_t r1) {
+  const uint32_t w = __byte_perm(r0, r1, 0x5410);
+  return std::is_same<TW, int8_t>::value ? w ^ 0x80808080u : w;
+}
+
+// The byte at (row r, byte c) of a weight tile of BN-byte rows, as TMA
+// swizzles it (the 16-byte chunk index XORed with address bits 7 up).
+template <int BN>
+__device__ __forceinline__ int q_swz(int r, int c) {
+  const int a = r * BN + c;
+  return a ^ (((a >> 7) & (BN / 16 - 1)) << 4);
+}
+
+// k-step kt into stage s: each plane's activation tile at (k0, rows n0) of
+// plane p's expert slot p E + e (q_load_a), and each weight's BK x BN tile
+// at (columns c0, k0) of expert e (q_load_w); the stage's full barrier
+// expects both.  Rows, columns and k past the tensors arrive as zeros.
+template <class S>
+__device__ __forceinline__ void q_load_a(unsigned char* smem, uint64_t* full, int kt, int s,
+                                         const CUtensorMap* amap, int n0, int e, int E) {
+  unsigned char* st = smem + s * S::STAGE;
+  for (int p = 0; p < S::PARTS; ++p)
+    for (int kb = 0; kb < S::BK / 64; ++kb)
+      hop::tma_load_3d(st + (p * (S::BK / 64) + kb) * S::N * 128, amap, &full[s],
+                       kt * S::BK + 64 * kb, n0, p * E + e);
+}
+template <class S>
+__device__ __forceinline__ void q_load_w(unsigned char* smem, uint64_t* full, int kt, int s,
+                                         const CUtensorMap* const (&wmap)[S::NMAT], int c0,
+                                         int e) {
+  unsigned char* st = smem + s * S::STAGE + S::B_BYTES;
+  for (int mat = 0; mat < S::NMAT; ++mat)
+    for (int sb = 0; sb < S::BN / S::SUB; ++sb)
+      hop::tma_load_3d(st + mat * S::W_BYTES + sb * S::BK * S::SUB, wmap[mat], &full[s],
+                       c0 + sb * S::SUB, kt * S::BK, e);
+}
+
+// The block's mainloop: acc[mat] = the fp32 sums of its warpgroup's 64
+// weight columns of matrix mat (A rows) against the N activation rows (B
+// rows), unscaled, over K in ascending k: each k16 step one wgmma.m64nNk16
+// a matrix and plane into the partial sum `part`, which every Q_PROMOTE
+// steps is added into acc.  Thread 0 also keeps the ring filled: it loads
+// the first STAGES steps, then refills a stage once every consumer warp has
+// released it (after the next stage's first step, when its products are
+// done).  The D register d[4j + 2 half + q] of matrix mat holds
+// weight column 2 (8 w + g) + half of the warpgroup's 64, activation row 8 j
+// + 2 t + q.
+template <class S, typename TW, bool DEPENDENT>
+__device__ __forceinline__ void q_mainloop(float (&acc)[S::NMAT][S::N / 2], unsigned char* smem,
+                                           uint64_t* full, int K, const CUtensorMap* amap,
+                                           const CUtensorMap* const (&wmap)[S::NMAT], int n0,
+                                           int c0, int e, int E) {
+  uint64_t* empty = full + S::STAGES;
+  const int nk = (K + S::BK - 1) / S::BK;
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  if (threadIdx.x == 0) {
+    // the first stages' weights first: under a dependent launch they stream
+    // while the grid this one waits on finishes
+    for (int kt = 0; kt < S::STAGES && kt < nk; ++kt) {
+      hop::mbar_expect_tx(&full[kt], S::STAGE);
+      q_load_w<S>(smem, full, kt, kt, wmap, c0, e);
+    }
+    if constexpr (DEPENDENT) hop::grid_dependency_wait();
+    for (int kt = 0; kt < S::STAGES && kt < nk; ++kt)
+      q_load_a<S>(smem, full, kt, kt, amap, n0, e, E);
+  }
+  // this thread's bytes of a weight tile: rows 2t (+1, +8, +9) of a k16
+  // step, 2 bytes at column byte 64 wg + 2 (8 w + g), in box cb / SUB
+  const int cb = Q_WG_COLS * wg + 2 * (8 * warp + g);
+  const int box = (cb / S::SUB) * S::BK * S::SUB, cs = cb % S::SUB;
+  float part[S::NMAT][S::N / 2];
+  uint32_t a[2][S::NMAT][4];
+#pragma unroll
+  for (int mat = 0; mat < S::NMAT; ++mat)
+#pragma unroll
+    for (int i = 0; i < S::N / 2; ++i) acc[mat][i] = part[mat][i] = 0.0f;
   for (int kt = 0; kt < nk; ++kt) {
-    tc::cp_async_wait<S::STAGES - 2>();   // tile kt has landed (this thread's copies)
-    __syncthreads();                       // ... everyone's; stage (kt-1) is free again
-    const int next = kt + S::STAGES - 1;
-    if (next < nk) load(next, next % S::STAGES);
-    tc::cp_async_commit();
-    const unsigned char* st = smem + (kt % S::STAGES) * S::STAGE;
-    const bf16* xs = reinterpret_cast<const bf16*>(st);
+    const int s = kt % S::STAGES;
+    hop::mbar_wait(&full[s], (kt / S::STAGES) & 1);
+    unsigned char* st = smem + s * S::STAGE;
 #pragma unroll
     for (int kk = 0; kk < S::BK / 16; ++kk) {
-      uint32_t af[PARTS][4][4];
+      uint32_t(&f)[S::NMAT][4] = a[kk % 2];
 #pragma unroll
-      for (int part = 0; part < PARTS; ++part)
+      for (int mat = 0; mat < S::NMAT; ++mat) {
+        const unsigned char* w = st + S::B_BYTES + mat * S::W_BYTES + box;
+        const int r = 16 * kk + 2 * t;
+        const uint32_t r0 = *reinterpret_cast<const unsigned short*>(w + q_swz<S::SUB>(r, cs));
+        const uint32_t r1 = *reinterpret_cast<const unsigned short*>(w + q_swz<S::SUB>(r + 1, cs));
+        const uint32_t r8 = *reinterpret_cast<const unsigned short*>(w + q_swz<S::SUB>(r + 8, cs));
+        const uint32_t r9 = *reinterpret_cast<const unsigned short*>(w + q_swz<S::SUB>(r + 9, cs));
+        const uint32_t lo = pair_rows<TW>(r0, r1), hi = pair_rows<TW>(r8, r9);
+        f[mat][0] = widen_pair<TW, 0, 2>(lo);   // column half 0, k-rows 2t, 2t+1
+        f[mat][1] = widen_pair<TW, 1, 3>(lo);   // column half 1
+        f[mat][2] = widen_pair<TW, 0, 2>(hi);   // k-rows 2t+8, 2t+9
+        f[mat][3] = widen_pair<TW, 1, 3>(hi);
+      }
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          tc::ldmatrix_x4(af[part][i], xs + (part * Q_BM + i * 16 + lane % 16) * S::XS +
-                                           kk * 16 + (lane / 16) * 8);
+      for (int mat = 0; mat < S::NMAT; ++mat) {
+        hop::fence_regs(f[mat]);
+        hop::fence_regs(part[mat]);
+      }
+      hop::wg_fence();
 #pragma unroll
-      for (int mat = 0; mat < NMAT; ++mat) {
-        const unsigned char* wr = st + S::A_BYTES + mat * S::W_BYTES +
-                                  (kk * 16 + 2 * t) * S::WS + warp * S::WN + S::NJ * g;
-        const uint32_t w0 = load_row<S::WN>(wr), w1 = load_row<S::WN>(wr + S::WS);
-        const uint32_t w8 = load_row<S::WN>(wr + 8 * S::WS), w9 = load_row<S::WN>(wr + 9 * S::WS);
+      for (int mat = 0; mat < S::NMAT; ++mat)
 #pragma unroll
-        for (int j = 0; j < S::NJ; ++j) {
-          const uint32_t sel = j | (4 + j) << 4;   // byte j of two rows
-          const uint32_t b0 = widen2<TW>(__byte_perm(w0, w1, sel));
-          const uint32_t b1 = widen2<TW>(__byte_perm(w8, w9, sel));
+        for (int p = 0; p < S::PARTS; ++p)
+          hop::wgmma_rs<S::N, 0>(
+              part[mat], f[mat],
+              hop::desc_sw128(st + (p * (S::BK / 64) + kk / 4) * S::N * 128 + (kk % 4) * 32, 16,
+                              1024),
+              kk % Q_PROMOTE == 0 && p == 0 ? 0 : 1);
+      hop::wg_commit();
 #pragma unroll
-          for (int part = 0; part < PARTS; ++part)
+      for (int mat = 0; mat < S::NMAT; ++mat) hop::fence_regs(part[mat]);
+      if (kk % Q_PROMOTE == Q_PROMOTE - 1) {
+        hop::wg_wait<0>();
 #pragma unroll
-            for (int i = 0; i < 4; ++i)
-              tc::mma_bf16(acc[part == 0 ? 0 : 1][mat][i][j], af[part][i], b0, b1);
+        for (int mat = 0; mat < S::NMAT; ++mat) {
+          hop::fence_regs(part[mat]);
+#pragma unroll
+          for (int i = 0; i < S::N / 2; ++i) acc[mat][i] += part[mat][i];
+        }
+      } else {
+        hop::wg_wait<1>();   // the other fragment's products are done
+      }
+      if (kk == 0 && kt > 0) {
+        // the previous stage's products are done: release it, and thread 0
+        // refills it once every warp has
+        const int ps = (kt - 1) % S::STAGES;
+        __syncwarp();
+        if (lane == 0) hop::mbar_arrive(&empty[ps]);
+        if (threadIdx.x == 0 && kt - 1 + S::STAGES < nk) {
+          hop::mbar_wait(&empty[ps], ((kt - 1) / S::STAGES) & 1);
+          hop::mbar_expect_tx(&full[ps], S::STAGE);
+          q_load_a<S>(smem, full, kt - 1 + S::STAGES, ps, amap, n0, e, E);
+          q_load_w<S>(smem, full, kt - 1 + S::STAGES, ps, wmap, c0, e);
         }
       }
     }
   }
-  tc::cp_async_wait<0>();
-}
-
-// The scaled fp32 sum at row 16i + 8half + g, column 2 NJ t + cc of the
-// warp's share (cc = NJ e + j).
-template <int NACC, int NMAT, int NJ>
-__device__ __forceinline__ float q_sum(const float (&acc)[NACC][NMAT][4][NJ][4], int mat, int i,
-                                       int half, int cc, float scale) {
-  const int j = cc % NJ, k = 2 * half + cc / NJ;
-  float v = acc[0][mat][i][j][k];
-  if constexpr (NACC == 2) v += acc[1][mat][i][j][k];
-  return v * scale;
 }
 
 // Phase 1: h = act(s_g (x q_g), s_u (x q_u)) in fp32, written as three bf16
-// planes (3, E, C, m).  x is bf16 (PARTS = 1) or three planes of fp32 x.
-template <int PARTS, typename TW, int ACT, int BN, int WN, int BK, int STAGES>
-__global__ void __launch_bounds__(32 * BN / WN)
-up_kernel_q(const bf16* __restrict__ xe, const TW* __restrict__ wg, const TW* __restrict__ wu,
-            const float* __restrict__ sg, const float* __restrict__ su, bf16* __restrict__ h,
-            int E, int C, int d, int m) {
-  constexpr int NMAT = ACT == ACT_SWIGLU ? 2 : 1;   // [0] up, [1] gate
-  using S = QShape<PARTS, NMAT, BN, WN, BK, STAGES>;
-  constexpr int NC = 2 * S::NJ;                      // a thread's columns
+// planes (3, E, C, m).  x is bf16 (PARTS = 1) or its three planes (3, E, C,
+// d).  ACT is swiglu, or -1 for relu2 / gelu by `act` (one kernel for both).
+template <class S, typename TW, int ACT>
+__global__ void __launch_bounds__(S::NT)
+up_kernel_q(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap umap,
+            const __grid_constant__ CUtensorMap gmap, const float* __restrict__ sg,
+            const float* __restrict__ su, bf16* __restrict__ h, int E, int C, int d, int m,
+            int act) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int e = blockIdx.z, c0 = blockIdx.x * S::BN, r0 = blockIdx.y * Q_BM;
-  const TW* w[NMAT];
-  w[0] = wu + (size_t)e * d * m;
-  if constexpr (NMAT == 2) w[1] = wg + (size_t)e * d * m;
-  float acc[S::NACC][NMAT][4][S::NJ][4] = {};
-  q_mainloop<S, TW, PARTS, NMAT>(acc, smem_raw, xe + (size_t)e * C * d, (size_t)E * C * d, C, d,
-                                 r0, w, m, c0);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int c = c0 + warp * S::WN + NC * (lane % 4);
-  if (c >= m) return;
-  float s_u[NC], s_g[NC] = {};
-#pragma unroll
-  for (int cc = 0; cc < NC; ++cc) {
-    s_u[cc] = su[(size_t)e * m + c + cc];
-    if constexpr (NMAT == 2) s_g[cc] = sg[(size_t)e * m + c + cc];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = ring_barriers(smem, S::BARS, S::STAGES, S::NWG);
+  const int e = blockIdx.z, c0 = blockIdx.x * S::BN, n0 = blockIdx.y * S::N;
+  const CUtensorMap* w[S::NMAT];
+  w[0] = &umap;
+  if constexpr (S::NMAT == 2) w[1] = &gmap;
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int c = c0 + Q_WG_COLS * wg + 2 * (8 * warp + lane / 4);
+  // this thread's columns' scales, loaded before the mainloop
+  float2 s_u = make_float2(0.0f, 0.0f), s_g = s_u;
+  if (c < m) {
+    s_u = *reinterpret_cast<const float2*>(su + (size_t)e * m + c);
+    if constexpr (S::NMAT == 2) s_g = *reinterpret_cast<const float2*>(sg + (size_t)e * m + c);
   }
+  float acc[S::NMAT][S::N / 2];
+  // phase 2 may launch (and stream its first weights) once every block of
+  // this grid has started
+  hop::launch_dependents();
+  q_mainloop<S, TW, false>(acc, smem, full, d, &xmap, w, n0, c0, e, E);
+  if (c >= m) return;
+  // every activation first, then the stores (an activation's expf and
+  // division chains overlap one another so)
+  float v[S::N / 8][2][2];
+#pragma unroll
+  for (int j = 0; j < S::N / 8; ++j)
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const float u = acc[0][4 * j + 2 * half + q] * (half ? s_u.y : s_u.x);
+        if constexpr (ACT == ACT_SWIGLU)
+          v[j][q][half] =
+              activate<ACT_SWIGLU>(acc[1][4 * j + 2 * half + q] * (half ? s_g.y : s_g.x), u);
+        else
+          v[j][q][half] =
+              act == ACT_RELU2 ? activate<ACT_RELU2>(0.0f, u) : activate<ACT_GELU>(0.0f, u);
+      }
   const size_t plane = (size_t)E * C * m;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int j = 0; j < S::N / 8; ++j)
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = r0 + i * 16 + half * 8 + lane / 4;
-      if (r >= C) continue;
-      float p[3][NC];
+    for (int q = 0; q < 2; ++q) {
+      const int n = n0 + 8 * j + 2 * (lane % 4) + q;
+      float p0[3], p1[3];
+      split3(v[j][q][0], p0[0], p0[1], p0[2]);
+      split3(v[j][q][1], p1[0], p1[1], p1[2]);
+      bf16* hr = h + ((size_t)e * C + n) * m + c;
+      if (n < C)
 #pragma unroll
-      for (int cc = 0; cc < NC; ++cc) {
-        const float u = q_sum(acc, 0, i, half, cc, s_u[cc]);
-        const float gate = NMAT == 2 ? q_sum(acc, NMAT - 1, i, half, cc, s_g[cc]) : 0.0f;
-        split3(activate<ACT>(gate, u), p[0][cc], p[1][cc], p[2][cc]);
-      }
-      bf16* hr = h + ((size_t)e * C + r) * m + c;
-#pragma unroll
-      for (int part = 0; part < 3; ++part)
-#pragma unroll
-        for (int q = 0; q < NC; q += 4)
-          *reinterpret_cast<uint2*>(hr + part * plane + q) =
-              make_uint2(tc::pack_bf16(p[part][q], p[part][q + 1]),
-                         tc::pack_bf16(p[part][q + 2], p[part][q + 3]));
+        for (int part = 0; part < 3; ++part)
+          *reinterpret_cast<uint32_t*>(hr + part * plane) = pack_bf16(p0[part], p1[part]);
     }
 }
 
 // Phase 2: out = s_d (h q_d), h as its three bf16 planes.
-template <typename TW, int BN, int WN, int BK, int STAGES>
-__global__ void __launch_bounds__(32 * BN / WN)
-down_kernel_q(const bf16* __restrict__ h, const TW* __restrict__ wd,
+template <class S, typename TW>
+__global__ void __launch_bounds__(S::NT)
+down_kernel_q(const __grid_constant__ CUtensorMap hmap, const __grid_constant__ CUtensorMap dmap,
               const float* __restrict__ sd, float* __restrict__ out, int E, int C, int d, int m) {
-  using S = QShape<3, 1, BN, WN, BK, STAGES>;
-  constexpr int NC = 2 * S::NJ;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int e = blockIdx.z, c0 = blockIdx.x * S::BN, r0 = blockIdx.y * Q_BM;
-  const TW* w[1] = {wd + (size_t)e * m * d};
-  float acc[S::NACC][1][4][S::NJ][4] = {};
-  q_mainloop<S, TW, 3, 1>(acc, smem_raw, h + (size_t)e * C * m, (size_t)E * C * m, C, m, r0, w,
-                          d, c0);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int c = c0 + warp * S::WN + NC * (lane % 4);
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = ring_barriers(smem, S::BARS, S::STAGES, S::NWG);
+  const int e = blockIdx.z, c0 = blockIdx.x * S::BN, n0 = blockIdx.y * S::N;
+  const CUtensorMap* w[1] = {&dmap};
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int c = c0 + Q_WG_COLS * wg + 2 * (8 * warp + lane / 4);
+  const float2 s = c < d ? *reinterpret_cast<const float2*>(sd + (size_t)e * d + c)
+                         : make_float2(0.0f, 0.0f);
+  float acc[1][S::N / 2];
+  q_mainloop<S, TW, true>(acc, smem, full, m, &hmap, w, n0, c0, e, E);
   if (c >= d) return;
-  float s[NC];
 #pragma unroll
-  for (int cc = 0; cc < NC; ++cc) s[cc] = sd[(size_t)e * d + c + cc];
+  for (int j = 0; j < S::N / 8; ++j)
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = r0 + i * 16 + half * 8 + lane / 4;
-      if (r >= C) continue;
-#pragma unroll
-      for (int q = 0; q < NC; q += 4)
-        *reinterpret_cast<float4*>(out + ((size_t)e * C + r) * d + c + q) = make_float4(
-            q_sum(acc, 0, i, half, q, s[q]), q_sum(acc, 0, i, half, q + 1, s[q + 1]),
-            q_sum(acc, 0, i, half, q + 2, s[q + 2]), q_sum(acc, 0, i, half, q + 3, s[q + 3]));
+    for (int q = 0; q < 2; ++q) {
+      const int n = n0 + 8 * j + 2 * (lane % 4) + q;
+      if (n < C)
+        *reinterpret_cast<float2*>(out + ((size_t)e * C + n) * d + c) =
+            make_float2(acc[0][4 * j + q] * s.x, acc[0][4 * j + 2 + q] * s.y);
     }
 }
 
@@ -936,70 +1058,105 @@ __global__ void split3_kernel(const float* __restrict__ x, bf16* __restrict__ pl
 #pragma unroll
   for (int part = 0; part < 3; ++part)
     *reinterpret_cast<uint2*>(planes + part * n + i) =
-        make_uint2(tc::pack_bf16(p[part][0], p[part][1]), tc::pack_bf16(p[part][2], p[part][3]));
+        make_uint2(pack_bf16(p[part][0], p[part][1]), pack_bf16(p[part][2], p[part][3]));
 }
 
-// Phase 1's kernel of a setting for one activation and its shape; then
-// phase 2's.
-template <class Cfg, int PARTS, int ACT>
-using QUpShape = QShape<PARTS, ACT == ACT_SWIGLU ? 2 : 1, Cfg::UP_BN, Cfg::UP_WN, Cfg::UP_BK,
-                        Cfg::UP_STAGES>;
-template <class Cfg>
-using QDownShape = QShape<3, 1, Cfg::DN_BN, Cfg::DN_WN, Cfg::DN_BK, Cfg::DN_STAGES>;
+// The tensor map of an 8-bit (E, K, N) weight tensor, read in boxes of BK
+// rows x BN bytes of one expert, swizzled over BN bytes (64 or 128).
+int q_weight_map(CUtensorMap* map, const void* base, int E, int K, int N, int bk, int sub) {
+  const uint64_t dims[3] = {(uint64_t)N, (uint64_t)K, (uint64_t)E};
+  const uint64_t strides[2] = {(uint64_t)N, (uint64_t)K * N};
+  const uint32_t box[3] = {(uint32_t)sub, (uint32_t)bk, 1};
+  return hop::encode_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, base, 3, dims, strides, box,
+                         sub == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B);
+}
 
-template <class Cfg, int PARTS, typename TW, int ACT>
-void launch_q_up(dim3 grid, cudaStream_t s, const bf16* x, const TW* g, const TW* u,
-                 const float* sg, const float* su, bf16* h, int E, int C, int d, int m) {
-  using S = QUpShape<Cfg, PARTS, ACT>;
-  launch_dyn(up_kernel_q<PARTS, TW, ACT, Cfg::UP_BN, Cfg::UP_WN, Cfg::UP_BK, Cfg::UP_STAGES>,
-             S::SMEM, grid, S::NT, s, x, g, u, sg, su, h, E, C, d, m);
+// The C tile a launch takes: C rounded up to 16, at most 64; fp32 x (three
+// planes a stage) at 32.
+constexpr int q_tile(int C, int parts) {
+  return parts == 3 ? 32 : C <= 16 ? 16 : C <= 32 ? 32 : C <= 48 ? 48 : 64;
+}
+
+// Phase 1's kernel and shape of a setting, C tile, x planes and activation
+// (ACT_SWIGLU, or -1 for relu2 and gelu); then phase 2's.
+template <class Cfg, int N, int PARTS, int ACT>
+using QUp = QShape<Cfg::UP_WG, Cfg::UP_BK, Cfg::UP_STAGES, N, PARTS, ACT == ACT_SWIGLU ? 2 : 1>;
+template <class Cfg, int N>
+using QDown = QShape<Cfg::DN_WG, Cfg::DN_BK, Cfg::DN_STAGES, N, 3, 1>;
+
+template <class Cfg, int N, int PARTS, typename TW>
+int launch_q_tile(const bf16* x, const void* wg, const void* wu, const void* wd, const float* sg,
+                  const float* su, const float* sd, bf16* h, float* out, int E, int C, int d,
+                  int m, int act, cudaStream_t s) {
+  using U = QUp<Cfg, N, PARTS, ACT_SWIGLU>;
+  using D = QDown<Cfg, N>;
+  // the maps are encoded at every call: the operands' addresses change
+  CUtensorMap xm, um, gm, hm, dm;
+  if (moe_map(&xm, x, PARTS * E, C, d, N) ||
+      q_weight_map(&um, wu, E, d, m, Cfg::UP_BK, U::SUB) ||
+      q_weight_map(&gm, act == ACT_SWIGLU ? wg : wu, E, d, m, Cfg::UP_BK, U::SUB) ||
+      moe_map(&hm, h, 3 * E, C, m, N) || q_weight_map(&dm, wd, E, m, d, Cfg::DN_BK, D::SUB))
+    return -1;
+  const dim3 g_up((m + U::BN - 1) / U::BN, (C + N - 1) / N, E);
+  const dim3 g_down((d + D::BN - 1) / D::BN, (C + N - 1) / N, E);
+  if (act == ACT_SWIGLU)
+    launch_dyn(up_kernel_q<U, TW, ACT_SWIGLU>, U::SMEM, g_up, U::NT, s, xm, um, gm, sg, su, h, E,
+               C, d, m, act);
+  else
+    launch_dyn(up_kernel_q<QUp<Cfg, N, PARTS, -1>, TW, -1>, QUp<Cfg, N, PARTS, -1>::SMEM, g_up,
+               U::NT, s, xm, um, gm, sg, su, h, E, C, d, m, act);
+  launch_dependent(down_kernel_q<D, TW>, D::SMEM, g_down, D::NT, s, hm, dm, sd, out, E, C, d,
+                   m);
+  return 0;
 }
 
 template <class Cfg, int PARTS, typename TW>
-void launch_q_typed(const bf16* x, const void* wg, const void* wu, const void* wd,
-                    const float* sg, const float* su, const float* sd, bf16* h, float* out,
-                    int E, int C, int d, int m, int act, cudaStream_t s) {
-  const dim3 g_up((m + Cfg::UP_BN - 1) / Cfg::UP_BN, (C + Q_BM - 1) / Q_BM, E);
-  const dim3 g_down((d + Cfg::DN_BN - 1) / Cfg::DN_BN, (C + Q_BM - 1) / Q_BM, E);
-  const TW* g = static_cast<const TW*>(wg);
-  const TW* u = static_cast<const TW*>(wu);
-  switch (act) {
-    case ACT_SWIGLU:
-      launch_q_up<Cfg, PARTS, TW, ACT_SWIGLU>(g_up, s, x, g, u, sg, su, h, E, C, d, m);
-      break;
-    case ACT_RELU2:
-      launch_q_up<Cfg, PARTS, TW, ACT_RELU2>(g_up, s, x, g, u, sg, su, h, E, C, d, m);
-      break;
+int launch_q_typed(const bf16* x, const void* wg, const void* wu, const void* wd, const float* sg,
+                   const float* su, const float* sd, bf16* h, float* out, int E, int C, int d,
+                   int m, int act, cudaStream_t s) {
+  if constexpr (PARTS == 3)
+    return launch_q_tile<Cfg, q_tile(0, 3), 3, TW>(x, wg, wu, wd, sg, su, sd, h, out, E, C, d, m,
+                                                   act, s);
+  else switch (q_tile(C, 1)) {
+    case 16:
+      return launch_q_tile<Cfg, 16, 1, TW>(x, wg, wu, wd, sg, su, sd, h, out, E, C, d, m, act, s);
+    case 32:
+      return launch_q_tile<Cfg, 32, 1, TW>(x, wg, wu, wd, sg, su, sd, h, out, E, C, d, m, act, s);
+    case 48:
+      return launch_q_tile<Cfg, 48, 1, TW>(x, wg, wu, wd, sg, su, sd, h, out, E, C, d, m, act, s);
     default:
-      launch_q_up<Cfg, PARTS, TW, ACT_GELU>(g_up, s, x, g, u, sg, su, h, E, C, d, m);
-      break;
+      return launch_q_tile<Cfg, 64, 1, TW>(x, wg, wu, wd, sg, su, sd, h, out, E, C, d, m, act, s);
   }
-  using D = QDownShape<Cfg>;
-  launch_dyn(down_kernel_q<TW, Cfg::DN_BN, Cfg::DN_WN, Cfg::DN_BK, Cfg::DN_STAGES>, D::SMEM,
-             g_down, D::NT, s, static_cast<const bf16*>(h), static_cast<const TW*>(wd), sd, out,
-             E, C, d, m);
 }
 
-// Attributes of a setting's kernels: up swiglu, up relu2, up gelu, down.
+// Attributes of a setting's kernels at a C tile: up swiglu, up relu2, up
+// gelu (one kernel), down.
+template <class Cfg, int N, int PARTS, typename TW>
+void q_tile_attrs(int* out) {
+  using U = QUp<Cfg, N, PARTS, ACT_SWIGLU>;
+  using V = QUp<Cfg, N, PARTS, -1>;
+  using D = QDown<Cfg, N>;
+  kernel_attrs(up_kernel_q<U, TW, ACT_SWIGLU>, U::SMEM, U::NT, out);
+  kernel_attrs(up_kernel_q<V, TW, -1>, V::SMEM, V::NT, out + ATTR_FIELDS);
+  kernel_attrs(up_kernel_q<V, TW, -1>, V::SMEM, V::NT, out + 2 * ATTR_FIELDS);
+  kernel_attrs(down_kernel_q<D, TW>, D::SMEM, D::NT, out + 3 * ATTR_FIELDS);
+}
+
 template <class Cfg, int PARTS, typename TW>
-void q_typed_attrs(int* out) {
-  constexpr int BN = Cfg::UP_BN, WN = Cfg::UP_WN, BK = Cfg::UP_BK, ST = Cfg::UP_STAGES;
-  using S0 = QUpShape<Cfg, PARTS, ACT_SWIGLU>;
-  using S1 = QUpShape<Cfg, PARTS, ACT_RELU2>;
-  using D = QDownShape<Cfg>;
-  kernel_attrs(up_kernel_q<PARTS, TW, ACT_SWIGLU, BN, WN, BK, ST>, S0::SMEM, S0::NT, out);
-  kernel_attrs(up_kernel_q<PARTS, TW, ACT_RELU2, BN, WN, BK, ST>, S1::SMEM, S1::NT,
-               out + ATTR_FIELDS);
-  kernel_attrs(up_kernel_q<PARTS, TW, ACT_GELU, BN, WN, BK, ST>, S1::SMEM, S1::NT,
-               out + 2 * ATTR_FIELDS);
-  kernel_attrs(down_kernel_q<TW, Cfg::DN_BN, Cfg::DN_WN, Cfg::DN_BK, Cfg::DN_STAGES>, D::SMEM,
-               D::NT, out + 3 * ATTR_FIELDS);
+void q_typed_attrs(int C, int* out) {
+  if constexpr (PARTS == 3) return q_tile_attrs<Cfg, q_tile(0, 3), 3, TW>(out);
+  else switch (q_tile(C, 1)) {
+    case 16: return q_tile_attrs<Cfg, 16, 1, TW>(out);
+    case 32: return q_tile_attrs<Cfg, 32, 1, TW>(out);
+    case 48: return q_tile_attrs<Cfg, 48, 1, TW>(out);
+    default: return q_tile_attrs<Cfg, 64, 1, TW>(out);
+  }
 }
 
-using QLaunch = void (*)(const bf16*, const void*, const void*, const void*, const float*,
-                         const float*, const float*, bf16*, float*, int, int, int, int, int,
-                         cudaStream_t);
-using QAttrs = void (*)(int*);
+using QLaunch = int (*)(const bf16*, const void*, const void*, const void*, const float*,
+                        const float*, const float*, bf16*, float*, int, int, int, int, int,
+                        cudaStream_t);
+using QAttrs = void (*)(int, int*);
 // [setting][x fp32][fp8 weights]
 #define Q_LAUNCH_ENTRY(...)                                    \
   {{&launch_q_typed<QCfg<__VA_ARGS__>, 1, int8_t>,             \
@@ -1015,9 +1172,10 @@ const QLaunch kQLaunch[][2][2] = {Q_SETTINGS(Q_LAUNCH_ENTRY)};
 const QAttrs kQAttrs[][2][2] = {Q_SETTINGS(Q_ATTRS_ENTRY)};
 constexpr int N_Q = sizeof(kQLaunch) / sizeof(kQLaunch[0]);
 
-// 8-bit weights: rows of d and m bytes in 16-byte copies, 16-byte aligned
-// operands and a setting of the table, or cudaErrorInvalidValue.  The
-// scratch holds h's three planes, then (fp32 x only) x's.
+// 8-bit weights: rows of d and m bytes in multiples of 16 (TMA's row
+// strides), 16-byte aligned operands and a setting of the table, or
+// cudaErrorInvalidValue.  The scratch holds h's three planes, then (fp32 x
+// only) x's.
 template <typename TX>
 int launch_q(int w_dtype, const void* xe, const void* wg, const void* wu, const void* wd,
              const float* sg, const float* su, const float* sd, void* h, float* out, int E,
@@ -1037,9 +1195,8 @@ int launch_q(int w_dtype, const void* xe, const void* wg, const void* wu, const 
                                                                  xp, n);
     x = xp;
   }
-  kQLaunch[tiles][X_F32][w_dtype == DT_F8](x, wg, wu, wd, sg, su, sd, hp, out, E, C, d, m, act,
-                                           s);
-  return 0;
+  return kQLaunch[tiles][X_F32][w_dtype == DT_F8](x, wg, wu, wd, sg, su, sd, hp, out, E, C, d, m,
+                                                  act, s);
 }
 
 // ------------------------------------------------------ the CUDA-core path
@@ -1145,12 +1302,12 @@ extern "C" int streamed_moe_forward(const void* xe, const void* wg, const void* 
 // the kernels of its int8 or fp8 weights and its bf16 or fp32 activations.
 // Returns 0, or cudaErrorInvalidValue for dtypes or a setting it does not
 // take.
-extern "C" int streamed_moe_tile_attrs(int x_dtype, int w_dtype, int tiles, int* out) {
+extern "C" int streamed_moe_tile_attrs(int x_dtype, int w_dtype, int tiles, int C, int* out) {
   const bool x_f32 = x_dtype == DT_F32;
   if (!x_f32 && x_dtype != DT_BF16) return static_cast<int>(cudaErrorInvalidValue);
   if (w_dtype == DT_I8 || w_dtype == DT_F8) {
     if (tiles < 0 || tiles >= N_Q) return static_cast<int>(cudaErrorInvalidValue);
-    kQAttrs[tiles][x_f32][w_dtype == DT_F8](out);
+    kQAttrs[tiles][x_f32][w_dtype == DT_F8](C, out);
   } else if (w_dtype == DT_BF16 && !x_f32) {
     if (tiles < 0 || tiles >= N_WG) return static_cast<int>(cudaErrorInvalidValue);
     kWgAttrs[tiles](out);

@@ -5,10 +5,13 @@ TPU).  The kernel (``csrc/streamed_moe.cu``) is bound by the weight
 stream at serving shapes and by operations at large C; its note says what
 the design does about each.  bf16 activations with bf16 weights run on
 Hopper's wgmma fed by TMA (d and m multiples of 8); int8 / fp8 weights
-with either activation dtype on mma.sync (d and m multiples of 16; fp32
-operands split into three bf16 parts, so the products keep fp32
-accuracy); fp32 weights, or bf16 weights with fp32 activations, on CUDA
-cores.  For a CUDA tensor
+with either activation dtype on wgmma too, transposed: the weights widened
+from the raw bytes TMA lands into register A fragments, the activations
+the B tiles, the C tile (``q_c_tile``) C rounded up to 16, so decode
+computes no padding rows (d and m multiples of 16; fp32 operands split
+into three bf16 parts, so the products keep fp32 accuracy; partial sums
+promoted into fp32 every 64 k-rows); fp32 weights, or bf16 weights with
+fp32 activations, on CUDA cores.  For a CUDA tensor
 the wrapper launches the kernel or raises; for
 a CPU tensor it runs the plain version (``kernels.ref.streamed_moe_plain``),
 which repeats the kernel's arithmetic.  The tiles are chosen at launch:
@@ -43,19 +46,28 @@ QUANT_DTYPES = (torch.int8, torch.float8_e4m3fn)
 # The kernel's tile settings, path by path, in the order of its tables
 # (WG_SETTINGS and Q_SETTINGS in csrc/streamed_moe.cu; a CPU test holds the
 # two equal).  bf16 x bf16 (wgmma + TMA): consumer warpgroups (64 rows
-# each), columns a block, k-rows a stage, ring depth.  8-bit weights: per
-# phase (up, then down) columns a block, columns a warp, k-rows a stage,
-# ring depth (64 rows a block).  The CUDA-core path (fp32 weights, or fp32
-# x x bf16 weights) has one setting.
+# each), columns a block, k-rows a stage, ring depth.  8-bit weights (wgmma
+# + TMA, the weights widened into registers): per phase (up, then down)
+# consumer warpgroups (64 weight columns each), k-rows a stage, ring depth;
+# the C tile follows C (``q_c_tile``).  The CUDA-core path (fp32 weights,
+# or fp32 x x bf16 weights) has one setting.
 _WG_ROWS = ((1, 64, 64, 4), (2, 128, 64, 4), (1, 128, 64, 4), (2, 64, 64, 4),
             (1, 64, 64, 2), (1, 128, 64, 2), (2, 64, 64, 3), (2, 128, 64, 3))
-_Q_ROWS = (((64, 16, 64, 4), (128, 32, 64, 3)),
-           ((64, 16, 128, 3), (128, 32, 64, 3)),
-           ((64, 16, 64, 4), (128, 16, 64, 3)),
-           ((64, 16, 64, 4), (64, 32, 64, 3)),
-           ((64, 32, 64, 4), (128, 32, 64, 3)),
-           ((128, 16, 64, 4), (128, 32, 64, 4)))
-Q_ROWS_A_BLOCK = 64                 # Q_BM: rows a block on the 8-bit path
+_Q_ROWS = (((2, 128, 3), (4, 128, 2)),
+           ((2, 128, 3), (2, 128, 2)),
+           ((1, 64, 6), (2, 64, 3)),
+           ((2, 128, 4), (4, 128, 2)),
+           ((2, 64, 6), (4, 64, 4)),
+           ((1, 128, 3), (4, 64, 3)))
+Q_WG_COLS = 64                      # weight columns a consumer warpgroup owns
+
+
+def q_c_tile(C: int, x_dtype=torch.bfloat16) -> int:
+    """The 8-bit path's C tile (wgmma's N) for C rows: C rounded up to
+    16, at most 64; 32 for fp32 x (its three planes share a stage)."""
+    if x_dtype == torch.float32:
+        return 32
+    return min(64, -(-C // 16) * 16)
 
 
 def _wg_name(warpgroups, bn, bk, stages):
@@ -63,8 +75,8 @@ def _wg_name(warpgroups, bn, bk, stages):
 
 
 def _q_name(up, down):
-    return "8bit:" + ":".join(f"{p}{bn}w{wn}k{bk}s{st}" for p, (bn, wn, bk, st)
-                              in (("up", up), ("dn", down)))
+    return "8bit:" + ":".join(f"{p}{wg}x{Q_WG_COLS * wg}k{bk}s{st}"
+                              for p, (wg, bk, st) in (("up", up), ("dn", down)))
 
 
 TILE_SETTINGS = {
@@ -127,21 +139,22 @@ ATTR_FIELDS = ("regs", "spill_bytes", "static_smem", "dynamic_smem",
                "threads")
 
 
-def tile_attrs(tiles: str, x_dtype, w_dtype) -> dict:
+def tile_attrs(tiles: str, x_dtype, w_dtype, C: int = 64) -> dict:
     """The compiled resources of one setting's kernels on the card, from
     ``cudaFuncGetAttributes``: {kernel: {field: int}} over ``ATTR_KERNELS``
     and ``ATTR_FIELDS`` (registers a thread, local spill bytes a thread,
-    shared bytes a block, threads a block)."""
+    shared bytes a block, threads a block).  On the 8-bit path, the kernels
+    of C's tile (``q_c_tile``); relu2 and gelu share one kernel there."""
     global _attrs_fn
     if _attrs_fn is None:
         from .build import load
         fn = load("streamed_moe").streamed_moe_tile_attrs
-        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _attrs_fn = fn
     row = tile_index(tiles, x_dtype, w_dtype, 0)
     out = (ctypes.c_int * (len(ATTR_KERNELS) * len(ATTR_FIELDS)))()
-    rc = _attrs_fn(X_DTYPES[x_dtype], W_DTYPES[w_dtype], row, out)
+    rc = _attrs_fn(X_DTYPES[x_dtype], W_DTYPES[w_dtype], row, C, out)
     if rc != 0:
         raise RuntimeError(f"streamed_moe_tile_attrs({tiles!r}) failed: "
                            f"cudaError {rc}")

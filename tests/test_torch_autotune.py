@@ -243,6 +243,72 @@ def test_wgmma_phases(name, threads, smem_up, smem_down, acc_up, acc_down):
             H100, threads, smem, acc + 40) >= 1
 
 
+# (setting, C, x dtype, threads up / down, shared bytes up / down,
+# accumulators a thread up / down) of the 8-bit path: consumer warpgroups
+# of 64 weight columns and no producer warp; a stage holds the activation
+# planes' tiles (the C tile's rows, 128-byte swizzled) and the raw 8-bit
+# weight tiles, with its two 8-byte barriers; each thread keeps a partial
+# and a promoted sum of C_tile / 2 a weight matrix.  C = 64 takes a tile of
+# 64, C = 16 one of 16, fp32 x (three planes) one of 32
+Q_PHASES = (("8bit:up2x128k128s3:dn4x256k128s2", 64, "bf16", 256, 512,
+             3 * (128 * 64 * 2 + 2 * 128 * 128 + 16) + 1024,
+             2 * (3 * 128 * 64 * 2 + 128 * 256 + 16) + 1024, 128, 64),
+            ("8bit:up1x64k64s6:dn2x128k64s3", 16, "bf16", 128, 256,
+             6 * (64 * 16 * 2 + 2 * 64 * 64 + 16) + 1024,
+             3 * (3 * 64 * 16 * 2 + 64 * 128 + 16) + 1024, 32, 16),
+            ("8bit:up2x128k128s3:dn4x256k128s2", 37, "fp32", 256, 512,
+             3 * (3 * 128 * 32 * 2 + 2 * 128 * 128 + 16) + 1024,
+             2 * (3 * 128 * 32 * 2 + 128 * 256 + 16) + 1024, 64, 32))
+
+
+@pytest.mark.parametrize("name,C,x,threads_up,threads_down,smem_up,"
+                         "smem_down,acc_up,acc_down", Q_PHASES)
+def test_8bit_wgmma_phases(name, C, x, threads_up, threads_down, smem_up,
+                           smem_down, acc_up, acc_down):
+    row = sm.TILE_SETTINGS["8bit"][name]
+    up, down = at._phases("8bit", row, True, x, C)
+    tile = sm.q_c_tile(C, torch.float32 if x == "fp32" else torch.bfloat16)
+    parts = 3 if x == "fp32" else 1
+    assert up == (tile, 64 * row[0][0], row[0][1], threads_up, smem_up,
+                  acc_up, parts)
+    assert down == (tile, 64 * row[1][0], row[1][1], threads_down,
+                    smem_down, acc_down, 3)
+    cost = at.tile_cost(32, C, 1024, 512, "swiglu", name, H100, x, "int8")
+    for phase, acc, smem, threads, n_w in zip(
+            cost["phases"], (acc_up, acc_down), (smem_up, smem_down),
+            (threads_up, threads_down), (2, 1)):
+        # two buffers of a weight matrix's A fragment (4 registers each)
+        assert phase["regs"] == at._estimated_regs(acc, 8 * n_w) \
+            == acc + 8 * n_w + 40 <= H100.regs_thread
+        assert phase["threads"] == threads and phase["smem"] == smem
+        assert phase["smem"] <= H100.smem_block
+        assert phase["blocks_per_sm"] == at.blocks_per_sm(
+            H100, threads, smem, acc + 8 * n_w + 40) >= 1
+
+
+@pytest.mark.parametrize("wdt", ["int8", "fp8"])
+@pytest.mark.parametrize("C", [16, 64, 1024])
+def test_planner_never_ranks_an_8bit_setting_over_the_shared_memory(
+        monkeypatch, C, wdt):
+    """Eight stages of 128 k-rows up (36 KB each at a C tile of 16, 48 KB
+    at 64) cannot fit the card's 227 KB a block: such an 8-bit setting is
+    scored as not fitting, is never ranked and never picked; every ranked
+    one fits."""
+    big = "8bit:up2x128k128s8:dn4x256k128s2"
+    monkeypatch.setitem(sm.TILE_SETTINGS["8bit"], big,
+                        ((2, 128, 8), (4, 128, 2)))
+    cost = at.tile_cost(32, C, 1024, 512, "swiglu", big, H100, "bf16", wdt)
+    assert not cost["fits"]
+    assert cost["phases"][0]["smem"] > H100.smem_block
+    plan = at.plan_kernel_tiles(32, C, 1024, 512, "swiglu", H100, "bf16",
+                                wdt)
+    assert plan["fits"] and big not in dict(plan["ranked"])
+    assert plan["tiles"] != big
+    for name, _ in plan["ranked"]:
+        assert all(p["smem"] <= H100.smem_block for p in at.tile_cost(
+            32, C, 1024, 512, "swiglu", name, H100, "bf16", wdt)["phases"])
+
+
 def test_planner_drops_a_ring_over_the_shared_memory(monkeypatch):
     """Five 48 KB stages (241 KB) cannot fit the card's 227 KB a block:
     such a setting is scored as not fitting and is never a candidate."""
@@ -324,8 +390,12 @@ def test_tile_settings_mirror_the_kernel_source():
     assert sm.TILE_SETTINGS["bf16"][sm.DEFAULT_TILES(64, torch.bfloat16)] \
         == (1, 64, 64, 4) and names.index(
             sm.DEFAULT_TILES(65, torch.bfloat16)) == 1
+    # the 8-bit default: two consumer warpgroups (128 weight columns), 128
+    # k-rows a stage and 3 stages up; four (256 columns) and 2 stages down
     assert sm.TILE_SETTINGS["8bit"][sm.DEFAULT_TILES(64, torch.int8)] == \
-        ((64, 16, 64, 4), (128, 32, 64, 3))
+        ((2, 128, 3), (4, 128, 2))
+    assert list(sm.TILE_SETTINGS["8bit"])[0] == \
+        "8bit:up2x128k128s3:dn4x256k128s2"
 
 
 @pytest.mark.parametrize("wdt", ["fp32", "bf16", "int8", "fp8"])

@@ -13,7 +13,8 @@
   the card, passes the plain version against itself and fails an h that
   skipped the bf16 rounding or lost part of its contraction;
 * with bf16 activations and int8 / fp8 weights (the tensor-core path of
-  8-bit weights) the plain version matches the Pallas kernel at 2e-5, and
+  8-bit weights) the plain version matches the Pallas kernel at 2e-5, at
+  the C tiles the kernel takes (16, 48) and a ragged m, and
   the 1e-5 hold of ``chip_smoke.py`` fails the two shortcuts such a
   kernel could take: h rounded to bf16, or x rounded to fp8.
 
@@ -155,12 +156,17 @@ def test_moe_bf16_check_has_teeth(act, fault, d):
 
 @pytest.mark.parametrize("wdt", ["int8", "fp8"])
 @pytest.mark.parametrize("act", ["swiglu", "relu2", "gelu"])
-def test_plain_bf16_activations_8bit_weights_match_pallas(act, wdt):
+@pytest.mark.parametrize("C,m", [(7, 8), (16, 8), (48, 8), (16, 96),
+                                 (48, 96)])
+def test_plain_bf16_activations_8bit_weights_match_pallas(act, wdt, C, m):
     """bf16 x with int8 / fp8 weights (the fp8 serving path): the plain
     version (the kernel's arithmetic: the stored values multiplied, the
     scale applied to the fp32 sum, h kept in fp32) against the Pallas kernel
-    in interpret mode on the same bf16 x, at the reference's 2e-5."""
-    xe, wg, wu, wd = _inputs(C=7)
+    in interpret mode on the same bf16 x, at the reference's 2e-5.  C = 16
+    and 48 are C tiles the 8-bit kernel takes whole (the decode steps of
+    Yuan2 / Phi-3.5 / Jamba and of DeepSeek), C = 7 one it pads; m = 96 a
+    ragged width (the ring's 88, padded)."""
+    xe, wg, wu, wd = _inputs(C=C, m=m)
     wg = wg if act == "swiglu" else None
     xb = torch.from_numpy(xe).to(torch.bfloat16)
     with jops.use_kernels(True):

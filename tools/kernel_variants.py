@@ -2,7 +2,7 @@
 """Time tile settings of the port's streamed_moe kernel and of its SSD
 kernel on one GPU.
 
-    python3 tools/kernel_variants.py "8bit:up64w16k64s4:dn128w32k64s3,..." \\
+    python3 tools/kernel_variants.py "8bit:up2x128k128s3:dn4x256k128s2,..." \\
         ["S=32,2;T=32,1"]
 
 The first argument names streamed_moe settings of
