@@ -14,7 +14,12 @@ Phases, each printing its result on its own line; any failure exits 1:
    included, held element by element; streamed_moe's int8 / fp8 weights
    with bf16 and fp32 activations, timed at C = 64 and 1024 beside the
    bf16 body's device time; SSD with B and C per group, g = 1 and
-   g = h), with the time of one call of each
+   g = h, at c = 256, 100, 65, 64, 32 and 1, through the body the
+   wrapper picks and, up to c = 100, through each of its two bodies, with
+   plain fp32 on the card (TF32 matmuls refused); the main shape the same
+   bits twice; both bodies' device times at c = 8, 32, 64 and 100, where
+   the switch was chosen; SSD's rows also carry the split-TF32 bound
+   ``bound_split_ms``), with the time of one call of each
    kernel with its host work beside its device time per call, the bound,
    and for flash attention the times of ``F.scaled_dot_product_attention``
    on the same tensors and the kernel's device time over SDPA's (flash
@@ -57,7 +62,7 @@ Phases, each printing its result on its own line; any failure exits 1:
    bytes bound and the bf16 call's device time; SSD
    at the SSM serving prefill's shapes (one 8-token chunk of mamba2-370m
    and of Jamba, d_state 128 and 16; Jamba's heads at c = 1) against its
-   plain version (1e-5) and the oracle;
+   plain version (1e-5) and the oracle, through both bodies;
 3m. family kernels: streamed_moe at the decode steps of the paper's Table I
    MoE models (DeepSeek-MoE-16B E = 64, C = 48, d = 2048, m = 1408;
    Qwen3-30B-A3B 128, 64, 2048, 768; Yuan2-M32 32, 16, 2048, 4096;
@@ -352,6 +357,11 @@ FLASH_ORACLE_TOL = {"fp32": 2e-4, "bf16": 4e-2}
 # SSD: 1e-5 against its plain version, the reference's 2e-5 against the oracle
 SSD_PLAIN_TOL = 1e-5
 SSD_ORACLE_TOL = 2e-5
+# SSD's two bodies are both held at every case whose chunk body 2 (sized by
+# c) takes, and timed against each other at these chunk lengths, mamba2-370m
+# width, where the wrapper's switch (kernels.ssd.SHORT_MAX) was chosen
+SSD_BOTH_MAX_C = 100
+SSD_SWITCH_C = (8, 32, 64, 100)
 # the scoring forward in fp32, kernels vs use_kernels(False): relative loss
 LOSS_TOL = 1e-4
 # the Mamba-2 block in fp32 with and without the SSD kernel, max abs error
@@ -359,7 +369,7 @@ LOSS_TOL = 1e-4
 BLOCK_TOL = 2e-5
 # H100 SXM data-sheet peaks (dense): bytes/s and operations/s by type
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"bf16": 989e12, "fp32": 67e12}
+PEAK_OPS = {"bf16": 989e12, "fp32": 67e12, "tf32": 495e12}
 WEIGHT_BYTES = {"fp32": 4, "bf16": 2, "int8": 1, "fp8": 1}
 # the scoring runs (phases 7 and 8): batch x sequence, random tokens
 SCORE_B, SCORE_S = 2, 2048
@@ -584,17 +594,18 @@ def flash_bound_ms(B, Sq, Sk, H, hd, kind, elt):
                   kind)
 
 
-def ssd_bound_ms(b, nc, c, h, g, p, n):
+def ssd_bound_ms(b, nc, c, h, g, p, n, split=False):
     """x, B and C (per group) and A_cumsum read once, Y_diag and the states
     written once (fp32), against the fp32 multiply-adds (67 TFLOP/s) of C B^T
     once per group and of (G o L) x per head over the causal (i >= j) pairs,
-    and of the state product."""
+    and of the state product.  ``split``: those products as split TF32 on
+    the tensor cores instead, three TF32 products each at 495 TFLOP/s."""
     heads, groups = b * nc * h, b * nc * g
     pairs = c * (c + 1) // 2
     moved = 4 * (heads * c * 2 * p + groups * c * 2 * n + heads * c
                  + heads * p * n)
     ops = groups * 2 * pairs * n + heads * (2 * pairs * p + 2 * c * n * p)
-    return _bound(moved, ops, "fp32")
+    return _bound(moved, 3 * ops if split else ops, "tf32" if split else "fp32")
 
 
 def rel_err(got, want):
@@ -905,44 +916,85 @@ def _check_ssd():
     C per group as the path passes them (g = 1, the one the summary
     reports) and per head (g = h, the reference's layout), then a chunk of
     one partial tile (c = 32) and one whose last tile is partial after a
-    full one (c = 100), each with g = 1 and g = h = 3."""
+    full one (c = 100), each with g = 1 and g = h = 3; c = 64 and 65 at
+    mamba2-370m's width (one tile, and one row past it) and c = 1.  The
+    main shape gives the same bits twice.  Then both bodies' device times at
+    SSD_SWITCH_C."""
+    import torch
+    from repro_torch.kernels import ssd
     shapes = [(SCORE_B, SCORE_S // 256, 256, 32, g, 64, 128) for g in (1, 32)]
     shapes += [(1, 3, 32, 3, g, 32, 16) for g in (1, 3)]
     shapes += [(1, 2, 100, 3, g, 64, 16) for g in (1, 3)]
+    shapes += [(SCORE_B, SCORE_S // 256, c, 32, 1, 64, 128) for c in (64, 65)]
+    shapes += [(1, 8, 1, 32, 1, 64, 128)]
     main = _ssd_case(shapes[0], timed=True)
     for shape in shapes[1:]:
         _ssd_case(shape)
+    t = _ssd_inputs(shapes[0])
+    a, b = ssd.ssd_intra_chunk_kernel(*t), ssd.ssd_intra_chunk_kernel(*t)
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        fail("kernels", f"ssd {shapes[0]}: two calls differ")
+    log("kernels", f"ssd {shapes[0]}: the same bits twice")
+    times = []
+    for c in SSD_SWITCH_C:
+        shape = (SCORE_B, SCORE_S // 256, c, 32, 1, 64, 128)
+        t = _ssd_inputs(shape)
+        ms = [device_ms(lambda: ssd.ssd_intra_chunk_kernel(*t, body=body))[0]
+              for body in (1, 2)]
+        times.append(f"c={c} body 1 {ms[0]:.4f} / body 2 {ms[1]:.4f}")
+    log("kernels", f"ssd bodies' device ms at (b, nc, c, h, g, p, n) = "
+                   f"({SCORE_B}, {SCORE_S // 256}, c, 32, 1, 64, 128): "
+                   + "; ".join(times) + f" (switch: c <= {ssd.SHORT_MAX} "
+                   f"runs body 2)")
     return {"mamba": main}
 
 
-def _ssd_case(shape, timed=False):
-    """SSD at one (b, nc, c, h, g, p, n) against its plain version (1e-5)
-    and the oracle (2e-5); timed: -> its kernels-line row."""
+def _ssd_inputs(shape):
     import torch
-    from repro_torch.kernels import ref
-    from repro_torch.kernels import ssd
     b, nc, c, h, g_, p, n = shape
     gen = torch.Generator(device="cuda").manual_seed(0)
     kw = dict(generator=gen, device="cuda")
     xc = torch.randn(b, nc, c, h, p, **kw)
     Bc, Cc = (torch.randn(b, nc, c, g_, n, **kw) for _ in range(2))
     Ac = -torch.rand(b, h, nc, c, **kw) * 0.1
-    Acum = torch.cumsum(Ac, -1)
-    got = ssd.ssd_intra_chunk_kernel(xc, Bc, Cc, Ac, Acum)
-    torch.cuda.synchronize()
+    return xc, Bc, Cc, Ac, torch.cumsum(Ac, -1)
+
+
+def _ssd_case(shape, timed=False):
+    """SSD at one (b, nc, c, h, g, p, n) against its plain version (1e-5)
+    and the oracle (2e-5), through the body the wrapper picks and, where c
+    is at most SSD_BOTH_MAX_C, through each body; timed: -> its
+    kernels-line row (the wrapper's pick)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd
+    # plain fp32 on the card: one TF32 product would miss the tolerances
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.get_float32_matmul_precision() != "highest":
+        fail("kernels", "fp32 matmuls run in TF32: the plain SSD would not "
+                        "be fp32")
+    xc, Bc, Cc, Ac, Acum = _ssd_inputs(shape)
     plain = ref.ssd_intra_chunk_plain(xc, Bc, Cc, Acum)
     oracle = ref.ssd_intra_chunk_ref(xc, Bc, Cc, Ac, Acum)
-    if not all(torch.isfinite(t).all() for t in got):
-        fail("kernels", f"ssd non-finite output {shape}")
-    err_plain = max((a - w).abs().max().item() for a, w in zip(got, plain))
-    rel_plain = max(rel_err(a, w) for a, w in zip(got, plain))
-    rel_oracle = max(rel_err(a, w) for a, w in zip(got, oracle))
-    line = (f"ssd_intra_chunk (b,nc,c,h,g,p,n)={shape}: max_abs_err vs "
-            f"plain {err_plain:.3e} (rel {rel_plain:.3e}, tol "
-            f"{SSD_PLAIN_TOL:g}), rel vs oracle {rel_oracle:.3e} (tol "
-            f"{SSD_ORACLE_TOL:g})")
-    if rel_plain > SSD_PLAIN_TOL or rel_oracle > SSD_ORACLE_TOL:
-        fail("kernels", line)
+    line, err_plain = f"ssd_intra_chunk (b,nc,c,h,g,p,n)={shape}:", None
+    bodies = (None, 1, 2) if shape[2] <= SSD_BOTH_MAX_C else (None,)
+    for body in bodies:
+        got = ssd.ssd_intra_chunk_kernel(xc, Bc, Cc, Ac, Acum, body=body)
+        torch.cuda.synchronize()
+        if not all(torch.isfinite(t).all() for t in got):
+            fail("kernels", f"ssd non-finite output {shape}, body {body}")
+        err = max((a - w).abs().max().item() for a, w in zip(got, plain))
+        rel_plain = max(rel_err(a, w) for a, w in zip(got, plain))
+        rel_oracle = max(rel_err(a, w) for a, w in zip(got, oracle))
+        name = (f"body {ssd.body_for(shape[2])} (the switch's)"
+                if body is None else f"body {body}")
+        line += (f" {name}: max_abs_err vs plain {err:.3e} (rel "
+                 f"{rel_plain:.3e}, tol {SSD_PLAIN_TOL:g}), rel vs oracle "
+                 f"{rel_oracle:.3e} (tol {SSD_ORACLE_TOL:g});")
+        if rel_plain > SSD_PLAIN_TOL or rel_oracle > SSD_ORACLE_TOL:
+            fail("kernels", line)
+        if body is None:
+            err_plain = err
     row = None
     if timed:
         times, text = kernel_times(lambda: ssd.ssd_intra_chunk_kernel(
@@ -950,10 +1002,13 @@ def _ssd_case(shape, timed=False):
         plain_ms = median_ms(lambda: ref.ssd_intra_chunk_plain(xc, Bc, Cc,
                                                                Acum))
         bound, by = ssd_bound_ms(*shape)
-        line += (f"; {text}, plain {plain_ms:.4f} ms, "
-                 f"bound {bound * 1e3:.1f} us ({by})")
+        split, split_by = ssd_bound_ms(*shape, split=True)
+        line += (f" {text}, plain {plain_ms:.4f} ms, bound "
+                 f"{bound * 1e3:.1f} us ({by}; split TF32 {split * 1e3:.1f} "
+                 f"us, {split_by})")
         row = dict(max_abs_err=err_plain, **times, plain_ms=plain_ms,
-                   bound_ms=bound, bound_by=by, library_ms=None)
+                   bound_ms=bound, bound_by=by, bound_split_ms=split,
+                   library_ms=None)
     log("kernels", line)
     return row
 

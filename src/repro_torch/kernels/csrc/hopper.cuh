@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the kernels' wgmma paths:
-// mbarriers, TMA tile loads described by tensor maps (bf16, and the 8-bit
-// weights' raw bytes), programmatic dependent launch, and wgmma (the
-// warpgroup's asynchronous matrix product) with its shared-memory matrix
-// descriptors.
+// mbarriers, TMA tile loads described by tensor maps (bf16, fp32, and the
+// 8-bit weights' raw bytes), programmatic dependent launch, and wgmma (the
+// warpgroup's asynchronous matrix product; bf16 and TF32) with its
+// shared-memory matrix descriptors.
 //
 // No setmaxnreg: ptxas (CUDA 12.9) allocates a kernel's registers for the
 // launch bound rounded up to whole warpgroups and keeps that limit after
@@ -117,6 +117,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "r"(c3)
       : "memory");
 }
+// Copy `bytes` (a multiple of 16, both addresses 16-byte aligned) of
+// contiguous device memory into shared memory; the bytes count against
+// `bar`'s transactions.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
 __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
@@ -150,6 +161,14 @@ inline int encode_map(CUtensorMap* map, CUtensorMapDataType type, const void* ba
                              CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return rc == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// An fp32 map (box[0] at most 32 under CU_TENSOR_MAP_SWIZZLE_128B).
+inline int encode_f32_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
+                          const uint64_t* strides, const uint32_t* box,
+                          CUtensorMapSwizzle swizzle) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, base, rank, dims, strides, box,
+                    swizzle);
 }
 
 // A bf16 map, 128-byte swizzled (box[0] = 64).
@@ -300,6 +319,75 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TRANS_B));
+  }
+}
+
+// ------------------------------------------------------------ TF32 wgmma
+//
+// wgmma's .tf32 form is m64nNk8: a k8 step is 32 bytes of fp32, as a k16
+// step of bf16 is, so desc_sw128 and its step arithmetic carry over (a
+// 128-byte swizzled row holds four k8 steps).  .tf32 has no transpose
+// qualifier: an operand read from shared memory is K-major.  The tensor
+// cores read the top 19 bits of each fp32 operand, so an operand that
+// should be rounded is rounded first (tf32_rna).  The A fragment from
+// registers (PTX ISA, "wgmma .m64nNk8", the .tf32 A layout; mma.sync's
+// m16n8k8 .tf32 A fragment, a warp owning 16 rows): a[0] = A[16w + g][t],
+// a[1] = A[16w + g + 8][t], a[2] = A[16w + g][t + 4], a[3] = A[16w + g +
+// 8][t + 4], for warp w of the warpgroup, g = lane / 4, t = lane % 4.  The
+// D layout is the one above.
+
+// v rounded to TF32 (10 mantissa bits, to nearest, ties away): an fp32 bit
+// pattern whose low 13 bits are zero.  cvt.rna.tf32.f32's result for every
+// finite v, in two integer instructions (half a unit of the 13 dropped bits
+// added to the magnitude, then cut; a carry into the exponent is the right
+// rounding): measured 10% faster than the cvt in the SSD kernel.
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+
+// Order this thread's generic-proxy writes to shared memory before the
+// async proxy (wgmma's operand reads, TMA) touches them; a barrier among
+// the threads that wrote follows.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// d (+)= A B on one m64nNk8 step, TF32 in, fp32 accumulate, A from
+// registers (the fragment above), B K-major in shared memory; N of 16, 32
+// or 64.  scale_d == 0: d = A B.
+template <int N>
+__device__ __forceinline__ void wgmma_rs_tf32(float (&d)[N / 2], const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  static_assert(N == 16 || N == 32 || N == 64, "wgmma_rs_tf32: N of 16, 32 or 64");
+  if constexpr (N == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  } else if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  } else if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
   }
 }
 

@@ -26,6 +26,9 @@ and with ZeRO-3 (fsdp) forced on.  Holds:
   is held instead by ``test_aux_loss_is_the_reference_mesh_loss``: the
   step's loss at granite's own coefficient equals the reference's
   ``loss_fn`` on its own (2, 2) mesh of fake devices (forward only);
+  ``test_dropping_loss_is_the_reference_mesh_loss`` does the same at
+  granite's own capacity factor too, where each rank's capacity drops
+  tokens;
 * ``unshard=True`` (the per-period gather) equal to ``unshard=False``
   (the stack gathered once) bit for bit, fsdp off and on;
 * at rest each rank stores the d_expert slice of every expert, never a
@@ -67,15 +70,18 @@ PARITY = [(m, c, f) for m, runs in TRAIN_RUNS.items()
           for c, f, u in runs if u == f]
 
 
-def _config(name, reduced_config, aux=False):
-    """fp32, MoE at fse_dp and drop-free; ``aux``: the config's own
-    load-balance coefficient, else 0."""
+def _config(name, reduced_config, aux=False, drop=False):
+    """fp32, MoE at fse_dp; ``aux``: the config's own load-balance
+    coefficient, else 0; ``drop``: the config's own capacity factor, else
+    E / k (drop-free)."""
     cfg = reduced_config(ARCHS[name]).replace(dtype="float32")
     if cfg.moe is None:
         return cfg
     moe = cfg.moe
     return cfg.replace(moe=dataclasses.replace(
-        moe, impl="fse_dp", capacity_factor=moe.num_experts / moe.top_k,
+        moe, impl="fse_dp",
+        capacity_factor=(moe.capacity_factor if drop
+                         else moe.num_experts / moe.top_k),
         aux_loss_coef=moe.aux_loss_coef if aux else 0.0))
 
 
@@ -189,12 +195,14 @@ def _reference_main(inp, out_path):
     # mesh (Auto axes: its constraints refuse Explicit ones)
     mesh = jax.make_mesh((2, 2), ("data", "model"),
                          axis_types=(jax.sharding.AxisType.Auto,) * 2)
-    cfg = _config("granite", jreduced, aux=True)
     params = _unflatten(arrays, "granite/params", jnp.asarray)
     batch = _batch(arrays, "granite", "train", jnp.asarray)
-    with jops.use_kernels(False), jmesh.with_mesh(mesh):
-        loss, _ = jax.jit(lambda p, b: japi.loss_fn(p, b, cfg))(params, batch)
-    res["granite/loss_mesh_aux"] = np.asarray(loss)
+    for key, drop in (("aux", False), ("drop", True)):
+        cfg = _config("granite", jreduced, aux=True, drop=drop)
+        with jops.use_kernels(False), jmesh.with_mesh(mesh):
+            loss, _ = jax.jit(lambda p, b: japi.loss_fn(p, b, cfg))(params,
+                                                                    batch)
+        res[f"granite/loss_mesh_{key}"] = np.asarray(loss)
     np.savez(out_path, **res)
 
 
@@ -245,16 +253,18 @@ def _port_rank(rank, world, mesh_shape, inp, want_path, ckpt_dir):
             out.update(_numpy_tree("saved", steps.gather_tree(params, psh)))
     if mesh_shape != (2, 2):
         return out
-    # granite's loss at its own aux coefficient
-    cfg = _config("granite", reduced_config, aux=True)
-    fn, (psh, osh, bsh), _, _ = steps.train_step_for(cfg, TRAIN, mesh,
-                                                     fsdp=False, lr=LR)
-    full = api.init_params(cfg, seed=0, device="cpu")
-    _, _, loss = fn(steps.shard_tree(full, psh),
-                    steps.shard_tree(adamw.init(full), osh),
-                    steps.shard_tree(_batch(arrays, "granite", "train", t),
-                                     bsh))
-    out["granite/loss_aux"] = loss.numpy()
+    # granite's loss at its own aux coefficient, drop-free and at its own
+    # capacity factor
+    for key, drop in (("aux", False), ("drop", True)):
+        cfg = _config("granite", reduced_config, aux=True, drop=drop)
+        fn, (psh, osh, bsh), _, _ = steps.train_step_for(cfg, TRAIN, mesh,
+                                                         fsdp=False, lr=LR)
+        full = api.init_params(cfg, seed=0, device="cpu")
+        _, _, loss = fn(steps.shard_tree(full, psh),
+                        steps.shard_tree(adamw.init(full), osh),
+                        steps.shard_tree(_batch(arrays, "granite", "train",
+                                                t), bsh))
+        out[f"granite/loss_{key}"] = loss.numpy()
     want = dict(np.load(want_path))
     for name in ARCHS:
         cfg = _config(name, reduced_config)
@@ -382,6 +392,19 @@ def test_aux_loss_is_the_reference_mesh_loss(runs):
     for rank in port[(2, 2)]:
         np.testing.assert_allclose(rank["granite/loss_aux"],
                                    want["granite/loss_mesh_aux"],
+                                   rtol=LOSS_TOL)
+
+
+def test_dropping_loss_is_the_reference_mesh_loss(runs):
+    """At granite's own capacity factor (1.25) each rank's capacity drops
+    tokens: the loss moves off the drop-free one and stays the
+    reference's."""
+    port, want, _, _ = runs
+    assert abs(float(want["granite/loss_mesh_drop"])
+               - float(want["granite/loss_mesh_aux"])) > 1e2 * LOSS_TOL
+    for rank in port[(2, 2)]:
+        np.testing.assert_allclose(rank["granite/loss_drop"],
+                                   want["granite/loss_mesh_drop"],
                                    rtol=LOSS_TOL)
 
 

@@ -3,7 +3,7 @@
 kernel on one GPU.
 
     python3 tools/kernel_variants.py "8bit:up2x128k128s3:dn4x256k128s2,..." \\
-        ["S=32,2;T=32,1"]
+        ["S=2,8;T=2,4"]
 
 The first argument names streamed_moe settings of
 ``repro_torch.kernels.streamed_moe.TILE_SETTINGS`` (comma-separated;
@@ -14,11 +14,13 @@ plain version at the serving shape (E, C, d, m) = (32, 64, 1024, 512) and
 at two ragged ones, with the setting path's weights (bf16, or int8 and
 fp8), the device time per call (``chip_smoke.device_ms``) and the device
 time of each kernel from ``torch.profiler``.  The optional second argument
-names SSD settings, ``source_rows,blocks_per_sm``: each is a copy of
-``ssd.cu`` with its tile constants replaced, built with nvcc (all at once)
-into ``build/variants/`` and timed at (2, 8, 256, 32, 64, 128) with g = 1
-and g = 32, and checked at four small shapes.  It never changes the
-sources in the repository.
+names SSD settings, ``ring_stages,heads_a_block``: each is a copy of
+``ssd.cu`` with ``STAGES`` (body 1's TMA ring depth) and ``HB_MAX`` (body
+2's most heads a block) replaced, built with nvcc (all at once) into
+``build/variants/``, checked against the plain version at six shapes
+under the body the wrapper picks, and timed at (2, 8, 256, 32, 64, 128)
+with g = 1 and g = 32 (body 1) and at the serving prefill's (1, 1, 8, 32,
+1, 64, 128) (body 2).  It never changes the sources in the repository.
 """
 import ctypes
 import os
@@ -39,7 +41,7 @@ from repro_torch.kernels import streamed_moe as sm  # noqa: E402
 
 CSRC = os.path.join(HERE, "src/repro_torch/kernels/csrc")
 OUT = os.path.join(HERE, "build/variants")
-SSD_LINES = ("constexpr int ST = {};", "constexpr int Y_BLOCKS = {};")
+SSD_LINES = ("constexpr int STAGES = {};", "constexpr int HB_MAX = {};")
 
 
 def _specs(arg):
@@ -117,10 +119,11 @@ def moe(name):
 
 
 def ssd_kernel(name):
-    ssd._fn = _load("ssd_" + name, "ssd_intra_chunk_forward", 7, 7)
+    ssd._fn = _load("ssd_" + name, "ssd_intra_chunk_forward", 7, 8)
     for shape in ((2, 8, 256, 32, 1, 64, 128), (2, 8, 256, 32, 32, 64, 128),
-                  (1, 3, 32, 3, 1, 32, 16), (1, 2, 100, 3, 3, 64, 16),
-                  (1, 2, 300, 2, 1, 128, 32), (1, 1, 17, 2, 2, 16, 8)):
+                  (1, 1, 8, 32, 1, 64, 128), (1, 3, 32, 3, 1, 32, 16),
+                  (1, 2, 100, 3, 3, 64, 16), (1, 2, 300, 2, 1, 128, 32),
+                  (1, 1, 17, 2, 2, 16, 8)):
         b, nc, c, h, g, p, n = shape
         gen = torch.Generator(device="cuda").manual_seed(0)
         kw = dict(generator=gen, device="cuda")
@@ -134,7 +137,7 @@ def ssd_kernel(name):
         plain = ref.ssd_intra_chunk_plain(xc, Bc, Cc, Acum)
         rel = max(cs.rel_err(a, w) for a, w in zip(call(), plain))
         line = f"ssd {name} (b,nc,c,h,g,p,n)={shape}: rel vs plain {rel:.3e}"
-        if c == 256:
+        if c in (8, 256):
             line += f", device_ms {cs.device_ms(call)[0]:.4f}, {_profile(call)}"
         print(line, flush=True)
 
