@@ -13,13 +13,19 @@ Phases, each printing its result on its own line; any failure exits 1:
    ones (the bf16 tensor-core paths of flash attention and streamed_moe
    included, held element by element; streamed_moe's int8 / fp8 weights
    with bf16 and fp32 activations, timed at C = 64 and 1024 beside the
-   bf16 body's device time; SSD with B and C per group, g = 1 and
+   bf16 body's device time; its split-TF32 body (fp32 weights; bf16
+   weights with fp32 activations take it for the down product) timed at C
+   = 64 and 1280 with fp32 weights and at C = 64 with bf16 weights, and
+   held at down products of K = 1024 and 4096; flash in fp32 at hd 64 and
+   128, split TF32, odd S and Sk > Sq included, timed at the scoring shape
+   beside SDPA fp32; SSD with B and C per group, g = 1 and
    g = h, at c = 256, 100, 65, 64, 32 and 1, through the body the
    wrapper picks and, up to c = 100, through each of its two bodies, with
    plain fp32 on the card (TF32 matmuls refused); the main shape the same
    bits twice; both bodies' device times at c = 8, 32, 64 and 100, where
-   the switch was chosen; SSD's rows also carry the split-TF32 bound
-   ``bound_split_ms``), with the time of one call of each
+   the switch was chosen; the split-TF32 bodies' bound is that of their
+   TF32 terms, and their rows also carry the fp32 FMAs' as
+   ``bound_fp32_ms``), with the time of one call of each
    kernel with its host work beside its device time per call, the bound,
    and for flash attention the times of ``F.scaled_dot_product_attention``
    on the same tensors and the kernel's device time over SDPA's (flash
@@ -38,14 +44,17 @@ Phases, each printing its result on its own line; any failure exits 1:
    sorted rows at C = 1024);
 3c. tiles: every streamed_moe tile setting (``TILE_SETTINGS``) against the
    default one on the same operands, bit for bit (output and scratch):
-   bf16 at C = 64, 1024, 1280, int8 and fp8 at C = 64, and the ragged
-   cases of phase 3, each also held against the plain version with phase
-   3's checks; then at granite width (C = 64, 1024, 1280 bf16; C = 64
-   int8 and fp8) each setting's device time beside the planner's
-   prediction and its compiled registers, spills and shared memory, the
-   analytic and the measured picks, and three ``torch.bmm`` plus the
-   activation as a yardstick; the analytic pick must take at most 1.10
-   times the default's device time at each of these five;
+   bf16 at C = 64, 1024, 1280, int8 and fp8 at C = 64, split TF32 (fp32
+   weights at C = 64 and 1280, bf16 weights with fp32 x at C = 64), and
+   the ragged cases of phase 3 with every weight format under bf16 and
+   fp32 x, each also held against the plain version with phase 3's
+   checks; then at granite width (C = 64, 1024, 1280 bf16; C = 64 int8
+   and fp8; fp32 at C = 64 and 1280; bf16 weights with fp32 x at C = 64)
+   each setting's device time beside the planner's prediction and its
+   compiled registers, spills and shared memory, the analytic and the
+   measured picks, and three ``torch.bmm`` plus the activation as a
+   yardstick; the analytic pick must take at most 1.10 times the
+   default's device time at each of these eight;
 3d. tiers: one granite MoE layer at C = 64 and C = 1024 (drop-free), one-hot
    and sorted: ``moe_hybrid`` (8 hot experts, 24 cold) against
    ``moe_capacity`` on the same routing and schedule bit for bit; the
@@ -69,8 +78,8 @@ Phases, each printing its result on its own line; any failure exits 1:
    Phi-3.5-MoE 16, 16, 4096, 6400; bf16, swiglu) held as in phase 3j, the
    analytic pick's device time over the default's, and with int8 and fp8
    weights as in phase 3j; flash attention at
-   InternVL2's scoring shape (2, 2304, 16, 128), bf16 (timed, with SDPA)
-   and fp32, against its plain version and the oracle;
+   InternVL2's scoring shape (2, 2304, 16, 128), bf16 and fp32 (each
+   timed, with SDPA), against its plain version and the oracle;
 3r. ring widths: streamed_moe at the per-rank widths of the FSE-DP ring at
    P = 8, m = d_expert / (8 micro-slices) on a decode step of 8 slots a
    rank, drop-free: granite (E = 32, C = 64, d = 1024) at 1, 2, 4, 8 and
@@ -135,14 +144,17 @@ Phases, each printing its result on its own line; any failure exits 1:
    and decode iterations;
 7. path parity: the same serving path in fp32 with kernels and with
    ``use_kernels(False)`` (fused engines both) — prefill logits and
-   greedy tokens must agree;
+   greedy tokens must agree; the kernels run's streamed_moe launches are
+   the ``serve_fp32`` path's;
 8. features: ``--schedule dynamic --slack 0.2`` and ``--weight-dtype fp8``
    on the fused engine (its streamed_moe launch count, 24 per prefill and
    decode iteration, is the ``serve_fp8`` path's);
 9. forward: ``api.loss_fn`` scores 2 x 2048 tokens of granite-moe-1b-a400m
    at full width in bf16 through the flash and streamed_moe kernels (24
-   launches each), then the same batch in fp32 with kernels and with
-   ``use_kernels(False)``: losses within 1e-4, argmax agreement reported;
+   launches each), then the same batch in fp32 with kernels (the
+   split-TF32 bodies, 24 launches each) and with ``use_kernels(False)``,
+   each timed warm (wall, scored tok/s): losses within 1e-4, argmax
+   agreement reported;
    and the bf16 batch with sorted dispatch: loss within 1e-4 of one-hot's;
 10. mamba: ``api.loss_fn`` over 2 x 2048 tokens of mamba2-370m at full
    width in bf16, then each layer's ``mamba2_block`` with the SSD kernel
@@ -188,8 +200,9 @@ Phases, each printing its result on its own line; any failure exits 1:
    48 are 61 GB of bf16), the same slice checks without the stream;
 14. internvl2: InternVL2-2b at full width and depth: ``loss_fn`` over 2 x
    (256 random patch embeddings + 2048 text tokens) through flash (hd =
-   128, 24 launches), bf16, scored tok/s; fp32 with kernels vs
-   ``use_kernels(False)`` (loss 1e-4 relative, argmax); fp32
+   128, 24 launches), bf16, scored tok/s; fp32 with kernels (24 flash
+   launches, split TF32) vs ``use_kernels(False)`` (loss 1e-4 relative,
+   argmax); fp32
    ``prefill_fn`` with the prefix and greedy ``decode_fn`` steps vs the
    teacher-forced forward (logits 1e-4 of max |logit|);
 15. whisper: Whisper-base at full width and depth over 1500 frames:
@@ -257,12 +270,17 @@ mesh. (run after train) the mesh machinery: streamed_moe timed alone at
     4h's warm slice) and C = 1024 (``serve_hybrid_chunked``, phase 4h's
     stream), two launches (E = 8 and 24) a MoE layer timed together in
     phase 3d, at Jamba's decode step (``serve_jamba``, phase 3j's shape),
-    and on the forward path, ``flash_attention`` on the forward path,
+    and on the forward path, in fp32 on the forward path
+    (``forward_fp32``, C = 1280) and the fp32 serving parity run
+    (``serve_fp32``, phase 7, with the C = 64 row's times),
+    ``flash_attention`` on the forward path in bf16 and in fp32
+    (``forward_fp32``),
     ``ssd`` on the mamba path and on the one-shot serving prefill of
     mamba2-370m (``serve_prefill``) and of Jamba
     (``serve_prefill_jamba``), streamed_moe on the served DeepSeek and Qwen3
     slices (``serve_deepseek``, ``serve_qwen3``, phase 3m's shapes),
-    flash on InternVL2's scoring forward (``forward_internvl2``),
+    flash on InternVL2's scoring forward in bf16 and fp32
+    (``forward_internvl2``, ``forward_internvl2_fp32``),
     streamed_moe on the no-spec granite loss of phase dist1
     (``dist1_loss``), on the ring of phase dist2 at phase 3r's widths
     (``ring_granite_p8_m64`` ... ``_m4``, ``ring_deepseek_p8_m88``, the
@@ -294,10 +312,12 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 
 ARCH = "granite-moe-1b-a400m"
 # streamed_moe.  Tolerances are max abs error over max |want|.  On every path
-# but bf16 x bf16 (fp32 activations, or fp32 / int8 / fp8 weights, the 8-bit
-# ones on the tensor cores with fp32-exact products) the plain version
-# repeats the kernel's arithmetic step for step (bf16 rounding of h
-# included), so the kernel is held to it at 1e-5.  Against the fp32 oracle:
+# but bf16 x bf16 (fp32 activations, or fp32 / int8 / fp8 weights: split
+# TF32 or fp32-exact bf16 products on the tensor cores, and with bf16
+# weights and fp32 x an h from the plain version's fp32 FMA order, rounded
+# to bf16 as it rounds it) the plain version repeats the kernel's
+# arithmetic step for step, so the kernel is held to it at 1e-5.  Against
+# the fp32 oracle:
 # the reference's KERNEL_TOL (tests/test_quantization.py) for the fp32, int8
 # and fp8 paths; bf16 rounds h before the down GEMM, as the Pallas kernel
 # does, so it is held at 3e-2 there.
@@ -402,16 +422,20 @@ SORTED_SPEC = {"strategy": "capacity", "sorted_dispatch": True}
 TILE_BITS_CASES = tuple(
     [(32, C_, 1024, 512, "swiglu", "bf16", "bf16") for C_ in (64, 1024, 1280)]
     + [(32, 64, 1024, 512, "swiglu", w, "bf16") for w in ("int8", "fp8")]
+    + [(32, C_, 1024, 512, "swiglu", "fp32", "fp32") for C_ in (64, 1280)]
+    + [(32, 64, 1024, 512, "swiglu", "bf16", "fp32")]
     + [(4, 37, 256, 96, act, w, x) for act in ("relu2", "gelu")
-       for w in ("bf16", "int8", "fp8") for x in ("bf16", "fp32")
-       if not (w == "bf16" and x == "fp32")]
+       for w in ("fp32", "bf16", "int8", "fp8") for x in ("bf16", "fp32")]
     + [(4, 64, 512, 1024, "swiglu", w, "bf16")
-       for w in ("bf16", "int8", "fp8")])
-# ... and is timed at these (bf16 activations); the analytic pick must take
-# at most TILE_GATE times the default's device time on each of them
+       for w in ("bf16", "int8", "fp8")]
+    + [(4, 64, 512, 1024, "swiglu", "fp32", "fp32")])
+# ... and is timed at these (weights, activations); the analytic pick must
+# take at most TILE_GATE times the default's device time on each of them
 TILE_TIME_CASES = tuple(
-    [(32, C_, 1024, 512, "swiglu", "bf16") for C_ in (64, 1024, 1280)]
-    + [(32, 64, 1024, 512, "swiglu", w) for w in ("int8", "fp8")])
+    [(32, C_, 1024, 512, "swiglu", "bf16", "bf16") for C_ in (64, 1024, 1280)]
+    + [(32, 64, 1024, 512, "swiglu", w, "bf16") for w in ("int8", "fp8")]
+    + [(32, C_, 1024, 512, "swiglu", "fp32", "fp32") for C_ in (64, 1280)]
+    + [(32, 64, 1024, 512, "swiglu", "bf16", "fp32")])
 TILE_GATE = 1.10
 # phase 3d: one granite MoE layer at a decode step of 8 slots (C = 64) and
 # a traffic prefill step of 8 x 16 tokens (C = 1024), drop-free as the
@@ -566,16 +590,25 @@ def kernel_times(fn):
     return times, text
 
 
-def streamed_moe_bound_ms(E, C, d, m, wdt, x_bytes, gated=True):
+def streamed_moe_bound_ms(E, C, d, m, wdt, x_bytes, gated=True, split=False):
     """Least time for one call: each input read once, the fp32 output
     written once, against the multiply-adds of both GEMMs at the peak of
     their operands' type (bf16 unless x or the weights are fp32; 8-bit
-    weights meet bf16 activations, so not the int8 / fp8 rate)."""
+    weights meet bf16 activations, so not the int8 / fp8 rate).  ``split``
+    (fp32 weights): the products as split TF32 on the tensor cores instead
+    (495 TFLOP/s), one TF32 product a term: hi hi, hi lo and lo hi, the
+    second dropped for bf16 x (exact in TF32)."""
     n_mats = 3 if gated else 2
     weights = n_mats * E * d * m * WEIGHT_BYTES[wdt]
     scales = 0 if wdt not in ("int8", "fp8") else 4 * E * ((n_mats - 1) * m + d)
     moved = weights + scales + E * C * d * x_bytes + E * C * d * 4
     ops = 2 * E * C * d * m * n_mats
+    if split:
+        if wdt != "fp32":
+            raise ValueError("split TF32 takes fp32 weights")
+        up = 3 if x_bytes == 4 else 2
+        ops = 2 * E * C * d * m * ((n_mats - 1) * up + 3)
+        return _bound(moved, ops, "tf32")
     return _bound(moved, ops, "fp32" if wdt == "fp32" or x_bytes == 4
                   else "bf16")
 
@@ -586,12 +619,17 @@ def _bound(moved, ops, kind):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def flash_bound_ms(B, Sq, Sk, H, hd, kind, elt):
+def flash_bound_ms(B, Sq, Sk, H, hd, kind, elt, split=False):
     """q, k, v read once and o written once, against the multiply-adds of
-    both products over the (query, key) pairs the causal mask keeps."""
+    both products over the (query, key) pairs the causal mask keeps.
+    ``split``: fp32 products as split TF32 on the tensor cores instead,
+    three TF32 products each at 495 TFLOP/s."""
     pairs = Sq * (Sk - Sq) + Sq * (Sq + 1) // 2
-    return _bound(elt * B * H * hd * (2 * Sq + 2 * Sk), 4 * hd * pairs * B * H,
-                  kind)
+    ops = 4 * hd * pairs * B * H
+    moved = elt * B * H * hd * (2 * Sq + 2 * Sk)
+    if split:
+        return _bound(moved, 3 * ops, "tf32")
+    return _bound(moved, ops, kind)
 
 
 def ssd_bound_ms(b, nc, c, h, g, p, n, split=False):
@@ -728,6 +766,12 @@ def _check_streamed_moe():
     cases = [(E, C, d, m, "swiglu", wdt, f32 if wdt == "fp32" else bf)
              for wdt in ("bf16", "fp32", "int8", "fp8")]
     cases += [(E, C_, d, m, "swiglu", "bf16", bf) for C_ in (C_CHUNK, C_SCORE)]
+    # the split-TF32 body: fp32 at the scoring forward's C, fp32 x x bf16
+    # weights at decode, and down products of K = 1024 and 4096
+    cases += [(E, C_SCORE, d, m, "swiglu", "fp32", f32),
+              (E, C, d, m, "swiglu", "bf16", f32),
+              (4, 64, 512, 1024, "swiglu", "fp32", f32),
+              (4, 16, 512, 4096, "swiglu", "fp32", f32)]
     # the 8-bit body at the traffic prefill's C, timed beside the bf16 one
     cases += [(E, C_CHUNK, d, m, "swiglu", wdt, bf) for wdt in ("int8", "fp8")]
     cases += [(4, 37, 256, 96, act, wdt, f32) for act in ("relu2", "gelu")
@@ -777,24 +821,39 @@ def _check_streamed_moe():
                 xe, *ws, activation=act, tiles=tiles, **scales))
             plain_ms = median_ms(lambda: ref.streamed_moe_plain(
                 xe, *ws, act, **scales))
+            # fp32 weights run in split TF32: their bound is that of the
+            # split terms, the fp32 FMAs' beside it
+            split = wdt == "fp32"
             bound, by = streamed_moe_bound_ms(E_, C_, d_, m_, wdt,
-                                              xe.element_size())
+                                              xe.element_size(), split=split)
             line += (f"; tiles {tiles}: {text}, plain {plain_ms:.4f} ms, "
-                     f"bound {bound * 1e3:.1f} us ({by}), "
+                     f"{'split-TF32 ' if split else ''}bound "
+                     f"{bound * 1e3:.1f} us ({by}), "
                      f"{times['device_ms'] / bound:.2f}x it")
-            if wdt == "bf16":
+            bound_fp32 = None
+            if split:
+                bound_fp32, fp32_by = streamed_moe_bound_ms(
+                    E_, C_, d_, m_, wdt, xe.element_size())
+                line += (f"; fp32-FMA bound {bound_fp32 * 1e3:.1f} us "
+                         f"({fp32_by})")
+            if wdt == "bf16" and x_dtype == bf:
                 bf16_device[C_] = times["device_ms"]
             elif wdt in ("int8", "fp8"):
                 line += (f"; the bf16 body's device time here "
                          f"{bf16_device[C_]:.4f} ms")
-            path = {("bf16", C): "serve", ("fp8", C): "serve_fp8",
-                    ("bf16", C_CHUNK): "serve_chunked",
-                    ("bf16", C_SCORE): "forward"}.get((wdt, C_))
+            path = {("bf16", bf, C): "serve", ("fp8", bf, C): "serve_fp8",
+                    ("bf16", bf, C_CHUNK): "serve_chunked",
+                    ("bf16", bf, C_SCORE): "forward",
+                    ("fp32", f32, C): "serve_fp32",
+                    ("fp32", f32, C_SCORE): "forward_fp32"}.get(
+                        (wdt, x_dtype, C_))
             if path:
                 paths[path] = dict(
                     max_abs_err=err_plain, **times, plain_ms=plain_ms,
                     bound_ms=bound, bound_by=by, library_ms=None,
                     tiles=tiles)
+                if bound_fp32 is not None:
+                    paths[path]["bound_fp32_ms"] = bound_fp32
         log("kernels", line)
     return paths
 
@@ -836,8 +895,10 @@ def _check_flash():
     """The scoring path's (2, 2048, 16, 64) in bf16 and fp32, odd S,
     Sk = 2 Sq, and in bf16 hd = 16 and ragged Sk > Sq, InternVL2's
     (2, 2304, 16, 128) (timed in phase 3m) and hd = 128 with Sq not a
-    multiple of the 128-row query tile and Sk > Sq; the bf16 path shape is
-    the one the summary reports."""
+    multiple of the 128-row query tile and Sk > Sq, in bf16 and in fp32
+    (the split-TF32 body at hd 64 and 128, the CUDA-core one at hd 16 and
+    32); the scoring shape's rows are the summary's forward (bf16) and
+    forward_fp32."""
     B, S, H, hd = SCORE_B, SCORE_S, 16, 64
     cases = [(B, S, S, H, hd, "bf16"), (B, S, S, H, hd, "fp32"),
              (1, 17, 17, 3, 64, "fp32"), (2, 100, 100, 4, 64, "bf16"),
@@ -846,8 +907,11 @@ def _check_flash():
              (1, 130, 301, 2, 64, "bf16"),
              (B, S + 256, S + 256, H, 128, "bf16"),
              (1, 200, 331, 2, 128, "bf16")]
+    cases += [(2, 64, 128, 4, 128, "fp32"), (1, 130, 301, 2, 64, "fp32"),
+              (1, 200, 331, 2, 128, "fp32"), (2, 77, 77, 3, 16, "fp32"),
+              (1, 100, 165, 2, 32, "fp32")]
     rows = [_flash_case(*case, timed=case[1] == S) for case in cases]
-    return {"forward": rows[0]}
+    return {"forward": rows[0], "forward_fp32": rows[1]}
 
 
 def _flash_case(B_, Sq, Sk, H_, hd_, kind, timed=False):
@@ -898,15 +962,24 @@ def _flash_case(B_, Sq, Sk, H_, hd_, kind, timed=False):
             return F.scaled_dot_product_attention(qt, kt, vt,
                                                   is_causal=True)
         lib_ms, lib_dev = median_ms(sdpa), device_ms(sdpa)[0]
+        # fp32 at hd 64 / 128 runs in split TF32: its bound is that of the
+        # split terms, the fp32 FMAs' beside it
+        split = kind == "fp32" and hd_ in (64, 128)
         bound, by = flash_bound_ms(B_, Sq, Sk, H_, hd_, kind,
-                                   q.element_size())
+                                   q.element_size(), split=split)
         line += (f"; {text}, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} "
                  f"ms ({lib_dev:.4f} on the device; the kernel's device "
                  f"time over sdpa's {times['device_ms'] / lib_dev:.3f}), "
-                 f"bound {bound * 1e3:.1f} us ({by})")
+                 f"{'split-TF32 ' if split else ''}bound {bound * 1e3:.1f} "
+                 f"us ({by}), {times['device_ms'] / bound:.2f}x it")
         row = dict(max_abs_err=err_plain, **times, plain_ms=plain_ms,
                    bound_ms=bound, bound_by=by, library_ms=lib_ms,
                    library_device_ms=lib_dev)
+        if split:
+            row["bound_fp32_ms"], fp32_by = flash_bound_ms(
+                B_, Sq, Sk, H_, hd_, kind, q.element_size())
+            line += (f"; fp32-FMA bound {row['bound_fp32_ms'] * 1e3:.1f} us "
+                     f"({fp32_by})")
     log("kernels", line)
     return row
 
@@ -1001,13 +1074,15 @@ def _ssd_case(shape, timed=False):
             xc, Bc, Cc, Ac, Acum))
         plain_ms = median_ms(lambda: ref.ssd_intra_chunk_plain(xc, Bc, Cc,
                                                                Acum))
-        bound, by = ssd_bound_ms(*shape)
-        split, split_by = ssd_bound_ms(*shape, split=True)
-        line += (f" {text}, plain {plain_ms:.4f} ms, bound "
-                 f"{bound * 1e3:.1f} us ({by}; split TF32 {split * 1e3:.1f} "
-                 f"us, {split_by})")
+        # SSD runs in split TF32: the split terms' bound, the fp32 FMAs'
+        # beside it
+        bound, by = ssd_bound_ms(*shape, split=True)
+        fp32, fp32_by = ssd_bound_ms(*shape)
+        line += (f" {text}, plain {plain_ms:.4f} ms, split-TF32 bound "
+                 f"{bound * 1e3:.1f} us ({by}; fp32 FMAs {fp32 * 1e3:.1f} "
+                 f"us, {fp32_by})")
         row = dict(max_abs_err=err_plain, **times, plain_ms=plain_ms,
-                   bound_ms=bound, bound_by=by, bound_split_ms=split,
+                   bound_ms=bound, bound_by=by, bound_fp32_ms=fp32,
                    library_ms=None)
     log("kernels", line)
     return row
@@ -1213,8 +1288,11 @@ def phase_tiles():
         path = sm.tile_path(x_dtype, ws[1].dtype)
         h0, out0 = sm._launch(xe, *ws, act, **scales)
         plain = ref.streamed_moe_plain(xe, *ws, act, **scales)
+        # bf16 x bf16 rounds h to bf16 on the tensor cores: held by
+        # moe_bf16_check (phase 3)
+        rounded = path == "bf16"
         h_plain = ref.streamed_moe_plain_h(xe, *ws, act, **scales) \
-            if path == "bf16" else None
+            if rounded else None
         worst = 0.0
         for name in sm.TILE_SETTINGS[path]:
             h, out = sm._launch(xe, *ws, act, tiles=name, **scales)
@@ -1225,7 +1303,7 @@ def phase_tiles():
                 fail("tiles", f"{what}: not the default's bits (out max abs "
                               f"diff {diff:.3e}, h equal "
                               f"{_same_bits(h, h0)})")
-            if path == "bf16":
+            if rounded:
                 ok, mt = moe_bf16_check(h, out, h_plain, xe, *ws, act)
                 worst = max(worst, mt["over"])
             else:
@@ -1238,23 +1316,21 @@ def phase_tiles():
                      f"x={x}: all {len(sm.TILE_SETTINGS[path])} "
                      f"settings give the default's bits (out and h); against"
                      f" plain " + (f"h at most {worst:.3f} of its bound"
-                                   if path == "bf16" else
+                                   if rounded else
                                    f"rel at most {worst:.3e} (tol "
                                    f"{PLAIN_TOL:g})"))
-    for (E, C, d, m, act, wdt) in TILE_TIME_CASES:
-        xe, wg, wu, wd = _moe_inputs(E, C, d, m, act, torch.bfloat16)
+    for (E, C, d, m, act, wdt, x) in TILE_TIME_CASES:
+        xe, wg, wu, wd = _moe_inputs(E, C, d, m, act, dtypes[x])
         ws, scales = _stream_operands(wg, wu, wd, wdt)
         path = sm.tile_path(xe.dtype, ws[1].dtype)
-        plan = autotune.plan_kernel_tiles(E, C, d, m, act, profile, "bf16",
-                                          wdt)
+        plan = autotune.plan_kernel_tiles(E, C, d, m, act, profile, x, wdt)
         times = {}
         for name in sm.TILE_SETTINGS[path]:
             times[name] = device_ms(lambda: sm.streamed_moe_kernel(
                 xe, *ws, activation=act, tiles=name, **scales))[0]
-            cost = autotune.tile_cost(E, C, d, m, act, name, profile, "bf16",
-                                      wdt)
+            cost = autotune.tile_cost(E, C, d, m, act, name, profile, x, wdt)
             up, down = cost["phases"]
-            log("tiles", f"E={E} C={C} d={d} m={m} {act} w={wdt} {name}: "
+            log("tiles", f"E={E} C={C} d={d} m={m} {act} w={wdt} x={x} {name}: "
                          f"device {times[name]:.4f} ms, predicted "
                          f"{cost['t'] * 1e3:.4f} ms (fits {cost['fits']}); "
                          + "; ".join(
@@ -1263,10 +1339,10 @@ def phase_tiles():
                              f" {p['blocks_per_sm']} blocks an SM, "
                              f"{p['waves']:.2f} waves"
                              for ph, p in (("up", up), ("down", down))))
-        entry = autotune.measured_kernel_tiles(E, C, d, m, act, "bf16", wdt,
+        entry = autotune.measured_kernel_tiles(E, C, d, m, act, x, wdt,
                                                profile=profile)
         default, pick = plan["default"], plan["tiles"]
-        line = (f"E={E} C={C} d={d} m={m} {act} w={wdt}: default {default} "
+        line = (f"E={E} C={C} d={d} m={m} {act} w={wdt} x={x}: default {default} "
                 f"{times[default]:.4f} ms (predicted "
                 f"{plan['default_s'] * 1e3:.4f}); analytic pick {pick} "
                 f"{times[pick]:.4f} ms (predicted "
@@ -1275,7 +1351,7 @@ def phase_tiles():
                 f"measured pick {entry['tiles']} {entry['ms']:.4f} ms of "
                 f"{len(entry['candidates'])} timed; fastest here "
                 f"{min(times, key=times.get)} {min(times.values()):.4f} ms")
-        if wdt == "bf16":
+        if wdt == "bf16" and x == "bf16":
             def chain():
                 g = torch.bmm(xe, ws[0])
                 h = F.silu(g) * torch.bmm(xe, ws[1])
@@ -2304,7 +2380,9 @@ def _score_batch(cfg, seed=0):
 def phase_forward():
     """Path A: the scoring forward of full-width granite with flash
     attention and the capacity MoE (C = 1280 at T = 4096), bf16; then the
-    same batch in fp32 with kernels and with use_kernels(False)."""
+    same batch in fp32 (both kernels' split-TF32 bodies) with kernels and
+    with use_kernels(False), each timed.  -> launches of the bf16 and of
+    the fp32 kernels run."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
@@ -2342,16 +2420,35 @@ def phase_forward():
     del params
     torch.cuda.empty_cache()
 
+    # fp32: the split-TF32 bodies of both kernels, timed (the loss call
+    # after a warm-up) against use_kernels(False)
     cfg32 = cfg.replace(dtype="float32")
     params = api.init_params(cfg32, seed=0, device="cuda")
-    out = {}
+    out, walls, launches32 = {}, {}, {}
     for kernels in (True, False):
         with torch.no_grad(), ops.use_kernels(kernels):
+            api.loss_fn(params, batch, cfg32, spec="capacity", use_flash=True)
+            torch.cuda.synchronize()
+            fa.LAUNCHES = sm.LAUNCHES = 0
+            t0 = time.perf_counter()
             loss32, _ = api.loss_fn(params, batch, cfg32, spec="capacity",
                                     use_flash=True)
+            loss32 = loss32.item()
+            walls[kernels] = time.perf_counter() - t0
+            if kernels:
+                launches32 = {"flash_attention": fa.LAUNCHES,
+                              "streamed_moe": sm.LAUNCHES}
             logits, _ = transformer.forward(params, batch["tokens"], cfg32,
                                             spec="capacity", use_flash=True)
-            out[kernels] = (loss32.item(), logits)
+            out[kernels] = (loss32, logits)
+    if launches32 != {"flash_attention": n_attn, "streamed_moe": _n_moe(cfg)}:
+        fail("forward", f"fp32 launches {launches32}, want {n_attn} flash and "
+                        f"{_n_moe(cfg)} streamed_moe")
+    log("forward", f"fp32 full width, {SCORE_B} x {SCORE_S} tokens: the loss "
+                   f"(warm) in {walls[True]:.3f}s = {T / walls[True]:.0f} "
+                   f"scored tok/s with kernels (launches {launches32}), "
+                   f"{walls[False]:.3f}s = {T / walls[False]:.0f} scored tok/s "
+                   f"with use_kernels(False)")
     (lk, zk), (lp, zp) = out[True], out[False]
     rel = abs(lk - lp) / abs(lp)
     top2 = zp.topk(2, dim=-1).values
@@ -2369,7 +2466,7 @@ def phase_forward():
     log("forward", line)
     del params, out, zk, zp
     torch.cuda.empty_cache()
-    return launches
+    return launches, launches32
 
 
 def _single_gemm_combine(combine, ye):
@@ -2563,6 +2660,7 @@ def phase_parity():
 
     def run(kernels):
         with torch.no_grad(), ops.use_kernels(kernels):
+            _zero_counts()
             logits, _ = api.prefill_fn(params, {"tokens": tokens}, cfg, 32,
                                        spec=spec)
             eng = Recording(params, cfg, ServeConfig(max_batch=8, max_ctx=32,
@@ -2571,10 +2669,13 @@ def phase_parity():
             for p in prompts:
                 eng.submit(p, max_new=16)
             eng.run()
-        return logits, eng.samples
+        return logits, eng.samples, _launches(eng)
 
-    lk, sk = run(True)
-    lp, sp = run(False)
+    lk, sk, launches = run(True)
+    lp, sp, plain_launches = run(False)
+    if launches == 0 or plain_launches != 0:
+        fail("parity", f"streamed_moe launches {launches} with kernels (want "
+                       f"> 0), {plain_launches} without (want 0)")
     rel = ((lk - lp).abs().max() / lp.abs().max()).item()
     if not torch.isfinite(lk).all() or rel > LOGIT_TOL:
         fail("parity", f"fp32 prefill logits differ: rel {rel:.3e} > "
@@ -2592,9 +2693,11 @@ def phase_parity():
         f"first differ at sample {first} (plain margin {sp[first][1]:.3e})"
     log("parity", f"fp32 full width: prefill logits rel err {rel:.3e} "
                   f"(tol {LOGIT_TOL:g}); greedy tokens over {len(sk)} samples "
-                  f"{where}; smallest plain top-2 margin {min_margin:.3e}")
+                  f"{where}; smallest plain top-2 margin {min_margin:.3e}; "
+                  f"streamed_moe launches (split TF32) {launches}")
     del params
     torch.cuda.empty_cache()
+    return launches
 
 
 def phase_features():
@@ -2976,8 +3079,9 @@ def phase_family_kernels():
         _moe_decode_8bit(shape, path, moe_rows[path]["device_ms"])
     S = SCORE_S + 256
     flash = _flash_case(SCORE_B, S, S, 16, 128, "bf16", timed=True)
-    _flash_case(SCORE_B, S, S, 16, 128, "fp32")
-    return moe_rows, {"forward_internvl2": flash}
+    flash32 = _flash_case(SCORE_B, S, S, 16, 128, "fp32", timed=True)
+    return moe_rows, {"forward_internvl2": flash,
+                      "forward_internvl2_fp32": flash32}
 
 
 def _serve_family(cfg, phase, prefix=False, check=None):
@@ -3259,12 +3363,17 @@ def phase_internvl2():
     out = {}
     for kernels in (True, False):
         with torch.no_grad(), ops.use_kernels(kernels):
+            fa.LAUNCHES = 0
             loss32, _ = api.loss_fn(params, batch, cfg32, use_flash=True)
+            if kernels:
+                launches32 = fa.LAUNCHES
             logits, _ = transformer.forward(params, batch["tokens"], cfg32,
                                             prefix_embeds=prefix,
                                             use_flash=True)
             out[kernels] = (loss32.item(), logits[:, P:])
             del logits
+    if launches32 != n_attn:
+        fail("internvl2", f"fp32 flash launches {launches32} (want {n_attn})")
     (lk, zk), (lp, zp) = out[True], out[False]
     rel = abs(lk - lp) / abs(lp)
     top2 = zp.topk(2, dim=-1).values
@@ -3275,7 +3384,8 @@ def phase_internvl2():
             f"use_kernels(False), rel {rel:.3e} (tol {LOSS_TOL:g}); argmax "
             f"differs where the plain top-2 margin is >= {MARGIN_TOL:g} at "
             f"{miss:.4f} of the text positions (tol {ARGMAX_MISS:g}); "
-            f"logits rel err {rel_err(zk, zp):.3e}")
+            f"logits rel err {rel_err(zk, zp):.3e}; fp32 flash launches "
+            f"{launches32}")
     if rel > LOSS_TOL or miss > ARGMAX_MISS:
         fail("internvl2", line)
     log("internvl2", line)
@@ -3320,7 +3430,7 @@ def phase_internvl2():
                      f"(tol {LOGIT_TOL:g})")
     del params, teacher, steps, got
     torch.cuda.empty_cache()
-    return launches
+    return launches, launches32
 
 
 def phase_whisper():
@@ -4604,17 +4714,21 @@ def main():
                        "hybrid + resident slice": resident})
         del resident
         launches["streamed_moe", "serve_prefix"] = phase_prefix()
-        phase_parity()
+        launches["streamed_moe", "serve_fp32"] = phase_parity()
         launches["streamed_moe", "serve_fp8"] = phase_features()
-        for k, n in phase_forward().items():
+        forward, forward32 = phase_forward()
+        for k, n in forward.items():
             launches[k, "forward"] = n
+        for k, n in forward32.items():
+            launches[k, "forward_fp32"] = n
         launches["ssd", "mamba"] = phase_mamba()
         launches["ssd", "serve_prefill"] = phase_mamba_serve()
         (launches["streamed_moe", "serve_jamba"],
          launches["ssd", "serve_prefill_jamba"]) = phase_jamba()
         launches["streamed_moe", "serve_deepseek"] = phase_deepseek()
         launches["streamed_moe", "serve_qwen3"] = phase_qwen3()
-        launches["flash_attention", "forward_internvl2"] = \
+        (launches["flash_attention", "forward_internvl2"],
+         launches["flash_attention", "forward_internvl2_fp32"]) = \
             phase_internvl2()
         phase_whisper()
         phase_profile({path: eng for path, (eng, _, _) in traffic.items()})

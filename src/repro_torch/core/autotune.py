@@ -656,17 +656,18 @@ def plan_moe(B: int, S: int, d_model: int, moe, activation: str, P: int,
 # ---------------------------------------------------------------------------
 
 # What torch's device properties do not say, by device name: the
-# data-sheet device-memory bandwidth and bf16 / fp32 peaks (NVIDIA's H100
-# SXM data sheet), and rates of the streamed_moe kernel on the card as
+# data-sheet device-memory bandwidth and bf16 peak (NVIDIA's H100 SXM data
+# sheet), and rates of the streamed_moe kernel on the card as
 # tools/fit_tile_model.py fits them (least squares in log time) to the
 # device times of a path's settings at (E, d, m) = (32, 1024, 512) and C =
 # 64, 1024 and 1280 (H100 80GB HBM3 at a 700 W limit).  The L2-to-SM rate
-# of the tiles the blocks load and the CUDA-core path's seconds a ring
+# of the tiles the blocks load and the CUDA-core phase's seconds a ring
 # stage costs a block slot (its wait and barrier) were fitted on an earlier
-# 12-setting bf16 mma.sync table (rms error 11.6%).  The wgmma paths (bf16,
-# and the 8-bit one, whose weights meet the same bf16 wgmma from registers)
-# share a rate and a stage cost, fitted on the bf16 path's 8 settings with
-# that L2 rate (rms error 23.0%).
+# 12-setting bf16 mma.sync table (rms error 11.6%).  The wgmma paths
+# (bf16, the 8-bit one, whose weights meet the same bf16 wgmma from
+# registers, and split TF32, priced at half the rate as the data sheet's
+# TF32 peak is half its bf16 one) share a rate and a stage cost, fitted on
+# the bf16 path's 8 settings with that L2 rate (rms error 23.0%).
 _CARDS = {
     "NVIDIA H100 80GB HBM3": dict(
         sms=132, smem_block=232448, smem_sm=233472, regs_sm=65536,
@@ -692,7 +693,7 @@ class CardProfile:
     fp32_peak: float           # CUDA-core fp32 FLOP/s, data sheet
     l2_bw: float               # L2-to-SM bytes/s of the tiles blocks load
     stage_s: float             # seconds a ring stage costs a CUDA-core block
-    wgmma_rate: float          # bf16 wgmma FLOP/s of the bf16 and 8-bit paths
+    wgmma_rate: float          # bf16 wgmma FLOP/s of the kernel's paths
     wgmma_stage_s: float       # ... and their seconds a ring stage
     device: Optional[int] = None   # a card's index: read compiled resources
     regs_thread: int = 255
@@ -771,11 +772,23 @@ def default_tiles(C: int, x_dtype: str = "bf16",
                             _torch_dtype(x_dtype))
 
 
-def _phases(path: str, row, gated: bool, x_dtype: str, C: int = 64):
+def _tf32_terms(x_dtype: str, weight_dtype: str):
+    """The split-TF32 path's (x planes, h planes, terms up, terms down):
+    an fp32 operand is two TF32 planes (one for an operand exact in TF32),
+    a product one term per activation plane, plus one for fp32 weights'
+    lo part."""
+    xp = 2 if x_dtype == "fp32" else 1
+    hp = 2 if weight_dtype == "fp32" else 1
+    w_lo = 1 if weight_dtype == "fp32" else 0
+    return xp, hp, xp + w_lo, hp + w_lo
+
+
+def _phases(path: str, row, gated: bool, x_dtype: str, C: int = 64,
+            weight_dtype: str = "fp32"):
     """Per phase (up, down) of a setting at C rows: (rows a block, columns
     a block, k-rows a stage, threads, ring shared bytes, accumulator
     registers a thread, mma passes over the activations: 3 for an operand
-    taken as three bf16 planes)."""
+    taken as three bf16 planes, the split-TF32 terms on that path)."""
     from repro_torch.kernels import streamed_moe as sm
     n_up = 2 if gated else 1
     if path == "bf16":
@@ -802,9 +815,25 @@ def _phases(path: str, row, gated: bool, x_dtype: str, C: int = 64):
             smem = st * (parts * bk * bm * 2 + n * bk * bn + 16) + 1024
             out.append((bm, bn, bk, 128 * wgs, smem, n * bm, parts))
         return out
-    bm, bn, bk = row
-    return [(bm, bn, bk, 256, 4 * (2 * bk * (bm + 4) + 2 * n * bk * bn),
-             16 * n, 1) for n in (n_up, 1)]
+    # split TF32: as the 8-bit path, the C tile (C rounded up to 16, at most
+    # 64) for any x; a stage is the activation planes' fp32 tiles and n
+    # weight tiles of their own type
+    bm = sm.q_c_tile(C)
+    wb = WEIGHT_DTYPES[weight_dtype]
+    xp, hp, terms_up, terms_down = _tf32_terms(x_dtype, weight_dtype)
+    out = []
+    for (wgs, bk, st), n, planes, terms in ((row[0], n_up, xp, terms_up),
+                                            (row[1], 1, hp, terms_down)):
+        bn = sm.Q_WG_COLS * wgs
+        smem = st * (planes * bk * bm * 4 + n * bk * bn * wb + 16) + 1024
+        out.append((bm, bn, bk, 128 * wgs, smem, n * bm, terms))
+    if weight_dtype == "bf16":
+        # phase 1 on CUDA cores: 64 x 64 tiles of 256 threads, 32 k-rows a
+        # step in two fp32 buffers (x transposed, rows padded by 4), 4 x 4
+        # sums a thread a weight matrix
+        out[0] = (64, 64, 32, 256, 4 * (2 * 32 * 68 + 2 * n_up * 32 * 64),
+                  16 * n_up, 1)
+    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -841,13 +870,12 @@ def tile_cost(E: int, C: int, d: int, m: int, activation: str, tiles: str,
     ``tiles``, and whether it fits the card.
 
     Per phase, the larger of two times.  Compute: the tensor-core work
-    (padded rows and columns, each mma pass counted) over
-    ``profile.wgmma_rate`` on the bf16 and 8-bit paths (the fp32 peak on
-    the CUDA-core path), plus the
-    tiles every block loads into shared memory over ``profile.l2_bw``
-    (smaller blocks re-read more), plus ``profile.wgmma_stage_s`` (on the
-    CUDA-core path ``profile.stage_s``) for each ring
-    stage a block slot runs; times the waves of blocks the grid needs (the
+    (padded rows and columns, each mma pass or split-TF32 term counted)
+    over ``profile.wgmma_rate`` (half of it for TF32), plus the tiles
+    every block loads into shared memory over ``profile.l2_bw`` (smaller
+    blocks re-read more), plus ``profile.wgmma_stage_s`` for each ring
+    stage a block slot runs (for the CUDA-core phase 1 of bf16 weights
+    with fp32 x, ``profile.fp32_peak`` and ``profile.stage_s``); times the waves of blocks the grid needs (the
     tail wave counted whole) over the waves it fills, a wave being the SMs
     times the blocks an SM holds, or times ceil(blocks / SMs) when that is
     fewer.  Memory: the device-memory bytes over ``profile.mem_bw``, the
@@ -866,26 +894,42 @@ def tile_cost(E: int, C: int, d: int, m: int, activation: str, tiles: str,
     gated = activation == "swiglu"
     wb = WEIGHT_DTYPES[weight_dtype]
     xb = WEIGHT_DTYPES[x_dtype]
-    hb = {"bf16": 2, "8bit": 6, "simt": 4}[path]       # h as the kernel keeps it
-    ab = 4 if path == "simt" else 2                    # a shared activation element
+    xp, hp, _, _ = _tf32_terms(x_dtype, weight_dtype)
+    # h as the kernel keeps it, and a shared activation element (bytes) by
+    # the planes a stage holds
+    hb = {"bf16": 2, "8bit": 6, "tf32": 4 * hp}[path]
+    ab = {"bf16": (2, 2), "8bit": (2, 2),
+          "tf32": (4 if weight_dtype == "bf16" else 4 * xp, 4 * hp)}[path]
     compiled = None if profile.device is None else \
         _compiled(tiles, x_dtype, weight_dtype, C)
     attr_key = ("up_swiglu" if gated else f"up_{activation}", "down")
-    rate = profile.fp32_peak if path == "simt" else profile.wgmma_rate
-    stage_s = profile.stage_s if path == "simt" else profile.wgmma_stage_s
+    # phase 1 of bf16 weights with fp32 x runs on CUDA cores
+    core_up = path == "tf32" and weight_dtype == "bf16"
     phases = []
     # (contraction, columns, weight matrices, bytes in besides weights,
     # bytes out)
-    x_in = E * C * d * xb + (E * C * d * (4 + 6) if path == "8bit"
-                             and x_dtype == "fp32" else 0)
+    x_in = E * C * d * xb
+    if path == "8bit" and x_dtype == "fp32":
+        x_in += E * C * d * (4 + 6)
+    elif path == "tf32" and not core_up:   # x's second plane written, read
+        x_in += E * C * d * 4 * (1 + xp)
     shapes = ((d, m, 2 if gated else 1, x_in, E * C * m * hb),
               (m, d, 1, E * C * m * hb, E * C * d * 4))
-    for (bm, bn, bk, threads, smem, acc, parts), key, \
+    for (bm, bn, bk, threads, smem, acc, parts), key, a_bytes, \
             (K, N, n_w, b_in, b_out) in zip(
-                _phases(path, row, gated, x_dtype, C), attr_key, shapes):
-        # A fragments in registers: the 8-bit path's two of 4 a weight
-        # matrix, the CUDA-core path's 16
-        a_regs = {"bf16": 0, "8bit": 8 * n_w, "simt": 16}[path]
+                _phases(path, row, gated, x_dtype, C, weight_dtype),
+                attr_key, ab, shapes):
+        core = core_up and key != "down"
+        # the split-TF32 terms run at the TF32 rate, half the bf16 one
+        # (data sheet: 495 and 989 TFLOP/s), CUDA-core FMAs at the fp32 one
+        rate = profile.fp32_peak if core else profile.wgmma_rate / 2 \
+            if path == "tf32" else profile.wgmma_rate
+        stage_s = profile.stage_s if core else profile.wgmma_stage_s
+        # A fragments in registers: two buffers of a weight matrix's 4 (8
+        # with an fp32 weight's hi and lo parts); a CUDA-core thread's 16
+        a_regs = 16 if core else {
+            "bf16": 0, "8bit": 8 * n_w,
+            "tf32": (16 if weight_dtype == "fp32" else 8) * n_w}[path]
         if compiled is None:
             regs, spill = _estimated_regs(acc, a_regs), 0
         else:
@@ -900,7 +944,8 @@ def tile_cost(E: int, C: int, d: int, m: int, activation: str, tiles: str,
         slots = profile.sms * max(1, min(per_sm, -(-blocks // profile.sms)))
         filled = blocks / slots
         ops = 2.0 * E * row_tiles * bm * K * col_tiles * bn * n_w * parts
-        loaded = blocks * K * (bm * ab * parts + n_w * bn * wb)
+        planes = 1 if path == "tf32" else parts
+        loaded = blocks * K * (bm * a_bytes * planes + n_w * bn * wb)
         stages = blocks * -(-K // bk) / slots
         t_ops = (ops / rate + loaded / profile.l2_bw
                  + stages * stage_s) * math.ceil(filled) / filled

@@ -64,14 +64,26 @@
 // query rows, mma.sync.m16n8k16 on ldmatrix fragments, K / V through a
 // three-stage cp.async ring, the same arithmetic as above.
 //
-// fp32 keeps the products as fp32 FMAs on CUDA cores, in ascending order
-// (64-row blocks, 4 query rows x hd/16 columns a thread; scores in log2
-// units, exp2f): the reference's 2e-4 tolerance and the plain version's
-// 1e-5 rule out TF32.
+// fp32 at hd 64 and 128 (the scoring paths in fp32: granite's hd 64,
+// InternVL2's hd 128) runs on the tensor cores too, in split TF32 (three
+// TF32 wgmmas a product, hopper.cuh): one TF32 product would miss the
+// reference's 2e-4 and the plain version's 1e-5, the split meets both.  The
+// block is the bf16 body's; K's lo plane (K is its own hi plane) and V^T's
+// hi and lo planes (no transposed TF32 operand) come from a small kernel
+// before it.  The section
+// "fp32, split TF32" says how, and why.  fp32 at hd 16 and 32 (reduced
+// widths only, no full-width path) keeps the products as fp32 FMAs on CUDA
+// cores, in ascending order (64-row blocks, 4 query rows x hd/16 columns a
+// thread; scores in log2 units, exp2f), as bf16 keeps mma.sync there.
+//
+// Bound in fp32 at the scoring shape: 0.257 ms as fp32 FMAs, 0.104 ms in
+// split TF32 (three TF32 products at 495 TFLOP/s); InternVL2's 0.649 /
+// 0.264 ms.
 //
 // Plain C interface for ctypes: one launch function on the caller's stream
-// that allocates nothing (the bf16 tensor maps are encoded on the host at
-// each call) and returns cudaGetLastError().
+// that allocates nothing (the tensor maps are encoded on the host at each
+// call; fp32 at hd 64 / 128 takes its planes' scratch from the caller) and
+// returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -88,7 +100,7 @@ constexpr float NEG_INF = -1e30f;
 
 enum { DT_F32 = 0, DT_BF16 = 1 };
 
-// ---------------------------------------------------------------- fp32 ----
+// ------------------------------------------------- fp32 at hd 16 / 32 ----
 
 constexpr int NT = 256;       // threads: 16 x 16, each 4 rows x (HD / 16) columns
 constexpr int TS = BQ + 4;    // stride of the transposed q / k / p tiles (16-byte rows)
@@ -100,6 +112,7 @@ __global__ void __launch_bounds__(NT)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o, int H, int Sq, int Sk,
               float scale_log2) {
+  static_assert(HD <= 32, "fp32 at hd 64 and 128 takes flash_fwd_tf32");
   constexpr int NC = HD / 16;   // output columns per thread
   extern __shared__ float smem[];
   float* qs = smem;             // [HD][TS]  query tile, transposed
@@ -608,9 +621,9 @@ __device__ __forceinline__ void wg_fold(WgConsumer<HD>& st, const float (&corr)[
   for (int i = 0; i < HD / 2; ++i) st.acc[i] = fmaf(st.acc[i], corr[(i / 2) & 1], st.pv[i]);
 }
 
-__device__ __forceinline__ void wg_release(uint64_t* empty, int it) {
+__device__ __forceinline__ void wg_release(uint64_t* empty, int it, int stages = WG_STAGES) {
   __syncwarp();
-  if (threadIdx.x % 32 == 0) hop::mbar_arrive(&empty[it % WG_STAGES]);   // this warp is done
+  if (threadIdx.x % 32 == 0) hop::mbar_arrive(&empty[it % stages]);   // this warp is done
 }
 
 // Whether a consumer leaves a tile's P V in flight through the next tile's
@@ -802,20 +815,402 @@ int launch_wg(const void* q, const void* k, const void* v, void* o, int B, int H
   return 0;
 }
 
+// ------------------------------------------- fp32, split TF32 on wgmma ----
+//
+// hd 64 and 128.  The block is the bf16 body's: one (batch*head, 128 query
+// rows), two consumer warpgroups of 64 rows, thread 128 issuing the TMA
+// copies, K and V tiles through a ring with a full and an empty mbarrier a
+// stage.  Every product is split TF32 (hopper.cuh): three TF32 wgmmas a k8
+// step on one fp32 accumulator.  TF32 wgmma reads a shared-memory operand
+// only K-major and never transposed, so:
+//   * S = Q K^T (M = 64 query rows, N = the key tile, K = hd): Q is the A
+//     operand from registers, a thread's fragment read from the raw Q tile
+//     (TMA-landed, 128-byte swizzled boxes of 32 columns, four conflict-free
+//     loads a k8 step) and split there at each key tile (held across the
+//     walk it would take 64-128 registers); K, rows of hd, is K-major: K
+//     itself (which the tensor cores read truncated to TF32) and its lo
+//     plane are the B tiles.
+//   * acc += P V (M = 64 rows, N = 64 of hd's columns, K = the key tile): P
+//     is the A operand from the S accumulator, split in registers.  A k8
+//     step's fragment columns (t, t + 4) are not the accumulator's (2t, 2t
+//     + 1), so the key order within each k8 step is taken as the
+//     accumulator holds it (logical t is key 2t, t + 4 is key 2t + 1) and V
+//     is staged to match: V^T's hi and lo planes, K-major, each 8 keys'
+//     columns in that order.  No shuffle.
+// The planes of K and V^T are written by a small kernel before the
+// attention (flash_kv_planes, one pass over K and V; K and V are their own
+// hi planes, which the tensor cores read truncated, so K's lo plane and V^T
+// are written), so TMA lands them where wgmma reads them,
+// and no block splits or transposes a tile in shared memory or stops both
+// consumers at a block barrier to do so; the attention kernel is a
+// programmatic dependent launch that loads its Q tile first.  A tile's P V
+// starts from zero and is added to acc as acc * corr + pv in one fma (hd
+// 128 in two 64-column halves, to keep within 255 registers), scores are in
+// log2 units with the scale folded in (the fp32 product by scale_log2), p
+// = exp2(s - m), l sums the unrounded p, and the output is acc / max(l,
+// 1e-30): the plain version's order.  The tensor cores' truncated sums
+// span hd (8 or 16 k8 steps) for S and one key tile for P V, which the
+// emulation (tests/test_torch_tf32_split.py) puts within 1e-6 of the plain
+// version.  Shared memory: both consumers' raw Q rows and a ring of
+// stages, each the tile's K and V^T hi and lo planes: at hd 64, 64-key
+// tiles and 3 stages (224 KB); at hd 128, 32-key tiles and 2 stages (192
+// KB), since a 64-key stage there would be 128 KB.
+//
+// Bound at the scoring shape (2, 2048, 16, 64): the causal pairs' 17.2
+// GFLOP are 0.257 ms as fp32 FMAs and 0.104 ms as three TF32 products at
+// 495 TFLOP/s; the bytes 0.010 ms.  InternVL2's (2, 2304, 16, 128): 0.649 /
+// 0.264 ms.
+
+template <int HD>
+struct TfShape {
+  static constexpr int BKV = HD == 64 ? 64 : 32;       // keys a tile
+  static constexpr int STAGES = HD == 64 ? 3 : 2;      // the K / V ring
+  static constexpr int QB = HD / 32;                    // 32-column boxes across hd
+  static constexpr int BOX_Q = 64 * 128;                // 64 rows of one box
+  static constexpr int Q_CONS = QB * BOX_Q;             // a consumer's raw Q rows
+  static constexpr int KPLANE = QB * BKV * 128;         // a tile's K plane: [QB][BKV][32]
+  static constexpr int VPLANE = (BKV / 32) * HD * 128;  // a tile's V^T plane: [BKV / 32][HD][32]
+  static constexpr int STAGE = 2 * KPLANE + 2 * VPLANE; // K hi, K lo, V^T hi, V^T lo
+  static constexpr int K_OFF = 2 * Q_CONS;
+  static constexpr int BARS = K_OFF + STAGES * STAGE;
+  static constexpr int BYTES = BARS + 8 * (1 + 2 * STAGES) + 1024;   // + alignment
+  static_assert(BYTES <= 232448, "the fp32 flash ring over the card's shared memory");
+};
+
+// The float at (row r, column c < 32) of a 128-byte-swizzled box of 32-float
+// rows, as TMA writes it (the 16-byte chunk index XORed with r % 8).
+__device__ __forceinline__ int swz32(int r, int c) {
+  return r * 32 + ((((c >> 2) ^ r) & 7) << 2) + (c & 3);
+}
+
+// The max (MAX) or sum of the values of row hr a thread holds in sc
+// (sc[4j + 2hr + e]), as a balanced tree.
+template <bool MAX, int NS>
+__device__ __forceinline__ float tf_row_reduce(const float (&sc)[NS], int hr) {
+  float t[NS / 4];
+#pragma unroll
+  for (int j = 0; j < NS / 4; ++j)
+    t[j] = MAX ? fmaxf(sc[4 * j + 2 * hr], sc[4 * j + 2 * hr + 1])
+               : sc[4 * j + 2 * hr] + sc[4 * j + 2 * hr + 1];
+#pragma unroll
+  for (int w = NS / 8; w >= 1; w /= 2)
+#pragma unroll
+    for (int j = 0; j < w; ++j) t[j] = MAX ? fmaxf(t[j], t[j + w]) : t[j] + t[j + w];
+  return t[0];
+}
+
+// The online softmax of one tile of BK keys on its scores sc (sc[4j + e]:
+// row rw + g + 8 (e / 2), key k0 + 8j + 2 t4 + e % 2), as wg_softmax, p left
+// in sc in fp32.
+template <int BK>
+__device__ __forceinline__ void tf_softmax(float (&sc)[BK / 2], float (&corr)[2],
+                                           float (&m_run)[2], float (&l_run)[2], int k0, int rw,
+                                           int g, int t4, int shift, int Sk, float scale_log2) {
+  if (k0 + BK - 1 > rw + shift || k0 + BK > Sk) {   // crosses the diagonal or Sk
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const int kpos = k0 + (i / 4) * 8 + 2 * t4 + (i & 1);
+      const int qpos = rw + g + 8 * ((i / 2) & 1);
+      sc[i] = kpos <= qpos + shift && kpos < Sk ? __fmul_rn(sc[i], scale_log2) : NEG_INF;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) sc[i] = __fmul_rn(sc[i], scale_log2);
+  }
+  float mx[2] = {tf_row_reduce<true>(sc, 0), tf_row_reduce<true>(sc, 1)};
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 1));
+    mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 2));
+    const float m_new = fmaxf(m_run[hr], mx[hr]);
+    corr[hr] = fast_exp2(m_run[hr] - m_new);
+    m_run[hr] = m_new;
+  }
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) sc[i] = fast_exp2(sc[i] - m_run[(i / 2) & 1]);
+  float sum[2] = {tf_row_reduce<false>(sc, 0), tf_row_reduce<false>(sc, 1)};
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    sum[hr] += __shfl_xor_sync(0xffffffffu, sum[hr], 1);
+    sum[hr] += __shfl_xor_sync(0xffffffffu, sum[hr], 2);
+    l_run[hr] = l_run[hr] * corr[hr] + sum[hr];   // the unrounded p
+  }
+}
+
+// Tile `it`'s K and V^T planes into stage it % STAGES: K's hi plane (K
+// itself) and lo plane, each (B, Sk, H, hd), V^T's (2, B*H, hd, Skp); keys
+// past them arrive as zeros.
+template <int HD>
+__device__ __forceinline__ void tf_load_kv(const CUtensorMap* const (&kmap)[2],
+                                           const CUtensorMap* vmap, unsigned char* smem,
+                                           uint64_t* full, int it, int b, int h, int B, int H) {
+  using L = TfShape<HD>;
+  const int s = it % L::STAGES;
+  unsigned char* st = smem + L::K_OFF + s * L::STAGE;
+  hop::mbar_expect_tx(&full[s], L::STAGE);
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+#pragma unroll
+    for (int ch = 0; ch < L::QB; ++ch)
+      hop::tma_load_4d(st + p * L::KPLANE + ch * L::BKV * 128, kmap[p], &full[s], 32 * ch, h,
+                       it * L::BKV, b);
+#pragma unroll
+    for (int kb = 0; kb < L::BKV / 32; ++kb)
+      hop::tma_load_3d(st + 2 * L::KPLANE + p * L::VPLANE + kb * HD * 128, vmap, &full[s],
+                       it * L::BKV + 32 * kb, 0, (p * B + b) * H + h);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_fwd_tf32(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+               const __grid_constant__ CUtensorMap klmap, const __grid_constant__ CUtensorMap vmap,
+               float* __restrict__ o, int H, int Sq, int Sk, float scale_log2) {
+  using L = TfShape<HD>;
+  constexpr int BK = L::BKV, STAGES = L::STAGES;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* full = q_full + 1;          // [STAGES]
+  uint64_t* empty = full + STAGES;      // [STAGES]
+  const int B = gridDim.x / H, b = blockIdx.x / H, h = blockIdx.x % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * WG_BQ;
+  const int shift = Sk - Sq;
+  const int n_tiles = (min(q0 + WG_BQ, Sq) - 1 + shift) / BK + 1;
+  if (threadIdx.x == 0) {
+    hop::mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hop::mbar_init(&full[s], 1);
+      hop::mbar_init(&empty[s], WG_CONSUMER_WARPS);
+    }
+    hop::fence_barrier_init();
+  }
+  __syncthreads();
+
+  // consumer c: query rows q0 + 64 c .. + 63; warp w of it rows 16 w .. + 15
+  const int c = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int rw = q0 + 64 * c + 16 * warp;   // the warp's first row
+  // these rows see keys up to tile n_my - 1; later tiles are only waited
+  // for and released.  Consumer 1 sees every tile of the block, so one of
+  // its threads issues the copies.
+  const int n_my = (min(q0 + 64 * c + 63, Sq - 1) + shift) / BK + 1;
+  const bool issuer = threadIdx.x == 128;
+  const CUtensorMap* km[2] = {&kmap, &klmap};
+  if (issuer) {
+    hop::prefetch_map(&qmap);
+    hop::prefetch_map(&kmap);
+    hop::prefetch_map(&klmap);
+    hop::prefetch_map(&vmap);
+    hop::mbar_expect_tx(q_full, 2 * L::Q_CONS);
+    for (int cc = 0; cc < 2; ++cc)
+      for (int ch = 0; ch < L::QB; ++ch)
+        hop::tma_load_4d(smem + (cc * L::QB + ch) * L::BOX_Q, &qmap, q_full, 32 * ch, h,
+                         q0 + 64 * cc, b);
+    hop::grid_dependency_wait();   // the planes of K and V^T are written
+    for (int it = 0; it < min(STAGES, n_tiles); ++it)
+      tf_load_kv<HD>(km, &vmap, smem, full, it, b, h, B, H);
+  }
+  const float* qs = reinterpret_cast<const float*>(smem + c * L::Q_CONS);
+  const int r0 = 16 * warp + g;
+  float acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.0f;
+  float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.0f, 0.0f};
+  hop::mbar_wait(q_full, 0);
+
+  for (int it = 0; it < n_my; ++it) {
+    const int s = it % STAGES;
+    hop::mbar_wait(&full[s], (it / STAGES) & 1);
+    const unsigned char* st = smem + L::K_OFF + s * L::STAGE;
+    // S = Q K^T: per k8 step, Q's fragment split in registers (two buffers,
+    // one built while the other's products run) against K's planes
+    float sc[BK / 2];
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) sc[i] = 0.0f;
+    uint32_t qh[2][4], ql[2][4];
+#pragma unroll
+    for (int kk = 0; kk < HD / 8; ++kk) {
+      const float* qb = qs + (kk / 4) * (L::BOX_Q / 4);
+      const int cc = 8 * (kk % 4) + t4;
+      uint32_t(&fh)[4] = qh[kk & 1];
+      uint32_t(&fl)[4] = ql[kk & 1];
+      hop::split(qb[swz32(r0, cc)], fh[0], fl[0]);
+      hop::split(qb[swz32(r0 + 8, cc)], fh[1], fl[1]);
+      hop::split(qb[swz32(r0, cc + 4)], fh[2], fl[2]);
+      hop::split(qb[swz32(r0 + 8, cc + 4)], fh[3], fl[3]);
+      const int off = (kk / 4) * BK * 128 + (kk % 4) * 32;
+      hop::split_step<BK>(sc, fh, fl, hop::desc_sw128(st + off, 16, 1024),
+                          hop::desc_sw128(st + L::KPLANE + off, 16, 1024));
+      hop::wg_wait<1>();   // the other fragment's products are done
+    }
+    hop::wg_wait<0>();
+    hop::fence_regs(sc);
+    float corr[2];
+    tf_softmax<BK>(sc, corr, m_run, l_run, it * BK, rw, g, t4, shift, Sk, scale_log2);
+    // P's fragments: k8 step j's logical key t is key 8j + 2t, t + 4 is 8j +
+    // 2t + 1 (as the accumulator holds them; V^T's columns follow)
+    uint32_t ph[BK / 8][4], pl[BK / 8][4];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      hop::split(sc[4 * j], ph[j][0], pl[j][0]);
+      hop::split(sc[4 * j + 2], ph[j][1], pl[j][1]);
+      hop::split(sc[4 * j + 1], ph[j][2], pl[j][2]);
+      hop::split(sc[4 * j + 3], ph[j][3], pl[j][3]);
+      hop::fence_regs(ph[j]);
+      hop::fence_regs(pl[j]);
+    }
+    // acc = acc * corr + P V, 64 of hd's columns at a time
+#pragma unroll
+    for (int nh = 0; nh < HD / 64; ++nh) {
+      float pv[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) pv[i] = 0.0f;
+      hop::fence_regs(pv);
+      hop::wg_fence();
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        const unsigned char* vb =
+            st + 2 * L::KPLANE + (j / 4) * HD * 128 + nh * 64 * 128 + (j % 4) * 32;
+        const uint64_t vh = hop::desc_sw128(vb, 16, 1024);
+        const uint64_t vl = hop::desc_sw128(vb + L::VPLANE, 16, 1024);
+        hop::wgmma_rs_tf32<64>(pv, ph[j], vh, 1);
+        hop::wgmma_rs_tf32<64>(pv, ph[j], vl, 1);
+        hop::wgmma_rs_tf32<64>(pv, pl[j], vh, 1);
+      }
+      hop::wg_commit();
+      hop::wg_wait<0>();
+      hop::fence_regs(pv);
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        acc[32 * nh + i] = fmaf(acc[32 * nh + i], corr[(i / 2) & 1], pv[i]);
+    }
+    wg_release(empty, it, STAGES);
+    if (issuer && it + STAGES < n_tiles) {
+      hop::mbar_wait(&empty[s], (it / STAGES) & 1);
+      tf_load_kv<HD>(km, &vmap, smem, full, it + STAGES, b, h, B, H);
+    }
+  }
+  for (int it = n_my; it < n_tiles; ++it) {   // consumer 0 only
+    hop::mbar_wait(&full[it % STAGES], (it / STAGES) & 1);
+    wg_release(empty, it, STAGES);
+  }
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = rw + g + 8 * hr;
+    if (r >= Sq) continue;
+    const float den = fmaxf(l_run[hr], 1e-30f);
+    float* orow = o + ((size_t)b * Sq + r) * H * HD + (size_t)h * HD;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<float2*>(orow + j * 8 + 2 * t4) =
+          make_float2(acc[4 * j + 2 * hr] / den, acc[4 * j + 2 * hr + 1] / den);
+  }
+}
+
+// K (B, Sk, H, hd) -> its lo TF32 plane in its layout (hop::tf32_lo: K
+// itself is the hi plane, which the tensor cores read truncated), and V ->
+// the hi and lo planes of V^T (B*H, hd, Skp), Skp = Sk rounded up to 32,
+// keys past Sk zero, each 8 keys' columns in the order flash_fwd_tf32's P
+// fragments take them (column 8j + p is key 8j + 2p for p < 4, 8j + 2(p -
+// 4) + 1 else); V^T's hi plane is V itself, as K's.  A block is 64 keys of
+// one (batch, head), read and written 16 bytes a thread; V goes through
+// shared memory to be transposed.
+template <int HD>
+__global__ void __launch_bounds__(256)
+flash_kv_planes(const float* __restrict__ k, const float* __restrict__ v, float* __restrict__ klo,
+                float* __restrict__ vtp, int B, int H, int Sk, int Skp) {
+  __shared__ float tile[64][HD + 1];
+  hop::launch_dependents();
+  const int k0 = blockIdx.x * 64, bh = blockIdx.y, b = bh / H, h = bh % H;
+  constexpr int Q4 = HD / 4;   // 16-byte pieces of a key's row
+  for (int i = threadIdx.x; i < 64 * Q4; i += 256) {
+    const int r = i / Q4, c = 4 * (i % Q4), key = k0 + r;
+    float4 vv = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (key < Sk) {
+      const size_t off = (((size_t)b * Sk + key) * H + h) * HD + c;
+      const float4 kv = *reinterpret_cast<const float4*>(k + off);
+      *reinterpret_cast<uint4*>(klo + off) =
+          make_uint4(hop::tf32_lo(kv.x), hop::tf32_lo(kv.y), hop::tf32_lo(kv.z), hop::tf32_lo(kv.w));
+      vv = *reinterpret_cast<const float4*>(v + off);
+    }
+    tile[r][c] = vv.x;
+    tile[r][c + 1] = vv.y;
+    tile[r][c + 2] = vv.z;
+    tile[r][c + 3] = vv.w;
+  }
+  __syncthreads();
+  // V^T's row d, logical columns 4j .. 4j + 3: keys 8 (j / 2) + (j odd ? 1,
+  // 3, 5, 7 : 0, 2, 4, 6)
+  const size_t vplane = (size_t)B * H * HD * Skp;
+  for (int i = threadIdx.x; i < HD * 16; i += 256) {
+    const int d = i / 16, j = i % 16, col = k0 + 4 * j;
+    if (col >= Skp) continue;
+    const int r = 8 * (j / 2) + (j & 1);
+    const float4 a = make_float4(tile[r][d], tile[r + 2][d], tile[r + 4][d], tile[r + 6][d]);
+    const size_t off = ((size_t)bh * HD + d) * Skp + col;
+    *reinterpret_cast<float4*>(vtp + off) = a;
+    *reinterpret_cast<uint4*>(vtp + vplane + off) =
+        make_uint4(hop::tf32_lo(a.x), hop::tf32_lo(a.y), hop::tf32_lo(a.z), hop::tf32_lo(a.w));
+  }
+}
+
+// The tensor map of fp32 (B, S, H, hd) rows (q, or K's planes with B
+// counting both): boxes of 32 columns x `rows` positions of one (batch,
+// head), 128-byte swizzled.
+int flash_map_f32(CUtensorMap* map, const void* base, int B, int S, int H, int hd, int rows) {
+  const uint64_t dims[4] = {(uint64_t)hd, (uint64_t)H, (uint64_t)S, (uint64_t)B};
+  const uint64_t strides[3] = {(uint64_t)hd * 4, (uint64_t)H * hd * 4, (uint64_t)S * H * hd * 4};
+  const uint32_t box[4] = {32, 1, (uint32_t)rows, 1};
+  return hop::encode_f32_map(map, base, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+template <int HD>
+int launch_tf32(const float* q, const float* k, const float* v, float* o, float* scratch, int B,
+                int H, int Sq, int Sk, float scale_log2, cudaStream_t s) {
+  using L = TfShape<HD>;
+  const int q_tiles = (Sq + WG_BQ - 1) / WG_BQ;
+  const int skp = (Sk + 31) / 32 * 32;
+  if (q_tiles > 65535 || (long long)B * H > 65535 || skp / 32 > 65535) return -1;
+  float* klo = scratch;
+  float* vtp = scratch + (size_t)B * Sk * H * HD;
+  CUtensorMap qm, km, klm, vm;
+  const uint64_t vdims[3] = {(uint64_t)skp, (uint64_t)HD, 2ull * B * H};
+  const uint64_t vstrides[2] = {(uint64_t)skp * 4, (uint64_t)HD * skp * 4};
+  const uint32_t vbox[3] = {32, HD, 1};
+  if (flash_map_f32(&qm, q, B, Sq, H, HD, 64) || flash_map_f32(&km, k, B, Sk, H, HD, L::BKV) ||
+      flash_map_f32(&klm, klo, B, Sk, H, HD, L::BKV) ||
+      hop::encode_f32_map(&vm, vtp, 3, vdims, vstrides, vbox, CU_TENSOR_MAP_SWIZZLE_128B))
+    return -1;
+  flash_kv_planes<HD><<<dim3((skp + 63) / 64, B * H), 256, 0, s>>>(k, v, klo, vtp, B, H, Sk, skp);
+  // (batch*head) fastest, so every head's heaviest query tile goes first
+  hop::launch_dependent(flash_fwd_tf32<HD>, L::BYTES, dim3(B * H, q_tiles), WG_THREADS, s, qm, km,
+                        klm, vm, o, H, Sq, Sk, scale_log2);
+  return 0;
+}
+
 // ------------------------------------------------------------- launches ----
 
 template <int HD>
-int launch(int dtype, const void* q, const void* k, const void* v, void* o, int B, int H,
-           int Sq, int Sk, float scale_log2, cudaStream_t s) {
+int launch(int dtype, const void* q, const void* k, const void* v, void* o, void* scratch, int B,
+           int H, int Sq, int Sk, float scale_log2, cudaStream_t s) {
   if (dtype == DT_F32) {
-    const int q_tiles = (Sq + BQ - 1) / BQ;
-    if ((long long)B * H > 65535) return -1;
-    const int bytes = smem_bytes_f32(HD);
-    allow_smem(flash_fwd_f32<HD>, bytes);
-    flash_fwd_f32<HD><<<dim3(q_tiles, B * H), NT, bytes, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), H, Sq, Sk, scale_log2);
-    return 0;
+    if constexpr (HD >= 64) {
+      return launch_tf32<HD>(static_cast<const float*>(q), static_cast<const float*>(k),
+                             static_cast<const float*>(v), static_cast<float*>(o),
+                             static_cast<float*>(scratch), B, H, Sq, Sk, scale_log2, s);
+    } else {
+      const int q_tiles = (Sq + BQ - 1) / BQ;
+      if ((long long)B * H > 65535) return -1;
+      const int bytes = smem_bytes_f32(HD);
+      allow_smem(flash_fwd_f32<HD>, bytes);
+      flash_fwd_f32<HD><<<dim3(q_tiles, B * H), NT, bytes, s>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<float*>(o), H, Sq, Sk, scale_log2);
+      return 0;
+    }
   }
   if constexpr (HD >= 64) {
     return launch_wg<HD>(q, k, v, o, B, H, Sq, Sk, scale_log2, s);
@@ -835,24 +1230,31 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* o, int 
 }  // namespace
 
 // q (B,Sq,H,hd), k / v (B,Sk,H,hd), o (B,Sq,H,hd), all contiguous and of one
-// dtype (0 fp32, 1 bf16, 16-byte aligned for bf16); Sk >= Sq >= 1; hd in
-// {16, 32, 64, 128}.  Returns a cudaError_t (0 on success), or
-// cudaErrorInvalidValue for what it does not take.
+// dtype (0 fp32, 1 bf16), 16-byte aligned but for fp32 at hd 16 / 32; Sk >=
+// Sq >= 1; hd in {16, 32, 64, 128}.  fp32 at hd 64 / 128 takes a scratch of
+// B Sk H hd + 2 B H hd Skp floats, Skp = Sk rounded up to 32 (K's lo plane
+// and V^T's two), 16-byte aligned; else it may be null.  Returns a
+// cudaError_t (0 on success), or cudaErrorInvalidValue for what it does not
+// take.
 extern "C" int flash_attention_forward(const void* q, const void* k, const void* v, void* o,
-                                       int B, int H, int Sq, int Sk, int hd, int dtype,
-                                       float scale_log2, void* stream) {
+                                       void* scratch, int B, int H, int Sq, int Sk, int hd,
+                                       int dtype, float scale_log2, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Sk < Sq || (dtype != DT_F32 && dtype != DT_BF16))
     return static_cast<int>(cudaErrorInvalidValue);
   const uintptr_t addr_bits = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                              reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
-  if (dtype == DT_BF16 && addr_bits % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+                              reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o) |
+                              reinterpret_cast<uintptr_t>(scratch);
+  const bool tma = dtype == DT_BF16 || hd >= 64;
+  if (tma && addr_bits % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == DT_F32 && hd >= 64 && scratch == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc = -1;
   switch (hd) {
-    case 16: rc = launch<16>(dtype, q, k, v, o, B, H, Sq, Sk, scale_log2, s); break;
-    case 32: rc = launch<32>(dtype, q, k, v, o, B, H, Sq, Sk, scale_log2, s); break;
-    case 64: rc = launch<64>(dtype, q, k, v, o, B, H, Sq, Sk, scale_log2, s); break;
-    case 128: rc = launch<128>(dtype, q, k, v, o, B, H, Sq, Sk, scale_log2, s); break;
+    case 16: rc = launch<16>(dtype, q, k, v, o, scratch, B, H, Sq, Sk, scale_log2, s); break;
+    case 32: rc = launch<32>(dtype, q, k, v, o, scratch, B, H, Sq, Sk, scale_log2, s); break;
+    case 64: rc = launch<64>(dtype, q, k, v, o, scratch, B, H, Sq, Sk, scale_log2, s); break;
+    case 128: rc = launch<128>(dtype, q, k, v, o, scratch, B, H, Sq, Sk, scale_log2, s); break;
     default: break;
   }
   if (rc != 0) return static_cast<int>(cudaErrorInvalidValue);

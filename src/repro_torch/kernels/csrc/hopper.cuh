@@ -1,8 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the kernels' wgmma paths:
 // mbarriers, TMA tile loads described by tensor maps (bf16, fp32, and the
-// 8-bit weights' raw bytes), programmatic dependent launch, and wgmma (the
+// 8-bit weights' raw bytes), programmatic dependent launch (the device
+// side and the host's launch), wgmma (the
 // warpgroup's asynchronous matrix product; bf16 and TF32) with its
-// shared-memory matrix descriptors.
+// shared-memory matrix descriptors, and split TF32 (an fp32 operand as two
+// TF32 parts, a product as three TF32 wgmmas), which the fp32 bodies of
+// all three kernels share.
 //
 // No setmaxnreg: ptxas (CUDA 12.9) allocates a kernel's registers for the
 // launch bound rounded up to whole warpgroups and keeps that limit after
@@ -93,6 +96,28 @@ __device__ __forceinline__ void launch_dependents() {
 }
 __device__ __forceinline__ void grid_dependency_wait() {
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// Host: launch `kernel` as a programmatic dependent launch on stream s: it
+// may start while the stream's previous kernel runs, and waits for it
+// (grid_dependency_wait) before it reads that kernel's output.  Dynamic
+// shared memory above the 48 KB default is allowed first.
+template <typename Kernel, typename... Args>
+void launch_dependent(Kernel kernel, int bytes, dim3 grid, int threads, cudaStream_t s,
+                      Args... args) {
+  if (bytes > 48 * 1024)
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
 // ------------------------------------------------------------------ TMA
@@ -353,12 +378,13 @@ __device__ __forceinline__ void fence_proxy_async() {
 }
 
 // d (+)= A B on one m64nNk8 step, TF32 in, fp32 accumulate, A from
-// registers (the fragment above), B K-major in shared memory; N of 16, 32
-// or 64.  scale_d == 0: d = A B.
+// registers (the fragment above), B K-major in shared memory; N of 16, 32,
+// 48 or 64.  scale_d == 0: d = A B.
 template <int N>
 __device__ __forceinline__ void wgmma_rs_tf32(float (&d)[N / 2], const uint32_t (&a)[4],
                                               uint64_t db, int scale_d) {
-  static_assert(N == 16 || N == 32 || N == 64, "wgmma_rs_tf32: N of 16, 32 or 64");
+  static_assert(N == 16 || N == 32 || N == 48 || N == 64,
+                "wgmma_rs_tf32: N of 16, 32, 48 or 64");
   if constexpr (N == 16) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
@@ -376,6 +402,17 @@ __device__ __forceinline__ void wgmma_rs_tf32(float (&d)[N / 2], const uint32_t 
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  } else if constexpr (N == 48) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23}, "
+        "{%24, %25, %26, %27}, %28, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
   } else if constexpr (N == 64) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
@@ -389,6 +426,48 @@ __device__ __forceinline__ void wgmma_rs_tf32(float (&d)[N / 2], const uint32_t 
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
   }
+}
+
+// ---------------------------------------------------------- split TF32
+//
+// The reference holds fp32 products to 2e-5 (1e-5 against the plain
+// versions), which one TF32 product (10 mantissa bits) misses by ~50x.
+// Each fp32 operand v is split as hi = tf32(v), lo = tf32(v - hi), both
+// rounded to nearest, so v = hi + lo within 2^-22 |v|; a product a b is
+// taken as a_hi b_hi + a_hi b_lo + a_lo b_hi (a_lo b_lo, about 2^-22 of it,
+// is dropped): three wgmma.m64nNk8.tf32 on one fp32 accumulator.  An
+// operand that is exact in TF32 (a bf16 value, an fp32 rounded to bf16)
+// has no lo part, and its products take one or two terms.
+
+// v = hi + lo, both TF32 (hi rounded to nearest, lo the rounded rest).
+__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(v);
+  lo = tf32_rna(v - __uint_as_float(hi));
+}
+
+// v's lo part when its hi part is v itself, as the tensor cores read it
+// (its top 19 bits: v truncated to TF32): the rest, exact in fp32, rounded
+// to TF32, so v = hi + lo within 2^-22 |v| as with split.  An operand that
+// TMA lands as it lies in memory needs only this plane written.
+__device__ __forceinline__ uint32_t tf32_lo(float v) {
+  return tf32_rna(v - __uint_as_float(__float_as_uint(v) & 0xffffe000u));
+}
+
+// Three wgmmas of one k8 step as one group: d += a_hi b_hi + a_hi b_lo +
+// a_lo b_hi.  The fragments' registers are pinned before the fence, and the
+// accumulator around the group.
+template <int N>
+__device__ __forceinline__ void split_step(float (&d)[N / 2], uint32_t (&ah)[4], uint32_t (&al)[4],
+                                           uint64_t bh, uint64_t bl) {
+  fence_regs(ah);
+  fence_regs(al);
+  fence_regs(d);
+  wg_fence();
+  wgmma_rs_tf32<N>(d, ah, bh, 1);
+  wgmma_rs_tf32<N>(d, ah, bl, 1);
+  wgmma_rs_tf32<N>(d, al, bh, 1);
+  wg_commit();
+  fence_regs(d);
 }
 
 }  // namespace hop

@@ -23,7 +23,8 @@
 // tests/test_torch_ssd_split.py).  Each fp32 operand v is split as hi =
 // tf32(v), lo = tf32(v - hi) (to nearest), and a product a b is taken as
 // a_hi b_hi + a_hi b_lo + a_lo b_hi (a_lo b_lo, about 2^-22 of it, is
-// dropped): three wgmma.m64nNk8.tf32 on one fp32 accumulator.  The sums stay
+// dropped): three wgmma.m64nNk8.tf32 on one fp32 accumulator (hop::split,
+// hop::split_step, shared with the other kernels' fp32 bodies).  The sums stay
 // in the wgmma accumulators, with no promotion into a separate fp32 sum:
 // the emulation, with the sums truncated after every k8 step, puts the
 // error at 1.5e-6 of max |out| at c = 256, n = 128, and the card measures
@@ -126,28 +127,8 @@ __device__ __forceinline__ int swz(int r, int cc) {
   return r * 32 + ((((cc >> 2) ^ r) & 7) << 2) + (cc & 3);
 }
 
-// v = hi + lo, both TF32 (hi rounded to nearest, lo the rounded rest).
-__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
-  hi = hop::tf32_rna(v);
-  lo = hop::tf32_rna(v - __uint_as_float(hi));
-}
-
-// Three wgmmas of one k8 step as one group: d += a_hi b_hi + a_hi b_lo +
-// a_lo b_hi.  The fragments' registers are pinned before the fence, and the
-// accumulator around the group.
-template <int N>
-__device__ __forceinline__ void split_step(float (&d)[N / 2], uint32_t (&ah)[4], uint32_t (&al)[4],
-                                           uint64_t bh, uint64_t bl) {
-  hop::fence_regs(ah);
-  hop::fence_regs(al);
-  hop::fence_regs(d);
-  hop::wg_fence();
-  hop::wgmma_rs_tf32<N>(d, ah, bh, 1);
-  hop::wgmma_rs_tf32<N>(d, ah, bl, 1);
-  hop::wgmma_rs_tf32<N>(d, al, bh, 1);
-  hop::wg_commit();
-  hop::fence_regs(d);
-}
+using hop::split;
+using hop::split_step;
 
 // ---------------------------------------------------------------- body 1
 

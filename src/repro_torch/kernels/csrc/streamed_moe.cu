@@ -28,8 +28,8 @@
 // large C the expert's weight slices are read from device memory about once
 // and from L2 by its other row tiles.
 //
-// The tiles are chosen at launch: each tensor-core path has a table of
-// settings (WG_SETTINGS, Q_SETTINGS below; the counterpart of the Pallas
+// The tiles are chosen at launch: each path has a table of settings
+// (WG_SETTINGS, Q_SETTINGS, T_SETTINGS below; the counterpart of the Pallas
 // kernel's token_tile / dmodel_tile / dexpert_tile), the caller passes a
 // row of it, and core/autotune.py plans which.  No setting splits K or
 // reorders a sum, so every setting gives the same bits.
@@ -93,12 +93,28 @@
 // must be multiples of 16 (TMA's row strides).  Rounding h or x to fewer
 // bits would be a different function, so neither is done.
 //
-// fp32 weights, and bf16 weights with fp32 activations, keep the CUDA-core
-// path: each step's global loads for the next tile are issued into
-// registers before the current tile is multiplied (two shared-memory
-// buffers, one barrier per step), and the products run as fp32 FMAs in
-// ascending k (4x4 outputs per thread).  The reference's 2e-5 tolerance
-// rules out TF32 for fp32-valued operands; h is an fp32 scratch there.
+// fp32 weights (fp32 or bf16 activations) run on wgmma + TMA too, in split
+// TF32 (the section "fp32 operands" below): each fp32 operand is two TF32
+// parts and a product three TF32 terms (hi hi + hi lo + lo hi), so the
+// reference's 2e-5 (1e-5 against the plain version) holds where one TF32
+// product would miss it ~50x.  The products are transposed as on the 8-bit
+// path: the weights the A operand, read from the TMA-landed tile into
+// registers and split there; x and h the B tiles, already split into
+// planes (x by a small kernel before phase 1, h by phase 1's epilogue); N
+// the C tile; each 64 k-rows' partial added into an fp32 sum.  Bound at
+// granite's (32, 64, 1024, 512) with fp32 weights: 218 MB of bytes, 0.065
+// ms, against the split terms' 19.3 GFLOP, 0.039 ms at the 495 TFLOP/s
+// TF32 rate (no CUDA-core body goes below the fp32 FMAs' 0.096 ms); at the
+// scoring forward's C = 1280, 0.781 ms of split-TF32 operations.
+//
+// bf16 weights with fp32 activations round h to bf16 before the down
+// product.  Their phase 1 runs on CUDA cores, as fp32 FMAs in ascending k,
+// the order of the card's fp32 GEMM that the plain version runs, so h and
+// its bf16 rounding are the plain version's bit for bit: an h from the
+// tensor cores differs from it by ~1e-6 and flips 1e-4 to 1e-3 of the
+// roundings, each moving the output by ~2^-8 |h w|, up to 6.3e-4 of its
+// max on the card, where the path is held at 1e-5.  Their phase 2 is the
+// split-TF32 one with one term (bf16 h and bf16 w_d are exact in TF32).
 //
 // Plain C interface for ctypes: one launch function that runs both phases
 // with the setting it is given on the caller's stream, allocates nothing,
@@ -117,11 +133,6 @@
 
 namespace {
 
-constexpr int BM = 64;    // rows (capacity slots) per block
-constexpr int BN = 64;    // output columns per block
-constexpr int BK = 32;    // contraction rows per shared-memory step
-constexpr int NT = 256;   // threads per block: 16 x 16, 4 x 4 outputs each
-
 enum { DT_F32 = 0, DT_BF16 = 1, DT_I8 = 2, DT_F8 = 3 };
 enum { ACT_SWIGLU = 0, ACT_RELU2 = 1, ACT_GELU = 2 };
 
@@ -132,225 +143,6 @@ __device__ __forceinline__ float activate(float g, float u) {
   // gelu, tanh approximation (jax.nn.gelu's default)
   const float k = 0.7978845608028654f;  // sqrt(2 / pi)
   return u * (0.5f * (1.0f + tanhf(k * (u + 0.044715f * u * u * u))));
-}
-
-// Raw storage of each element type, and its exact conversion to fp32.
-template <typename T> struct Elem {
-  using raw = T;
-  static __device__ __forceinline__ float f32(raw v) { return static_cast<float>(v); }
-};
-template <> struct Elem<__nv_bfloat16> {
-  using raw = unsigned short;
-  static __device__ __forceinline__ float f32(raw v) {
-    return __uint_as_float(static_cast<unsigned>(v) << 16);
-  }
-};
-
-// Per-thread share of one tile.  Thread t always loads the same tile column
-// (weights: t % BN) or the same contraction index (activations: t % BK).
-constexpr int W_PER_THREAD = BK * BN / NT;   // weight rows t/BN + 4j
-constexpr int X_PER_THREAD = BM * BK / NT;   // activation rows t/BK + 8j
-constexpr int X_STRIDE = BM + 4;             // transposed tile row (16-byte aligned)
-constexpr int X_TILE = BK * X_STRIDE;        // floats per activation buffer
-constexpr int W_TILE = BK * BN;              // floats per weight buffer
-
-// Issue the global loads of a BK x BN weight tile into registers (raw, so the
-// loads stay in flight while the previous tile is multiplied).
-template <typename TW>
-__device__ __forceinline__ void fetch_w(typename Elem<TW>::raw (&reg)[W_PER_THREAD],
-                                        const TW* w, int k0, int c0, int K, int N) {
-  const auto* wr = reinterpret_cast<const typename Elem<TW>::raw*>(w);
-  const int gc = c0 + threadIdx.x % BN;
-#pragma unroll
-  for (int j = 0; j < W_PER_THREAD; ++j) {
-    const int gk = k0 + threadIdx.x / BN + j * (NT / BN);
-    reg[j] = (gk < K && gc < N) ? wr[(size_t)gk * N + gc] : typename Elem<TW>::raw(0);
-  }
-}
-
-// Convert the fetched weight tile to fp32 into shared memory.
-template <typename TW>
-__device__ __forceinline__ void store_w(float* dst, const typename Elem<TW>::raw (&reg)[W_PER_THREAD]) {
-#pragma unroll
-  for (int j = 0; j < W_PER_THREAD; ++j)
-    dst[(threadIdx.x / BN + j * (NT / BN)) * BN + threadIdx.x % BN] = Elem<TW>::f32(reg[j]);
-}
-
-// Issue the global loads of a BM x BK activation tile of a row-major (R, K).
-template <typename TX>
-__device__ __forceinline__ void fetch_x(typename Elem<TX>::raw (&reg)[X_PER_THREAD],
-                                        const TX* x, int r0, int k0, int R, int K) {
-  const auto* xr = reinterpret_cast<const typename Elem<TX>::raw*>(x);
-  const int gk = k0 + threadIdx.x % BK;
-#pragma unroll
-  for (int j = 0; j < X_PER_THREAD; ++j) {
-    const int gr = r0 + threadIdx.x / BK + j * (NT / BK);
-    reg[j] = (gr < R && gk < K) ? xr[(size_t)gr * K + gk] : typename Elem<TX>::raw(0);
-  }
-}
-
-// Store the activation tile transposed, dst[k][row], so a thread reads its
-// four rows as one contiguous run.
-template <typename TX>
-__device__ __forceinline__ void store_x(float* dst, const typename Elem<TX>::raw (&reg)[X_PER_THREAD]) {
-#pragma unroll
-  for (int j = 0; j < X_PER_THREAD; ++j)
-    dst[(threadIdx.x % BK) * X_STRIDE + threadIdx.x / BK + j * (NT / BK)] = Elem<TX>::f32(reg[j]);
-}
-
-// acc[i][j] += x[row i][k] * w[k][col j] over one shared-memory tile, k ascending.
-__device__ __forceinline__ void mma_tile(float (&acc)[4][4], const float* xs, const float* ws) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll 8
-  for (int k = 0; k < BK; ++k) {
-    float a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = xs[k * X_STRIDE + ty * 4 + i];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = ws[k * BN + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
-
-// The same for the gate and up weights at once (one read of x per k).
-__device__ __forceinline__ void mma_tile2(float (&acc_u)[4][4], float (&acc_g)[4][4],
-                                          const float* xs, const float* us, const float* gs) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll 8
-  for (int k = 0; k < BK; ++k) {
-    float a[4], b[4], c[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = xs[k * X_STRIDE + ty * 4 + i];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      b[j] = us[k * BN + tx + 16 * j];
-      c[j] = gs[k * BN + tx + 16 * j];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        acc_u[i][j] = fmaf(a[i], b[j], acc_u[i][j]);
-        acc_g[i][j] = fmaf(a[i], c[j], acc_g[i][j]);
-      }
-  }
-}
-
-constexpr int smem_bytes(int n_weights) { return 4 * (2 * X_TILE + 2 * n_weights * W_TILE); }
-
-// Phase 1: h[e, r, c] = act(x[e] @ w_g[e], x[e] @ w_u[e]) for one 64 x 64 tile.
-// Double-buffered: the next tile's global loads are in flight while the
-// current one is multiplied.
-template <typename TX, typename TW, int ACT>
-__global__ void __launch_bounds__(NT)
-up_kernel(const TX* __restrict__ xe, const TW* __restrict__ wg,
-          const TW* __restrict__ wu, float* __restrict__ h, int C, int d, int m) {
-  constexpr bool gated = ACT == ACT_SWIGLU;
-  extern __shared__ float smem[];
-  float* xs = smem;                        // [2][BK][X_STRIDE]
-  float* us = smem + 2 * X_TILE;           // [2][BK][BN]
-  float* gs = us + 2 * W_TILE;             // [2][BK][BN], swiglu only
-  const int e = blockIdx.z;
-  const int c0 = blockIdx.x * BN, r0 = blockIdx.y * BM;
-  const TX* x = xe + (size_t)e * C * d;
-  const TW* u = wu + (size_t)e * d * m;
-  const TW* g = gated ? wg + (size_t)e * d * m : nullptr;
-
-  typename Elem<TX>::raw xr[X_PER_THREAD];
-  typename Elem<TW>::raw ur[W_PER_THREAD], gr[W_PER_THREAD];
-  fetch_x<TX>(xr, x, r0, 0, C, d);
-  fetch_w<TW>(ur, u, 0, c0, d, m);
-  if constexpr (gated) fetch_w<TW>(gr, g, 0, c0, d, m);
-  store_x<TX>(xs, xr);
-  store_w<TW>(us, ur);
-  if constexpr (gated) store_w<TW>(gs, gr);
-  __syncthreads();
-
-  float acc_u[4][4] = {}, acc_g[4][4] = {};
-  for (int k0 = 0, buf = 0; k0 < d; k0 += BK, buf ^= 1) {
-    const bool more = k0 + BK < d;
-    if (more) {
-      fetch_x<TX>(xr, x, r0, k0 + BK, C, d);
-      fetch_w<TW>(ur, u, k0 + BK, c0, d, m);
-      if constexpr (gated) fetch_w<TW>(gr, g, k0 + BK, c0, d, m);
-    }
-    if constexpr (gated)
-      mma_tile2(acc_u, acc_g, xs + buf * X_TILE, us + buf * W_TILE, gs + buf * W_TILE);
-    else
-      mma_tile(acc_u, xs + buf * X_TILE, us + buf * W_TILE);
-    if (more) {
-      store_x<TX>(xs + (buf ^ 1) * X_TILE, xr);
-      store_w<TW>(us + (buf ^ 1) * W_TILE, ur);
-      if constexpr (gated) store_w<TW>(gs + (buf ^ 1) * W_TILE, gr);
-    }
-    __syncthreads();
-  }
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + ty * 4 + i;
-    if (r >= C) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = c0 + tx + 16 * j;
-      if (c >= m) continue;
-      float v = activate<ACT>(acc_g[i][j], acc_u[i][j]);
-      // the Pallas body casts h to w_d's dtype before the down GEMM
-      if (std::is_same<TW, __nv_bfloat16>::value) v = __bfloat162float(__float2bfloat16_rn(v));
-      h[((size_t)e * C + r) * m + c] = v;
-    }
-  }
-}
-
-// Phase 2: out[e, r, c] = h[e] @ w_d[e] for one 64 x 64 tile, double-buffered.
-template <typename TW>
-__global__ void __launch_bounds__(NT)
-down_kernel(const float* __restrict__ h, const TW* __restrict__ wd, float* __restrict__ out,
-            int C, int d, int m) {
-  extern __shared__ float smem[];
-  float* hs = smem;                        // [2][BK][X_STRIDE]
-  float* ws = smem + 2 * X_TILE;           // [2][BK][BN]
-  const int e = blockIdx.z;
-  const int c0 = blockIdx.x * BN, r0 = blockIdx.y * BM;
-  const float* hx = h + (size_t)e * C * m;
-  const TW* w = wd + (size_t)e * m * d;
-
-  float hr[X_PER_THREAD];
-  typename Elem<TW>::raw wr[W_PER_THREAD];
-  fetch_x<float>(hr, hx, r0, 0, C, m);
-  fetch_w<TW>(wr, w, 0, c0, m, d);
-  store_x<float>(hs, hr);
-  store_w<TW>(ws, wr);
-  __syncthreads();
-
-  float acc[4][4] = {};
-  for (int k0 = 0, buf = 0; k0 < m; k0 += BK, buf ^= 1) {
-    const bool more = k0 + BK < m;
-    if (more) {
-      fetch_x<float>(hr, hx, r0, k0 + BK, C, m);
-      fetch_w<TW>(wr, w, k0 + BK, c0, m, d);
-    }
-    mma_tile(acc, hs + buf * X_TILE, ws + buf * W_TILE);
-    if (more) {
-      store_x<float>(hs + (buf ^ 1) * X_TILE, hr);
-      store_w<TW>(ws + (buf ^ 1) * W_TILE, wr);
-    }
-    __syncthreads();
-  }
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + ty * 4 + i;
-    if (r >= C) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = c0 + tx + 16 * j;
-      if (c < d) out[((size_t)e * C + r) * d + c] = acc[i][j];
-    }
-  }
 }
 
 // ------------------------------------------ bf16 x bf16: wgmma + TMA
@@ -367,26 +159,7 @@ void launch_dyn(Kernel kernel, int bytes, dim3 grid, int threads, cudaStream_t s
   kernel<<<grid, threads, bytes, s>>>(args...);
 }
 
-// The same as a programmatic dependent launch: the kernel may start while
-// the stream's previous kernel runs, and waits for it (griddepcontrol.wait)
-// before it reads that kernel's output.
-template <typename Kernel, typename... Args>
-void launch_dependent(Kernel kernel, int bytes, dim3 grid, int threads, cudaStream_t s,
-                      Args... args) {
-  if (bytes > 48 * 1024)
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = bytes;
-  cfg.stream = s;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  cudaLaunchKernelEx(&cfg, kernel, args...);
-}
+using hop::launch_dependent;
 
 // One kernel's compiled resources, as the planner reads them: registers a
 // thread, local (spill) bytes a thread, static and dynamic shared bytes a
@@ -1199,43 +972,662 @@ int launch_q(int w_dtype, const void* xe, const void* wg, const void* wu, const 
                                                   act, s);
 }
 
-// ------------------------------------------------------ the CUDA-core path
+// ------------------------- fp32 operands: split TF32 on wgmma + TMA
 //
-// One setting (index 0): 64 x 64 blocks of 256 threads, 4 x 4 outputs each,
-// 32-deep double-buffered steps.
+// fp32 weights (with fp32 or bf16 activations), and the down product of
+// bf16 weights with fp32 activations (phase 1 of those is the CUDA-core
+// simt::up_kernel below).  The reference holds them to fp32 accuracy, so
+// each product runs in split TF32 (hopper.cuh): an fp32 operand is two
+// TF32 parts, hi + lo, and a product three wgmma.m64nNk8.tf32 terms; an
+// operand exact in TF32 (bf16 x, bf16 w_d, h rounded to bf16 for bf16
+// w_d) has one part, so its products take two terms, or one.
+//
+// The products are transposed as on the 8-bit path, for the same reason:
+// TF32 wgmma has no transposed shared-memory operand (both must be K-major),
+// and the weights are stored N-major, while x and h are rows of K.  So the
+// weights are the A operand, from registers: a thread reads its fragment
+// straight from the TMA-landed tile (an 8-byte load of two weight columns
+// at k-rows t and t + 4 of a k8 step) and splits it in registers; the
+// activations are the B operand, K-major tiles of C-tile rows.  Staging
+// the weights transposed instead would pass the whole weight stream
+// through a shared-memory pass.  x and h reach the tensor cores already
+// split: fp32 x is its own hi plane (the tensor cores read its top 19 bits,
+// x truncated to TF32) and a small kernel writes its lo plane, x - hi
+// rounded to TF32 (bf16 x: one fp32 plane) before phase 1; phase 1 writes
+// h as its planes (simt::up_kernel, for bf16 weights, one plane rounded to
+// bf16).  So each value
+// is split once, not once for every block of weight columns that reads it,
+// and TMA lands the planes where wgmma reads them.  N is the C tile (C
+// rounded up to 16, at most 64).  The tensor cores' sums truncate: summed
+// there alone, a K = 4096 product drifts past 1e-5 of the output (the
+// emulation of tests/test_torch_tf32_split.py), so each T_PROMOTE k8
+// steps' terms go into a partial that is then added, rounded to nearest,
+// into the thread's fp32 sum (within 1e-6 there).  Rows of d and m
+// must be 16 bytes (TMA's row strides): multiples of 4 with fp32 weights,
+// 8 with bf16 ones (w_d's rows).
 
-template <typename TX, typename TW>
-void launch_typed(const void* xe, const void* wg, const void* wu, const void* wd, float* h,
-                  float* out, int E, int C, int d, int m, int act, cudaStream_t stream) {
-  const dim3 g_up((m + BN - 1) / BN, (C + BM - 1) / BM, E);
-  const dim3 g_down((d + BN - 1) / BN, (C + BM - 1) / BM, E);
-  const TX* x = static_cast<const TX*>(xe);
-  const TW* g = static_cast<const TW*>(wg);
-  const TW* u = static_cast<const TW*>(wu);
-  switch (act) {
-    case ACT_SWIGLU:
-      launch_dyn(up_kernel<TX, TW, ACT_SWIGLU>, smem_bytes(2), g_up, NT, stream, x, g, u, h, C,
-                 d, m);
-      break;
-    case ACT_RELU2:
-      launch_dyn(up_kernel<TX, TW, ACT_RELU2>, smem_bytes(1), g_up, NT, stream, x, g, u, h, C, d,
-                 m);
-      break;
-    default:
-      launch_dyn(up_kernel<TX, TW, ACT_GELU>, smem_bytes(1), g_up, NT, stream, x, g, u, h, C, d,
-                 m);
-      break;
-  }
-  launch_dyn(down_kernel<TW>, smem_bytes(1), g_down, NT, stream, static_cast<const float*>(h),
-             static_cast<const TW*>(wd), out, C, d, m);
+// Columns a consumer warpgroup owns (one m64 product a weight matrix).
+constexpr int T_WG_COLS = 64;
+// k8 steps (64 k-rows) a tensor-core partial runs before it is added into
+// the fp32 sum.  A fixed chunk (every setting's stage is one), so every
+// setting gives the same bits.
+constexpr int T_PROMOTE = 8;
+
+// The settings of the split-TF32 path, one per row, as Q_SETTINGS: for
+// phase 1 (up) and then phase 2 (down), the consumer warpgroups of a block
+// (64 weight columns each), the k-rows a stage and the ring depth.  Row i
+// is setting i of streamed_moe_forward's `tiles`; TILE_SETTINGS["tf32"] in
+// the wrapper holds the same rows in the same order.  Row 0 is the
+// default.  A stage is one promotion chunk, 64 k-rows: the chunk's first
+// and last steps are then known when the kernel is compiled (a stage of
+// 32 k-rows made them runtime conditions, the scale-d predicate a value
+// computed inside the wgmma pipeline, and ptxas serialized the wgmmas:
+// C7513).  Every setting sums each output's k8 steps in ascending k into
+// T_PROMOTE-step chunks, so all give the same bits.  With bf16 weights the
+// up columns go unused: their phase 1 is simt::up_kernel's one tile.
+#define T_SETTINGS(X)     \
+  X(2, 64, 2, 4, 64, 2)   \
+  X(2, 64, 2, 2, 64, 3)
+
+// A stage holds PARTS fp32 activation planes' tiles (N rows of BK, as BK /
+// 32 boxes of N x 32, 128-byte swizzled) and NMAT weight tiles (BK rows of
+// BN columns, as BN / 32 boxes of BK rows x 32 columns, swizzled over
+// their 128 bytes (fp32) or 64 (bf16)), each box 1024-byte aligned; the
+// stages' full and empty barriers follow the ring.
+template <int NWG_, int BK_, int STAGES_, int N_, int PARTS_, int NMAT_, typename TW_>
+struct TShape {
+  static constexpr int NWG = NWG_, BK = BK_, STAGES = STAGES_, N = N_, PARTS = PARTS_,
+                       NMAT = NMAT_;
+  using TW = TW_;
+  static constexpr bool WSPLIT = std::is_same<TW, float>::value;   // weights as hi + lo
+  static constexpr int BN = T_WG_COLS * NWG;
+  static constexpr int NT = 128 * NWG;
+  static constexpr int WROW = 32 * static_cast<int>(sizeof(TW));   // bytes of a box row
+  static constexpr int WBOX = BK * WROW;
+  static constexpr int B_BYTES = PARTS * (BK / 32) * N * 128;
+  static constexpr int W_BYTES = (BN / 32) * WBOX;
+  static constexpr int STAGE = B_BYTES + NMAT * W_BYTES;
+  static constexpr int BARS = STAGES * STAGE;
+  static constexpr int SMEM = BARS + 16 * STAGES + 1024;   // + alignment
+  static_assert((NWG == 1 || NWG == 2 || NWG == 4) && BK == 8 * T_PROMOTE && STAGES >= 2 &&
+                    N % 16 == 0 && N <= 64 && (PARTS == 1 || PARTS == 2) &&
+                    (WSPLIT || std::is_same<TW, bf16>::value),
+                "bad split-TF32 tile setting");
+  static_assert(SMEM <= 232448, "a split-TF32 setting over the card's shared memory");
+};
+
+// k-step kt into stage s: each activation plane's tile at (k0, rows n0) of
+// expert e through that plane's map, and each weight's BK x BN tile at
+// (columns c0, k0) of expert e.  Rows, columns and k past the tensors
+// arrive as zeros.
+template <class S>
+__device__ __forceinline__ void t_load_a(unsigned char* smem, uint64_t* full, int kt, int s,
+                                         const CUtensorMap* const (&amap)[2], int n0, int e) {
+  unsigned char* st = smem + s * S::STAGE;
+  for (int p = 0; p < S::PARTS; ++p)
+    for (int kb = 0; kb < S::BK / 32; ++kb)
+      hop::tma_load_3d(st + (p * (S::BK / 32) + kb) * S::N * 128, amap[p], &full[s],
+                       kt * S::BK + 32 * kb, n0, e);
+}
+template <class S>
+__device__ __forceinline__ void t_load_w(unsigned char* smem, uint64_t* full, int kt, int s,
+                                         const CUtensorMap* const (&wmap)[S::NMAT], int c0,
+                                         int e) {
+  unsigned char* st = smem + s * S::STAGE + S::B_BYTES;
+  for (int mat = 0; mat < S::NMAT; ++mat)
+    for (int sb = 0; sb < S::BN / 32; ++sb)
+      hop::tma_load_3d(st + mat * S::W_BYTES + sb * S::WBOX, wmap[mat], &full[s], c0 + 32 * sb,
+                       kt * S::BK, e);
 }
 
-template <typename TX, typename TW>
-void simt_attrs(int* out) {
-  kernel_attrs(up_kernel<TX, TW, ACT_SWIGLU>, smem_bytes(2), NT, out);
-  kernel_attrs(up_kernel<TX, TW, ACT_RELU2>, smem_bytes(1), NT, out + ATTR_FIELDS);
-  kernel_attrs(up_kernel<TX, TW, ACT_GELU>, smem_bytes(1), NT, out + 2 * ATTR_FIELDS);
-  kernel_attrs(down_kernel<TW>, smem_bytes(1), NT, out + 3 * ATTR_FIELDS);
+// The weight columns (col, col + 1) of its warpgroup's 64 that rows g and
+// g + 8 of warp w's m64 product stand for (the epilogue writes the columns
+// the rows stand for, so the choice is free): a warp owns 16 columns of one
+// 32-column box, in the 16-byte chunks whose swizzled positions keep a
+// half-warp's 8-byte loads of k-rows t (or t + 4), t < 4, on 32 distinct
+// banks.
+__device__ __forceinline__ int t_col(int warp, int g) {
+  const int chunk = 4 * ((g >> 1) & 1) + (g >> 2) + 2 * (warp & 1);
+  return 32 * (warp >> 1) + 4 * chunk + 2 * (g & 1);
+}
+
+// Two weights, columns c and c + 1 at k-row r of a swizzled box, as fp32.
+template <typename TW>
+__device__ __forceinline__ float2 t_pair(const unsigned char* box, int r, int c) {
+  if constexpr (std::is_same<TW, float>::value) {
+    return *reinterpret_cast<const float2*>(box + q_swz<128>(r, 4 * c));
+  } else {
+    const uint32_t v = *reinterpret_cast<const uint32_t*>(box + q_swz<64>(r, 2 * c));
+    return make_float2(__uint_as_float(v << 16), __uint_as_float(v & 0xffff0000u));
+  }
+}
+
+// The block's mainloop: acc[mat] = the fp32 sums of its warpgroup's 64
+// weight columns of matrix mat (A rows) against the N activation rows (B
+// rows) over K in ascending k: each k8 step the split-TF32 terms of every
+// matrix (one commit group) into the partial `part`, which every
+// T_PROMOTE steps (each stage's last) is added into acc.  Thread 0 keeps
+// the ring filled as q_mainloop's does.  The D register d[4j + 2 half + q]
+// of matrix mat holds weight column t_col(w, g) + half of the warpgroup's
+// 64, activation row 8 j + 2 t + q.
+template <class S, bool DEPENDENT>
+__device__ __forceinline__ void t_mainloop(float (&acc)[S::NMAT][S::N / 2], unsigned char* smem,
+                                           uint64_t* full, int K,
+                                           const CUtensorMap* const (&amap)[2],
+                                           const CUtensorMap* const (&wmap)[S::NMAT], int n0,
+                                           int c0, int e) {
+  uint64_t* empty = full + S::STAGES;
+  const int nk = (K + S::BK - 1) / S::BK;
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  if (threadIdx.x == 0) {
+    // the first stages' weights first: under a dependent launch they stream
+    // while the grid this one waits on finishes
+    for (int kt = 0; kt < S::STAGES && kt < nk; ++kt) {
+      hop::mbar_expect_tx(&full[kt], S::STAGE);
+      t_load_w<S>(smem, full, kt, kt, wmap, c0, e);
+    }
+    if constexpr (DEPENDENT) hop::grid_dependency_wait();
+    for (int kt = 0; kt < S::STAGES && kt < nk; ++kt)
+      t_load_a<S>(smem, full, kt, kt, amap, n0, e);
+  }
+  // this thread's weight columns: their box (two a warpgroup) and column in it
+  const int cl = t_col(warp, g);
+  const int box = (2 * wg + cl / 32) * S::WBOX, cc = cl % 32;
+  float part[S::NMAT][S::N / 2];
+  uint32_t fh[2][S::NMAT][4], fl[2][S::NMAT][4];
+#pragma unroll
+  for (int mat = 0; mat < S::NMAT; ++mat)
+#pragma unroll
+    for (int i = 0; i < S::N / 2; ++i) acc[mat][i] = part[mat][i] = 0.0f;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % S::STAGES;
+    hop::mbar_wait(&full[s], (kt / S::STAGES) & 1);
+    unsigned char* st = smem + s * S::STAGE;
+#pragma unroll
+    for (int kk = 0; kk < S::BK / 8; ++kk) {
+      uint32_t(&h)[S::NMAT][4] = fh[kk % 2];
+      uint32_t(&l)[S::NMAT][4] = fl[kk % 2];
+#pragma unroll
+      for (int mat = 0; mat < S::NMAT; ++mat) {
+        // A[col][k] = w[k][col]: a[0] = (col, t), a[1] = (col + 1, t), a[2]
+        // = (col, t + 4), a[3] = (col + 1, t + 4)
+        const unsigned char* w = st + S::B_BYTES + mat * S::W_BYTES + box;
+        const float2 v0 = t_pair<typename S::TW>(w, 8 * kk + t, cc);
+        const float2 v1 = t_pair<typename S::TW>(w, 8 * kk + t + 4, cc);
+        const float v[4] = {v0.x, v0.y, v1.x, v1.y};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if constexpr (S::WSPLIT) hop::split(v[i], h[mat][i], l[mat][i]);
+          else h[mat][i] = __float_as_uint(v[i]);   // a bf16 value: exact in TF32
+        }
+        hop::fence_regs(h[mat]);
+        if constexpr (S::WSPLIT) hop::fence_regs(l[mat]);
+        hop::fence_regs(part[mat]);
+      }
+      hop::wg_fence();
+      const int fresh = kk == 0 ? 0 : 1;   // the chunk's (the stage's) first step sets it
+      const unsigned char* b = st + (kk / 4) * S::N * 128 + (kk % 4) * 32;
+      const uint64_t b0 = hop::desc_sw128(b, 16, 1024);
+      const uint64_t b1 = hop::desc_sw128(b + (S::BK / 32) * S::N * 128, 16, 1024);
+#pragma unroll
+      for (int mat = 0; mat < S::NMAT; ++mat) {
+        hop::wgmma_rs_tf32<S::N>(part[mat], h[mat], b0, fresh);
+        if constexpr (S::PARTS == 2) hop::wgmma_rs_tf32<S::N>(part[mat], h[mat], b1, 1);
+        if constexpr (S::WSPLIT) hop::wgmma_rs_tf32<S::N>(part[mat], l[mat], b0, 1);
+      }
+      hop::wg_commit();
+#pragma unroll
+      for (int mat = 0; mat < S::NMAT; ++mat) hop::fence_regs(part[mat]);
+      if (kk == S::BK / 8 - 1) {   // the chunk's last step (k past K adds zeros)
+        hop::wg_wait<0>();
+#pragma unroll
+        for (int mat = 0; mat < S::NMAT; ++mat) {
+          hop::fence_regs(part[mat]);
+#pragma unroll
+          for (int i = 0; i < S::N / 2; ++i) acc[mat][i] += part[mat][i];
+        }
+      } else {
+        hop::wg_wait<1>();   // the other fragment's products are done
+      }
+      if (kk == 0 && kt > 0) {
+        // the previous stage's products are done: release it, and thread 0
+        // refills it once every warp has
+        const int ps = (kt - 1) % S::STAGES;
+        __syncwarp();
+        if (lane == 0) hop::mbar_arrive(&empty[ps]);
+        if (threadIdx.x == 0 && kt - 1 + S::STAGES < nk) {
+          hop::mbar_wait(&empty[ps], ((kt - 1) / S::STAGES) & 1);
+          hop::mbar_expect_tx(&full[ps], S::STAGE);
+          t_load_a<S>(smem, full, kt - 1 + S::STAGES, ps, amap, n0, e);
+          t_load_w<S>(smem, full, kt - 1 + S::STAGES, ps, wmap, c0, e);
+        }
+      }
+    }
+  }
+}
+
+// Phase 1 of fp32 weights: h = act(x w_g, x w_u) in fp32, written as its
+// hi and lo TF32 planes (2, E, C, m).  x is its planes (PARTS, E, C, d).
+// ACT is swiglu, or -1 for relu2 / gelu by `act` (one kernel for both).
+template <class S, int ACT>
+__global__ void __launch_bounds__(S::NT)
+up_kernel_t(const __grid_constant__ CUtensorMap xmap0, const __grid_constant__ CUtensorMap xmap1,
+            const __grid_constant__ CUtensorMap umap, const __grid_constant__ CUtensorMap gmap,
+            float* __restrict__ h, int E, int C, int d, int m, int act) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = ring_barriers(smem, S::BARS, S::STAGES, S::NWG);
+  const int e = blockIdx.z, c0 = blockIdx.x * S::BN, n0 = blockIdx.y * S::N;
+  const CUtensorMap* w[S::NMAT];
+  w[0] = &umap;
+  if constexpr (S::NMAT == 2) w[1] = &gmap;
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int c = c0 + T_WG_COLS * wg + t_col(warp, lane / 4);
+  float acc[S::NMAT][S::N / 2];
+  // phase 2 may launch (and stream its first weights) once every block of
+  // this grid has started
+  hop::launch_dependents();
+  const CUtensorMap* x[2] = {&xmap0, &xmap1};
+  t_mainloop<S, true>(acc, smem, full, d, x, w, n0, c0, e);
+  if (c >= m) return;
+  // every activation first, then the stores (an activation's expf and
+  // division chains overlap one another so)
+  float v[S::N / 8][2][2];
+#pragma unroll
+  for (int j = 0; j < S::N / 8; ++j)
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const float u = acc[0][4 * j + 2 * half + q];
+        if constexpr (ACT == ACT_SWIGLU)
+          v[j][q][half] = activate<ACT_SWIGLU>(acc[1][4 * j + 2 * half + q], u);
+        else
+          v[j][q][half] =
+              act == ACT_RELU2 ? activate<ACT_RELU2>(0.0f, u) : activate<ACT_GELU>(0.0f, u);
+      }
+  const size_t plane = (size_t)E * C * m;
+#pragma unroll
+  for (int j = 0; j < S::N / 8; ++j)
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int n = n0 + 8 * j + 2 * (lane % 4) + q;
+      if (n >= C) continue;
+      float* hr = h + ((size_t)e * C + n) * m + c;
+      uint32_t hi0, lo0, hi1, lo1;
+      hop::split(v[j][q][0], hi0, lo0);
+      hop::split(v[j][q][1], hi1, lo1);
+      *reinterpret_cast<float2*>(hr) = make_float2(__uint_as_float(hi0), __uint_as_float(hi1));
+      *reinterpret_cast<float2*>(hr + plane) =
+          make_float2(__uint_as_float(lo0), __uint_as_float(lo1));
+    }
+}
+
+// Phase 2: out = h w_d, h as its planes.
+template <class S>
+__global__ void __launch_bounds__(S::NT)
+down_kernel_t(const __grid_constant__ CUtensorMap hmap0, const __grid_constant__ CUtensorMap hmap1,
+              const __grid_constant__ CUtensorMap dmap, float* __restrict__ out, int E, int C,
+              int d, int m) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = ring_barriers(smem, S::BARS, S::STAGES, S::NWG);
+  const int e = blockIdx.z, c0 = blockIdx.x * S::BN, n0 = blockIdx.y * S::N;
+  const CUtensorMap* w[1] = {&dmap};
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int c = c0 + T_WG_COLS * wg + t_col(warp, lane / 4);
+  float acc[1][S::N / 2];
+  const CUtensorMap* hp[2] = {&hmap0, &hmap1};
+  t_mainloop<S, true>(acc, smem, full, m, hp, w, n0, c0, e);
+  if (c >= d) return;
+#pragma unroll
+  for (int j = 0; j < S::N / 8; ++j)
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int n = n0 + 8 * j + 2 * (lane % 4) + q;
+      if (n < C)
+        *reinterpret_cast<float2*>(out + ((size_t)e * C + n) * d + c) =
+            make_float2(acc[0][4 * j + q], acc[0][4 * j + 2 + q]);
+    }
+}
+
+// Phase 1 of bf16 weights with fp32 x, on CUDA cores: each thread sums
+// 4 x 4 outputs as fp32 FMAs in ascending k (see the header), h rounded
+// to bf16 into one fp32 plane (E, C, m) for down_kernel_t.  A block takes
+// a 64 x 64 tile of h; each step's global loads for the next BK k-rows are
+// issued into registers before the current ones are multiplied (two
+// shared-memory buffers, one barrier a step).
+namespace simt {
+
+constexpr int BM = 64;    // rows (capacity slots) a block
+constexpr int BN = 64;    // h columns a block
+constexpr int BK = 32;    // contraction rows a shared-memory step
+constexpr int NT = 256;   // threads a block: 16 x 16, 4 x 4 outputs each
+// Thread t always loads the same tile column (weights: t % BN) or the same
+// contraction index (x: t % BK).
+constexpr int W_PER_THREAD = BK * BN / NT;   // weight rows t / BN + 4 j
+constexpr int X_PER_THREAD = BM * BK / NT;   // x rows t / BK + 8 j
+constexpr int X_STRIDE = BM + 4;             // transposed tile row (16-byte aligned)
+constexpr int X_TILE = BK * X_STRIDE;        // floats an x buffer
+constexpr int W_TILE = BK * BN;              // floats a weight buffer
+
+constexpr int smem_bytes(int n_weights) { return 4 * (2 * X_TILE + 2 * n_weights * W_TILE); }
+
+// The global loads of a BK x BN tile of bf16 weights (K, N) into registers,
+// raw, so they stay in flight while the previous tile is multiplied.
+__device__ __forceinline__ void fetch_w(unsigned short (&reg)[W_PER_THREAD], const bf16* w,
+                                        int k0, int c0, int K, int N) {
+  const auto* wr = reinterpret_cast<const unsigned short*>(w);
+  const int gc = c0 + threadIdx.x % BN;
+#pragma unroll
+  for (int j = 0; j < W_PER_THREAD; ++j) {
+    const int gk = k0 + threadIdx.x / BN + j * (NT / BN);
+    reg[j] = (gk < K && gc < N) ? wr[(size_t)gk * N + gc] : 0;
+  }
+}
+
+// The fetched weight tile widened to fp32 (exactly) into shared memory.
+__device__ __forceinline__ void store_w(float* dst, const unsigned short (&reg)[W_PER_THREAD]) {
+#pragma unroll
+  for (int j = 0; j < W_PER_THREAD; ++j)
+    dst[(threadIdx.x / BN + j * (NT / BN)) * BN + threadIdx.x % BN] =
+        __uint_as_float(static_cast<unsigned>(reg[j]) << 16);
+}
+
+// The global loads of a BM x BK tile of a row-major fp32 (R, K).
+__device__ __forceinline__ void fetch_x(float (&reg)[X_PER_THREAD], const float* x, int r0,
+                                        int k0, int R, int K) {
+  const int gk = k0 + threadIdx.x % BK;
+#pragma unroll
+  for (int j = 0; j < X_PER_THREAD; ++j) {
+    const int gr = r0 + threadIdx.x / BK + j * (NT / BK);
+    reg[j] = (gr < R && gk < K) ? x[(size_t)gr * K + gk] : 0.0f;
+  }
+}
+
+// The x tile stored transposed, dst[k][row], so a thread reads its four
+// rows as one contiguous run.
+__device__ __forceinline__ void store_x(float* dst, const float (&reg)[X_PER_THREAD]) {
+#pragma unroll
+  for (int j = 0; j < X_PER_THREAD; ++j)
+    dst[(threadIdx.x % BK) * X_STRIDE + threadIdx.x / BK + j * (NT / BK)] = reg[j];
+}
+
+// acc[mat][i][j] += x[row i][k] * w_mat[k][col j] over one shared-memory
+// tile, k ascending (one read of x a k for every weight matrix).
+template <int NMAT>
+__device__ __forceinline__ void mma_tile(float (&acc)[NMAT][4][4], const float* xs,
+                                         const float* ws) {
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll 8
+  for (int k = 0; k < BK; ++k) {
+    float a[4], b[NMAT][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = xs[k * X_STRIDE + ty * 4 + i];
+#pragma unroll
+    for (int mat = 0; mat < NMAT; ++mat)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[mat][j] = ws[mat * 2 * W_TILE + k * BN + tx + 16 * j];
+#pragma unroll
+    for (int mat = 0; mat < NMAT; ++mat)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[mat][i][j] = fmaf(a[i], b[mat][j], acc[mat][i][j]);
+  }
+}
+
+// h[e, r, c] = bf16(act(x[e] w_g[e], x[e] w_u[e])) for one 64 x 64 tile.
+// ACT is swiglu, or -1 for relu2 / gelu by `act`.  Shared memory: x's two
+// buffers, then each weight matrix's two (u, then g).
+template <int ACT>
+__global__ void __launch_bounds__(NT)
+up_kernel(const float* __restrict__ xe, const bf16* __restrict__ wg, const bf16* __restrict__ wu,
+          float* __restrict__ h, int C, int d, int m, int act) {
+  constexpr int NMAT = ACT == ACT_SWIGLU ? 2 : 1;
+  extern __shared__ float smem[];
+  float* xs = smem;                     // [2][BK][X_STRIDE]
+  float* ws = smem + 2 * X_TILE;        // [NMAT][2][BK][BN]
+  const int e = blockIdx.z;
+  const int c0 = blockIdx.x * BN, r0 = blockIdx.y * BM;
+  const float* x = xe + (size_t)e * C * d;
+  const bf16* w[2] = {wu + (size_t)e * d * m, NMAT == 2 ? wg + (size_t)e * d * m : nullptr};
+
+  float xr[X_PER_THREAD];
+  unsigned short wr[NMAT][W_PER_THREAD];
+  fetch_x(xr, x, r0, 0, C, d);
+#pragma unroll
+  for (int mat = 0; mat < NMAT; ++mat) fetch_w(wr[mat], w[mat], 0, c0, d, m);
+  store_x(xs, xr);
+#pragma unroll
+  for (int mat = 0; mat < NMAT; ++mat) store_w(ws + mat * 2 * W_TILE, wr[mat]);
+  __syncthreads();
+
+  float acc[NMAT][4][4] = {};
+  for (int k0 = 0, buf = 0; k0 < d; k0 += BK, buf ^= 1) {
+    const bool more = k0 + BK < d;
+    if (more) {
+      fetch_x(xr, x, r0, k0 + BK, C, d);
+#pragma unroll
+      for (int mat = 0; mat < NMAT; ++mat) fetch_w(wr[mat], w[mat], k0 + BK, c0, d, m);
+    }
+    mma_tile<NMAT>(acc, xs + buf * X_TILE, ws + buf * W_TILE);
+    if (more) {
+      store_x(xs + (buf ^ 1) * X_TILE, xr);
+#pragma unroll
+      for (int mat = 0; mat < NMAT; ++mat)
+        store_w(ws + mat * 2 * W_TILE + (buf ^ 1) * W_TILE, wr[mat]);
+    }
+    __syncthreads();
+  }
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + ty * 4 + i;
+    if (r >= C) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = c0 + tx + 16 * j;
+      if (c >= m) continue;
+      const float u = acc[0][i][j];
+      float v;
+      if constexpr (ACT == ACT_SWIGLU)
+        v = activate<ACT_SWIGLU>(acc[NMAT - 1][i][j], u);
+      else
+        v = act == ACT_RELU2 ? activate<ACT_RELU2>(0.0f, u) : activate<ACT_GELU>(0.0f, u);
+      // the Pallas body casts h to w_d's dtype before the down GEMM
+      h[((size_t)e * C + r) * m + c] = __bfloat162float(__float2bfloat16_rn(v));
+    }
+  }
+}
+
+}  // namespace simt
+
+// x (n values, n a multiple of 4) -> its second plane: fp32 x's lo part
+// (hop::tf32_lo: x itself is the hi plane, which the tensor cores read
+// truncated), bf16 x as one fp32 plane (exact).  Phase 1, a dependent
+// launch, may start (and stream its first weights) once every block here
+// has started.
+template <typename TX>
+__global__ void tf32_planes_kernel(const TX* __restrict__ x, float* __restrict__ planes,
+                                   size_t n) {
+  hop::launch_dependents();
+  const size_t i = 4 * ((size_t)blockIdx.x * blockDim.x + threadIdx.x);
+  if (i >= n) return;
+  if constexpr (std::is_same<TX, float>::value) {
+    const float4 v = *reinterpret_cast<const float4*>(x + i);
+    *reinterpret_cast<uint4*>(planes + i) =
+        make_uint4(hop::tf32_lo(v.x), hop::tf32_lo(v.y), hop::tf32_lo(v.z), hop::tf32_lo(v.w));
+  } else {
+    const uint2 v = *reinterpret_cast<const uint2*>(x + i);
+    *reinterpret_cast<float4*>(planes + i) =
+        make_float4(__uint_as_float(v.x << 16), __uint_as_float(v.x & 0xffff0000u),
+                    __uint_as_float(v.y << 16), __uint_as_float(v.y & 0xffff0000u));
+  }
+}
+
+// The tensor map of fp32 planes (slots, R, K): boxes of `rows` rows x 32
+// columns of one slot, 128-byte swizzled.
+int t_act_map(CUtensorMap* map, const float* base, int slots, int R, int K, int rows) {
+  const uint64_t dims[3] = {(uint64_t)K, (uint64_t)R, (uint64_t)slots};
+  const uint64_t strides[2] = {(uint64_t)K * 4, (uint64_t)R * K * 4};
+  const uint32_t box[3] = {32, (uint32_t)rows, 1};
+  return hop::encode_f32_map(map, base, 3, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// The tensor map of an fp32 or bf16 (E, K, N) weight tensor: boxes of bk
+// rows x 32 columns of one expert, swizzled over the box's row (128 or 64
+// bytes).
+template <typename TW>
+int t_weight_map(CUtensorMap* map, const void* base, int E, int K, int N, int bk) {
+  constexpr bool F32 = std::is_same<TW, float>::value;
+  const uint64_t dims[3] = {(uint64_t)N, (uint64_t)K, (uint64_t)E};
+  const uint64_t strides[2] = {(uint64_t)N * sizeof(TW), (uint64_t)K * N * sizeof(TW)};
+  const uint32_t box[3] = {32, (uint32_t)bk, 1};
+  return hop::encode_map(map, F32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                         base, 3, dims, strides, box,
+                         F32 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B);
+}
+
+// Phase 1's kernel shape of a setting, C tile, x planes and activation
+// (ACT_SWIGLU, or -1 for relu2 and gelu); then phase 2's, whose activations
+// are h's planes: two for fp32 weights, one for bf16.
+template <class Cfg, int N, int XP, int ACT, typename TW>
+using TUp = TShape<Cfg::UP_WG, Cfg::UP_BK, Cfg::UP_STAGES, N, XP, ACT == ACT_SWIGLU ? 2 : 1, TW>;
+template <class Cfg, int N, typename TW>
+using TDown = TShape<Cfg::DN_WG, Cfg::DN_BK, Cfg::DN_STAGES, N,
+                     std::is_same<TW, float>::value ? 2 : 1, 1, TW>;
+
+// x0, x1: x's two planes (fp32 x itself, its lo plane), or bf16 x's one
+// fp32 plane (x1 unused).
+template <class Cfg, int N, int XP, typename TW>
+int launch_t_tile(const float* x0, const float* x1, const void* wg, const void* wu,
+                  const void* wd, float* h, float* out, int E, int C, int d, int m, int act,
+                  cudaStream_t s) {
+  using D = TDown<Cfg, N, TW>;
+  // the maps are encoded at every call: the operands' addresses change
+  CUtensorMap hm0, hm1, dm;
+  const float* h1 = h + (size_t)E * C * m;
+  if (t_act_map(&hm0, h, E, C, m, N) || t_act_map(&hm1, D::PARTS == 2 ? h1 : h, E, C, m, N) ||
+      t_weight_map<TW>(&dm, wd, E, m, d, Cfg::DN_BK))
+    return -1;
+  if constexpr (std::is_same<TW, bf16>::value) {   // fp32 x: phase 1 on CUDA cores
+    const dim3 g_up((m + simt::BN - 1) / simt::BN, (C + simt::BM - 1) / simt::BM, E);
+    const bf16* g = static_cast<const bf16*>(wg);
+    const bf16* u = static_cast<const bf16*>(wu);
+    if (act == ACT_SWIGLU)
+      launch_dyn(simt::up_kernel<ACT_SWIGLU>, simt::smem_bytes(2), g_up, simt::NT, s, x0, g, u,
+                 h, C, d, m, act);
+    else
+      launch_dyn(simt::up_kernel<-1>, simt::smem_bytes(1), g_up, simt::NT, s, x0, g, u, h, C, d,
+                 m, act);
+  } else {
+    using U = TUp<Cfg, N, XP, ACT_SWIGLU, TW>;
+    using V = TUp<Cfg, N, XP, -1, TW>;
+    CUtensorMap xm0, xm1, um, gm;
+    if (t_act_map(&xm0, x0, E, C, d, N) || t_act_map(&xm1, XP == 2 ? x1 : x0, E, C, d, N) ||
+        t_weight_map<TW>(&um, wu, E, d, m, Cfg::UP_BK) ||
+        t_weight_map<TW>(&gm, act == ACT_SWIGLU ? wg : wu, E, d, m, Cfg::UP_BK))
+      return -1;
+    const dim3 g_up((m + U::BN - 1) / U::BN, (C + N - 1) / N, E);
+    if (act == ACT_SWIGLU)
+      launch_dependent(up_kernel_t<U, ACT_SWIGLU>, U::SMEM, g_up, U::NT, s, xm0, xm1, um, gm, h,
+                       E, C, d, m, act);
+    else
+      launch_dependent(up_kernel_t<V, -1>, V::SMEM, g_up, V::NT, s, xm0, xm1, um, gm, h, E, C,
+                       d, m, act);
+  }
+  const dim3 g_down((d + D::BN - 1) / D::BN, (C + N - 1) / N, E);
+  launch_dependent(down_kernel_t<D>, D::SMEM, g_down, D::NT, s, hm0, hm1, dm, out, E, C, d, m);
+  return 0;
+}
+
+template <class Cfg, int XP, typename TW>
+int launch_t_typed(const float* x0, const float* x1, const void* wg, const void* wu,
+                   const void* wd, float* h, float* out, int E, int C, int d, int m, int act,
+                   cudaStream_t s) {
+  switch (q_tile(C, 1)) {
+    case 16:
+      return launch_t_tile<Cfg, 16, XP, TW>(x0, x1, wg, wu, wd, h, out, E, C, d, m, act, s);
+    case 32:
+      return launch_t_tile<Cfg, 32, XP, TW>(x0, x1, wg, wu, wd, h, out, E, C, d, m, act, s);
+    case 48:
+      return launch_t_tile<Cfg, 48, XP, TW>(x0, x1, wg, wu, wd, h, out, E, C, d, m, act, s);
+    default:
+      return launch_t_tile<Cfg, 64, XP, TW>(x0, x1, wg, wu, wd, h, out, E, C, d, m, act, s);
+  }
+}
+
+// Attributes of a setting's kernels at a C tile: up swiglu, up relu2, up
+// gelu (one kernel), down.
+template <class Cfg, int N, int XP, typename TW>
+void t_tile_attrs(int* out) {
+  using D = TDown<Cfg, N, TW>;
+  if constexpr (std::is_same<TW, bf16>::value) {
+    kernel_attrs(simt::up_kernel<ACT_SWIGLU>, simt::smem_bytes(2), simt::NT, out);
+    kernel_attrs(simt::up_kernel<-1>, simt::smem_bytes(1), simt::NT, out + ATTR_FIELDS);
+    kernel_attrs(simt::up_kernel<-1>, simt::smem_bytes(1), simt::NT, out + 2 * ATTR_FIELDS);
+  } else {
+    using U = TUp<Cfg, N, XP, ACT_SWIGLU, TW>;
+    using V = TUp<Cfg, N, XP, -1, TW>;
+    kernel_attrs(up_kernel_t<U, ACT_SWIGLU>, U::SMEM, U::NT, out);
+    kernel_attrs(up_kernel_t<V, -1>, V::SMEM, V::NT, out + ATTR_FIELDS);
+    kernel_attrs(up_kernel_t<V, -1>, V::SMEM, V::NT, out + 2 * ATTR_FIELDS);
+  }
+  kernel_attrs(down_kernel_t<D>, D::SMEM, D::NT, out + 3 * ATTR_FIELDS);
+}
+
+template <class Cfg, int XP, typename TW>
+void t_typed_attrs(int C, int* out) {
+  switch (q_tile(C, 1)) {
+    case 16: return t_tile_attrs<Cfg, 16, XP, TW>(out);
+    case 32: return t_tile_attrs<Cfg, 32, XP, TW>(out);
+    case 48: return t_tile_attrs<Cfg, 48, XP, TW>(out);
+    default: return t_tile_attrs<Cfg, 64, XP, TW>(out);
+  }
+}
+
+using TLaunch = int (*)(const float*, const float*, const void*, const void*, const void*, float*,
+                        float*, int, int, int, int, int, cudaStream_t);
+// [setting][x fp32][weights fp32]; bf16 x bf16 takes the bf16 path
+#define T_LAUNCH_ENTRY(...)                                                         \
+  {{nullptr, &launch_t_typed<QCfg<__VA_ARGS__>, 1, float>},                         \
+   {&launch_t_typed<QCfg<__VA_ARGS__>, 2, bf16>, &launch_t_typed<QCfg<__VA_ARGS__>, 2, float>}},
+#define T_ATTRS_ENTRY(...)                                                          \
+  {{nullptr, &t_typed_attrs<QCfg<__VA_ARGS__>, 1, float>},                          \
+   {&t_typed_attrs<QCfg<__VA_ARGS__>, 2, bf16>, &t_typed_attrs<QCfg<__VA_ARGS__>, 2, float>}},
+const TLaunch kTLaunch[][2][2] = {T_SETTINGS(T_LAUNCH_ENTRY)};
+const QAttrs kTAttrs[][2][2] = {T_SETTINGS(T_ATTRS_ENTRY)};
+constexpr int N_T = sizeof(kTLaunch) / sizeof(kTLaunch[0]);
+
+// fp32 weights, or bf16 weights with fp32 x: 16-byte weight rows (d and m
+// multiples of 4, or of 8 for bf16 weights), 16-byte aligned operands and a
+// setting of the table, or cudaErrorInvalidValue.  The scratch holds h's
+// planes (two, or one for bf16 weights), then, for fp32 weights, x's lo
+// plane (fp32 x, whose hi plane is x itself) or bf16 x as fp32.
+template <typename TX>
+int launch_t(int w_dtype, const void* xe, const void* wg, const void* wu, const void* wd,
+             void* h, float* out, int E, int C, int d, int m, int act, int tiles,
+             cudaStream_t s) {
+  constexpr int X_F32 = std::is_same<TX, float>::value ? 1 : 0;
+  const int w_f32 = w_dtype == DT_F32 ? 1 : 0;
+  const int row = w_f32 ? 4 : 8;
+  const uintptr_t bits = reinterpret_cast<uintptr_t>(xe) | reinterpret_cast<uintptr_t>(wg) |
+                         reinterpret_cast<uintptr_t>(wu) | reinterpret_cast<uintptr_t>(wd) |
+                         reinterpret_cast<uintptr_t>(h);
+  if (d % row != 0 || m % row != 0 || bits % 16 != 0 || tiles < 0 || tiles >= N_T ||
+      (!X_F32 && !w_f32))
+    return -1;
+  float* hp = static_cast<float*>(h);
+  float* xp = hp + (size_t)2 * E * C * m;
+  if (w_f32) {
+    const size_t n = (size_t)E * C * d;
+    tf32_planes_kernel<TX><<<(unsigned)((n / 4 + 255) / 256), 256, 0, s>>>(
+        static_cast<const TX*>(xe), xp, n);
+  }
+  const float* x0 = X_F32 ? static_cast<const float*>(xe) : xp;
+  return kTLaunch[tiles][X_F32][w_f32](x0, xp, wg, wu, wd, hp, out, E, C, d, m, act, s);
 }
 
 template <typename TX>
@@ -1243,20 +1635,14 @@ int launch_w(int w_dtype, const void* xe, const void* wg, const void* wu,
              const void* wd, const float* sg, const float* su, const float* sd,
              void* h, float* out, int E, int C, int d, int m, int act, int tiles,
              cudaStream_t s) {
-  float* hf = static_cast<float*>(h);
   constexpr bool X_BF16 = std::is_same<TX, bf16>::value;
   if (w_dtype == DT_I8 || w_dtype == DT_F8)
     return launch_q<TX>(w_dtype, xe, wg, wu, wd, sg, su, sd, h, out, E, C, d, m, act, tiles, s);
   if (w_dtype == DT_BF16 && X_BF16)
     return launch_tc(xe, wg, wu, wd, h, out, E, C, d, m, act, tiles, s);
-  if (tiles != 0) return -1;
-  if (w_dtype == DT_F32)
-    launch_typed<TX, float>(xe, wg, wu, wd, hf, out, E, C, d, m, act, s);
-  else if (w_dtype == DT_BF16)
-    launch_typed<TX, bf16>(xe, wg, wu, wd, hf, out, E, C, d, m, act, s);
-  else
-    return -1;
-  return 0;
+  if (w_dtype == DT_F32 || w_dtype == DT_BF16)
+    return launch_t<TX>(w_dtype, xe, wg, wu, wd, h, out, E, C, d, m, act, tiles, s);
+  return -1;
 }
 
 }  // namespace
@@ -1266,10 +1652,15 @@ int launch_w(int w_dtype, const void* xe, const void* wg, const void* wu,
 // scratch, bf16 when xe and the weights are bf16 (then d and m multiples of
 // 8 and every operand 16-byte aligned); with int8 / fp8 weights three bf16
 // planes of h (3,E,C,m), then, for fp32 xe, three of xe (3,E,C,d) (d and m
-// multiples of 16, every operand 16-byte aligned); else fp32 (E,C,m); out
-// (E,C,d) fp32.  `tiles` is a row of the path's settings table: WG_SETTINGS
-// (bf16 x bf16), Q_SETTINGS (int8 / fp8 weights), or 0 (the CUDA-core
-// path's one setting).  Returns a cudaError_t (0 on success), or
+// multiples of 16, every operand 16-byte aligned); out
+// (E,C,d) fp32.  With fp32 weights (split TF32), a flat fp32 scratch:
+// h's hi and lo planes (2,E,C,m), then fp32 xe's lo plane (E,C,d) (bf16
+// xe as fp32); with bf16 weights and fp32 xe, h's one plane (E,C,m),
+// rounded to bf16; rows of d and m 16 bytes, every operand 16-byte
+// aligned.
+// `tiles` is a row of the path's settings table: WG_SETTINGS (bf16 x bf16),
+// Q_SETTINGS (int8 / fp8 weights) or T_SETTINGS (split TF32).  Returns a
+// cudaError_t (0 on success), or
 // cudaErrorInvalidValue for a dtype, activation, size or setting it does
 // not take.
 extern "C" int streamed_moe_forward(const void* xe, const void* wg, const void* wu,
@@ -1311,11 +1702,9 @@ extern "C" int streamed_moe_tile_attrs(int x_dtype, int w_dtype, int tiles, int 
   } else if (w_dtype == DT_BF16 && !x_f32) {
     if (tiles < 0 || tiles >= N_WG) return static_cast<int>(cudaErrorInvalidValue);
     kWgAttrs[tiles](out);
-  } else if (tiles == 0 && (w_dtype == DT_F32 || w_dtype == DT_BF16)) {
-    if (x_f32)
-      w_dtype == DT_F32 ? simt_attrs<float, float>(out) : simt_attrs<float, bf16>(out);
-    else
-      simt_attrs<bf16, float>(out);
+  } else if (w_dtype == DT_F32 || w_dtype == DT_BF16) {
+    if (tiles < 0 || tiles >= N_T) return static_cast<int>(cudaErrorInvalidValue);
+    kTAttrs[tiles][x_f32][w_dtype == DT_F32](C, out);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -3,7 +3,9 @@
 Replaces ``repro/kernels/flash_attention.py::flash_attention_kernel``
 (Pallas, TPU).  The kernel (``csrc/flash_attention.cu``) is bound by
 operations at the scoring path's shape; its note says what the design
-does about that: bf16 runs on the tensor cores, fp32 on CUDA cores.  For
+does about that: bf16 and fp32 at hd 64 / 128 run on wgmma fed by TMA
+(fp32 in split TF32, K's and V^T's planes written by a first kernel into
+a scratch this wrapper allocates), hd 16 / 32 on the earlier bodies.  For
 a CUDA tensor the wrapper launches the kernel or raises; for a CPU tensor
 it runs the plain version (``kernels.ref.flash_attention_plain``), which
 repeats the kernel's arithmetic.  ``LAUNCHES`` counts kernel launches and
@@ -31,7 +33,7 @@ def _kernel_fn():
     if _fn is None:
         from .build import load
         fn = load("flash_attention").flash_attention_forward
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 \
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
             + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
@@ -60,6 +62,13 @@ def _check(q, k, v):
             "VJP for it and trains without it")
 
 
+def scratch_floats(B: int, H: int, Sk: int, hd: int) -> int:
+    """The fp32 body's scratch (hd 64 / 128): K's lo TF32 plane (B, Sk, H,
+    hd; K is its own hi plane), then V^T's hi and lo planes (2, B*H, hd, Sk
+    rounded up to 32)."""
+    return B * Sk * H * hd + 2 * B * H * hd * (-(-Sk // 32) * 32)
+
+
 def flash_attention_kernel(q, k, v):
     """q: (B,Sq,H,hd); k, v: (B,Sk,H,hd) with the KV heads broadcast to H,
     Sk >= Sq; fp32 or bf16.  Causal, right-aligned.  -> (B,Sq,H,hd) in
@@ -76,12 +85,18 @@ def flash_attention_kernel(q, k, v):
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel takes head_dim in "
                          f"{HEAD_DIMS}, got {hd}")
-    if q.dtype == torch.bfloat16 and any(
-            t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("the bf16 flash kernel needs 16-byte aligned q, k, v")
+    tma = q.dtype == torch.bfloat16 or hd >= 64
+    if tma and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"the {q.dtype} flash kernel at hd={hd} needs "
+                         f"16-byte aligned q, k, v")
     out = torch.empty_like(q)
+    scratch = None
+    if q.dtype == torch.float32 and hd >= 64:
+        scratch = torch.empty(scratch_floats(B, H, k.shape[1], hd),
+                              dtype=torch.float32, device=q.device)
     rc = launch_on(q.get_device(), _kernel_fn(), (
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, Sq,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), B, H, Sq,
         k.shape[1], hd, DTYPES[q.dtype], ref.flash_scale_log2(hd)))
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: "

@@ -121,7 +121,8 @@ def _flash_dot(a, b):
     does, so the scores match the kernel's bit for bit; a reordered fp32
     score would flip roundings of ``p`` that move a small output by
     hundreds of its ulps.  On the CPU, which has no such GEMM, and for fp32
-    operands (the kernel's fp32 FMAs in ascending order), the fp32 product."""
+    operands (the kernel's split-TF32 products, or its fp32 FMAs at hd 16 /
+    32, both within 1e-5 of it), the fp32 product."""
     if a.is_cuda and a.dtype == torch.bfloat16:
         out = torch.bmm(a.reshape(-1, *a.shape[-2:]),
                         b.reshape(-1, *b.shape[-2:]), out_dtype=torch.float32)

@@ -10,9 +10,14 @@ from the raw bytes TMA lands into register A fragments, the activations
 the B tiles, the C tile (``q_c_tile``) C rounded up to 16, so decode
 computes no padding rows (d and m multiples of 16; fp32 operands split
 into three bf16 parts, so the products keep fp32 accuracy; partial sums
-promoted into fp32 every 64 k-rows); fp32 weights, or bf16 weights with
-fp32 activations, on CUDA cores.  For a CUDA tensor
-the wrapper launches the kernel or raises; for
+promoted into fp32 every 64 k-rows); fp32 weights on wgmma in split TF32
+(each fp32 operand two TF32 parts, a product three TF32 terms),
+transposed as the 8-bit path, x and h split into planes once (16-byte
+rows: d and m multiples of 4; partial sums promoted every 64 k-rows); bf16
+weights with fp32 activations take h from CUDA-core fp32 FMAs in the
+plain version's order, so its bf16 rounding is the plain version's, and
+the down product in split TF32 (d and m multiples of 8).  For a
+CUDA tensor the wrapper launches the kernel or raises; for
 a CPU tensor it runs the plain version (``kernels.ref.streamed_moe_plain``),
 which repeats the kernel's arithmetic.  The tiles are chosen at launch:
 ``tiles`` names a setting of ``TILE_SETTINGS`` (the tables of
@@ -49,8 +54,11 @@ QUANT_DTYPES = (torch.int8, torch.float8_e4m3fn)
 # each), columns a block, k-rows a stage, ring depth.  8-bit weights (wgmma
 # + TMA, the weights widened into registers): per phase (up, then down)
 # consumer warpgroups (64 weight columns each), k-rows a stage, ring depth;
-# the C tile follows C (``q_c_tile``).  The CUDA-core path (fp32 weights,
-# or fp32 x x bf16 weights) has one setting.
+# the C tile follows C (``q_c_tile``).  Split TF32 (fp32 weights, or fp32 x
+# x bf16 weights; wgmma + TMA, the weights split into registers): as the
+# 8-bit rows, per phase consumer warpgroups, k-rows a stage, ring depth
+# (with bf16 weights phase 1 is one CUDA-core tile and only the down
+# columns apply).
 _WG_ROWS = ((1, 64, 64, 4), (2, 128, 64, 4), (1, 128, 64, 4), (2, 64, 64, 4),
             (1, 64, 64, 2), (1, 128, 64, 2), (2, 64, 64, 3), (2, 128, 64, 3))
 _Q_ROWS = (((2, 128, 3), (4, 128, 2)),
@@ -59,12 +67,15 @@ _Q_ROWS = (((2, 128, 3), (4, 128, 2)),
            ((2, 128, 4), (4, 128, 2)),
            ((2, 64, 6), (4, 64, 4)),
            ((1, 128, 3), (4, 64, 3)))
+_T_ROWS = (((2, 64, 2), (4, 64, 2)),
+           ((2, 64, 2), (2, 64, 3)))
 Q_WG_COLS = 64                      # weight columns a consumer warpgroup owns
 
 
 def q_c_tile(C: int, x_dtype=torch.bfloat16) -> int:
     """The 8-bit path's C tile (wgmma's N) for C rows: C rounded up to
-    16, at most 64; 32 for fp32 x (its three planes share a stage)."""
+    16, at most 64; 32 for fp32 x (its three planes share a stage).  The
+    split-TF32 path's is C rounded up to 16, at most 64, for any x."""
     if x_dtype == torch.float32:
         return 32
     return min(64, -(-C // 16) * 16)
@@ -74,15 +85,16 @@ def _wg_name(warpgroups, bn, bk, stages):
     return f"wg:{warpgroups}x{bn}:k{bk}s{stages}"
 
 
-def _q_name(up, down):
-    return "8bit:" + ":".join(f"{p}{wg}x{Q_WG_COLS * wg}k{bk}s{st}"
-                              for p, (wg, bk, st) in (("up", up), ("dn", down)))
+def _q_name(up, down, path="8bit"):
+    return f"{path}:" + ":".join(
+        f"{p}{wg}x{Q_WG_COLS * wg}k{bk}s{st}"
+        for p, (wg, bk, st) in (("up", up), ("dn", down)))
 
 
 TILE_SETTINGS = {
     "bf16": {_wg_name(*row): row for row in _WG_ROWS},
     "8bit": {_q_name(*row): row for row in _Q_ROWS},
-    "simt": {"simt:64x64:k32": (64, 64, 32)},
+    "tf32": {_q_name(*row, path="tf32"): row for row in _T_ROWS},
 }
 
 
@@ -93,7 +105,7 @@ def tile_path(x_dtype, w_dtype) -> str:
         return "8bit"
     if x_dtype == torch.bfloat16 and w_dtype == torch.bfloat16:
         return "bf16"
-    return "simt"
+    return "tf32"
 
 
 def DEFAULT_TILES(C: int, w_dtype, x_dtype=torch.bfloat16) -> str:
@@ -205,13 +217,19 @@ def _check(xe, w_g, w_u, w_d, activation, s_g, s_u, s_d):
     return gated, quantized, tensors
 
 
-# d_expert (m) multiples the tensor-core paths take, by path
-M_MULTIPLE = {"bf16": 8, "8bit": 16, "simt": 1}
+def row_multiple(x_dtype, w_dtype) -> int:
+    """The multiple of d and m (d_expert) the operands' path takes: 8 on
+    the bf16 path, 16 on the 8-bit one, and on the split-TF32 path 16
+    bytes of a weight row (TMA's row strides): 4 fp32 or 8 bf16."""
+    path = tile_path(x_dtype, w_dtype)
+    if path == "tf32":
+        return 16 // torch.empty((), dtype=w_dtype).element_size()
+    return {"bf16": 8, "8bit": 16}[path]
 
 
 def padded_width(m: int, x_dtype, w_dtype) -> int:
-    """m rounded up to its path's multiple (``M_MULTIPLE``)."""
-    k = M_MULTIPLE[tile_path(x_dtype, w_dtype)]
+    """m rounded up to its path's multiple (:func:`row_multiple`)."""
+    k = row_multiple(x_dtype, w_dtype)
     return -(-m // k) * k
 
 
@@ -265,10 +283,12 @@ def _launch(xe, w_g, w_u, w_d, activation, s_g=None, s_u=None, s_d=None,
             checked=None, tiles=None):
     """Launch the kernel on CUDA tensors -> (h, out): its scratch beside
     the output, so a check can hold h itself.  The scratch is h (E,C,m) in
-    bf16 for bf16 x bf16, in fp32 for fp32 weights or fp32 x x bf16
-    weights; for int8 / fp8 weights it is flat, h's three bf16 planes
-    ``hi + mid + lo`` (3,E,C,m) and then, for fp32 x, x's.  ``tiles``
-    names the setting (None: the default)."""
+    bf16 for bf16 x bf16; for int8 / fp8 weights it is flat, h's three
+    bf16 planes ``hi + mid + lo`` (3,E,C,m) and then, for fp32 x, x's; for
+    fp32 weights flat fp32, h's TF32 planes ``hi + lo`` (2,E,C,m) and then
+    fp32 x's lo plane (x is its own hi plane) or bf16 x as fp32; for fp32 x
+    x bf16 weights h (E,C,m) in fp32, rounded to bf16.  ``tiles`` names
+    the setting (None: the default)."""
     global LAUNCHES, CAPTURED
     gated, quantized, tensors = checked or _check(
         xe, w_g, w_u, w_d, activation, s_g, s_u, s_d)
@@ -290,13 +310,22 @@ def _launch(xe, w_g, w_u, w_d, activation, s_g=None, s_u=None, s_d=None,
             t.data_ptr() % 16 for t in tensors)):
         raise ValueError(f"the 8-bit weight path takes d and m multiples of "
                          f"16 and 16-byte aligned operands, got d={d}, m={m}")
+    if not (tensor_cores or quantized):
+        mult = row_multiple(xe.dtype, w_u.dtype)
+        if d % mult or m % mult or xe.data_ptr() % 16 or any(
+                t.data_ptr() % 16 for t in tensors):
+            raise ValueError(f"the split-TF32 path takes d and m multiples "
+                             f"of {mult} and 16-byte aligned operands, got "
+                             f"d={d}, m={m}")
     if quantized:    # h as three bf16 planes, then fp32 x's three planes
         h = torch.empty((3 * E * C * (m + (d if xe.dtype == torch.float32
                                             else 0)),),
                         device=xe.device, dtype=torch.bfloat16)
-    else:
-        h = torch.empty((E, C, m), device=xe.device, dtype=torch.bfloat16
-                        if tensor_cores else torch.float32)
+    elif w_u.dtype == torch.bfloat16:
+        h = torch.empty((E, C, m), device=xe.device, dtype=xe.dtype)
+    else:            # h's TF32 planes, then x's lo plane (or bf16 x as fp32)
+        h = torch.empty((E * C * (2 * m + d),), device=xe.device,
+                        dtype=torch.float32)
     out = torch.empty((E, C, d), dtype=torch.float32, device=xe.device)
     q = quantized
     args = (xe.data_ptr(), w_g.data_ptr() if gated else None, w_u.data_ptr(),

@@ -286,6 +286,73 @@ def test_8bit_wgmma_phases(name, C, x, threads_up, threads_down, smem_up,
             H100, threads, smem, acc + 8 * n_w + 40) >= 1
 
 
+# (setting, C, x dtype, weights, then per phase (up, down) what _phases
+# gives, (rows a block, columns a block, k-rows a stage, threads, shared
+# bytes, accumulators a thread, terms), and the A-fragment registers) of
+# the split-TF32 path: as the 8-bit path, consumer warpgroups of 64 weight
+# columns and a block's rows the C tile (C rounded up to 16, at most 64,
+# for any x); a stage holds the activation planes' fp32 tiles (two for
+# fp32, one for an operand exact in TF32) and the weight tiles in their
+# own type; a product takes one TF32 term per activation plane and one
+# more for fp32 weights' lo part.  With bf16 weights (fp32 x) phase 1 is
+# the CUDA-core tile: 64 x 64, 256 threads, 32 k-rows a step in two fp32
+# buffers, 16 sums and 16 fragment registers a thread a weight matrix.
+T_PHASES = (("tf32:up2x128k64s2:dn4x256k64s2", 64, "fp32", "fp32",
+             (64, 128, 64, 256, 2 * (2 * 64 * 64 * 4 + 2 * 64 * 128 * 4 + 16)
+              + 1024, 128, 3, 32),
+             (64, 256, 64, 512, 2 * (2 * 64 * 64 * 4 + 64 * 256 * 4 + 16)
+              + 1024, 64, 3, 16)),
+            ("tf32:up2x128k64s2:dn2x128k64s3", 37, "fp32", "bf16",
+             (64, 64, 32, 256, 4 * (2 * 32 * 68 + 2 * 2 * 32 * 64), 32, 1, 16),
+             (48, 128, 64, 256, 3 * (64 * 48 * 4 + 64 * 128 * 2 + 16) + 1024,
+              48, 1, 8)),
+            ("tf32:up2x128k64s2:dn4x256k64s2", 16, "bf16", "fp32",
+             (16, 128, 64, 256, 2 * (64 * 16 * 4 + 2 * 64 * 128 * 4 + 16)
+              + 1024, 32, 2, 32),
+             (16, 256, 64, 512, 2 * (2 * 64 * 16 * 4 + 64 * 256 * 4 + 16)
+              + 1024, 16, 3, 16)))
+
+
+@pytest.mark.parametrize("name,C,x,wdt,up,down", T_PHASES)
+def test_tf32_wgmma_phases(name, C, x, wdt, up, down):
+    row = sm.TILE_SETTINGS["tf32"][name]
+    assert at._phases("tf32", row, True, x, C, wdt) == [up[:7], down[:7]]
+    cost = at.tile_cost(32, C, 1024, 512, "swiglu", name, H100, x, wdt)
+    for phase, (_, _, _, threads, smem, acc, _, frag) in zip(cost["phases"],
+                                                             (up, down)):
+        assert phase["regs"] == at._estimated_regs(acc, frag) \
+            == acc + frag + 40 <= H100.regs_thread
+        assert phase["threads"] == threads and phase["smem"] == smem
+        assert phase["smem"] <= H100.smem_block
+        assert phase["blocks_per_sm"] == at.blocks_per_sm(
+            H100, threads, smem, acc + frag + 40) >= 1
+
+
+@pytest.mark.parametrize("x,wdt", [("fp32", "fp32"), ("bf16", "fp32"),
+                                   ("fp32", "bf16")])
+@pytest.mark.parametrize("C", [16, 64, 1280])
+def test_planner_picks_a_tf32_setting(C, x, wdt):
+    """fp32 weights, or fp32 x with bf16 weights: the planner scores the
+    split-TF32 table (priced at half the bf16 wgmma rate, three terms of
+    fp32 operands; phase 1 of bf16 weights at the CUDA cores' rate) and
+    picks a row of it that fits."""
+    plan = at.plan_kernel_tiles(32, C, 1024, 512, "swiglu", H100, x, wdt)
+    assert plan["tiles"] in sm.TILE_SETTINGS["tf32"]
+    assert plan["default"] == list(sm.TILE_SETTINGS["tf32"])[0]
+    assert plan["fits"] and plan["predicted_s"] <= plan["default_s"]
+    for name, t in plan["ranked"]:
+        assert at.tile_cost(32, C, 1024, 512, "swiglu", name, H100, x,
+                            wdt)["fits"]
+    # bf16 weights with fp32 x: phase 1 priced at the CUDA cores' fp32
+    # rate, the same for every row
+    if wdt == "bf16":
+        ups = {at.tile_cost(32, C, 1024, 512, "swiglu", name, H100, x,
+                            wdt)["phases"][0]["t"]
+               for name in sm.TILE_SETTINGS["tf32"]}
+        assert len(ups) == 1
+        assert ups.pop() >= 2 * 2 * 32 * C * 1024 * 512 / H100.fp32_peak
+
+
 @pytest.mark.parametrize("wdt", ["int8", "fp8"])
 @pytest.mark.parametrize("C", [16, 64, 1024])
 def test_planner_never_ranks_an_8bit_setting_over_the_shared_memory(
@@ -384,7 +451,8 @@ def test_tile_settings_mirror_the_kernel_source():
     assert _cu_table("WG_SETTINGS") == list(sm.TILE_SETTINGS["bf16"].values())
     assert _cu_table("Q_SETTINGS") == [
         up + down for up, down in sm.TILE_SETTINGS["8bit"].values()]
-    assert len(sm.TILE_SETTINGS["simt"]) == 1
+    assert _cu_table("T_SETTINGS") == [
+        up + down for up, down in sm.TILE_SETTINGS["tf32"].values()]
     # the defaults: the rule the kernel had before it took settings
     names = list(sm.TILE_SETTINGS["bf16"])
     assert sm.TILE_SETTINGS["bf16"][sm.DEFAULT_TILES(64, torch.bfloat16)] \
@@ -396,6 +464,11 @@ def test_tile_settings_mirror_the_kernel_source():
         ((2, 128, 3), (4, 128, 2))
     assert list(sm.TILE_SETTINGS["8bit"])[0] == \
         "8bit:up2x128k128s3:dn4x256k128s2"
+    # split TF32: every stage one 64-k-row promotion chunk
+    assert all(row[1] == 64 for up, down in sm.TILE_SETTINGS["tf32"].values()
+               for row in (up, down))
+    assert list(sm.TILE_SETTINGS["tf32"]).index(
+        sm.DEFAULT_TILES(64, torch.float32, torch.float32)) == 0
 
 
 @pytest.mark.parametrize("wdt", ["fp32", "bf16", "int8", "fp8"])

@@ -102,7 +102,9 @@ def _imported_names(path: Path):
 SCANNED = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
                                          REPO / "tools" / "kernel_variants.py",
                                          REPO / "tools" / "fit_tile_model.py",
-                                         REPO / "tools" / "ssd_ablations.py"]
+                                         REPO / "tools" / "ssd_ablations.py",
+                                         REPO / "tools" / "ssd_premove_bits.py",
+                                         REPO / "tools" / "tf32_ablations.py"]
 
 
 def test_scan_covers_every_port_module():

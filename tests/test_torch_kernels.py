@@ -254,7 +254,7 @@ def test_padded_width_gives_the_same_bits(m, act, wdt, x_dtype):
     h = ref.streamed_moe_plain_h(xe, wg, wu, wd, act, s_g=sc.get("s_g"),
                                  s_u=sc.get("s_u"))
     m_pad = sm.padded_width(m, x_dtype, wu.dtype)
-    assert m_pad % sm.M_MULTIPLE[sm.tile_path(x_dtype, wu.dtype)] == 0
+    assert m_pad % sm.row_multiple(x_dtype, wu.dtype) == 0
     m_pad = max(m_pad, m + 8)           # pad on every path here
     pg, pu, pd, psg, psu = sm.pad_width(wg, wu, wd, sc.get("s_g"),
                                         sc.get("s_u"), m_pad=m_pad)
@@ -276,6 +276,10 @@ def test_padded_widths_of_the_ring():
     assert [sm.padded_width(m, bf, torch.int8) for m in (4, 8, 88)] == \
         [16, 16, 96]
     assert sm.padded_width(4, f32, torch.float8_e4m3fn) == 16
-    assert sm.padded_width(4, f32, f32) == sm.padded_width(4, f32, bf) == 4
+    # split TF32: 16-byte weight rows, 4 fp32 or 8 bf16
+    assert [sm.padded_width(m, f32, f32) for m in (4, 8, 10, 88)] == \
+        [4, 8, 12, 88]
+    assert sm.padded_width(4, bf, f32) == 4
+    assert [sm.padded_width(m, f32, bf) for m in (4, 12, 88)] == [8, 16, 88]
     w = torch.ones(2, 8, 4)
     assert sm.pad_width(None, w, w.transpose(1, 2), m_pad=4)[1] is w

@@ -11,9 +11,10 @@ then searches a grid for the ``wgmma_rate`` and ``wgmma_stage_s`` of
 log error of ``core.autotune.tile_cost`` (with the compiled kernels'
 registers) against those times.  It prints the fitted rates, the rms
 error, and each setting's time beside its prediction.  The rates in
-``core.autotune._CARDS`` are this script's output; the 8-bit path is
-priced with the same two (``l2_bw`` and the CUDA-core path's ``stage_s``
-are not refitted here).
+``core.autotune._CARDS`` are this script's output; the 8-bit and
+split-TF32 paths are priced with the same two (the latter at half the
+rate; ``l2_bw`` and the CUDA-core phase's ``stage_s`` are not refitted
+here).
 """
 import dataclasses
 import itertools

@@ -11,8 +11,8 @@ The first argument names streamed_moe settings of
 launch (``tiles=``), so these run from the one build of
 ``csrc/streamed_moe.cu``: for each setting it prints the error against the
 plain version at the serving shape (E, C, d, m) = (32, 64, 1024, 512) and
-at two ragged ones, with the setting path's weights (bf16, or int8 and
-fp8), the device time per call (``chip_smoke.device_ms``) and the device
+at two ragged ones, with the setting path's weights (bf16; int8 and
+fp8; or fp32 and bf16 under fp32 x), the device time per call (``chip_smoke.device_ms``) and the device
 time of each kernel from ``torch.profiler``.  The optional second argument
 names SSD settings, ``ring_stages,heads_a_block``: each is a copy of
 ``ssd.cu`` with ``STAGES`` (body 1's TMA ring depth) and ``HB_MAX`` (body
@@ -97,14 +97,14 @@ def _profile(fn, reps=10):
 
 def moe(name):
     path = next(p for p, table in sm.TILE_SETTINGS.items() if name in table)
-    wdts = {"bf16": ("bf16",), "8bit": ("int8", "fp8"), "simt": ("fp32",)}[path]
+    wdts = {"bf16": ("bf16",), "8bit": ("int8", "fp8"), "tf32": ("fp32", "bf16")}[path]
     for wdt in wdts:
         for (E, C, d, m, act, x_dtype) in ((32, 64, 1024, 512, "swiglu", torch.bfloat16),
                                            (4, 37, 256, 96, "gelu", torch.float32),
                                            (4, 64, 512, 1024, "swiglu", torch.bfloat16)):
             if path == "bf16":
                 x_dtype = torch.bfloat16
-            elif path == "simt":
+            elif path == "tf32":   # fp32 x (with bf16 weights, the path's other case)
                 x_dtype = torch.float32
             xe, wg, wu, wd = cs._moe_inputs(E, C, d, m, act, x_dtype)
             ws, scales = cs._stream_operands(wg, wu, wd, wdt)
