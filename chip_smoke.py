@@ -10,7 +10,9 @@ Phases, each printing its result on its own line; any failure exits 1:
    nvcc per source, all at once;
 3. kernels: each kernel against its plain PyTorch version and the
    reference oracle on the card, at its path's shapes and at small odd
-   ones (the bf16 tensor-core paths of flash attention and streamed_moe
+   ones (flash at Nemotron-4-340B's (2, 2048, 96, 192) in bf16 and fp32,
+   timed beside SDPA, and at hd 192 with odd S, Sk > Sq and a ragged last
+   tile; the bf16 tensor-core paths of flash attention and streamed_moe
    included, held element by element; streamed_moe's int8 / fp8 weights
    with bf16 and fp32 activations, timed at C = 64 and 1024 beside the
    bf16 body's device time; its split-TF32 body (fp32 weights; bf16
@@ -209,6 +211,18 @@ Phases, each printing its result on its own line; any failure exits 1:
    ``loss_fn`` (bf16), then fp32 ``prefill_fn`` and 16 greedy
    ``decode_fn`` steps == ``decode_train``'s teacher-forced logits (rtol =
    atol = 2e-3, the reference's test); no TPU kernel on this path;
+nemotron. (run after phase 15, once phase 11's traffic engines are gone)
+   Nemotron-4-340B, the dense family, at its published widths (d 18432, 96
+   heads of hd 192, d_ff 73728, vocab 256000): (b) one layer in fp32,
+   ``loss_fn`` through flash (1 launch, split TF32) against
+   ``use_kernels(False)``: loss within 1e-4 relative, argmax misses 0.1%;
+   then 4 of its 96 layers in bf16, the parameters built once: (a)
+   ``loss_fn`` over 2 x 2048 tokens (4 flash launches, no streamed_moe,
+   finite, peak memory under 80 GB, scored tok/s) and (c) the slice served
+   through ``_serve_family`` (fused == eager, a warm run with no
+   recapture and 1 host sync an iteration, warm tok/s, peak memory; no
+   kernel: paged attention at hd 192 is torch ops); ``python3
+   chip_smoke.py --only nemotron`` runs env, build and this phase alone;
 dist1. (run after phase 11) one rank, full width: ``api.loss_fn`` on
    granite (2 x 256 tokens, bf16) with no spec (its config names ``fse_dp``), ``ExecutionSpec()``
    (``auto``), ``ep`` and ``tp``: ``capacity``'s bits, 24 streamed_moe
@@ -280,7 +294,10 @@ mesh. (run after train) the mesh machinery: streamed_moe timed alone at
     (``serve_prefill_jamba``), streamed_moe on the served DeepSeek and Qwen3
     slices (``serve_deepseek``, ``serve_qwen3``, phase 3m's shapes),
     flash on InternVL2's scoring forward in bf16 and fp32
-    (``forward_internvl2``, ``forward_internvl2_fp32``),
+    (``forward_internvl2``, ``forward_internvl2_fp32``), flash on
+    Nemotron-4-340B's scoring forward in bf16 (``forward_nemotron``, 4
+    launches) and its fp32 parity (``forward_nemotron_fp32``, 1 launch),
+    both with phase 3's (2, 2048, 96, 192) times,
     streamed_moe on the no-spec granite loss of phase dist1
     (``dist1_loss``), on the ring of phase dist2 at phase 3r's widths
     (``ring_granite_p8_m64`` ... ``_m4``, ``ring_deepseek_p8_m88``, the
@@ -298,6 +315,7 @@ Weights are random from seed 0.  JAX is never imported.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -512,6 +530,15 @@ DECODE_STEPS = 16
 WHISPER = "whisper-base"
 WHISPER_FRAMES, WHISPER_B, WHISPER_TOKENS = 1500, 4, 448
 TF_TOL = 2e-3
+# Nemotron-4-340B (arXiv:2402.16819) at its published widths: d 18432, 96
+# heads (8 KV) of hd 192, squared-ReLU d_ff 73728, vocab 256000 untied.  A
+# layer is 6.91 GB in bf16 and the embedding and head 18.9 GB, so 4 of its
+# 96 layers are scored and served (46.5 GB); the fp32 parity takes 1 (13.8
+# GB + 37.8 GB of fp32 embedding and head)
+NEMOTRON = "nemotron-4-340b"
+NEMOTRON_LAYERS, NEMOTRON_FP32_LAYERS = 4, 1
+NEMOTRON_HEADS, NEMOTRON_HD = 96, 192
+NEMOTRON_PEAK_GB = 80
 # phases 5, 12: chunked admission of 8 prompts of 9-120 tokens
 CHUNKED_LENS = (64, 30, 100, 17, 64, 50, 9, 120)
 # phase 11: seconds the profiler's capture window stays open before and
@@ -897,8 +924,11 @@ def _check_flash():
     (2, 2304, 16, 128) (timed in phase 3m) and hd = 128 with Sq not a
     multiple of the 128-row query tile and Sk > Sq, in bf16 and in fp32
     (the split-TF32 body at hd 64 and 128, the CUDA-core one at hd 16 and
-    32); the scoring shape's rows are the summary's forward (bf16) and
-    forward_fp32."""
+    32); Nemotron-4-340B's scoring shape (2, 2048, 96, 192) in bf16 and
+    fp32, and at hd 192 odd S, Sk > Sq and one (batch x head) whose last
+    query and key tiles are ragged, in both.  The scoring shapes' rows are
+    the summary's forward (bf16), forward_fp32, forward_nemotron and
+    forward_nemotron_fp32."""
     B, S, H, hd = SCORE_B, SCORE_S, 16, 64
     cases = [(B, S, S, H, hd, "bf16"), (B, S, S, H, hd, "fp32"),
              (1, 17, 17, 3, 64, "fp32"), (2, 100, 100, 4, 64, "bf16"),
@@ -910,8 +940,15 @@ def _check_flash():
     cases += [(2, 64, 128, 4, 128, "fp32"), (1, 130, 301, 2, 64, "fp32"),
               (1, 200, 331, 2, 128, "fp32"), (2, 77, 77, 3, 16, "fp32"),
               (1, 100, 165, 2, 32, "fp32")]
+    cases += [(1, 77, 77, 3, NEMOTRON_HD, kind) for kind in ("bf16", "fp32")]
+    cases += [(1, 100, 165, 2, NEMOTRON_HD, kind) for kind in ("bf16", "fp32")]
+    cases += [(1, 200, 331, 1, NEMOTRON_HD, kind) for kind in ("bf16", "fp32")]
     rows = [_flash_case(*case, timed=case[1] == S) for case in cases]
-    return {"forward": rows[0], "forward_fp32": rows[1]}
+    nemotron = [_flash_case(B, S, S, NEMOTRON_HEADS, NEMOTRON_HD, kind,
+                            timed=True) for kind in ("bf16", "fp32")]
+    return {"forward": rows[0], "forward_fp32": rows[1],
+            "forward_nemotron": nemotron[0],
+            "forward_nemotron_fp32": nemotron[1]}
 
 
 def _flash_case(B_, Sq, Sk, H_, hd_, kind, timed=False):
@@ -962,9 +999,9 @@ def _flash_case(B_, Sq, Sk, H_, hd_, kind, timed=False):
             return F.scaled_dot_product_attention(qt, kt, vt,
                                                   is_causal=True)
         lib_ms, lib_dev = median_ms(sdpa), device_ms(sdpa)[0]
-        # fp32 at hd 64 / 128 runs in split TF32: its bound is that of the
-        # split terms, the fp32 FMAs' beside it
-        split = kind == "fp32" and hd_ in (64, 128)
+        # fp32 at hd 64 / 128 / 192 runs in split TF32: its bound is that
+        # of the split terms, the fp32 FMAs' beside it
+        split = kind == "fp32" and hd_ >= 64
         bound, by = flash_bound_ms(B_, Sq, Sk, H_, hd_, kind,
                                    q.element_size(), split=split)
         line += (f"; {text}, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} "
@@ -3085,18 +3122,20 @@ def phase_family_kernels():
 
 
 def _serve_family(cfg, phase, prefix=False, check=None):
-    """A MoE model served at full width, bf16, ``capacity``, seed 0, the
+    """A model served at full width, bf16, ``capacity``, seed 0, the
     parameters built once and shared by every engine.  The slice (4 x 8 ->
     16 tokens) on the fused engine: a first run that captures, fused ==
     eager on it, a warm run (nb + 1 host syncs an iteration, no recapture,
     one streamed_moe launch per MoE layer per prefill and step, the SSD
-    kernel once per Mamba-2 layer of each one-shot prefill), profiled; the
-    slice under the dynamic schedule, fused == eager; for a model with
-    Mamba-2 layers, a prefill chunk step's kernels and the preemption
-    check; with ``prefix``, phase 6b's shared-prefix stream unbounded and
-    with preemption + the prefix cache: the same tokens.  -> the warm
-    run's streamed_moe and SSD launches.  ``check(params, cfg)`` runs on
-    the parameters once they are built."""
+    kernel once per Mamba-2 layer of each one-shot prefill), profiled; for
+    a MoE model the slice under the dynamic schedule, fused == eager (a
+    dense model, ``cfg.moe`` None, has no boundary, no experts to schedule
+    and no streamed_moe launch); for a model with Mamba-2 layers, a
+    prefill chunk step's kernels and the preemption check; with
+    ``prefix``, phase 6b's shared-prefix stream unbounded and with
+    preemption + the prefix cache: the same tokens.  -> the warm run's
+    streamed_moe and SSD launches.  ``check(params, cfg)`` runs on the
+    parameters once they are built."""
     import torch
     from repro_torch.core.strategy import ExecutionSpec
     from repro_torch.kernels import ssd
@@ -3114,7 +3153,7 @@ def _serve_family(cfg, phase, prefix=False, check=None):
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in leaves(params))
     shared = ""
-    if mcfg.num_shared_experts:
+    if mcfg is not None and mcfg.num_shared_experts:
         w = params["periods"][0]["moe"]["shared"]["w_up"]
         want = (cfg.num_layers, cfg.d_model,
                 mcfg.num_shared_experts * mcfg.d_expert)
@@ -3122,14 +3161,15 @@ def _serve_family(cfg, phase, prefix=False, check=None):
             fail(phase, f"shared experts' w_up {tuple(w.shape)}, want {want}")
         shared = (f", {mcfg.num_shared_experts} shared experts on every "
                   f"layer (w_up {want})")
+    experts = "dense" if mcfg is None else (
+        f"{mcfg.num_experts} experts top-{mcfg.top_k}, d_expert "
+        f"{mcfg.d_expert}{shared}")
     log(phase, f"{cfg.name}: {cfg.num_layers} layers ({kinds.count('attn')}"
                f" attention, {n_ssm} Mamba-2; {n_moe} MoE, "
                f"{cfg.ffn_kinds().count('dense')} dense FFN), d_model "
-               f"{cfg.d_model}, {mcfg.num_experts} experts top-"
-               f"{mcfg.top_k}, d_expert {mcfg.d_expert}{shared}: "
-               f"{n_params / 1e9:.3f} B params (param_count "
-               f"{cfg.param_count() / 1e9:.3f} B), bf16, drawn in "
-               f"{time.perf_counter() - t0:.2f}s")
+               f"{cfg.d_model}, {experts}: {n_params / 1e9:.3f} B params "
+               f"(param_count {cfg.param_count() / 1e9:.3f} B), bf16, "
+               f"drawn in {time.perf_counter() - t0:.2f}s")
     if check is not None:
         check(params, cfg)
     args = serve.parse_args(["--arch", cfg.name, "--seed", "0"] + SLICE_ARGV)
@@ -3197,22 +3237,24 @@ def _serve_family(cfg, phase, prefix=False, check=None):
                f"per iteration (nb + 1 = {nb + 1}), captures {ms.captures} "
                f"(unchanged), streamed_moe launches {launches} == {n_moe} "
                f"MoE layers x (4 + {iters}) ({eng.graph_launches()} by "
-               f"graph replays) at C = {mcfg.top_k * args.max_batch} a "
-               f"decode step, ssd launches {ssd_launches} == 4 prompts x "
-               f"{n_ssm} Mamba-2 layers; the first run's tokens")
+               f"graph replays) at C = "
+               f"{mcfg.top_k * args.max_batch if mcfg else 0} a decode "
+               f"step, ssd launches {ssd_launches} == 4 prompts x {n_ssm} "
+               f"Mamba-2 layers; the first run's tokens")
     _profile(f"{cfg.name} warm slice", lambda: serve.run(args, engine=eng),
              eng)
     del warm, eng, ms
     torch.cuda.empty_cache()
     peaks = {"static": torch.cuda.max_memory_allocated()}
-    torch.cuda.reset_peak_memory_stats()
-    eng, dynamic = cold_run("dynamic")
-    log(phase, f"the dynamic schedule's tokens "
-               f"{'equal' if dynamic == first else 'differ from'} the "
-               f"static one's")
-    del eng
-    torch.cuda.empty_cache()
-    peaks["dynamic"] = torch.cuda.max_memory_allocated()
+    if mcfg is not None:
+        torch.cuda.reset_peak_memory_stats()
+        eng, dynamic = cold_run("dynamic")
+        log(phase, f"the dynamic schedule's tokens "
+                   f"{'equal' if dynamic == first else 'differ from'} the "
+                   f"static one's")
+        del eng
+        torch.cuda.empty_cache()
+        peaks["dynamic"] = torch.cuda.max_memory_allocated()
     if n_ssm:
         _prefill_kernels(params, cfg, phase)
         _preempt_check(params, cfg, phase)
@@ -3517,6 +3559,142 @@ def phase_whisper():
                    f"launches)")
     del params, caches, memory
     torch.cuda.empty_cache()
+
+# ---------------------------------------------------------------------------
+# phase nemotron: the dense family at its published widths
+# ---------------------------------------------------------------------------
+
+
+def _nemotron_fp32():
+    """Phase nemotron (b): NEMOTRON_FP32_LAYERS layer at full width in fp32,
+    ``loss_fn`` and the logits over SCORE_B x SCORE_S tokens through the
+    flash kernel (split TF32 at hd 192) against ``use_kernels(False)``,
+    held as phase 14 holds InternVL2.  -> flash launches of the loss with
+    kernels."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import api, transformer
+    cfg = get_config(NEMOTRON).replace(num_layers=NEMOTRON_FP32_LAYERS,
+                                       dtype="float32")
+    gc.collect()      # engines of earlier phases may sit in reference cycles
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    drawn = time.perf_counter() - t0
+    batch = _score_batch(cfg)
+    out = {}
+    for kernels in (False, True):
+        with torch.no_grad(), ops.use_kernels(kernels):
+            fa.LAUNCHES = 0
+            t0 = time.perf_counter()
+            loss, _ = api.loss_fn(params, batch, cfg, use_flash=True)
+            loss = loss.item()
+            secs = time.perf_counter() - t0
+            launches = fa.LAUNCHES
+            logits, _ = transformer.forward(params, batch["tokens"], cfg,
+                                            use_flash=True)
+        out[kernels] = (loss, logits, launches, secs)
+        del logits
+    (lk, zk, nk, tk), (lp, zp, npl, tp) = out[True], out[False]
+    n_attn = cfg.layer_kinds().count("attn")
+    if nk != n_attn or npl:
+        fail("nemotron", f"fp32 flash launches {nk} with kernels (want "
+                         f"{n_attn}), {npl} without (want 0)")
+    rel = abs(lk - lp) / abs(lp)
+    top2 = zp.topk(2, dim=-1).values
+    differ = zk.argmax(-1) != zp.argmax(-1)
+    miss = (differ & (top2[..., 0] - top2[..., 1] >= MARGIN_TOL)).float() \
+        .mean().item()
+    line = (f"(b) fp32, {cfg.num_layers} of 96 layers at full width "
+            f"({cfg.param_count() / 1e9:.3f} B params, drawn in "
+            f"{drawn:.2f}s), {SCORE_B} x {SCORE_S} tokens: loss {lk:.6f} "
+            f"with kernels ({nk} flash launch at hd "
+            f"{cfg.resolved_head_dim}, split TF32; one cold call "
+            f"{tk:.3f}s), {lp:.6f} with use_kernels(False) (one cold call "
+            f"{tp:.3f}s), rel {rel:.3e} (tol "
+            f"{LOSS_TOL:g}); argmax differs where the plain top-2 margin "
+            f"is >= {MARGIN_TOL:g} at {miss:.4f} of the positions (tol "
+            f"{ARGMAX_MISS:g}), at all {differ.float().mean().item():.4f}; "
+            f"logits rel err {rel_err(zk, zp):.3e}; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not math.isfinite(lk) or rel > LOSS_TOL or miss > ARGMAX_MISS:
+        fail("nemotron", line)
+    log("nemotron", line)
+    del params, out, zk, zp, top2, differ
+    torch.cuda.empty_cache()
+    return nk
+
+
+def _nemotron_scoring(params, cfg, launches):
+    """Phase nemotron (a): ``loss_fn`` over SCORE_B x SCORE_S tokens in
+    bf16 through the flash kernel (a warm-up call, then the timed one):
+    one flash launch per layer, no streamed_moe launch, a finite loss;
+    scored tok/s and peak memory.  The flash launches go to
+    ``launches``."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import streamed_moe as sm
+    from repro_torch.models import api
+    batch = _score_batch(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        api.loss_fn(params, batch, cfg, use_flash=True)      # warm-up
+        torch.cuda.synchronize()
+        fa.LAUNCHES = sm.LAUNCHES = 0
+        t0 = time.perf_counter()
+        loss, _ = api.loss_fn(params, batch, cfg, use_flash=True)
+        loss = loss.item()
+        secs = time.perf_counter() - t0
+    launches.append(fa.LAUNCHES)
+    n_attn = cfg.layer_kinds().count("attn")
+    peak = torch.cuda.max_memory_allocated()
+    T = SCORE_B * SCORE_S
+    line = (f"(a) bf16 scoring, {cfg.num_layers} of 96 layers: loss "
+            f"{loss:.4f} over {SCORE_B} x {SCORE_S} tokens in {secs:.3f}s "
+            f"(warm) = {T / secs:.0f} scored tok/s; flash launches "
+            f"{fa.LAUNCHES} (want {n_attn}) at (B, S, H, hd) = ({SCORE_B}, "
+            f"{SCORE_S}, {cfg.num_heads}, {cfg.resolved_head_dim}), "
+            f"streamed_moe launches {sm.LAUNCHES}; peak memory "
+            f"{peak / 2**30:.2f} GiB (limit {NEMOTRON_PEAK_GB} GB)")
+    if fa.LAUNCHES != n_attn or sm.LAUNCHES or not math.isfinite(loss) \
+            or peak >= NEMOTRON_PEAK_GB * 1e9:
+        fail("nemotron", line)
+    log("nemotron", line)
+    torch.cuda.reset_peak_memory_stats()
+
+
+def phase_nemotron():
+    """Phase nemotron (run after phase 15): Nemotron-4-340B, the dense
+    family, at its published widths.  (b) ``_nemotron_fp32``; then
+    NEMOTRON_LAYERS layers in bf16, the parameters built once: (a)
+    ``_nemotron_scoring`` and (c) the slice served through
+    ``_serve_family`` (fused == eager, a warm run with no recapture and 1
+    host sync an iteration: no MoE boundary).  Serving runs no kernel:
+    the paged prefill and decode attention at hd 192 are torch ops, as the
+    reference's are plain XLA.  -> flash launches of the bf16 loss and of
+    the fp32 loss with kernels."""
+    from repro_torch.configs import get_config
+    cfg = get_config(NEMOTRON).replace(num_layers=NEMOTRON_LAYERS)
+    if (cfg.num_heads, cfg.resolved_head_dim, cfg.moe) != \
+            (NEMOTRON_HEADS, NEMOTRON_HD, None):
+        fail("nemotron", f"{NEMOTRON}: {cfg.num_heads} heads of hd "
+                         f"{cfg.resolved_head_dim}, moe {cfg.moe}")
+    launches32 = _nemotron_fp32()
+    launches = []
+    moe, ssd = _serve_family(cfg, "nemotron",
+                             check=lambda p, c: _nemotron_scoring(p, c,
+                                                                  launches))
+    if moe or ssd:
+        fail("nemotron", f"serving launched {moe} streamed_moe and {ssd} "
+                         f"SSD kernels (a dense model runs none)")
+    log("nemotron", "(c) served: no kernel on this path (the paged "
+                    "prefill and decode attention at hd 192 are torch ops, "
+                    "as the reference's are plain XLA)")
+    return launches[0], launches32
 
 
 # ---------------------------------------------------------------------------
@@ -4661,7 +4839,7 @@ SOURCES = {"streamed_moe": "src/repro/kernels/streamed_moe.py:201",
            "ssd": "src/repro/kernels/ssd.py:51"}
 
 
-ONLY = {"mesh": lambda: phase_mesh()}
+ONLY = {"mesh": lambda: phase_mesh(), "nemotron": lambda: phase_nemotron()}
 
 
 def main():
@@ -4733,6 +4911,10 @@ def main():
         phase_whisper()
         phase_profile({path: eng for path, (eng, _, _) in traffic.items()})
         del traffic
+        # after the traffic engines are gone: the most room on the card
+        (launches["flash_attention", "forward_nemotron"],
+         launches["flash_attention", "forward_nemotron_fp32"]) = \
+            phase_nemotron()
         # after phase 11: with these phases before it, one run stamped a
         # device record of its last profile 547 ms after the device went
         # idle, past the window's 0.5 s (PROFILE_PAD_S)

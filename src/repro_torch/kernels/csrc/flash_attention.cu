@@ -11,8 +11,9 @@
 // causal half of the two products is about 17 GFLOP, 17 us at the bf16
 // tensor-core rate of 989 TFLOP/s; q, k, v read once and o written once are
 // about 34 MB, 10 us at 3.35 TB/s.  At InternVL2's (2, 2304, 16, 128) the
-// products are 44 us and the bytes 23 us.  So it is bound by operations,
-// and only wgmma reaches the tensor cores' full rate.
+// products are 44 us and the bytes 23 us; at Nemotron-4-340B's (2, 2048,
+// 96, 192) 309 GFLOP, 0.313 ms, and 604 MB, 0.180 ms.  So it is bound by
+// operations, and only wgmma reaches the tensor cores' full rate.
 //
 // Design.  The TPU kernel walks the key tiles as its sequential innermost grid
 // axis and keeps m / l / acc in VMEM scratch revisited across grid steps.  On
@@ -24,15 +25,16 @@
 // zeros and are masked like the causal ones, so nothing is padded.  The
 // heaviest query tiles (at the end of the sequence) are scheduled first.
 //
-// bf16 at hd 64 and 128 (the scoring paths: granite, InternVL2) runs on
-// Hopper's own machinery.  A block owns one (batch*head, 128-query-row)
+// bf16 at hd 64, 128 and 192 (the scoring paths: granite, InternVL2,
+// Nemotron-4-340B) runs on Hopper's own machinery.  A block owns one (batch*head, 128-query-row)
 // tile and is two consumer warpgroups of 64 query rows each, 256 threads.
 // There is no producer warpgroup: ptxas gives a 288- or 384-thread block
 // 168 registers a thread whatever setmaxnreg asks (measured), too few for
 // a consumer's accumulators, and then serializes its wgmmas; at 256
 // threads a consumer has 255.  One thread of consumer 1 (whose rows see
 // every key tile of the block) issues the TMA copies: the Q tile once,
-// then K and V tiles of 64 keys through a four-stage ring with a full and
+// then K and V tiles of 64 keys through a four-stage ring (three at hd
+// 192, whose 48 KB stages would pass 227 KB at four) with a full and
 // an empty mbarrier a stage.  It refills a stage once both consumers have
 // released it, so the next three tiles' copies are in flight while one is
 // used, and no other thread spends an instruction on a copy.  Tensor maps
@@ -54,7 +56,16 @@
 // 64-key tile, not thousands of keys.  A consumer issues the next tile's S
 // before it runs this tile's softmax, so the tensor cores work while the
 // exponentials run; at hd 64 it also waits for the previous tile's P V
-// only after the softmax (at hd 128 that would pass 255 registers).  Tiles
+// only after the softmax (at hd 128 that would pass 255 registers).  At hd
+// 192 a P V over all of hd would hold 96 floats beside acc's 96 and two S
+// tiles, past 255 registers, so it runs as three m64n64k16 chains, one
+// 64-column chunk of hd each, each folded into acc as acc * corr + pv
+// (element by element the whole product's sum and fold) while the next
+// chunk's product runs: chunks 0 and 2 land in a 32-float pv, chunk 1 in
+// the tile's spent scores; the next tile's S is issued after the softmax,
+// into those scores once chunk 1 is folded (wg_step_chunked, no spill;
+// with the S issued before the softmax, as at hd 128, ptxas spilled and
+// the kernel ran slower).  Tiles
 // that cross neither the diagonal nor Sk skip the mask.  A consumer whose
 // rows see no key of a tile skips it (it still waits for the tile and
 // releases it), and the heaviest query tiles are scheduled first.
@@ -64,25 +75,26 @@
 // query rows, mma.sync.m16n8k16 on ldmatrix fragments, K / V through a
 // three-stage cp.async ring, the same arithmetic as above.
 //
-// fp32 at hd 64 and 128 (the scoring paths in fp32: granite's hd 64,
-// InternVL2's hd 128) runs on the tensor cores too, in split TF32 (three
+// fp32 at hd 64, 128 and 192 (the scoring paths in fp32: granite's hd 64,
+// InternVL2's hd 128, Nemotron-4-340B's hd 192) runs on the tensor cores
+// too, in split TF32 (three
 // TF32 wgmmas a product, hopper.cuh): one TF32 product would miss the
 // reference's 2e-4 and the plain version's 1e-5, the split meets both.  The
 // block is the bf16 body's; K's lo plane (K is its own hi plane) and V^T's
 // hi and lo planes (no transposed TF32 operand) come from a small kernel
-// before it.  The section
-// "fp32, split TF32" says how, and why.  fp32 at hd 16 and 32 (reduced
+// before it; at hd 192 K and V^T stream through rings of their own.  The
+// section "fp32, split TF32" says how, and why.  fp32 at hd 16 and 32 (reduced
 // widths only, no full-width path) keeps the products as fp32 FMAs on CUDA
 // cores, in ascending order (64-row blocks, 4 query rows x hd/16 columns a
 // thread; scores in log2 units, exp2f), as bf16 keeps mma.sync there.
 //
 // Bound in fp32 at the scoring shape: 0.257 ms as fp32 FMAs, 0.104 ms in
 // split TF32 (three TF32 products at 495 TFLOP/s); InternVL2's 0.649 /
-// 0.264 ms.
+// 0.264 ms; Nemotron-4-340B's 4.61 / 1.874 ms.
 //
 // Plain C interface for ctypes: one launch function on the caller's stream
 // that allocates nothing (the tensor maps are encoded on the host at each
-// call; fp32 at hd 64 / 128 takes its planes' scratch from the caller) and
+// call; fp32 at hd 64 / 128 / 192 takes its planes' scratch from the caller) and
 // returns cudaGetLastError().
 
 #include <cuda_runtime.h>
@@ -460,7 +472,6 @@ void allow_smem(Kernel kernel, int bytes) {
 }
 
 constexpr int WG_BQ = 128;           // query rows a block: two consumers of 64
-constexpr int WG_STAGES = 4;         // the K / V ring
 constexpr int WG_THREADS = 256;      // consumer warpgroups 0 and 1
 constexpr int WG_CONSUMER_WARPS = 8; // each arrives once on a stage's empty barrier
 constexpr int TILE_BYTES = 64 * 64 * 2;   // one 64 x 64 bf16 swizzled box
@@ -470,11 +481,20 @@ struct WgSmem {
   static constexpr int CH = HD / 64;                 // 64-column boxes across hd
   static constexpr int KV = CH * TILE_BYTES;         // a K or V tile: [CH][64 keys][64]
   static constexpr int Q = 2 * KV;                   // [consumer][CH][64 rows][64]
+  // the K / V ring: four stages, three at hd 192 (four would be 240 KB)
+  static constexpr int STAGES = HD <= 128 ? 4 : 3;
   static constexpr int K_OFF = Q;
-  static constexpr int V_OFF = Q + WG_STAGES * KV;
-  static constexpr int BARS = Q + 2 * WG_STAGES * KV;
-  static constexpr int BYTES = BARS + 8 * (1 + 2 * WG_STAGES) + 1024;   // + alignment
+  static constexpr int V_OFF = Q + STAGES * KV;
+  static constexpr int BARS = Q + 2 * STAGES * KV;
+  static constexpr int BYTES = BARS + 8 * (1 + 2 * STAGES) + 1024;   // + alignment
+  static_assert(BYTES <= 232448, "the bf16 flash ring over the card's shared memory");
 };
+
+// The columns of hd a P V product spans: all of hd up to 128; 64 at a time
+// at hd 192, whose two accumulators of 96 floats would not fit 255
+// registers beside the scores.
+template <int HD>
+constexpr int kPvN = HD <= 128 ? HD : 64;
 
 // S = Q K^T of one key tile (hd / 16 steps), from zero, issued and
 // committed; qs and ks are the consumer's Q rows and the tile's K.
@@ -492,10 +512,11 @@ __device__ __forceinline__ void wg_issue_s(float (&sc)[BKV / 2], const unsigned 
   hop::wg_commit();
 }
 
-// pv = P V of one key tile from zero (four steps, P from registers, V
-// transposed from shared memory), issued and committed.
-template <int HD>
-__device__ __forceinline__ void wg_issue_pv(float (&pv)[HD / 2], uint32_t (&pa)[BKV / 16][4],
+// pv = P V of one key tile from zero over N columns of hd (four steps, P
+// from registers, V transposed from shared memory, vs its first 64-column
+// box), issued and committed.
+template <int N>
+__device__ __forceinline__ void wg_issue_pv(float (&pv)[N / 2], uint32_t (&pa)[BKV / 16][4],
                                             const unsigned char* vs) {
   hop::fence_regs(pv);
 #pragma unroll
@@ -503,8 +524,8 @@ __device__ __forceinline__ void wg_issue_pv(float (&pv)[HD / 2], uint32_t (&pa)[
   hop::wg_fence();
 #pragma unroll
   for (int kk = 0; kk < BKV / 16; ++kk)
-    hop::wgmma_rs<HD, 1>(pv, pa[kk], hop::desc_sw128(vs + kk * 16 * 128, TILE_BYTES, 1024),
-                         kk > 0);
+    hop::wgmma_rs<N, 1>(pv, pa[kk], hop::desc_sw128(vs + kk * 16 * 128, TILE_BYTES, 1024),
+                        kk > 0);
   hop::wg_commit();
 }
 
@@ -579,11 +600,11 @@ struct WgLoads {
   int h, b, n_tiles;
 };
 
-// Tile `it`'s K and V into stage it % WG_STAGES.
+// Tile `it`'s K and V into stage it % STAGES.
 template <int HD>
 __device__ __forceinline__ void wg_load_kv(const WgLoads& ld, int it) {
   using L = WgSmem<HD>;
-  const int s = it % WG_STAGES;
+  const int s = it % L::STAGES;
   hop::mbar_expect_tx(&ld.full[s], 2 * L::KV);
 #pragma unroll
   for (int ch = 0; ch < L::CH; ++ch) {
@@ -596,12 +617,13 @@ __device__ __forceinline__ void wg_load_kv(const WgLoads& ld, int it) {
 
 // Once this thread has released tile `done`: the issuing thread waits for
 // the other consumer to release it too and refills its stage with tile
-// done + WG_STAGES.
+// done + STAGES.
 template <int HD>
 __device__ __forceinline__ void wg_refill(const WgLoads& ld, bool issuer, int done) {
-  if (issuer && done + WG_STAGES < ld.n_tiles) {
-    hop::mbar_wait(&ld.empty[done % WG_STAGES], (done / WG_STAGES) & 1);
-    wg_load_kv<HD>(ld, done + WG_STAGES);
+  constexpr int STAGES = WgSmem<HD>::STAGES;
+  if (issuer && done + STAGES < ld.n_tiles) {
+    hop::mbar_wait(&ld.empty[done % STAGES], (done / STAGES) & 1);
+    wg_load_kv<HD>(ld, done + STAGES);
   }
 }
 
@@ -609,7 +631,7 @@ __device__ __forceinline__ void wg_refill(const WgLoads& ld, bool issuer, int do
 template <int HD>
 struct WgConsumer {
   float acc[HD / 2];
-  float pv[HD / 2];         // a tile's P V
+  float pv[kPvN<HD> / 2];   // a tile's P V (over kPvN of hd's columns)
   float corr_prev[2];       // the correction of the tile whose P V is in flight
   float m_run[2], l_run[2];
 };
@@ -621,7 +643,15 @@ __device__ __forceinline__ void wg_fold(WgConsumer<HD>& st, const float (&corr)[
   for (int i = 0; i < HD / 2; ++i) st.acc[i] = fmaf(st.acc[i], corr[(i / 2) & 1], st.pv[i]);
 }
 
-__device__ __forceinline__ void wg_release(uint64_t* empty, int it, int stages = WG_STAGES) {
+// acc's 64-column chunk nc of hd = acc * corr + pv, the chunk's P V.
+template <int HD>
+__device__ __forceinline__ void wg_fold_chunk(float (&acc)[HD / 2], int nc, const float (&corr)[2],
+                                              const float (&pv)[BKV / 2]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[32 * nc + i] = fmaf(acc[32 * nc + i], corr[(i / 2) & 1], pv[i]);
+}
+
+__device__ __forceinline__ void wg_release(uint64_t* empty, int it, int stages) {
   __syncwarp();
   if (threadIdx.x % 32 == 0) hop::mbar_arrive(&empty[it % stages]);   // this warp is done
 }
@@ -639,34 +669,37 @@ constexpr bool kDeferPv = HD <= 64;
 // is waited for only after the softmax, then folded into acc (acc * corr +
 // pv, as the plain version adds it) and its stage released, and this
 // tile's P V is issued and left in flight; else this tile's P V is issued,
-// waited for and folded at once.
+// waited for and folded at once.  hd 64 and 128; hd 192 takes
+// wg_step_chunked.
 template <int HD, bool FIRST, bool MORE>
 __device__ __forceinline__ void wg_step(WgConsumer<HD>& st, float (&cur)[BKV / 2],
                                         float (&nxt)[BKV / 2], int it, const WgLoads& ld,
                                         bool issuer, const unsigned char* qs, int rw, int g,
                                         int t4, int shift, int Sk, float scale_log2) {
   using L = WgSmem<HD>;
+  constexpr int STAGES = L::STAGES;
   unsigned char* smem = ld.smem;
   uint64_t* full = ld.full;
   uint64_t* empty = ld.empty;
   if constexpr (MORE) {
-    const int s = (it + 1) % WG_STAGES;
-    hop::mbar_wait(&full[s], ((it + 1) / WG_STAGES) & 1);
+    const int s = (it + 1) % STAGES;
+    hop::mbar_wait(&full[s], ((it + 1) / STAGES) & 1);
     wg_issue_s<HD>(nxt, qs, smem + L::K_OFF + s * L::KV);
   }
   uint32_t pa[BKV / 16][4];
   float corr[2];
   wg_softmax(cur, pa, corr, st.m_run, st.l_run, it * BKV, rw, g, t4, shift, Sk, scale_log2);
+  const unsigned char* vs = smem + L::V_OFF + (it % STAGES) * L::KV;
   if constexpr (kDeferPv<HD>) {
     if constexpr (!FIRST) {
       if constexpr (MORE) hop::wg_wait<1>();   // the previous P V (committed before the next S)
       else hop::wg_wait<0>();
       hop::fence_regs(st.pv);
       wg_fold<HD>(st, st.corr_prev);
-      wg_release(empty, it - 1);
+      wg_release(empty, it - 1, STAGES);
       wg_refill<HD>(ld, issuer, it - 1);
     }
-    wg_issue_pv<HD>(st.pv, pa, smem + L::V_OFF + (it % WG_STAGES) * L::KV);
+    wg_issue_pv<HD>(st.pv, pa, vs);
     if constexpr (MORE) {
       hop::wg_wait<1>();   // the next tile's S
       hop::fence_regs(nxt);
@@ -674,13 +707,60 @@ __device__ __forceinline__ void wg_step(WgConsumer<HD>& st, float (&cur)[BKV / 2
     st.corr_prev[0] = corr[0];
     st.corr_prev[1] = corr[1];
   } else {
-    wg_issue_pv<HD>(st.pv, pa, smem + L::V_OFF + (it % WG_STAGES) * L::KV);
+    wg_issue_pv<HD>(st.pv, pa, vs);
     hop::wg_wait<0>();
     if constexpr (MORE) hop::fence_regs(nxt);
     hop::fence_regs(st.pv);
     wg_fold<HD>(st, corr);
-    wg_release(empty, it);
+    wg_release(empty, it, STAGES);
     wg_refill<HD>(ld, issuer, it);
+  }
+}
+
+// Tile `it` of a consumer at hd 192, its S complete in sc.  P V runs as
+// three 64-column chunks of hd, each from zero and folded into acc as acc
+// * corr + pv (element by element the whole product's sum and fold).
+// sc's scores are spent once p is in pa, so chunk 1 lands in sc, and each
+// chunk's fold runs while the next chunk's product does; then (MORE) the
+// next tile's S is issued into sc and runs during chunk 2's fold.  There
+// is no S in flight through the softmax, as wg_step keeps at hd <= 128:
+// acc's 96 floats and a second S tile would pass 255 registers.
+template <int HD>
+__device__ __forceinline__ void wg_step_chunked(WgConsumer<HD>& st, float (&sc)[BKV / 2], int it,
+                                                bool more, const WgLoads& ld, bool issuer,
+                                                const unsigned char* qs, int rw, int g, int t4,
+                                                int shift, int Sk, float scale_log2) {
+  using L = WgSmem<HD>;
+  constexpr int STAGES = L::STAGES;
+  static_assert(HD == 3 * 64, "P V in three 64-column chunks");
+  uint32_t pa[BKV / 16][4];
+  float corr[2];
+  wg_softmax(sc, pa, corr, st.m_run, st.l_run, it * BKV, rw, g, t4, shift, Sk, scale_log2);
+  const unsigned char* vs = ld.smem + L::V_OFF + (it % STAGES) * L::KV;
+  wg_issue_pv<64>(st.pv, pa, vs);
+  wg_issue_pv<64>(sc, pa, vs + TILE_BYTES);
+  hop::wg_wait<1>();   // chunk 0
+  hop::fence_regs(st.pv);
+  wg_fold_chunk<HD>(st.acc, 0, corr, st.pv);
+  wg_issue_pv<64>(st.pv, pa, vs + 2 * TILE_BYTES);
+  hop::wg_wait<1>();   // chunk 1
+  hop::fence_regs(sc);
+  wg_fold_chunk<HD>(st.acc, 1, corr, sc);
+  if (more) {
+    const int s = (it + 1) % STAGES;
+    hop::mbar_wait(&ld.full[s], ((it + 1) / STAGES) & 1);
+    wg_issue_s<HD>(sc, qs, ld.smem + L::K_OFF + s * L::KV);
+    hop::wg_wait<1>();   // chunk 2; the next tile's S runs on
+  } else {
+    hop::wg_wait<0>();   // chunk 2
+  }
+  hop::fence_regs(st.pv);
+  wg_fold_chunk<HD>(st.acc, 2, corr, st.pv);
+  wg_release(ld.empty, it, STAGES);
+  wg_refill<HD>(ld, issuer, it);
+  if (more) {
+    hop::wg_wait<0>();   // the next tile's S
+    hop::fence_regs(sc);
   }
 }
 
@@ -694,15 +774,15 @@ flash_fwd_wg(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BARS);
-  uint64_t* full = q_full + 1;              // [WG_STAGES]
-  uint64_t* empty = full + WG_STAGES;       // [WG_STAGES]
+  uint64_t* full = q_full + 1;              // [STAGES]
+  uint64_t* empty = full + L::STAGES;       // [STAGES]
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * WG_BQ;
   const int shift = Sk - Sq;
   const int n_tiles = (min(q0 + WG_BQ, Sq) - 1 + shift) / BKV + 1;
   if (threadIdx.x == 0) {
     hop::mbar_init(q_full, 1);
-    for (int s = 0; s < WG_STAGES; ++s) {
+    for (int s = 0; s < L::STAGES; ++s) {
       hop::mbar_init(&full[s], 1);
       hop::mbar_init(&empty[s], WG_CONSUMER_WARPS);
     }
@@ -730,7 +810,7 @@ flash_fwd_wg(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
       for (int ch = 0; ch < CH; ++ch)
         hop::tma_load_4d(smem + (cc * CH + ch) * TILE_BYTES, &qmap, q_full, ch * 64, h,
                          q0 + 64 * cc, b);
-    for (int it = 0; it < min(WG_STAGES, n_tiles); ++it) wg_load_kv<HD>(ld, it);
+    for (int it = 0; it < min(L::STAGES, n_tiles); ++it) wg_load_kv<HD>(ld, it);
   }
   const unsigned char* qs = smem + c * CH * TILE_BYTES;
   WgConsumer<HD> st;
@@ -747,8 +827,11 @@ flash_fwd_wg(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
   hop::fence_regs(s0);
 #define WG_STEP(FIRST, MORE, CUR, NXT, IT) \
   wg_step<HD, FIRST, MORE>(st, CUR, NXT, IT, ld, issuer, qs, rw, g, t4, shift, Sk, scale_log2)
-  // S of tile it is in s0 for even it, s1 for odd it
-  if (n_my == 1) {
+  if constexpr (kPvN<HD> != HD) {   // hd 192: every tile's S in s0
+    for (int it = 0; it < n_my; ++it)
+      wg_step_chunked<HD>(st, s0, it, it + 1 < n_my, ld, issuer, qs, rw, g, t4, shift, Sk,
+                          scale_log2);
+  } else if (n_my == 1) {   // S of tile it is in s0 for even it, s1 for odd it
     WG_STEP(true, false, s0, s1, 0);
   } else {
     WG_STEP(true, true, s0, s1, 0);
@@ -769,11 +852,11 @@ flash_fwd_wg(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
     hop::wg_wait<0>();   // the last tile's P V
     hop::fence_regs(st.pv);
     wg_fold<HD>(st, st.corr_prev);
-    wg_release(empty, n_my - 1);
+    wg_release(empty, n_my - 1, L::STAGES);
   }
   for (int it = n_my; it < n_tiles; ++it) {   // consumer 0 only
-    hop::mbar_wait(&full[it % WG_STAGES], (it / WG_STAGES) & 1);
-    wg_release(empty, it);
+    hop::mbar_wait(&full[it % L::STAGES], (it / L::STAGES) & 1);
+    wg_release(empty, it, L::STAGES);
   }
 
 #pragma unroll
@@ -817,7 +900,7 @@ int launch_wg(const void* q, const void* k, const void* v, void* o, int B, int H
 
 // ------------------------------------------- fp32, split TF32 on wgmma ----
 //
-// hd 64 and 128.  The block is the bf16 body's: one (batch*head, 128 query
+// hd 64, 128 and 192.  The block is the bf16 body's: one (batch*head, 128 query
 // rows), two consumer warpgroups of 64 rows, thread 128 issuing the TMA
 // copies, K and V tiles through a ring with a full and an empty mbarrier a
 // stage.  Every product is split TF32 (hopper.cuh): three TF32 wgmmas a k8
@@ -854,12 +937,13 @@ int launch_wg(const void* q, const void* k, const void* v, void* o, int B, int H
 // version.  Shared memory: both consumers' raw Q rows and a ring of
 // stages, each the tile's K and V^T hi and lo planes: at hd 64, 64-key
 // tiles and 3 stages (224 KB); at hd 128, 32-key tiles and 2 stages (192
-// KB), since a 64-key stage there would be 128 KB.
+// KB), since a 64-key stage there would be 128 KB; at hd 192, 32-key tiles
+// with K and V^T in rings of their own (flash_fwd_tf32_ring below).
 //
 // Bound at the scoring shape (2, 2048, 16, 64): the causal pairs' 17.2
 // GFLOP are 0.257 ms as fp32 FMAs and 0.104 ms as three TF32 products at
 // 495 TFLOP/s; the bytes 0.010 ms.  InternVL2's (2, 2304, 16, 128): 0.649 /
-// 0.264 ms.
+// 0.264 ms.  Nemotron-4-340B's (2, 2048, 96, 192): 4.61 / 1.874 ms.
 
 template <int HD>
 struct TfShape {
@@ -934,6 +1018,81 @@ __device__ __forceinline__ void tf_softmax(float (&sc)[BK / 2], float (&corr)[2]
     sum[hr] += __shfl_xor_sync(0xffffffffu, sum[hr], 1);
     sum[hr] += __shfl_xor_sync(0xffffffffu, sum[hr], 2);
     l_run[hr] = l_run[hr] * corr[hr] + sum[hr];   // the unrounded p
+  }
+}
+
+// Q's A fragment of k8 step kk (rows r0 and r0 + 8 of the consumer's 64,
+// columns 8 kk + t and + 4), read from the raw Q rows qs (TMA-landed
+// 128-byte swizzled boxes of 32 columns, 64 rows a box) and split into
+// TF32 hi and lo.
+__device__ __forceinline__ void tf_q_fragment(const float* qs, int kk, int r0, int t4,
+                                              uint32_t (&fh)[4], uint32_t (&fl)[4]) {
+  const float* qb = qs + (kk / 4) * 64 * 32;
+  const int cc = 8 * (kk % 4) + t4;
+  hop::split(qb[swz32(r0, cc)], fh[0], fl[0]);
+  hop::split(qb[swz32(r0 + 8, cc)], fh[1], fl[1]);
+  hop::split(qb[swz32(r0, cc + 4)], fh[2], fl[2]);
+  hop::split(qb[swz32(r0 + 8, cc + 4)], fh[3], fl[3]);
+}
+
+// A consumer's rows of o = acc / max(l, 1e-30) (rows past Sq not stored).
+template <int HD>
+__device__ __forceinline__ void tf_store(float* __restrict__ o, const float (&acc)[HD / 2],
+                                         const float (&l_run)[2], int b, int h, int H, int Sq,
+                                         int rw, int g, int t4) {
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = rw + g + 8 * hr;
+    if (r >= Sq) continue;
+    const float den = fmaxf(l_run[hr], 1e-30f);
+    float* orow = o + ((size_t)b * Sq + r) * H * HD + (size_t)h * HD;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<float2*>(orow + j * 8 + 2 * t4) =
+          make_float2(acc[4 * j + 2 * hr] / den, acc[4 * j + 2 * hr + 1] / den);
+  }
+}
+
+// acc = acc * corr + P V for one tile of BK keys, its p in sc (split into
+// TF32 fragments here), V^T's hi plane at vt and its lo plane VPLANE bytes
+// on ([BK / 32][HD][32] each), 64 of hd's columns at a time.
+template <int HD, int BK, int VPLANE>
+__device__ __forceinline__ void tf_pv(float (&acc)[HD / 2], const float (&sc)[BK / 2],
+                                      const float (&corr)[2], const unsigned char* vt) {
+  // P's fragments: k8 step j's logical key t is key 8j + 2t, t + 4 is 8j +
+  // 2t + 1 (as the accumulator holds them; V^T's columns follow)
+  uint32_t ph[BK / 8][4], pl[BK / 8][4];
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    hop::split(sc[4 * j], ph[j][0], pl[j][0]);
+    hop::split(sc[4 * j + 2], ph[j][1], pl[j][1]);
+    hop::split(sc[4 * j + 1], ph[j][2], pl[j][2]);
+    hop::split(sc[4 * j + 3], ph[j][3], pl[j][3]);
+    hop::fence_regs(ph[j]);
+    hop::fence_regs(pl[j]);
+  }
+#pragma unroll
+  for (int nh = 0; nh < HD / 64; ++nh) {
+    float pv[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) pv[i] = 0.0f;
+    hop::fence_regs(pv);
+    hop::wg_fence();
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      const unsigned char* vb = vt + (j / 4) * HD * 128 + nh * 64 * 128 + (j % 4) * 32;
+      const uint64_t vh = hop::desc_sw128(vb, 16, 1024);
+      const uint64_t vl = hop::desc_sw128(vb + VPLANE, 16, 1024);
+      hop::wgmma_rs_tf32<64>(pv, ph[j], vh, 1);
+      hop::wgmma_rs_tf32<64>(pv, ph[j], vl, 1);
+      hop::wgmma_rs_tf32<64>(pv, pl[j], vh, 1);
+    }
+    hop::wg_commit();
+    hop::wg_wait<0>();
+    hop::fence_regs(pv);
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      acc[32 * nh + i] = fmaf(acc[32 * nh + i], corr[(i / 2) & 1], pv[i]);
   }
 }
 
@@ -1032,14 +1191,9 @@ flash_fwd_tf32(const __grid_constant__ CUtensorMap qmap, const __grid_constant__
     uint32_t qh[2][4], ql[2][4];
 #pragma unroll
     for (int kk = 0; kk < HD / 8; ++kk) {
-      const float* qb = qs + (kk / 4) * (L::BOX_Q / 4);
-      const int cc = 8 * (kk % 4) + t4;
       uint32_t(&fh)[4] = qh[kk & 1];
       uint32_t(&fl)[4] = ql[kk & 1];
-      hop::split(qb[swz32(r0, cc)], fh[0], fl[0]);
-      hop::split(qb[swz32(r0 + 8, cc)], fh[1], fl[1]);
-      hop::split(qb[swz32(r0, cc + 4)], fh[2], fl[2]);
-      hop::split(qb[swz32(r0 + 8, cc + 4)], fh[3], fl[3]);
+      tf_q_fragment(qs, kk, r0, t4, fh, fl);
       const int off = (kk / 4) * BK * 128 + (kk % 4) * 32;
       hop::split_step<BK>(sc, fh, fl, hop::desc_sw128(st + off, 16, 1024),
                           hop::desc_sw128(st + L::KPLANE + off, 16, 1024));
@@ -1049,43 +1203,7 @@ flash_fwd_tf32(const __grid_constant__ CUtensorMap qmap, const __grid_constant__
     hop::fence_regs(sc);
     float corr[2];
     tf_softmax<BK>(sc, corr, m_run, l_run, it * BK, rw, g, t4, shift, Sk, scale_log2);
-    // P's fragments: k8 step j's logical key t is key 8j + 2t, t + 4 is 8j +
-    // 2t + 1 (as the accumulator holds them; V^T's columns follow)
-    uint32_t ph[BK / 8][4], pl[BK / 8][4];
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      hop::split(sc[4 * j], ph[j][0], pl[j][0]);
-      hop::split(sc[4 * j + 2], ph[j][1], pl[j][1]);
-      hop::split(sc[4 * j + 1], ph[j][2], pl[j][2]);
-      hop::split(sc[4 * j + 3], ph[j][3], pl[j][3]);
-      hop::fence_regs(ph[j]);
-      hop::fence_regs(pl[j]);
-    }
-    // acc = acc * corr + P V, 64 of hd's columns at a time
-#pragma unroll
-    for (int nh = 0; nh < HD / 64; ++nh) {
-      float pv[32];
-#pragma unroll
-      for (int i = 0; i < 32; ++i) pv[i] = 0.0f;
-      hop::fence_regs(pv);
-      hop::wg_fence();
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j) {
-        const unsigned char* vb =
-            st + 2 * L::KPLANE + (j / 4) * HD * 128 + nh * 64 * 128 + (j % 4) * 32;
-        const uint64_t vh = hop::desc_sw128(vb, 16, 1024);
-        const uint64_t vl = hop::desc_sw128(vb + L::VPLANE, 16, 1024);
-        hop::wgmma_rs_tf32<64>(pv, ph[j], vh, 1);
-        hop::wgmma_rs_tf32<64>(pv, ph[j], vl, 1);
-        hop::wgmma_rs_tf32<64>(pv, pl[j], vh, 1);
-      }
-      hop::wg_commit();
-      hop::wg_wait<0>();
-      hop::fence_regs(pv);
-#pragma unroll
-      for (int i = 0; i < 32; ++i)
-        acc[32 * nh + i] = fmaf(acc[32 * nh + i], corr[(i / 2) & 1], pv[i]);
-    }
+    tf_pv<HD, BK, L::VPLANE>(acc, sc, corr, st + 2 * L::KPLANE);
     wg_release(empty, it, STAGES);
     if (issuer && it + STAGES < n_tiles) {
       hop::mbar_wait(&empty[s], (it / STAGES) & 1);
@@ -1097,17 +1215,184 @@ flash_fwd_tf32(const __grid_constant__ CUtensorMap qmap, const __grid_constant__
     wg_release(empty, it, STAGES);
   }
 
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int r = rw + g + 8 * hr;
-    if (r >= Sq) continue;
-    const float den = fmaxf(l_run[hr], 1e-30f);
-    float* orow = o + ((size_t)b * Sq + r) * H * HD + (size_t)h * HD;
-#pragma unroll
-    for (int j = 0; j < HD / 8; ++j)
-      *reinterpret_cast<float2*>(orow + j * 8 + 2 * t4) =
-          make_float2(acc[4 * j + 2 * hr] / den, acc[4 * j + 2 * hr + 1] / den);
+  tf_store<HD>(o, acc, l_run, b, h, H, Sq, rw, g, t4);
+}
+
+// hd 192.  There a 32-key stage of K's and V^T's planes is 96 KB, and two
+// stages (the fewest that overlap a copy with the products) beside both
+// consumers' raw Q rows (96 KB) pass the 227 KB a block may have; a block
+// of one consumer would still take 240 KB, and 16-key tiles would halve the
+// products a wait.  So K and V^T get rings of their own: S = Q K^T
+// accumulates over hd's k8 steps and reads one 32-column box of K at a
+// time, so K streams through a four-stage ring of boxes (its hi and lo
+// planes, 8 KB a stage) that a consumer releases box by box, and V^T's
+// planes (48 KB a tile) through two stages.  Q, the products, the softmax
+// and the order of every sum are flash_fwd_tf32's.
+template <int HD>
+struct TfRing {
+  static constexpr int BKV = 32;                        // keys a tile
+  static constexpr int QB = HD / 32;                    // 32-column boxes across hd
+  static constexpr int BOX_Q = 64 * 128;                // 64 rows of one box
+  static constexpr int Q_CONS = QB * BOX_Q;             // a consumer's raw Q rows
+  static constexpr int KBOX = BKV * 128;                // a box of a K plane: [BKV][32]
+  static constexpr int KSTAGES = 4;                     // K's ring: a box's hi and lo
+  static constexpr int VPLANE = (BKV / 32) * HD * 128;  // a tile's V^T plane: [HD][32]
+  static constexpr int VSTAGES = 2;                     // V^T's ring: a tile's hi and lo
+  static constexpr int V_OFF = 2 * Q_CONS;
+  static constexpr int K_OFF = V_OFF + VSTAGES * 2 * VPLANE;
+  static constexpr int BARS = K_OFF + KSTAGES * 2 * KBOX;
+  static constexpr int BYTES = BARS + 8 * (1 + 2 * VSTAGES + 2 * KSTAGES) + 1024;
+  static_assert(BYTES <= 232448, "the fp32 flash rings over the card's shared memory");
+};
+
+template <int HD>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_fwd_tf32_ring(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap klmap,
+                    const __grid_constant__ CUtensorMap vmap, float* __restrict__ o, int H,
+                    int Sq, int Sk, float scale_log2) {
+  using L = TfRing<HD>;
+  constexpr int BK = L::BKV, QB = L::QB, KST = L::KSTAGES, VST = L::VSTAGES;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* vfull = q_full + 1;      // [VST]
+  uint64_t* vempty = vfull + VST;    // [VST]
+  uint64_t* kfull = vempty + VST;    // [KST]
+  uint64_t* kempty = kfull + KST;    // [KST]
+  unsigned char* vring = smem + L::V_OFF;
+  unsigned char* kring = smem + L::K_OFF;
+  const int B = gridDim.x / H, b = blockIdx.x / H, h = blockIdx.x % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * WG_BQ;
+  const int shift = Sk - Sq;
+  const int n_tiles = (min(q0 + WG_BQ, Sq) - 1 + shift) / BK + 1;
+  const int n_boxes = n_tiles * QB;   // box j: tile j / QB, hd's columns 32 (j % QB) ..
+  if (threadIdx.x == 0) {
+    hop::mbar_init(q_full, 1);
+    for (int s = 0; s < VST; ++s) {
+      hop::mbar_init(&vfull[s], 1);
+      hop::mbar_init(&vempty[s], WG_CONSUMER_WARPS);
+    }
+    for (int s = 0; s < KST; ++s) {
+      hop::mbar_init(&kfull[s], 1);
+      hop::mbar_init(&kempty[s], WG_CONSUMER_WARPS);
+    }
+    hop::fence_barrier_init();
   }
+  __syncthreads();
+
+  // consumer c: query rows q0 + 64 c .. + 63; warp w of it rows 16 w .. + 15
+  const int c = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int rw = q0 + 64 * c + 16 * warp;   // the warp's first row
+  // these rows see keys up to tile n_my - 1; later tiles are only waited
+  // for and released.  Consumer 1 sees every tile of the block, so one of
+  // its threads issues the copies.
+  const int n_my = (min(q0 + 64 * c + 63, Sq - 1) + shift) / BK + 1;
+  const bool issuer = threadIdx.x == 128;
+  const CUtensorMap* km = &kmap;
+  const CUtensorMap* klm = &klmap;
+  const CUtensorMap* vm = &vmap;
+  auto load_k = [&](int box) {   // box's K hi and lo planes into stage box % KST
+    const int s = box % KST, it = box / QB, col = 32 * (box % QB);
+    unsigned char* dst = kring + s * 2 * L::KBOX;
+    hop::mbar_expect_tx(&kfull[s], 2 * L::KBOX);
+    hop::tma_load_4d(dst, km, &kfull[s], col, h, it * BK, b);
+    hop::tma_load_4d(dst + L::KBOX, klm, &kfull[s], col, h, it * BK, b);
+  };
+  auto load_v = [&](int it) {    // tile it's V^T hi and lo planes into stage it % VST
+    const int s = it % VST;
+    unsigned char* dst = vring + s * 2 * L::VPLANE;
+    hop::mbar_expect_tx(&vfull[s], 2 * L::VPLANE);
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+#pragma unroll
+      for (int kb = 0; kb < BK / 32; ++kb)
+        hop::tma_load_3d(dst + p * L::VPLANE + kb * HD * 128, vm, &vfull[s], it * BK + 32 * kb,
+                         0, (p * B + b) * H + h);
+  };
+  // This warp is done with K box `box` (V^T tile `it`); the issuing thread
+  // waits for the other consumer to be done with it too and refills its
+  // stage.
+  auto done_k = [&](int box) {
+    wg_release(kempty, box, KST);
+    if (issuer && box + KST < n_boxes) {
+      hop::mbar_wait(&kempty[box % KST], (box / KST) & 1);
+      load_k(box + KST);
+    }
+  };
+  auto done_v = [&](int it) {
+    wg_release(vempty, it, VST);
+    if (issuer && it + VST < n_tiles) {
+      hop::mbar_wait(&vempty[it % VST], (it / VST) & 1);
+      load_v(it + VST);
+    }
+  };
+  if (issuer) {
+    hop::prefetch_map(&qmap);
+    hop::prefetch_map(km);
+    hop::prefetch_map(klm);
+    hop::prefetch_map(vm);
+    hop::mbar_expect_tx(q_full, 2 * L::Q_CONS);
+    for (int cc = 0; cc < 2; ++cc)
+      for (int ch = 0; ch < QB; ++ch)
+        hop::tma_load_4d(smem + (cc * QB + ch) * L::BOX_Q, &qmap, q_full, 32 * ch, h,
+                         q0 + 64 * cc, b);
+    hop::grid_dependency_wait();   // the planes of K and V^T are written
+    for (int box = 0; box < min(KST, n_boxes); ++box) load_k(box);
+    for (int it = 0; it < min(VST, n_tiles); ++it) load_v(it);
+  }
+  const float* qs = reinterpret_cast<const float*>(smem + c * L::Q_CONS);
+  const int r0 = 16 * warp + g;
+  float acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.0f;
+  float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.0f, 0.0f};
+  hop::mbar_wait(q_full, 0);
+
+  for (int it = 0; it < n_my; ++it) {
+    // S = Q K^T as flash_fwd_tf32's, K a box at a time: a box is released
+    // once the products of its last k8 step are done (waited for in the
+    // next step)
+    float sc[BK / 2];
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) sc[i] = 0.0f;
+    uint32_t qh[2][4], ql[2][4];
+#pragma unroll
+    for (int kk = 0; kk < HD / 8; ++kk) {
+      const int box = it * QB + kk / 4;
+      if (kk % 4 == 0) hop::mbar_wait(&kfull[box % KST], (box / KST) & 1);
+      uint32_t(&fh)[4] = qh[kk & 1];
+      uint32_t(&fl)[4] = ql[kk & 1];
+      tf_q_fragment(qs, kk, r0, t4, fh, fl);
+      const unsigned char* kb = kring + (box % KST) * 2 * L::KBOX + (kk % 4) * 32;
+      hop::split_step<BK>(sc, fh, fl, hop::desc_sw128(kb, 16, 1024),
+                          hop::desc_sw128(kb + L::KBOX, 16, 1024));
+      hop::wg_wait<1>();   // the other fragment's products are done
+      if (kk % 4 == 0 && kk > 0) done_k(box - 1);
+    }
+    hop::wg_wait<0>();
+    hop::fence_regs(sc);
+    done_k(it * QB + QB - 1);
+    float corr[2];
+    tf_softmax<BK>(sc, corr, m_run, l_run, it * BK, rw, g, t4, shift, Sk, scale_log2);
+    hop::mbar_wait(&vfull[it % VST], (it / VST) & 1);
+    tf_pv<HD, BK, L::VPLANE>(acc, sc, corr, vring + (it % VST) * 2 * L::VPLANE);
+    done_v(it);
+  }
+  for (int it = n_my; it < n_tiles; ++it) {   // consumer 0 only
+    for (int ch = 0; ch < QB; ++ch) {
+      const int box = it * QB + ch;
+      hop::mbar_wait(&kfull[box % KST], (box / KST) & 1);
+      wg_release(kempty, box, KST);
+    }
+    hop::mbar_wait(&vfull[it % VST], (it / VST) & 1);
+    wg_release(vempty, it, VST);
+  }
+
+  tf_store<HD>(o, acc, l_run, b, h, H, Sq, rw, g, t4);
 }
 
 // K (B, Sk, H, hd) -> its lo TF32 plane in its layout (hop::tf32_lo: K
@@ -1115,18 +1400,22 @@ flash_fwd_tf32(const __grid_constant__ CUtensorMap qmap, const __grid_constant__
 // the hi and lo planes of V^T (B*H, hd, Skp), Skp = Sk rounded up to 32,
 // keys past Sk zero, each 8 keys' columns in the order flash_fwd_tf32's P
 // fragments take them (column 8j + p is key 8j + 2p for p < 4, 8j + 2(p -
-// 4) + 1 else); V^T's hi plane is V itself, as K's.  A block is 64 keys of
+// 4) + 1 else); V^T's hi plane is V itself, as K's.  A block is KT keys of
 // one (batch, head), read and written 16 bytes a thread; V goes through
 // shared memory to be transposed.
+template <int HD>
+constexpr int kPlaneKeys = HD <= 128 ? 64 : 32;   // 64 keys of hd 192 pass 48 KB of static smem
+
 template <int HD>
 __global__ void __launch_bounds__(256)
 flash_kv_planes(const float* __restrict__ k, const float* __restrict__ v, float* __restrict__ klo,
                 float* __restrict__ vtp, int B, int H, int Sk, int Skp) {
-  __shared__ float tile[64][HD + 1];
+  constexpr int KT = kPlaneKeys<HD>;
+  __shared__ float tile[KT][HD + 1];
   hop::launch_dependents();
-  const int k0 = blockIdx.x * 64, bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int k0 = blockIdx.x * KT, bh = blockIdx.y, b = bh / H, h = bh % H;
   constexpr int Q4 = HD / 4;   // 16-byte pieces of a key's row
-  for (int i = threadIdx.x; i < 64 * Q4; i += 256) {
+  for (int i = threadIdx.x; i < KT * Q4; i += 256) {
     const int r = i / Q4, c = 4 * (i % Q4), key = k0 + r;
     float4 vv = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     if (key < Sk) {
@@ -1145,8 +1434,8 @@ flash_kv_planes(const float* __restrict__ k, const float* __restrict__ v, float*
   // V^T's row d, logical columns 4j .. 4j + 3: keys 8 (j / 2) + (j odd ? 1,
   // 3, 5, 7 : 0, 2, 4, 6)
   const size_t vplane = (size_t)B * H * HD * Skp;
-  for (int i = threadIdx.x; i < HD * 16; i += 256) {
-    const int d = i / 16, j = i % 16, col = k0 + 4 * j;
+  for (int i = threadIdx.x; i < HD * (KT / 4); i += 256) {
+    const int d = i / (KT / 4), j = i % (KT / 4), col = k0 + 4 * j;
     if (col >= Skp) continue;
     const int r = 8 * (j / 2) + (j & 1);
     const float4 a = make_float4(tile[r][d], tile[r + 2][d], tile[r + 4][d], tile[r + 6][d]);
@@ -1170,7 +1459,10 @@ int flash_map_f32(CUtensorMap* map, const void* base, int B, int S, int H, int h
 template <int HD>
 int launch_tf32(const float* q, const float* k, const float* v, float* o, float* scratch, int B,
                 int H, int Sq, int Sk, float scale_log2, cudaStream_t s) {
-  using L = TfShape<HD>;
+  constexpr bool RING = HD > 128;   // flash_fwd_tf32_ring, else flash_fwd_tf32
+  int bkv;
+  if constexpr (RING) bkv = TfRing<HD>::BKV;
+  else bkv = TfShape<HD>::BKV;
   const int q_tiles = (Sq + WG_BQ - 1) / WG_BQ;
   const int skp = (Sk + 31) / 32 * 32;
   if (q_tiles > 65535 || (long long)B * H > 65535 || skp / 32 > 65535) return -1;
@@ -1180,14 +1472,20 @@ int launch_tf32(const float* q, const float* k, const float* v, float* o, float*
   const uint64_t vdims[3] = {(uint64_t)skp, (uint64_t)HD, 2ull * B * H};
   const uint64_t vstrides[2] = {(uint64_t)skp * 4, (uint64_t)HD * skp * 4};
   const uint32_t vbox[3] = {32, HD, 1};
-  if (flash_map_f32(&qm, q, B, Sq, H, HD, 64) || flash_map_f32(&km, k, B, Sk, H, HD, L::BKV) ||
-      flash_map_f32(&klm, klo, B, Sk, H, HD, L::BKV) ||
+  if (flash_map_f32(&qm, q, B, Sq, H, HD, 64) || flash_map_f32(&km, k, B, Sk, H, HD, bkv) ||
+      flash_map_f32(&klm, klo, B, Sk, H, HD, bkv) ||
       hop::encode_f32_map(&vm, vtp, 3, vdims, vstrides, vbox, CU_TENSOR_MAP_SWIZZLE_128B))
     return -1;
-  flash_kv_planes<HD><<<dim3((skp + 63) / 64, B * H), 256, 0, s>>>(k, v, klo, vtp, B, H, Sk, skp);
+  constexpr int KT = kPlaneKeys<HD>;
+  flash_kv_planes<HD><<<dim3((skp + KT - 1) / KT, B * H), 256, 0, s>>>(k, v, klo, vtp, B, H, Sk,
+                                                                      skp);
   // (batch*head) fastest, so every head's heaviest query tile goes first
-  hop::launch_dependent(flash_fwd_tf32<HD>, L::BYTES, dim3(B * H, q_tiles), WG_THREADS, s, qm, km,
-                        klm, vm, o, H, Sq, Sk, scale_log2);
+  if constexpr (RING)
+    hop::launch_dependent(flash_fwd_tf32_ring<HD>, TfRing<HD>::BYTES, dim3(B * H, q_tiles),
+                          WG_THREADS, s, qm, km, klm, vm, o, H, Sq, Sk, scale_log2);
+  else
+    hop::launch_dependent(flash_fwd_tf32<HD>, TfShape<HD>::BYTES, dim3(B * H, q_tiles),
+                          WG_THREADS, s, qm, km, klm, vm, o, H, Sq, Sk, scale_log2);
   return 0;
 }
 
@@ -1231,9 +1529,9 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* o, void
 
 // q (B,Sq,H,hd), k / v (B,Sk,H,hd), o (B,Sq,H,hd), all contiguous and of one
 // dtype (0 fp32, 1 bf16), 16-byte aligned but for fp32 at hd 16 / 32; Sk >=
-// Sq >= 1; hd in {16, 32, 64, 128}.  fp32 at hd 64 / 128 takes a scratch of
-// B Sk H hd + 2 B H hd Skp floats, Skp = Sk rounded up to 32 (K's lo plane
-// and V^T's two), 16-byte aligned; else it may be null.  Returns a
+// Sq >= 1; hd in {16, 32, 64, 128, 192}.  fp32 at hd 64 / 128 / 192 takes
+// a scratch of B Sk H hd + 2 B H hd Skp floats, Skp = Sk rounded up to 32
+// (K's lo plane and V^T's two), 16-byte aligned; else it may be null.  Returns a
 // cudaError_t (0 on success), or cudaErrorInvalidValue for what it does not
 // take.
 extern "C" int flash_attention_forward(const void* q, const void* k, const void* v, void* o,
@@ -1255,6 +1553,7 @@ extern "C" int flash_attention_forward(const void* q, const void* k, const void*
     case 32: rc = launch<32>(dtype, q, k, v, o, scratch, B, H, Sq, Sk, scale_log2, s); break;
     case 64: rc = launch<64>(dtype, q, k, v, o, scratch, B, H, Sq, Sk, scale_log2, s); break;
     case 128: rc = launch<128>(dtype, q, k, v, o, scratch, B, H, Sq, Sk, scale_log2, s); break;
+    case 192: rc = launch<192>(dtype, q, k, v, o, scratch, B, H, Sq, Sk, scale_log2, s); break;
     default: break;
   }
   if (rc != 0) return static_cast<int>(cudaErrorInvalidValue);

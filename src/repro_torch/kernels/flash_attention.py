@@ -3,9 +3,11 @@
 Replaces ``repro/kernels/flash_attention.py::flash_attention_kernel``
 (Pallas, TPU).  The kernel (``csrc/flash_attention.cu``) is bound by
 operations at the scoring path's shape; its note says what the design
-does about that: bf16 and fp32 at hd 64 / 128 run on wgmma fed by TMA
-(fp32 in split TF32, K's and V^T's planes written by a first kernel into
-a scratch this wrapper allocates), hd 16 / 32 on the earlier bodies.  For
+does about that: bf16 and fp32 at hd 64 / 128 / 192 run on wgmma fed by
+TMA (fp32 in split TF32, K's and V^T's planes written by a first kernel
+into a scratch this wrapper allocates; at hd 192 bf16's P V runs 64 of
+hd's columns at a time and fp32's K and V^T have rings of their own), hd
+16 / 32 on the earlier bodies.  For
 a CUDA tensor the wrapper launches the kernel or raises; for a CPU tensor
 it runs the plain version (``kernels.ref.flash_attention_plain``), which
 repeats the kernel's arithmetic.  ``LAUNCHES`` counts kernel launches and
@@ -23,7 +25,7 @@ from .build import launch_on
 LAUNCHES = 0
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)      # the kernel's instantiations
+HEAD_DIMS = (16, 32, 64, 128, 192)      # the kernel's instantiations
 
 _fn = None
 
@@ -63,9 +65,9 @@ def _check(q, k, v):
 
 
 def scratch_floats(B: int, H: int, Sk: int, hd: int) -> int:
-    """The fp32 body's scratch (hd 64 / 128): K's lo TF32 plane (B, Sk, H,
-    hd; K is its own hi plane), then V^T's hi and lo planes (2, B*H, hd, Sk
-    rounded up to 32)."""
+    """The fp32 body's scratch (hd 64 / 128 / 192): K's lo TF32 plane (B,
+    Sk, H, hd; K is its own hi plane), then V^T's hi and lo planes (2, B*H,
+    hd, Sk rounded up to 32)."""
     return B * Sk * H * hd + 2 * B * H * hd * (-(-Sk // 32) * 32)
 
 

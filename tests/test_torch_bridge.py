@@ -100,6 +100,7 @@ def _imported_names(path: Path):
 
 
 SCANNED = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                         REPO / "tools" / "flash_bits.py",
                                          REPO / "tools" / "kernel_variants.py",
                                          REPO / "tools" / "fit_tile_model.py",
                                          REPO / "tools" / "ssd_ablations.py",

@@ -15,12 +15,15 @@
   teacher-forced forward (under ``dense``: capacity drops differ);
 * the scoring forward of every other new LM family (the paper's Table I
   MoE models, Phi-3.5, the dense ones with layernorm, relu2 or MHA) at
-  1e-4, and DeepSeek's MoE block with its shared experts at 2e-5;
+  1e-4, Nemotron-4-340B narrowed around its head_dim of 192 through flash
+  (Pallas in interpret mode, the port's plain version) at 1e-4, and
+  DeepSeek's MoE block with its shared experts at 2e-5;
 * the engine on reduced DeepSeek (two shared experts a layer: one in
   reduced) and reduced Qwen3 in fp32, ``submit`` and ``submit_chunked``,
-  fused and eager: tokens, the trace with ``modeled_s`` and the statistics
-  equal to the reference engine's (run once per module,
-  ``use_kernels(False)``);
+  and on reduced Nemotron-4-340B (dense: no MoE boundary, one host sync an
+  iteration; 2 requests x 8 -> 8 tokens), fused and eager: tokens, the
+  trace with ``modeled_s`` and the statistics equal to the reference
+  engine's (run once per module, ``use_kernels(False)``);
 * ``serve --arch`` dry runs of the new MoE archs on ``--device cpu``.
 """
 import dataclasses
@@ -60,7 +63,13 @@ ARCHS = ("deepseek-moe-16b", "granite-moe-1b-a400m", "internvl2-2b",
          "nemotron-4-340b", "phi3.5-moe-42b-a6.6b", "qwen3-30b-a3b",
          "stablelm-1.6b", "whisper-base", "yi-6b", "yuan2-m32")
 DEEPSEEK, QWEN, VLM = "deepseek-moe-16b", "qwen3-30b-a3b", "internvl2-2b"
+NEMOTRON = "nemotron-4-340b"
 CAPACITY = {"strategy": "capacity"}
+# Nemotron-4-340B narrowed around its head_dim of 192 (2 heads, 1 KV head),
+# whose scoring forward runs through flash at hd 192
+NEMOTRON_HD192 = "nemotron-4-340b@hd192"
+HD192 = dict(num_layers=2, d_model=384, num_heads=2, num_kv_heads=1,
+             d_ff=256, vocab_size=128, dtype="float32")
 
 
 def _close(got, want, tol=TOL):
@@ -69,8 +78,13 @@ def _close(got, want, tol=TOL):
 
 
 def _setup(arch, seed=0):
-    jcfg = jreduced(arch).replace(dtype="float32")
-    cfg = reduced_config(arch).replace(dtype="float32")
+    if arch == NEMOTRON_HD192:
+        jcfg, cfg = jget(NEMOTRON).replace(**HD192), \
+            get_config(NEMOTRON).replace(**HD192)
+        assert cfg.resolved_head_dim == jcfg.resolved_head_dim == 192
+    else:
+        jcfg = jreduced(arch).replace(dtype="float32")
+        cfg = reduced_config(arch).replace(dtype="float32")
     jparams = japi.init_params(jax.random.PRNGKey(seed), jcfg)
     params = bridge.from_reference_params(jax.tree.map(np.asarray, jparams),
                                           device="cpu")
@@ -369,24 +383,27 @@ def test_init_decode_caches_shapes():
 @pytest.mark.parametrize("arch", [DEEPSEEK, QWEN, "yuan2-m32",
                                   "phi3.5-moe-42b-a6.6b", "nemotron-4-15b",
                                   "nemotron-4-340b", "stablelm-1.6b",
-                                  "yi-6b"])
+                                  "yi-6b", NEMOTRON_HD192])
 def test_family_forward_and_loss_match_reference(arch):
     """The scoring forward under ``capacity`` (the reduced MoE configs
     name ``dense``, the full ones ``fse_dp``): logits, the aux loss and the
-    loss at 1e-4."""
+    loss at 1e-4; NEMOTRON_HD192 through flash at hd 192 (the Pallas
+    kernel in interpret mode, the port's plain version)."""
     jcfg, cfg, jparams, params = _setup(arch)
     tokens, labels = _tokens(cfg, 2, 16, 7)
     spec = CAPACITY if cfg.moe else None
-    jl, jaux = jtf.forward(jparams, jnp.asarray(tokens), jcfg, spec=spec)
+    flash = arch == NEMOTRON_HD192
+    jl, jaux = jtf.forward(jparams, jnp.asarray(tokens), jcfg, spec=spec,
+                           use_flash=flash)
     jloss, _ = japi.loss_fn(jparams, {"tokens": jnp.asarray(tokens),
                                       "labels": jnp.asarray(labels)},
-                            jcfg, spec=spec)
+                            jcfg, spec=spec, use_flash=flash)
     with torch.no_grad():
         logits, aux = transformer.forward(params, torch.from_numpy(tokens),
-                                          cfg, spec=spec)
+                                          cfg, spec=spec, use_flash=flash)
         loss, _ = api.loss_fn(params, {"tokens": torch.from_numpy(tokens),
                                        "labels": torch.from_numpy(labels)},
-                              cfg, spec=spec)
+                              cfg, spec=spec, use_flash=flash)
     _close(logits, jl)
     _close(aux, jaux)
     _close(loss, jloss)
@@ -432,12 +449,17 @@ ENGINE_CASES = {
     (DEEPSEEK, "chunked"): CAPACITY,
     (QWEN, "submit"): CAPACITY,
     (QWEN, "chunked"): {"strategy": "capacity", "schedule": "dynamic"},
+    (NEMOTRON, "submit"): CAPACITY,
 }
+# a dense model's slice: 2 requests x 8 -> 8 tokens (chip_smoke.py phase
+# nemotron serves 4 x 8 -> 16 of the full-width model)
+ENGINE_PROMPTS = {NEMOTRON: (([3, 14, 15, 92, 65, 35, 89, 79],
+                              [32, 38, 46, 26, 43, 38, 32, 79]), 8)}
 
 
 @pytest.fixture(scope="module")
 def engine_models():
-    return {arch: _setup(arch, seed=1) for arch in (DEEPSEEK, QWEN)}
+    return {arch: _setup(arch, seed=1) for arch in (DEEPSEEK, QWEN, NEMOTRON)}
 
 
 def _kw(spec):
@@ -445,9 +467,10 @@ def _kw(spec):
                 chunk_tokens=3, spec=dict(spec))
 
 
-def _serve(engine, chunked, max_new=6):
+def _serve(engine, chunked, arch):
+    prompts, max_new = ENGINE_PROMPTS.get(arch, (PROMPTS, 6))
     sub = engine.submit_chunked if chunked else engine.submit
-    rids = [sub(list(p), max_new=max_new) for p in PROMPTS]
+    rids = [sub(list(p), max_new=max_new) for p in prompts]
     outs = engine.run()
     return [outs[r] for r in rids]
 
@@ -459,7 +482,7 @@ def engine_reference(engine_models):
         for (arch, adm), spec in ENGINE_CASES.items():
             jcfg, _, jparams, _ = engine_models[arch]
             jeng = JEngine(jparams, jcfg, JServeConfig(**_kw(spec)))
-            out[arch, adm] = (jeng, _serve(jeng, adm == "chunked"))
+            out[arch, adm] = (jeng, _serve(jeng, adm == "chunked", arch))
     return out
 
 
@@ -473,8 +496,9 @@ def test_engine_matches_reference(engine_models, engine_reference, case):
         eng = Engine(params, cfg, ServeConfig(fused=fused,
                                               **_kw(ENGINE_CASES[case])),
                      device="cpu")
-        assert _serve(eng, adm == "chunked") == want
-        assert len(eng.trace) == len(jeng.trace) > 0
+        assert _serve(eng, adm == "chunked", arch) == want
+        assert len(eng.trace) == len(jeng.trace)
+        assert (len(eng.trace) > 0) == (cfg.moe is not None)  # MoE records
         for rec, jrec in zip(eng.trace, jeng.trace):
             assert set(rec) == set(jrec)
             assert "modeled_s" in rec or rec.get("event")
@@ -488,7 +512,11 @@ def test_engine_matches_reference(engine_models, engine_reference, case):
             {k: jeng.stats[k] for k in stats}
         assert eng.last_step_modeled_s == jeng.last_step_modeled_s
         if fused:
-            assert len(eng.megastep().boundaries) == cfg.num_layers
+            nb = len(eng.megastep().boundaries)
+            assert nb == cfg.ffn_kinds().count("moe")
+            if adm == "submit":  # a sync a MoE boundary, one a logits fetch
+                assert eng.stats["host_syncs"] == \
+                    eng.stats["iterations"] * (nb + 1)
 
 
 @pytest.mark.parametrize("arch", [DEEPSEEK, QWEN, "yuan2-m32",

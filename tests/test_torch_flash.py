@@ -4,13 +4,14 @@
   tensors: the CUDA kernel's arithmetic) matches the Pallas kernel in
   interpret mode and the reference's oracle at the reference's shapes
   (``tests/test_kernels.py``, rectangular KV with Sk = 2 Sq at hd 16 and
-  128 included) and tolerances:
+  128 included) and at hd 192 (Nemotron-4-340B's), and tolerances:
   2e-4 in fp32, 4e-2 in bf16 (p and the output are rounded to bf16);
 * ``attention(use_flash=True)`` matches the JAX ``attention(use_flash=
   True)`` on the same weights and input within 1e-4 in fp32 (both
   accumulate in fp32, in other orders), with kernels on and off;
 * the wrapper refuses what the kernel does not take, and CPU tensors
-  never touch its launch counter;
+  never touch its launch counter; every registered config's head_dim is
+  one the kernel takes (``HEAD_DIMS`` and a case of the C entry point);
 * ``chip_smoke.flash_bf16_check``, which holds the bf16 tensor-core kernel
   on the card, passes the plain version against itself and fails an
   output whose p skipped the bf16 rounding or that lost a key.
@@ -18,6 +19,7 @@
 The CUDA kernel itself runs only on the card (``chip_smoke.py``).
 """
 import importlib.util
+import re
 from pathlib import Path
 
 import jax
@@ -30,6 +32,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention_kernel as jflash
 from repro.models import attention as jattn
+from repro_torch.configs import get_config, list_configs
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 from repro_torch.models import attention
@@ -54,7 +57,8 @@ def _both(arrays, dtype):
 @pytest.mark.parametrize("B,Sq,Sk,H,hd", [(1, 64, 64, 2, 16), (2, 100, 100, 4, 32),
                                           (1, 256, 256, 1, 64), (1, 17, 17, 2, 8),
                                           (1, 32, 64, 2, 16), (1, 64, 128, 2, 128),
-                                          (1, 40, 80, 2, 16), (1, 200, 331, 2, 128)])
+                                          (1, 40, 80, 2, 16), (1, 200, 331, 2, 128),
+                                          (1, 64, 64, 2, 192), (1, 70, 130, 1, 192)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_plain_matches_pallas_and_oracle(B, Sq, Sk, H, hd, dtype):
     j, t = _both(_qkv(B, Sq, Sk, H, hd, seed=B * 100 + Sq), dtype)
@@ -116,6 +120,21 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         fa.flash_attention_kernel(q, k.to("meta"), v)
     with pytest.raises(NotImplementedError):             # no backward
         fa.flash_attention_kernel(q.requires_grad_(), k, v)
+
+
+def test_every_config_head_dim_has_a_kernel():
+    """The head_dim of every registered config with attention is in
+    ``HEAD_DIMS``, and ``HEAD_DIMS`` are the cases of the C entry point's
+    ``switch (hd)`` (a scan of the source: no card needed)."""
+    dims = {get_config(n).resolved_head_dim for n in list_configs()
+            if get_config(n).num_heads}
+    src = (Path(fa.__file__).parent / "csrc" / "flash_attention.cu") \
+        .read_text()
+    entry = src[src.index('extern "C" int flash_attention_forward'):]
+    cases = {int(c) for c in re.findall(r"case (\d+): rc = launch<\1>",
+                                        entry)}
+    assert 192 in dims and dims <= set(fa.HEAD_DIMS)
+    assert cases == set(fa.HEAD_DIMS)
 
 
 @pytest.mark.parametrize("fault", [None, "unrounded_p", "lost_key"])
