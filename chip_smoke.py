@@ -275,6 +275,20 @@ mesh. (run after train) the mesh machinery: streamed_moe timed alone at
    8)) on a (2, 4) mesh of 8 ranks on the card, all ok, and shape-only
    every assigned arch x shape on pod16x16 / pod2x16x16 with no error;
    ``python3 chip_smoke.py --only mesh`` runs it alone after the build;
+examples. (run after mesh) the port's four examples in this process on
+   the card, as a user runs them (``examples/*_torch.py``): the quickstart
+   at 2 gloo ranks (step 1's micro-slice sum through ``streamed_moe`` at
+   (E, C, d, m) = (4, 16, 32, 16) fp32 within 2e-5 of the whole expert;
+   step 2's strategies and forced FSE-DP modes within 2e-4 of the dense
+   oracle; step 3 the simulator), the serve example (slack 0 against 0.3
+   on reduced fp32 granite: identical outputs), the training example at
+   30 steps (the last logged loss below the first) and the simulator
+   example; the seconds of each against the phase's 60 s budget, the
+   ``streamed_moe`` launches of these runs (the quickstart ranks' are
+   their own processes'), then the kernel at the training example's
+   forward shape (16, 320, 512, 256) fp32 against its plain version and
+   timed; ``python3 chip_smoke.py --only examples`` runs env, build and
+   this phase alone;
 16. summary: one ``{"kernels": [...]}`` JSON line with one entry per
     kernel and path (``streamed_moe`` on the serve path in bf16 and in fp8,
     on the chunked-prefill path of the traffic run (``serve_chunked``, C =
@@ -304,7 +318,8 @@ mesh. (run after train) the mesh machinery: streamed_moe timed alone at
     launches of all 8 ranks), on the training path (``train``, phase
     train (a), with the C = 1280 row's times), and on the mesh train step
     (``mesh_train``, phase mesh (a), the launches of all 4 ranks, with
-    the per-rank call's times)),
+    the per-rank call's times), and on the examples (``examples``, with
+    the training example's shape's times)),
     each with that path's launches and its shape's times (``ms`` one call
     with its host work, ``device_ms`` the device time per call) and bound,
     and for streamed_moe the tile setting the path ran (``tiles``); the
@@ -548,7 +563,17 @@ PROFILE_PAD_S = 0.5
 PROFILE_WARMUP = 512
 
 
+_T0 = time.perf_counter()
+_LAST_PHASE = [None]
+
+
 def log(phase, msg):
+    """Print ``[phase] msg``; before a phase's first line, the script's
+    seconds so far (``[time]``), so the gaps give each phase's share."""
+    if phase != _LAST_PHASE[0]:
+        _LAST_PHASE[0] = phase
+        print(f"[time] {phase} at {time.perf_counter() - _T0:.1f}s",
+              flush=True)
     print(f"[{phase}] {msg}", flush=True)
 
 
@@ -4834,12 +4859,130 @@ def phase_mesh():
     return row, sum(sum(r["launches"]) for r in a)
 
 
+EXAMPLES = os.path.join(HERE, "examples")
+EXAMPLE_RANKS = 2
+EXAMPLE_STEPS = 30
+EXAMPLE_STEP1_TOL = 2e-5        # fp32 streamed_moe, of max |whole expert|
+EXAMPLE_BUDGET_S = 60
+
+
+def _example(name):
+    """An ``examples/*_torch.py`` module, imported by name (its gloo ranks
+    import it the same way)."""
+    import importlib
+    if EXAMPLES not in sys.path:
+        sys.path.insert(0, EXAMPLES)
+    return importlib.import_module(name)
+
+
+def phase_examples():
+    """Phase examples: the port's four examples (``examples/*_torch.py``)
+    in this process on the card, as a user runs them: the quickstart at 2
+    gloo ranks (step 1's micro-slice sum through the kernel held at 2e-5
+    of the whole expert, step 2's strategies within 2e-4 of the dense
+    oracle), the serve example (identical outputs with and without token
+    buffering), the training example at 30 steps (the last logged loss
+    below the first) and the simulator example; the streamed_moe launches
+    of these runs (the wrapper's and the serve engines' graph replays; the
+    quickstart ranks' are their own processes'), then the kernel at the
+    training example's shape against its plain version and timed.  ->
+    (the kernels line's row, launches)."""
+    import tempfile
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import streamed_moe as sm
+    t_phase = time.perf_counter()
+    sm.LAUNCHES = 0
+    secs = {}
+    t0 = time.perf_counter()
+    qs = _example("quickstart_torch").main(
+        ["--ranks", str(EXAMPLE_RANKS)])
+    secs["quickstart"] = time.perf_counter() - t0
+    line = (f"quickstart at {EXAMPLE_RANKS} gloo ranks: step 1 micro-slice "
+            f"sum vs whole expert rel {qs['step1_rel']:.3e} (tol "
+            f"{EXAMPLE_STEP1_TOL:g}), on {qs['parts'].device}; step 2 worst "
+            f"vs the dense oracle {max(qs['step2'].values()):.3e} over "
+            f"{sorted(qs['step2'])}; {secs['quickstart']:.1f}s")
+    if qs["step1_rel"] > EXAMPLE_STEP1_TOL or not qs["parts"].is_cuda:
+        fail("examples", line)
+    log("examples", line)
+    t0 = time.perf_counter()
+    sv = _example("serve_low_batch_torch").main([])
+    secs["serve"] = time.perf_counter() - t0
+    outs0, outs1 = sv["outputs"]
+    graph = sum(e.graph_launches() for e in sv["engines"])
+    line = (f"serve: outputs identical {outs0 == outs1} ({len(outs0)} "
+            f"requests x {len(outs0[0])} tokens), loads saved "
+            f"{sv['engines'][1].stats['expert_loads_saved']}, "
+            f"{graph} launches replayed in graphs; {secs['serve']:.1f}s")
+    if outs0 != outs1:
+        fail("examples", line)
+    log("examples", line)
+    t0 = time.perf_counter()
+    tr = _example("train_moe_100m_torch")
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        res = tr.main(["--steps", str(EXAMPLE_STEPS), "--ckpt-dir",
+                       ckpt_dir])
+    secs["train"] = time.perf_counter() - t0
+    first, last = res.losses[0][1], res.losses[-1][1]
+    line = (f"train: {res.final_step} steps, logged loss {first:.4f} -> "
+            f"{last:.4f}; {secs['train']:.1f}s")
+    if not (last < first and all(math.isfinite(v) for _, v in res.losses)):
+        fail("examples", line)
+    log("examples", line)
+    t0 = time.perf_counter()
+    sim = _example("expert_streaming_sim_torch").main([])
+    secs["sim"] = time.perf_counter() - t0
+    log("examples", f"sim: speedup over EP {min(sim['speedups']):.2f}x .. "
+                    f"{max(sim['speedups']):.2f}x; {secs['sim']:.1f}s")
+    torch.cuda.synchronize()
+    launches = sm.LAUNCHES + graph
+    total = time.perf_counter() - t_phase
+    line = (f"four examples in {total:.1f}s (budget {EXAMPLE_BUDGET_S} s): "
+            + ", ".join(f"{k} {v:.1f}s" for k, v in secs.items())
+            + f"; streamed_moe launches {launches}")
+    if launches == 0 or "jax" in sys.modules:
+        fail("examples", line)
+    log("examples", line)
+    # the kernel at the training example's forward shape (fp32, its
+    # default 8 x 128 tokens a step)
+    cfg = tr.build_100m_config()
+    E, d, m = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_expert
+    C = cfg.moe.capacity_rows(8 * 128)
+    xe, wg, wu, wd = _moe_inputs(E, C, d, m, "swiglu", torch.float32)
+    tiles = _planned(E, C, d, m, "swiglu", "fp32", "fp32")
+    got = sm.streamed_moe_kernel(xe, wg, wu, wd, activation="swiglu",
+                                 tiles=tiles)
+    plain = ref.streamed_moe_plain(xe, wg, wu, wd, "swiglu")
+    err = (got - plain).abs().max().item()
+    times, text = kernel_times(lambda: sm.streamed_moe_kernel(
+        xe, wg, wu, wd, activation="swiglu", tiles=tiles))
+    plain_ms = median_ms(lambda: ref.streamed_moe_plain(xe, wg, wu, wd,
+                                                        "swiglu"))
+    bound, by = streamed_moe_bound_ms(E, C, d, m, "fp32", 4, split=True)
+    bound_fp32, _ = streamed_moe_bound_ms(E, C, d, m, "fp32", 4)
+    line = (f"streamed_moe E={E} C={C} d={d} m={m} fp32 (the training "
+            f"example's forward), tiles {tiles}: max_abs_err vs plain "
+            f"{err:.3e} (rel {rel_err(got, plain):.3e}, tol {PLAIN_TOL:g}); "
+            f"{text}, plain {plain_ms:.4f} ms, split-TF32 bound "
+            f"{bound * 1e3:.1f} us ({by}), fp32-FMA bound "
+            f"{bound_fp32 * 1e3:.1f} us")
+    if rel_err(got, plain) > PLAIN_TOL:
+        fail("examples", line)
+    log("examples", line)
+    row = dict(max_abs_err=err, **times, plain_ms=plain_ms, bound_ms=bound,
+               bound_by=by, library_ms=None, tiles=tiles,
+               bound_fp32_ms=bound_fp32)
+    return row, launches
+
+
 SOURCES = {"streamed_moe": "src/repro/kernels/streamed_moe.py:201",
            "flash_attention": "src/repro/kernels/flash_attention.py:81",
            "ssd": "src/repro/kernels/ssd.py:51"}
 
 
-ONLY = {"mesh": lambda: phase_mesh(), "nemotron": lambda: phase_nemotron()}
+ONLY = {"mesh": lambda: phase_mesh(), "nemotron": lambda: phase_nemotron(),
+        "examples": lambda: phase_examples()}
 
 
 def main():
@@ -4928,8 +5071,12 @@ def main():
         launches["streamed_moe", "train"] = phase_train()
         rows["streamed_moe"]["mesh_train"], \
             launches["streamed_moe", "mesh_train"] = phase_mesh()
+        rows["streamed_moe"]["examples"], \
+            launches["streamed_moe", "examples"] = phase_examples()
         if "jax" in sys.modules:
             fail("summary", "jax was imported")
+        log("summary", f"every phase passed in "
+                       f"{time.perf_counter() - _T0:.1f}s")
     except SystemExit:
         raise
     except BaseException:

@@ -61,6 +61,7 @@ import functools
 import json
 import math
 import os
+import warnings
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -68,6 +69,18 @@ from repro_torch.configs.base import moe_capacity_rows
 from repro_torch.kernels.quant import WEIGHT_DTYPES
 
 LEVELS = ("off", "analytic", "measured")
+
+# (B, S, E, d_expert, P) validation sweep of the distributed planner, as
+# the reference's: low-batch decode (slice regime), prefill (stream
+# regime) and batch-heavy decode with S < P (index regime), at d_model =
+# 512 on the Table-I chiplet arrays
+VALIDATION_SWEEP: Tuple[Tuple[int, int, int, int, int], ...] = (
+    (1, 1, 16, 512, 4), (8, 1, 16, 512, 4), (4, 16, 8, 256, 4),
+    (1, 128, 16, 512, 4), (1, 2, 64, 256, 8),
+    (4, 512, 16, 512, 4), (2, 1024, 8, 1024, 2), (8, 1024, 32, 512, 8),
+    (512, 1, 32, 256, 8), (2048, 1, 16, 512, 4), (1024, 2, 64, 256, 8),
+    (16, 1, 8, 1024, 2), (3, 1, 16, 512, 4), (2, 2048, 16, 768, 4),
+)
 # autotune level: "off" (the kernel's default tiles), "analytic" (the
 # planner's tiles, the default), "measured" (timed tiles, cached on disk)
 _LEVEL = contextvars.ContextVar(
@@ -172,6 +185,11 @@ class Plan:
     def kernel_opts(self) -> Dict[str, str]:
         """kwargs for ``kernels.ops.streamed_moe`` (``{}``: none planned)."""
         return {} if self.tiles is None else {"tiles": self.tiles}
+
+    @property
+    def breakdown(self) -> Dict[str, float]:
+        """Predicted seconds by candidate (``per_mode_s`` as a dict)."""
+        return dict(self.per_mode_s)
 
 
 def _cap(tokens: int, top_k: int, E: int, cf: float) -> int:
@@ -550,6 +568,23 @@ def fallback_plan(B: int, S: int, P: int, micro_slices: int) -> Plan:
     > slice order, the configured micro-slice count, default tiles."""
     return Plan(mode=feasible_modes(B, S, P)[0], micro_slices=micro_slices,
                 source="fallback")
+
+
+_PICK_MODE_WARNED = False
+
+
+def pick_mode(B: int, S: int, P_: int) -> str:
+    """Deprecated: the zero-knowledge mode heuristic,
+    ``fallback_plan(B, S, P_, 1).mode``; new callers use :func:`plan_moe`
+    and read ``plan.mode``.  Warns once per process."""
+    global _PICK_MODE_WARNED
+    if not _PICK_MODE_WARNED:
+        _PICK_MODE_WARNED = True
+        warnings.warn("core.autotune.pick_mode / core.fse_dp.pick_mode is "
+                      "deprecated; use autotune.plan_moe(...).mode or the "
+                      "repro_torch.core.strategy registry",
+                      DeprecationWarning, stacklevel=2)
+    return fallback_plan(B, S, P_, 1).mode
 
 
 # the streamed_moe path a plan's kernel shape takes, by bytes per element

@@ -23,8 +23,8 @@ import torch
 from repro_torch.configs.base import MoEConfig
 from repro_torch.parallel import collectives, meshctx, sharding
 from . import gating, trajectory
-from .fse_dp import (_aux, _expert_partial, _route, moe_fse_dp,
-                     shard_expert_weights)
+from .fse_dp import (_aux, _expert_partial, _route, moe_fse_dp,  # noqa: F401
+                     pmean_all, shard_expert_weights)
 
 
 # ---------------------------------------------------------------------------
@@ -158,3 +158,24 @@ def moe_tp(params, x, moe: MoEConfig, activation, *, axis="model",
     return _local_tp(x, params["router"]["w_router"], w_g, w_u, w_d, moe=moe,
                      activation=activation, mesh=mesh, axis=axis,
                      schedule=schedule, aux=aux)
+
+
+def _ep_entry(params, x, moe, activation, *, axis="model"):
+    """Deprecated: ``strategy.execute("ep", ...)`` or
+    ``moe_block(spec=...)``; warns once per process."""
+    from .strategy import warn_deprecated_entry
+    warn_deprecated_entry("ep_moe_3d", "ep")
+    return moe_ep(params, x, moe, activation, axis=axis)
+
+
+def _tp_entry(params, x, moe, activation, *, axis="model"):
+    """Deprecated: ``strategy.execute("tp", ...)`` or
+    ``moe_block(spec=...)``; warns once per process."""
+    from .strategy import warn_deprecated_entry
+    warn_deprecated_entry("tp_moe_3d", "tp")
+    return moe_tp(params, x, moe, activation, axis=axis)
+
+
+# the reference's legacy entry points, bound by assignment
+ep_moe_3d = _ep_entry
+tp_moe_3d = _tp_entry

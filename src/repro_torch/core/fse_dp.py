@@ -36,6 +36,8 @@ from repro_torch.configs.base import MoEConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.parallel import collectives, meshctx
 from . import gating, trajectory
+# the deprecated mode heuristic, exported here as in the reference
+from .autotune import pick_mode  # noqa: F401
 
 
 def pmean_all(x, mesh):
@@ -284,3 +286,15 @@ def moe_fse_dp(params, x, moe: MoEConfig, activation, *, axis="model",
     if plan.mode == "stream":
         y = collectives.all_gather(y, mesh, axis, dim=1)
     return y, a
+
+
+def _fse_dp_entry(params, x, moe, activation, *, axis="model", plan=None):
+    """Deprecated: ``strategy.execute("fse_dp", ...)`` or
+    ``moe_block(spec=...)``; warns once per process."""
+    from .strategy import warn_deprecated_entry
+    warn_deprecated_entry("fse_dp_moe_3d", "fse_dp")
+    return moe_fse_dp(params, x, moe, activation, axis=axis, plan=plan)
+
+
+# the reference's legacy entry point, bound by assignment
+fse_dp_moe_3d = _fse_dp_entry

@@ -6,7 +6,7 @@ wins, as ``jax.lax.top_k`` does (``torch.topk`` leaves tie order open).
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -25,9 +25,15 @@ def router_init(gen, d_model, num_experts, dtype, device, lead=()):
                                    scale=0.02, lead=lead)}
 
 
-def route(params, x, *, top_k: int) -> Routing:
-    """x: (T, d) -> Routing over E experts."""
+def route(params, x, *, top_k: int, jitter: float = 0.0,
+          generator: Optional[torch.Generator] = None) -> Routing:
+    """x: (T, d) -> Routing over E experts.  With ``jitter`` and a
+    ``generator`` (the reference's PRNG key), the logits take
+    ``jitter * N(0, 1)`` noise before the softmax."""
     logits = (x @ params["w_router"]).float()                  # (T, E)
+    if jitter and generator is not None:
+        logits = logits + jitter * torch.randn(
+            logits.shape, generator=generator, device=logits.device)
     probs = torch.softmax(logits, dim=-1)
     weights, indices = torch.sort(probs, dim=-1, descending=True, stable=True)
     weights, indices = weights[:, :top_k], indices[:, :top_k]

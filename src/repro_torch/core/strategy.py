@@ -20,6 +20,7 @@ import contextlib
 import dataclasses
 import json
 import functools
+import warnings
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Protocol, Tuple, runtime_checkable
 
@@ -35,6 +36,34 @@ PHASES = ("train", "prefill", "decode")
 # tier (``sim.modes.rank_families`` mirrors this)
 BASE_FAMILIES = ("fse_dp", "ep", "tp")
 FAMILIES = BASE_FAMILIES + ("hybrid",)
+
+# (B, S, E, d_expert, P) cross-family validation sweep, as the
+# reference's: tiny-token shapes where TP is the only cheap dataflow,
+# decode shapes where EP's token all-to-all beats moving weights, and
+# prefill shapes with E % P != 0 where FSE-DP wins.  Each family wins at
+# least once.
+FAMILY_SWEEP: Tuple[Tuple[int, int, int, int, int], ...] = (
+    (1, 1, 16, 512, 4), (1, 2, 64, 256, 8), (2, 1, 16, 768, 4),
+    (8, 1, 16, 512, 4), (32, 1, 16, 512, 4), (16, 1, 8, 1024, 2),
+    (512, 1, 32, 256, 8), (1024, 2, 64, 256, 8), (4, 16, 8, 256, 4),
+    (1, 128, 16, 512, 4),
+    (4, 512, 12, 512, 8), (1, 512, 12, 768, 8), (2, 1024, 18, 512, 4),
+    (2, 2048, 18, 768, 4),
+)
+
+# (B, S, E, d_expert, P, zipf_s) two-tier validation sweep on NDP
+# hardware (``sim.hardware.with_ndp(scaled(...))``), as the reference's:
+# hybrid wins low-batch decode, ep batch-heavy decode, fse_dp long
+# prefill; zipf_s > 0 loads the race with a rank-permuted Zipf vector
+# (``sim.workload``, seed 0).
+HYBRID_SWEEP: Tuple[Tuple[int, int, int, int, int, float], ...] = (
+    (1, 1, 64, 1408, 4, 1.2), (4, 1, 64, 1408, 4, 1.2),
+    (2, 1, 128, 768, 4, 1.2), (32, 1, 16, 512, 4, 0.0),
+    (1, 2, 64, 256, 8, 1.2), (16, 1, 8, 1024, 2, 0.0),
+    (512, 1, 32, 256, 8, 0.0), (1024, 2, 64, 256, 8, 1.2),
+    (4, 512, 16, 512, 4, 0.0),
+    (2, 1024, 18, 512, 4, 0.0), (2, 2048, 18, 768, 4, 1.2),
+)
 
 
 def default_hot(E: int) -> int:
@@ -269,6 +298,20 @@ def execute(name_or_spec, params, x, moe: MoEConfig, activation: str, *,
         return get_strategy(name).execute(params, x, moe, activation, plan,
                                           axis=axis, routing=routing,
                                           schedule=schedule)
+
+
+_ENTRY_WARNED: set = set()
+
+
+def warn_deprecated_entry(old: str, name: str) -> None:
+    """One-shot DeprecationWarning for a legacy ``*_moe_3d`` entry point
+    (``old``) whose strategy is ``name``."""
+    if old in _ENTRY_WARNED:
+        return
+    _ENTRY_WARNED.add(old)
+    warnings.warn(f"{old} is deprecated; use repro_torch.core.strategy."
+                  f"execute({name!r}, ...) or moe_block(spec=...)",
+                  DeprecationWarning, stacklevel=3)
 
 
 # ---------------------------------------------------------------------------

@@ -10,11 +10,12 @@ the combine, so it changes execution order and never values.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Callable, Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .autotune import Plan
 from .policies import expert_pairs, paired_load_order
 
 SCHEDULE_POLICIES = ("static", "dynamic")
@@ -33,7 +34,7 @@ class Schedule:
     order: Optional[Tuple[int, ...]] = None
     pairs: Tuple[Tuple[int, Optional[int]], ...] = ()
     load: Optional[Tuple[float, ...]] = None
-    plan: Optional[Any] = None
+    plan: Optional[Plan] = None
     predicted_s: float = 0.0
 
     def __post_init__(self):
@@ -52,6 +53,11 @@ class Schedule:
 DYNAMIC = Schedule(policy="dynamic")
 
 
+def static_order(num_experts: int) -> Tuple[int, ...]:
+    """The shape-only trajectory: canonical expert-index order."""
+    return tuple(range(num_experts))
+
+
 def normalized_load(counts: Sequence[float]) -> Optional[Tuple[float, ...]]:
     c = np.asarray(counts, np.float64)
     tot = float(c.sum())
@@ -62,15 +68,17 @@ def normalized_load(counts: Sequence[float]) -> Optional[Tuple[float, ...]]:
 
 def build_schedule(counts: Optional[Sequence[int]] = None, *,
                    policy: str = "dynamic",
-                   plan: Optional[Any] = None) -> Schedule:
+                   plan: Optional[Plan] = None,
+                   predicted_s: float = 0.0) -> Schedule:
     """Host-side schedule from observed (or EMA) expert counts; ``plan``
-    travels with it."""
+    and its ``predicted_s`` travel with it."""
     if policy == "static" or counts is None:
-        return Schedule(policy="static", plan=plan)
+        return Schedule(policy="static", plan=plan, predicted_s=predicted_s)
     return Schedule(policy="dynamic",
                     order=tuple(paired_load_order(counts)),
                     pairs=tuple(expert_pairs(counts)),
-                    load=normalized_load(counts), plan=plan)
+                    load=normalized_load(counts), plan=plan,
+                    predicted_s=predicted_s)
 
 
 @dataclass
@@ -95,7 +103,13 @@ class LoadTracker:
         self.steps += 1
         return self.ema
 
-    def schedule(self, *, plan: Optional[Any] = None) -> Schedule:
+    def load_vector(self) -> Optional[Tuple[float, ...]]:
+        """Normalized EMA load shares; None before any observation."""
+        if self.steps == 0:
+            return None
+        return normalized_load(self.ema)
+
+    def schedule(self, *, plan: Optional[Plan] = None) -> Schedule:
         """A dynamic Schedule from the EMA (derived in-call before any
         observation)."""
         if self.steps == 0:

@@ -43,6 +43,8 @@ import traceback
 
 from repro_torch.configs import (ASSIGNED_ARCHS, get_config, reduced_config)
 from repro_torch.configs.shapes import SHAPES, SHAPE_ORDER, ShapeSpec, applicable
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.steps import build_step
 
 ARTIFACT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                             "artifacts", "dryrun")
@@ -106,8 +108,6 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
              reduced: bool = False) -> dict:
     """The shape-only record of one cell on the production mesh."""
     from repro_torch.launch import analysis
-    from repro_torch.launch.mesh import make_production_mesh
-    from repro_torch.launch.steps import build_step
     from repro_torch.parallel import sharding as shd
     cfg = _config(arch, reduced)
     shape = _shape(shape_name)
@@ -206,7 +206,6 @@ def _rank_cells(rank, world, cells, mesh_shape, axes, reduced, device,
     from repro_torch.kernels import ops as kops
     from repro_torch.launch import analysis
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.launch.steps import build_step
     from repro_torch import tree
     from repro_torch.parallel import collectives, meshctx
     if torch.device(device).type == "cuda":

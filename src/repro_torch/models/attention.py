@@ -146,12 +146,14 @@ def init_kv_cache(batch, seq, n_kv, head_dim, dtype, device, lead=()):
 
 
 def attention_decode(params, x, cache: KVCache, cache_len, *, n_heads, n_kv,
-                     head_dim, rope_theta):
+                     head_dim, rope_theta, update_cache: bool = True):
     """Single-token decode against a dense cache (not modified).
 
     x: (B, 1, d); cache k/v: (B, S, n_kv, hd); cache_len: (B,).  The new
-    token's K/V go at index ``min(cache_len, S-1)`` of a copy.  Returns
-    (out (B, 1, d), KVCache of the updated copies)."""
+    token's K/V go at index ``min(cache_len, S-1)`` of a copy; with
+    ``update_cache=False`` the token attends over the cache as it is, its
+    own K/V not written.  Returns (out (B, 1, d), KVCache of the updated
+    copies, or of the cache's own tensors)."""
     B = x.shape[0]
     S = cache.k.shape[1]
     q = _split_heads(x @ params["wq"], n_heads, head_dim)         # (B,1,H,hd)
@@ -162,10 +164,12 @@ def attention_decode(params, x, cache: KVCache, cache_len, *, n_heads, n_kv,
         q = apply_rope(q, pos, rope_theta)
         k_new = apply_rope(k_new, pos, rope_theta)
     idx = torch.clamp(cache_len, max=S - 1)
-    rows = torch.arange(B, device=x.device)
-    k, v = cache.k.clone(), cache.v.clone()
-    k[rows, idx] = k_new[:, 0].to(k.dtype)
-    v[rows, idx] = v_new[:, 0].to(v.dtype)
+    k, v = cache.k, cache.v
+    if update_cache:
+        rows = torch.arange(B, device=x.device)
+        k, v = k.clone(), v.clone()
+        k[rows, idx] = k_new[:, 0].to(k.dtype)
+        v[rows, idx] = v_new[:, 0].to(v.dtype)
     kf, vf = _repeat_kv(k, n_heads), _repeat_kv(v, n_heads)
     scores = torch.einsum("bqhd,bkhd->bhqk", q, kf).float() / math.sqrt(head_dim)
     valid = torch.arange(S, device=x.device)[None, :] <= idx[:, None]

@@ -91,6 +91,11 @@ def _tokens_ahead(onehot):
     return (torch.cumsum(onehot_t, 1) - onehot_t).t()
 
 
+def capacity_of(T, moe: MoEConfig):
+    """Rows per expert for ``T`` routed tokens (``moe.capacity_rows``)."""
+    return moe.capacity_rows(T)
+
+
 def dispatch_masks(routing, T, E, C):
     """(T, E, C) dispatch one-hot and combine weights; tokens beyond an
     expert's capacity C are dropped."""
@@ -305,16 +310,18 @@ def scatter_combine(ye, rows, weights):
     return y
 
 
-def moe_block(params, x, moe: MoEConfig, activation, *, spec=None,
-              phase=None, layer=None, mesh_axis="model", return_aux=False,
-              routing=None, schedule=None):
+def moe_block(params, x, moe: MoEConfig, activation, *, impl=None,
+              spec=None, phase=None, layer=None, mesh_axis="model",
+              return_aux=False, routing=None, schedule=None):
     """x: (B, S, d) or (T, d); a lookup into the strategy registry.
-    With no ``spec``, ``moe.impl`` names the strategy.  The distributed
+    ``impl`` is the reference's legacy name for ``spec``; with neither,
+    ``moe.impl`` names the strategy.  The distributed
     strategies (fse_dp / ep / tp / auto) run over the active mesh's
     ``mesh_axis`` (``parallel.meshctx``), on this model group's rows, and
     as ``capacity`` without one."""
     from repro_torch.core import strategy as strat
-    sp = strat.ExecutionSpec.coerce(spec, default=moe.impl)
+    sp = strat.ExecutionSpec.coerce(spec if spec is not None else impl,
+                                    default=moe.impl)
     name = sp.resolve(phase=phase, layer=layer)
     if schedule is None and sp.schedule == "dynamic":
         schedule = trajectory.DYNAMIC

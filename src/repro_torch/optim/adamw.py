@@ -18,6 +18,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch import tree
+from repro_torch.tree import leaves
 
 
 class AdamWState(NamedTuple):
@@ -57,10 +58,10 @@ def cosine_schedule(base_lr: float, warmup: int, total: int):
     return lr
 
 
-def global_norm(grads) -> torch.Tensor:
+def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's fp32 sum of squares."""
     return torch.sqrt(torch.sum(torch.stack(
-        [torch.sum(torch.square(g.float())) for g in tree.leaves(grads)])))
+        [torch.sum(torch.square(g.float())) for g in leaves(tree)])))
 
 
 def _clip_scale(gnorm, max_norm: float):

@@ -156,6 +156,11 @@ def model_axis_size(axis: str = "model") -> int:
     return mesh.size(axis)
 
 
+def batch_axes(mesh, axis: str = "model"):
+    """All mesh axes except the model axis (the batch's axes)."""
+    return tuple(a for a in mesh.axis_names if a != axis)
+
+
 # named optimizations, as the reference's: 'sorted' switches the MoE
 # dispatch to gathers (``models.moe.sorted_dispatch_enabled``); the
 # reference's 'sp_attn' and 'scatter_cache' name paths of its attention

@@ -58,6 +58,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import warnings
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
@@ -75,6 +76,17 @@ from repro_torch.models import api, transformer
 from repro_torch.models import moe as moe_mod
 from . import statepool
 from .megastep import MegaStep, chunk_last_logits
+
+_ALIAS_WARNED: set = set()
+
+
+def _warn_alias(old: str, new: str) -> None:
+    """One-shot DeprecationWarning per legacy ServeConfig alias."""
+    if old in _ALIAS_WARNED:
+        return
+    _ALIAS_WARNED.add(old)
+    warnings.warn(f"ServeConfig.{old} is deprecated; use {new}",
+                  DeprecationWarning, stacklevel=4)
 
 
 @dataclass
@@ -103,6 +115,8 @@ class ServeConfig:
     drop_free: bool = True
     fused: bool = True                  # False: the eager per-layer loop
     spec: Optional[object] = None       # ExecutionSpec, strategy name or dict
+    moe_impl: Optional[str] = None      # deprecated: use spec
+    autotune: Optional[str] = None      # deprecated: use spec.autotune
     ema_decay: float = 0.8              # LoadTracker decay (dynamic schedule)
     # EMA-hot resident tier: this many MiB of expert weights, split evenly
     # over the MoE layers, pinned on the package (each layer's hottest
@@ -118,9 +132,17 @@ class ServeConfig:
 
     def __post_init__(self):
         from repro_torch.core.strategy import ExecutionSpec
-        sp = ExecutionSpec.coerce(self.spec if self.spec is not None
-                                  else "capacity", default="capacity")
-        if sp.autotune is None:
+        if self.moe_impl is not None:
+            _warn_alias("moe_impl",
+                        "ServeConfig.spec=ExecutionSpec(strategy=...)")
+        if self.autotune is not None:
+            _warn_alias("autotune", "ExecutionSpec.autotune")
+        base = self.spec if self.spec is not None else (self.moe_impl
+                                                        or "capacity")
+        sp = ExecutionSpec.coerce(base, default="capacity")
+        if self.autotune is not None:
+            sp = dataclasses.replace(sp, autotune=self.autotune)
+        elif sp.autotune is None:
             sp = dataclasses.replace(sp, autotune="analytic")
         self.spec = sp.validate()
         if self.page_size < 1:

@@ -17,7 +17,8 @@ import numpy as np
 
 from repro_torch.core.policies import TokenBufferPolicy
 from .hardware import HardwareConfig, ModelSpec
-from .workload import Request, make_layer_workload, make_requests
+from .workload import (LayerWorkload, Request,  # noqa: F401
+                       make_layer_workload, make_requests)
 from .engine import simulate_layer
 
 

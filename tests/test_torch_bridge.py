@@ -4,8 +4,9 @@
   tensors bit for bit;
 * ``import repro_torch`` (every module) works with ``jax`` and ``repro``
   blocked from import;
-* no module under ``src/repro_torch`` (nor ``chip_smoke.py``) names
-  ``jax`` or a ``repro.*`` module in an import.
+* no module under ``src/repro_torch`` (nor ``chip_smoke.py``, the tools
+  and ``examples/*_torch.py``) names ``jax`` or a ``repro.*`` module in
+  an import.
 """
 import ast
 import os
@@ -106,6 +107,7 @@ SCANNED = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
                                          REPO / "tools" / "ssd_ablations.py",
                                          REPO / "tools" / "ssd_premove_bits.py",
                                          REPO / "tools" / "tf32_ablations.py"]
+SCANNED += sorted((REPO / "examples").glob("*_torch.py"))
 
 
 def test_scan_covers_every_port_module():

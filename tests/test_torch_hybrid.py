@@ -165,7 +165,7 @@ def _profiles(P):
 
 
 def test_hybrid_cost_matches_reference():
-    for (B, S, E, de, P, zs) in jstrat.HYBRID_SWEEP:
+    for (B, S, E, de, P, zs) in strategy.HYBRID_SWEEP:
         prof, jprof = _profiles(P)
         assert dataclasses.asdict(prof) == dataclasses.asdict(jprof)
         loads = None

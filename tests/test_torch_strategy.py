@@ -5,13 +5,14 @@ family through ``moe_block`` on one device (the distributed ones run
 ``capacity``, bit for bit), ``auto`` == ``capacity``.  The planner is pure
 Python on both sides, so ``mode_cost``, ``ep_cost``, ``fallback_plan``,
 ``plan_moe``, ``family_costs``, ``pick_family`` and ``plan_family`` must
-equal the reference's with ``==`` on its ``HardwareProfile``s, the
-reference's sweeps included (``VALIDATION_SWEEP``, ``FAMILY_SWEEP``,
-``HYBRID_SWEEP``).  The one stated difference is the tiles: a port plan
-carries the Hopper planner's setting in ``Plan.tiles`` (none on a machine
-without a card) and leaves the reference's TPU tile fields
-(``token_tile``, ``dmodel_tile``, ``dexpert_tile``, ``vmem_bytes``) at
-their defaults.  The port's choices are also held to its own chiplet
+equal the reference's with ``==`` on its ``HardwareProfile``s, over the
+port's copies of the reference's sweeps (``autotune.VALIDATION_SWEEP``,
+``strategy.FAMILY_SWEEP``, ``HYBRID_SWEEP``; ``test_torch_aliases.py``
+holds them ``==`` the reference's).  The one stated difference is the
+tiles: a port plan carries the Hopper planner's setting in ``Plan.tiles``
+(none on a machine without a card) and leaves the reference's TPU tile
+fields (``token_tile``, ``dmodel_tile``, ``dexpert_tile``, ``vmem_bytes``)
+at their defaults.  The port's choices are also held to its own chiplet
 simulator's ranking, as the reference's tests hold the reference's.
 """
 import dataclasses
@@ -184,7 +185,7 @@ def _load(E, kind):
 
 
 @pytest.mark.parametrize("load", SWEEP_LOADS)
-@pytest.mark.parametrize("point", jat.VALIDATION_SWEEP)
+@pytest.mark.parametrize("point", autotune.VALIDATION_SWEEP)
 def test_mode_and_ep_costs_match_reference(point, load):
     B, S, E, de, P = point
     p, jp = _profiles(P)
@@ -202,7 +203,7 @@ def test_mode_and_ep_costs_match_reference(point, load):
 
 
 @pytest.mark.parametrize("level", ["analytic", "off"])
-@pytest.mark.parametrize("point", jat.VALIDATION_SWEEP)
+@pytest.mark.parametrize("point", autotune.VALIDATION_SWEEP)
 def test_plan_moe_matches_reference(point, level):
     B, S, E, de, P = point
     p, jp = _profiles(P)
@@ -235,7 +236,7 @@ def test_mode_ranking_agrees_with_simulator():
     """The port's plans choose the mode its own simulator ranks first on
     at least 80% of the reference's sweep, as the reference's do."""
     agree, rows = 0, []
-    for (B, S, E, de, P) in jat.VALIDATION_SWEEP:
+    for (B, S, E, de, P) in autotune.VALIDATION_SWEEP:
         p, _ = _profiles(P)
         moe, _ = _moes(num_experts=E, top_k=2, d_expert=de, micro_slices=4)
         plan = autotune.plan_moe(B, S, D_PLAN, moe, "swiglu", P, profile=p,
@@ -245,12 +246,12 @@ def test_mode_ranking_agrees_with_simulator():
         best = min(sim, key=sim.get)
         agree += plan.mode == best
         rows.append((B, S, E, de, P, plan.mode, best))
-    assert agree / len(jat.VALIDATION_SWEEP) >= 0.8, rows
+    assert agree / len(autotune.VALIDATION_SWEEP) >= 0.8, rows
 
 
 def test_sweep_exercises_all_three_modes():
     winners = set()
-    for (B, S, E, de, P) in jat.VALIDATION_SWEEP:
+    for (B, S, E, de, P) in autotune.VALIDATION_SWEEP:
         sim = sim_modes.rank_modes(_hw(P), hw.ModelSpec("s", D_PLAN, de, E,
                                                         2), B * S, B=B, S=S)
         winners.add(min(sim, key=sim.get))
@@ -270,7 +271,7 @@ def test_infeasible_modes_never_selected():
 
 
 def test_level_off_matches_legacy_heuristic():
-    for (B, S, E, de, P) in jat.VALIDATION_SWEEP:
+    for (B, S, E, de, P) in autotune.VALIDATION_SWEEP:
         moe, _ = _moes(num_experts=E, top_k=2, d_expert=de, micro_slices=4)
         plan = autotune.plan_moe(B, S, D_PLAN, moe, "swiglu", P, level="off")
         legacy = "stream" if S % P == 0 and S >= P else \
@@ -311,7 +312,7 @@ def test_plan_tiles_from_the_hopper_planner():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("point", jstrat.FAMILY_SWEEP)
+@pytest.mark.parametrize("point", strategy.FAMILY_SWEEP)
 def test_family_costs_match_reference(point):
     B, S, E, de, P = point
     p, jp = _profiles(P)
@@ -327,7 +328,7 @@ def test_family_costs_match_reference(point):
 
 def test_family_ranking_agrees_with_simulator():
     agree, rows = 0, []
-    for (B, S, E, de, P) in jstrat.FAMILY_SWEEP:
+    for (B, S, E, de, P) in strategy.FAMILY_SWEEP:
         p, _ = _profiles(P)
         moe, _ = _moes(num_experts=E, top_k=2, d_expert=de)
         chosen = strategy.pick_family(strategy.family_costs(
@@ -338,12 +339,12 @@ def test_family_ranking_agrees_with_simulator():
         best = min((f for f in FAMILIES if f in sim), key=lambda f: sim[f])
         agree += chosen == best
         rows.append((B, S, E, de, P, chosen, best))
-    assert agree / len(jstrat.FAMILY_SWEEP) >= 0.8, rows
+    assert agree / len(strategy.FAMILY_SWEEP) >= 0.8, rows
 
 
 def test_family_sweep_exercises_all_families():
     winners = set()
-    for (B, S, E, de, P) in jstrat.FAMILY_SWEEP:
+    for (B, S, E, de, P) in strategy.FAMILY_SWEEP:
         sim = sim_modes.rank_families(_hw(P), hw.ModelSpec("s", D_PLAN, de,
                                                            E, 2),
                                       B * S, B=B, S=S)
@@ -396,7 +397,7 @@ def test_hybrid_rank_agreement_on_sweep():
     reference's, and its winner agrees with its simulator on at least 80%
     of HYBRID_SWEEP, hybrid / ep / fse_dp each winning somewhere."""
     agree, rows, winners = 0, [], set()
-    for (B, S, E, de, P, zs) in jstrat.HYBRID_SWEEP:
+    for (B, S, E, de, P, zs) in strategy.HYBRID_SWEEP:
         p, jp = _profiles(P, ndp=True)
         moe, jm = _moes(num_experts=E, top_k=2, d_expert=de)
         loads = None if zs <= 0 else workload.sample_expert_probs(
@@ -415,7 +416,7 @@ def test_hybrid_rank_agreement_on_sweep():
         winners.add(best)
         agree += chosen == best
         rows.append((B, S, E, de, P, zs, chosen, best))
-    assert agree / len(jstrat.HYBRID_SWEEP) >= 0.8, rows
+    assert agree / len(strategy.HYBRID_SWEEP) >= 0.8, rows
     assert {"hybrid", "ep", "fse_dp"} <= winners, rows
 
 
