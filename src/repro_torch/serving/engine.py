@@ -53,11 +53,22 @@ the modeled clock (``stats["ddr_bytes_saved"]``, each record's
 the layer's fast-tier ``hot`` ids (``ServeConfig.hot_experts`` wide),
 repartitioned off the EMA every iteration.  ``sim.modes.replay_trace``
 referees both.
+
+The host's share of an iteration is timed in ``Engine.stats``, integer
+nanoseconds that only grow: ``step_ns`` (each ``step`` call), and on the
+fused path ``sync_wait_ns`` (blocked in a fetch's synchronize),
+``boundary_host_ns`` (each MoE boundary's bookkeeping), ``launch_ns``
+(staging and graph replay) and ``prefill_pass_ns`` over
+``prefill_passes``.  While ``torch.profiler`` records, the host-only
+stretches are also ``repro_torch.*`` spans (``repro_torch.tracing``):
+``engine.pages``, ``engine.boundary``, ``engine.finish``,
+``engine.prefill_host`` and the scheduler's ``scheduler.admit``.
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import time
 import warnings
 from collections import deque
 from dataclasses import dataclass, field
@@ -66,6 +77,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import autotune, gating, trajectory
 from repro_torch.core.policies import TokenBufferPolicy, paired_load_order
@@ -228,7 +240,12 @@ class Engine:
                       "prefill_chunks": 0, "prefill_tokens": 0,
                       # fused path: boundary fetches, logits fetches and
                       # prefill fetches, each one copy set and one sync
-                      "host_syncs": 0, "preemptions": 0, "restores": 0}
+                      "host_syncs": 0, "preemptions": 0, "restores": 0,
+                      # host times, integer ns (the module docstring);
+                      # MegaStep adds sync_wait_ns and launch_ns
+                      "step_ns": 0, "sync_wait_ns": 0,
+                      "boundary_host_ns": 0, "launch_ns": 0,
+                      "prefill_pass_ns": 0, "prefill_passes": 0}
         # the pool's counters (pages, cache hits / misses / evictions,
         # prefill tokens saved) live in the same dict
         self.stats.update(self.pool.stats)
@@ -296,6 +313,7 @@ class Engine:
                 max_batch=self.scfg.max_batch,
                 chunk_tokens=self.scfg.chunk_tokens,
                 table_cols=self.pool.table.shape[1], pool=self._graph_pool)
+            ms.stats = self.stats
         return ms
 
     def graph_launches(self) -> int:
@@ -492,15 +510,16 @@ class Engine:
         per decode row; a prefill row's chunk, plus one when its prompt
         completes (it joins the decode batch in the same iteration)."""
         K = max(1, self.scfg.chunk_tokens)
-        for r in self.active():
-            if r.phase == "prefill":
-                k_r = min(K, len(r.prompt) - r.prefill_pos)
-                length = int(self.cache_len[r.slot]) + k_r
-                if r.prefill_pos + k_r >= len(r.prompt):
-                    length += 1
-            else:
-                length = int(self.cache_len[r.slot]) + 1
-            self.pool.ensure(r.slot, min(length, self.scfg.max_ctx))
+        with tracing.span("repro_torch.engine.pages"):
+            for r in self.active():
+                if r.phase == "prefill":
+                    k_r = min(K, len(r.prompt) - r.prefill_pos)
+                    length = int(self.cache_len[r.slot]) + k_r
+                    if r.prefill_pos + k_r >= len(r.prompt):
+                        length += 1
+                else:
+                    length = int(self.cache_len[r.slot]) + 1
+                self.pool.ensure(r.slot, min(length, self.scfg.max_ctx))
         if not self.scfg.fused:
             self._table_dev = self._dev(self.pool.table)
 
@@ -508,10 +527,12 @@ class Engine:
         """Advance every prefilling request by one prompt chunk in one
         batched pass (decode and idle slots ride along fully masked); a
         request whose prompt completes samples its first token from its
-        last chunk position."""
+        last chunk position.  On the fused path the pass, whole, adds to
+        ``stats["prefill_pass_ns"]`` and ``stats["prefill_passes"]``."""
         pre = self.prefilling()
         if not pre:
             return []
+        t0 = time.perf_counter_ns()
         scfg = self.scfg
         B, K = scfg.max_batch, max(1, scfg.chunk_tokens)
         tokens = np.zeros((B, K), np.int64)
@@ -545,6 +566,18 @@ class Engine:
             first_logits = (self._host(chunk_last_logits(self.params, hid,
                                                          tmask))
                             if completes else None)
+        with tracing.span("repro_torch.engine.prefill_host"):
+            out = self._prefill_host(pre, took, counts, first_logits)
+        if fused:
+            self.stats["prefill_pass_ns"] += time.perf_counter_ns() - t0
+            self.stats["prefill_passes"] += 1
+        return out
+
+    def _prefill_host(self, pre, took, counts, first_logits):
+        """The chunk pass's host work after its fetch: each MoE layer's
+        EMA update and trace record, the prompt pointers, prefix
+        registration, and the first tokens of the prompts completed."""
+        scfg = self.scfg
         for layer in range(self.L):
             if self._layer_kind(layer)[1] != "moe":
                 continue
@@ -586,6 +619,14 @@ class Engine:
 
     @torch.no_grad()
     def step(self) -> List[Tuple[str, int]]:
+        """One iteration; its host time, whole, adds to
+        ``stats["step_ns"]``."""
+        t0 = time.perf_counter_ns()
+        out = self._step()
+        self.stats["step_ns"] += time.perf_counter_ns() - t0
+        return out
+
+    def _step(self) -> List[Tuple[str, int]]:
         self.last_step_modeled_s = 0.0
         if not self.active():
             return []
@@ -641,30 +682,31 @@ class Engine:
         run_ffn = [r for r in act if not r.done and r.progress == 2 * b0 + 1]
         ms.set(count_mask=self._rows(run_ffn))
         ms.first()
-        kept = self._boundary_fused(b0, run_ffn, ms)
-        for j, b in enumerate(bnds[1:], start=1):
-            for r in kept:
-                r.progress = 2 * b + 1
-            run_ffn = [r for r in act
-                       if not r.done and r.progress == 2 * b + 1]
-            ms.set(count_mask=self._rows(run_ffn))
-            ms.mid(j)
-            kept = self._boundary_fused(b, run_ffn, ms)
+        for j in range(len(bnds)):
+            fetched = None
+            if run_ffn:
+                self.stats["host_syncs"] += 1
+                (fetched,) = ms.fetch(ms.route_out)
+            t0 = time.perf_counter_ns()
+            with tracing.span("repro_torch.engine.boundary"):
+                run_ffn = self._boundary_fused(j, act, run_ffn, fetched, ms)
+            self.stats["boundary_host_ns"] += time.perf_counter_ns() - t0
+            if j + 1 < len(bnds):
+                ms.mid(j + 1)
         ms.last()
-        for r in kept:
-            r.progress = 2 * self.L
         return self._finish(act, out, lambda: self._fetch_logits(ms))
 
-    def _boundary_fused(self, layer, run_ffn, ms: MegaStep):
-        """Host work at one MoE boundary: one fetch of the counts and
-        routed ids, the shared bookkeeping, and the inputs of the segment
-        that executes this boundary's experts (rows kept, trajectory).
-        Returns the rows kept."""
+    def _boundary_fused(self, j, act, run_ffn, fetched, ms: MegaStep):
+        """Host work at the ``j``-th MoE boundary, after the fetch of its
+        counts and routed ids (``fetched``, None when no row reached it):
+        the shared bookkeeping, the inputs of the segment that executes
+        this boundary's experts (rows kept, trajectory), and the rows that
+        reach the next boundary, whose count mask it sets.  Returns those
+        rows ([] after the last boundary)."""
+        layer = ms.boundaries[j]
         kept: List[RequestState] = []
         order = np.arange(ms.E)
-        if run_ffn:
-            self.stats["host_syncs"] += 1
-            (fetched,) = ms.fetch(ms.route_out)
+        if fetched is not None:
             counts = fetched[:ms.E]
             idx = fetched[ms.E:].reshape(self.scfg.max_batch, -1)
             kept = self._boundary_host(layer, run_ffn, counts, idx,
@@ -673,7 +715,16 @@ class Engine:
                 self.stats["dynamic_schedules"] += 1
                 order = self._layer_schedules[layer].order
         ms.set(exec_mask=self._rows(kept), order=order)
-        return kept
+        if j + 1 == len(ms.boundaries):
+            for r in kept:
+                r.progress = 2 * self.L
+            return []
+        nxt = 2 * ms.boundaries[j + 1] + 1
+        for r in kept:
+            r.progress = nxt
+        run_ffn = [r for r in act if not r.done and r.progress == nxt]
+        ms.set(count_mask=self._rows(run_ffn))
+        return run_ffn
 
     def _fetch_logits(self, ms: MegaStep) -> np.ndarray:
         self.stats["host_syncs"] += 1
@@ -688,20 +739,21 @@ class Engine:
         if not finish:
             return out
         host = host_logits()
-        for r in finish:
-            tok = self._sample(host[r.slot, 0])
-            r.generated.append(tok)
-            out.append((r.rid, tok))
-            self.stats["tokens_emitted"] += 1
-            r.progress = 0
-            self.cache_len[r.slot] += 1
-            self.policy.on_forward_pass(r.rid)
-            if len(r.generated) >= r.max_new or \
-                    int(self.cache_len[r.slot]) >= self.scfg.max_ctx - 1:
-                r.done = True
-                self.free_slots.append(r.slot)
-                self.pool.release_slot(r.slot)
-                self.policy.drop(r.rid)
+        with tracing.span("repro_torch.engine.finish"):
+            for r in finish:
+                tok = self._sample(host[r.slot, 0])
+                r.generated.append(tok)
+                out.append((r.rid, tok))
+                self.stats["tokens_emitted"] += 1
+                r.progress = 0
+                self.cache_len[r.slot] += 1
+                self.policy.on_forward_pass(r.rid)
+                if len(r.generated) >= r.max_new or \
+                        int(self.cache_len[r.slot]) >= self.scfg.max_ctx - 1:
+                    r.done = True
+                    self.free_slots.append(r.slot)
+                    self.pool.release_slot(r.slot)
+                    self.policy.drop(r.rid)
         return out
 
     # ------------------------------------------------------------------
@@ -762,6 +814,7 @@ class Engine:
         m[slots] = True
         return torch.as_tensor(m, device=self.device)
 
+    @tracing.device_work
     def _slot_counts(self, routing, slots) -> np.ndarray:
         return gating.expert_token_counts(routing, self._mask(slots)) \
             .cpu().numpy().astype(np.int64)

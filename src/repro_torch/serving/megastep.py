@@ -69,7 +69,19 @@ class MegaStep:
     off, ambient weight dtype): their static buffers, and on CUDA their
     graphs.  ``captures`` counts captures (flat in steady state),
     ``replays`` the replays of each graph and ``captured`` the
-    ``streamed_moe`` launches each graph holds."""
+    ``streamed_moe`` launches each graph holds.
+
+    ``stats`` holds two host times in integer nanoseconds
+    (``time.perf_counter_ns``); the engine points it at its own
+    ``Engine.stats``:
+
+    * ``sync_wait_ns`` -- the host blocked in :meth:`fetch`'s stream
+      synchronize, waiting for the segments queued before it (0 on the
+      CPU, where nothing is queued);
+    * ``launch_ns`` -- a segment's start on a graph already captured:
+      staging the host inputs (the pinned copy) and the graph replay; on
+      the CPU, where the segment runs in the call, the staging and the
+      run.  A capture is left out (``capture_s`` holds it)."""
 
     def __init__(self, params, cfg, spec, caches, x, *, max_batch: int,
                  chunk_tokens: int, table_cols: int, pool=None):
@@ -124,6 +136,7 @@ class MegaStep:
         self.replays: Dict[str, int] = {}
         self.captures = 0
         self.capture_s = 0.0
+        self.stats = {"sync_wait_ns": 0, "launch_ns": 0}
 
     # ------------------------------------------------------------------
     # host inputs and outputs
@@ -161,7 +174,9 @@ class MegaStep:
             host.copy_(t, non_blocking=self.on_cuda)
             outs.append(host)
         if self.on_cuda:
+            t0 = time.perf_counter_ns()
             torch.cuda.current_stream(self.x.device).synchronize()
+            self.stats["sync_wait_ns"] += time.perf_counter_ns() - t0
         return [o.to(torch.float32 if o.is_floating_point() else o.dtype,
                      copy=True).numpy() for o in outs]
 
@@ -263,16 +278,19 @@ class MegaStep:
         self._run("prefill", self._prefill)
 
     def _run(self, name: str, body) -> None:
-        self._stage()
-        if not self.on_cuda:
-            body()
-            return
         g = self.graphs.get(name)
-        if g is None:
+        if self.on_cuda and g is None:
+            self._stage()
             self._capture(name, body)
             return
-        g.replay()
-        self.replays[name] += 1
+        t0 = time.perf_counter_ns()
+        self._stage()
+        if g is None:
+            body()
+        else:
+            g.replay()
+            self.replays[name] += 1
+        self.stats["launch_ns"] += time.perf_counter_ns() - t0
 
     def _capture(self, name: str, body) -> None:
         """Run ``body`` once on a side stream (the warm-up: lazy module

@@ -35,6 +35,7 @@ from typing import Callable, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch import tracing
 from .engine import Engine, QueueFullError
 
 
@@ -274,8 +275,9 @@ class Scheduler:
         fully deterministic).  Returns (rid, token) pairs in scheduler
         rids."""
         self.iteration += 1
-        self._maybe_preempt()
-        self.admit_ready()
+        with tracing.span("repro_torch.scheduler.admit"):
+            self._maybe_preempt()
+            self.admit_ready()
         events = self.engine.step()
         adv = getattr(self.engine, "last_step_modeled_s", 0.0)
         self.modeled_now += adv

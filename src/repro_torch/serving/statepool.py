@@ -9,9 +9,11 @@ per row, and the pool holds it by value: snapshots are copies
 (:func:`snapshot_ssm`), so snapshot -> restore is bit-exact.  The pool is
 host-only bookkeeping; the engine owns the device tensors and applies
 :func:`merge_prefill`, :func:`copy_page`, :func:`restore_ssm` and
-:func:`zero_ssm` to them, in place.  The device pool holds one page
-more, the sink of masked writes (``models.attention``): the state pool
-never hands it out, hashes it, references it or copies it.
+:func:`zero_ssm` to them, in place (the last three, like
+:func:`snapshot_ssm`, outside any open ``tracing.span``).  The device
+pool holds one page more, the sink of masked writes
+(``models.attention``): the state pool never hands it out, hashes it,
+references it or copies it.
 
 On top of the pages sit two behaviours:
 
@@ -44,6 +46,7 @@ from typing import Deque, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.models import mamba2 as ssm_mod
 from repro_torch.models.attention import KVCache
 
@@ -308,6 +311,7 @@ def has_ssm(caches) -> bool:
     return any(_is_ssm(c.ssm) for c in caches)
 
 
+@tracing.device_work
 def snapshot_ssm(caches, row: int) -> tuple:
     """Value snapshot (copies) of one slot's SSM state across every SSM
     layer, ``()`` for attention layers."""
@@ -315,6 +319,7 @@ def snapshot_ssm(caches, row: int) -> tuple:
                  else () for c in caches)
 
 
+@tracing.device_work
 def restore_ssm(caches, snap: tuple, row: int):
     """Write a :func:`snapshot_ssm` back into ``row``, in place."""
     for c, s in zip(caches, snap):
@@ -323,6 +328,7 @@ def restore_ssm(caches, snap: tuple, row: int):
     return caches
 
 
+@tracing.device_work
 def zero_ssm(caches, row: int):
     """Reset one slot's SSM rows to the initial state, in place (a fresh
     admission into a recycled slot must not inherit the previous
@@ -333,6 +339,7 @@ def zero_ssm(caches, row: int):
     return caches
 
 
+@tracing.device_work
 def copy_page(caches, src: int, dst: int) -> None:
     """Copy one physical page across every attention layer's K and V, in
     place: the copy-on-write of a partial tail page.  It runs eagerly,
