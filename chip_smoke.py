@@ -33,17 +33,23 @@ Phases, each printing its result on its own line; any failure exits 1:
    on the same tensors and the kernel's device time over SDPA's (flash
    in bf16 also at InternVL2's (2, 2304, 16, 128) and at hd 128 with Sq
    not a multiple of 128 and Sk > Sq);
-3b. dispatch: ``moe_capacity`` with one-hot and with sorted dispatch on
-   one routing at granite width, at C = 64 (a decode step), C = 1024 (a
-   traffic prefill step) and C = 1280 (the scoring forward, with
-   overflow), static and dynamic: sorted agrees with one-hot (fp32 2e-5,
-   bf16 3e-2), is the same bits twice and dynamic == static bit for bit;
-   under drop-free capacity a token's output keeps its bits at another
-   row among other tokens, one-hot and sorted;
-   the device time of dispatch plus combine, one-hot against sorted, with
+3b. dispatch: ``moe_capacity`` (its rows moved by the ``moe_dispatch``
+   kernels) against the one-hot products on one routing at granite
+   width, at C = 64 (a decode step), C = 1024 (a traffic prefill step)
+   and C = 1280 (the scoring forward, with overflow), static and dynamic:
+   it agrees with one-hot (fp32 2e-5, bf16 3e-2), is the same bits twice
+   and dynamic == static bit for bit; under drop-free capacity a token's
+   output keeps its bits at another row among other tokens, with kernels
+   and with ``use_kernels(False)`` and sorted dispatch;
+   the device time of dispatch plus combine, one-hot against the plain
+   gathers and the ``moe_dispatch`` kernels, with
    the streamed_moe kernel's beside it at the analytic level's tiles and
    at the default's (the kernel held against its plain version on the
-   sorted rows at C = 1024);
+   sorted rows at C = 1024); then the ``moe_dispatch`` kernels at the
+   benchmark cells' shapes (``ROW_CASES``), bf16: each bit for bit its
+   plain version, timed beside its bytes bound, the pair beside the plain
+   versions and the one-hot products (the kernels line's moe_dispatch
+   rows);
 3c. tiles: every streamed_moe tile setting (``TILE_SETTINGS``) against the
    default one on the same operands, bit for bit (output and scratch):
    bf16 at C = 64, 1024, 1280, int8 and fp8 at C = 64, split TF32 (fp32
@@ -156,8 +162,10 @@ Phases, each printing its result on its own line; any failure exits 1:
    launches each), then the same batch in fp32 with kernels (the
    split-TF32 bodies, 24 launches each) and with ``use_kernels(False)``,
    each timed warm (wall, scored tok/s): losses within 1e-4, argmax
-   agreement reported;
-   and the bf16 batch with sorted dispatch: loss within 1e-4 of one-hot's;
+   agreement reported; the bf16 call makes two moe_dispatch launches a
+   MoE layer and keeps no one-hot product; then REPLAY_CALLS more bf16
+   calls, the first capturing a CUDA graph and the rest replaying it
+   (``models.graphs``): the first call's loss bits and launches in each;
 10. mamba: ``api.loss_fn`` over 2 x 2048 tokens of mamba2-370m at full
    width in bf16, then each layer's ``mamba2_block`` with the SSD kernel
    (48 launches, B and C per group: n_groups = 1) against the plain path on
@@ -307,6 +315,9 @@ examples. (run after mesh) the port's four examples in this process on
     mamba2-370m (``serve_prefill``) and of Jamba
     (``serve_prefill_jamba``), streamed_moe on the served DeepSeek and Qwen3
     slices (``serve_deepseek``, ``serve_qwen3``, phase 3m's shapes),
+    ``moe_dispatch`` on the forward path (the scoring forward's launches,
+    the times at ROW_CASES' forward shape) and on the served DeepSeek slice
+    (``serve_deepseek``, the times at its decode shape),
     flash on InternVL2's scoring forward in bf16 and fp32
     (``forward_internvl2``, ``forward_internvl2_fp32``), flash on
     Nemotron-4-340B's scoring forward in bf16 (``forward_nemotron``, 4
@@ -448,6 +459,16 @@ DISPATCH_CASES = (("decode", TRAFFIC_BATCH, True),
                   ("prefill", TRAFFIC_BATCH * CHUNK, True),
                   ("scoring", SCORE_B * SCORE_S, False))
 SORTED_SPEC = {"strategy": "capacity", "sorted_dispatch": True}
+# phase 9: scoring calls after the first (the second captures a CUDA graph,
+# the later ones replay it)
+REPLAY_CALLS = 4
+# phase 3b: the moe_dispatch kernels at the benchmark cells' shapes (T, E,
+# C, k, d), bf16, held bit for bit to their plain versions and timed:
+# granite's scoring call (the kernels line's forward row), DeepSeek's
+# decode step (serve_deepseek) and its drop-free 128-token chunk pass
+ROW_CASES = {"forward": (4096, 32, 1280, 8, 1024),
+             "serve_deepseek": (8, 64, 48, 6, 2048),
+             "chunk_deepseek": (128, 64, 768, 6, 2048)}
 # phase 3c: every tile setting against the default on these operands (E,
 # C, d, m, activation, weight format, activations' dtype) must give the
 # same bits: the serving shapes (decode C = 64, the traffic prefill C =
@@ -1151,11 +1172,13 @@ def _ssd_case(shape, timed=False):
 
 
 def phase_dispatch():
-    """``moe_capacity`` with one-hot and with sorted dispatch on one routing,
-    at granite width (one MoE layer from seed 0), in fp32 and bf16, for each
-    of DISPATCH_CASES.  -> the kernels line's row of streamed_moe at C =
-    C_CHUNK, on the rows sorted dispatch gathered (the rows one-hot
-    dispatch gives are the same bits)."""
+    """``moe_capacity`` (its rows moved by the ``moe_dispatch`` kernels)
+    against the one-hot products on one routing, at granite width (one MoE
+    layer from seed 0), in fp32 and bf16, for each of DISPATCH_CASES; then
+    the kernels alone at ROW_CASES (``_dispatch_kernels``).  -> (the
+    kernels line's row of streamed_moe at C = C_CHUNK, on the gathered
+    rows (the rows one-hot dispatch gives are the same bits); the
+    kernels line's rows of moe_dispatch by path)."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
@@ -1187,15 +1210,15 @@ def phase_dispatch():
                 with torch.no_grad(), moe.use_sorted_dispatch(sorted_):
                     return moe.moe_capacity(params, x, r, mcfg, act,
                                             schedule=schedule)
-            one_hot, got = run(False), run(True)
+            one_hot, got = _one_hot_layer(params, x, r, mcfg, act), run(True)
             again, dyn = run(True), run(True, trajectory.DYNAMIC)
             torch.cuda.synchronize()
             err = rel_err(got, one_hot)
             same, dyn_same = torch.equal(got, again), torch.equal(dyn, got)
-            line = (f"{what} T={T} C={C} {kind}: sorted vs one-hot rel "
+            line = (f"{what} T={T} C={C} {kind}: kernel rows vs one-hot rel "
                     f"{err:.3e} (tol {DISPATCH_TOL[kind]:g}); {dropped} of "
                     f"{T * k} choices past capacity (max load "
-                    f"{int(load.max())}); sorted the same bits twice: "
+                    f"{int(load.max())}); the same bits twice: "
                     f"{same}; dynamic == static: {dyn_same}")
             if not torch.isfinite(got).all() or err > DISPATCH_TOL[kind] \
                     or not same or not dyn_same:
@@ -1211,35 +1234,143 @@ def phase_dispatch():
             log("dispatch", line)
         del params
         torch.cuda.empty_cache()
-    return row
+    return row, _dispatch_kernels()
+
+
+def moe_dispatch_bound_ms(tables, T, E, C, k, d, x_bytes):
+    """Least time of the gather and of the combine, each input byte read
+    once and each output byte written once at HBM_BYTES_PER_S: the gather
+    reads the rows of the tokens it sends and the (E, C) int64 table and
+    writes the (E, C, d) rows; the combine reads the fp32 rows that carry
+    a token and 12 bytes a (t, k) entry (int64 row, fp32 weight) and
+    writes each token's row.  -> (gather ms, combine ms)."""
+    sent = int(tables.idx[tables.idx < T].unique().numel())
+    kept = int((tables.rows < E * C).sum())
+    gather = sent * d * x_bytes + E * C * 8 + E * C * d * x_bytes
+    combine = kept * d * 4 + T * k * 12 + T * d * x_bytes
+    return (gather / HBM_BYTES_PER_S * 1e3, combine / HBM_BYTES_PER_S * 1e3)
+
+
+def _dispatch_kernels():
+    """The gather and combine kernels at ROW_CASES, bf16, on a routing
+    drawn by numpy: each held bit for bit to its plain version
+    (``gather_dispatch``, ``scatter_combine(...).to``), then each timed
+    (``kernel_times``) beside its bytes bound, and the pair's device time
+    beside the plain versions' and the one-hot products' (the masks, the
+    einsum, ``one_hot_combine(...).to``: the library ops they replace, the
+    row's ``library_ms``).  -> the kernels line's rows by path."""
+    import numpy as np
+    import torch
+    from repro_torch.core import gating
+    from repro_torch.kernels import moe_dispatch as kmd
+    from repro_torch.models import moe
+    dt, rows = torch.bfloat16, {}
+    for path, (T, E, C, k, d) in ROW_CASES.items():
+        rng = np.random.default_rng(0)
+        idx = np.argsort(-rng.standard_normal((T, E)), axis=1)[:, :k]
+        w = rng.random((T, k)) + 0.1
+        w = w / w.sum(1, keepdims=True)
+        indices = torch.from_numpy(idx).cuda()
+        weights = torch.from_numpy(w.astype(np.float32)).cuda().to(dt)
+        comb = torch.zeros(T, E, device="cuda", dtype=dt).scatter_(
+            1, indices, weights)
+        r = gating.Routing(indices, weights, comb.float(), comb)
+        x = torch.from_numpy(rng.standard_normal(
+            (T, d), dtype=np.float32)).cuda().to(dt)
+        ye = torch.from_numpy(rng.standard_normal(
+            (E, C, d), dtype=np.float32)).cuda()
+        tables = moe.dispatch_tables(r, T, E, C)
+
+        def gather():
+            return kmd.gather_dispatch_kernel(x, tables.idx)
+
+        def combine():
+            return kmd.scatter_combine_kernel(ye, tables.rows,
+                                              tables.weights, dt)
+
+        def plain():
+            kmd.gather_dispatch(x, tables.idx)
+            return kmd.scatter_combine(ye, tables.rows, tables.weights).to(dt)
+
+        def one_hot():
+            dispatch, cw = moe.dispatch_masks(r, T, E, C)
+            torch.einsum("tec,td->ecd", dispatch.to(dt), x)
+            return moe.one_hot_combine(cw, ye).to(dt)
+        with torch.no_grad():
+            same = (_same_bits(gather(), kmd.gather_dispatch(x, tables.idx))
+                    and _same_bits(combine(), kmd.scatter_combine(
+                        ye, tables.rows, tables.weights).to(dt)))
+            g, g_text = kernel_times(gather)
+            c, c_text = kernel_times(combine)
+            pair = device_ms(lambda: (gather(), combine()))[0]
+            t_plain = device_ms(plain)[0]
+            t_one_hot = device_ms(one_hot, reps=5)[0]
+        b_g, b_c = moe_dispatch_bound_ms(tables, T, E, C, k, d,
+                                         x.element_size())
+        line = (f"moe_dispatch {path} (T, E, C, k, d) = {(T, E, C, k, d)} "
+                f"bf16: the plain versions' bits {same}; gather {g_text}, "
+                f"bound {b_g * 1e3:.1f} us; combine {c_text}, bound "
+                f"{b_c * 1e3:.1f} us (bytes); the pair {pair:.4f} ms on "
+                f"the device, plain {t_plain:.4f} ms, one-hot products "
+                f"{t_one_hot:.4f} ms")
+        if not same:
+            fail("dispatch", line)
+        log("dispatch", line)
+        rows[path] = dict(max_abs_err=0.0, ms=g["ms"] + c["ms"],
+                          device_ms=pair, gather_ms=g["ms"],
+                          gather_device_ms=g["device_ms"], combine_ms=c["ms"],
+                          combine_device_ms=c["device_ms"], plain_ms=t_plain,
+                          bound_ms=b_g + b_c, bound_by="bytes",
+                          library_ms=t_one_hot, shape=[T, E, C, k, d])
+        del x, ye, tables, r
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _one_hot_layer(params, x, r, mcfg, act):
+    """One MoE layer through the one-hot products (``moe_capacity``'s
+    path where autograd records), the streamed_moe kernel between them."""
+    import torch
+    from repro_torch.models import moe
+    T, E = x.shape[0], mcfg.num_experts
+    C = mcfg.capacity_rows(T)
+    with torch.no_grad():
+        dispatch, combine = moe.dispatch_masks(r, T, E, C)
+        xe = torch.einsum("tec,td->ecd", dispatch.to(x.dtype), x)
+        ye = moe._expert_ffn(params, xe.contiguous(), act)
+        return moe.one_hot_combine(combine, ye).to(x.dtype)
 
 
 def _batch_invariance(params, x, mcfg, act, gen, trials=4):
     """Half of the tokens placed at other rows among other tokens: under
     drop-free capacity each of their outputs must keep its bits, with
-    one-hot and with sorted dispatch (what serving with preemption and the
-    prefix cache needs: a request's tokens may not depend on its slot or on
-    who shares the batch)."""
+    kernels on (the ``moe_dispatch`` kernels and streamed_moe) and with
+    ``use_kernels(False)`` under ``use_sorted_dispatch`` (the plain
+    gathers and FFN) (what serving with preemption and the prefix cache
+    needs: a request's tokens may not depend on its slot or on who shares
+    the batch)."""
     import torch
     from repro_torch.core import gating
+    from repro_torch.kernels import ops
     from repro_torch.models import moe
     T, k = x.shape[0], mcfg.top_k
     half = T // 2
-    moved = {False: 0, True: 0}
+    moved = {True: 0, False: 0}
     for _ in range(trials):
         other = torch.randn(x.shape, generator=gen, device="cuda").to(x.dtype)
         rows = torch.randperm(T, generator=gen, device="cuda")[:half]
         other[rows] = x[:half]
-        for sorted_ in moved:
-            with torch.no_grad(), moe.use_sorted_dispatch(sorted_):
+        for kernels in moved:
+            with torch.no_grad(), ops.use_kernels(kernels), \
+                    moe.use_sorted_dispatch(not kernels):
                 y = moe.moe_capacity(params, x, gating.route(
                     params["router"], x, top_k=k), mcfg, act)
                 y2 = moe.moe_capacity(params, other, gating.route(
                     params["router"], other, top_k=k), mcfg, act)
-            moved[sorted_] += int((y2[rows] != y[:half]).any(-1).sum())
+            moved[kernels] += int((y2[rows] != y[:half]).any(-1).sum())
     text = (f"; batch invariance: {half} tokens at other rows among other "
-            f"tokens, {trials} times: outputs that moved one-hot "
-            f"{moved[False]}, sorted {moved[True]}")
+            f"tokens, {trials} times: outputs that moved with kernels "
+            f"{moved[True]}, sorted with use_kernels(False) {moved[False]}")
     if any(moved.values()):
         fail("dispatch", text)
     return text
@@ -1251,6 +1382,7 @@ def _dispatch_times(params, x, r, mcfg, act, C):
     rows beside it; at C = C_CHUNK the kernel is also held against its
     plain version there.  -> (text, the kernels line's row or None)."""
     import torch
+    from repro_torch.kernels import moe_dispatch as kmd
     from repro_torch.kernels import ref
     from repro_torch.kernels import streamed_moe as sm
     from repro_torch.models import moe
@@ -1270,12 +1402,19 @@ def _dispatch_times(params, x, r, mcfg, act, C):
         return moe.scatter_combine(ye, tables.rows, tables.weights) \
             .to(x.dtype)
 
+    def kernels():
+        tables = moe.dispatch_tables(r, T, E, C)
+        kmd.gather_dispatch_kernel(x, tables.idx)
+        return kmd.scatter_combine_kernel(ye, tables.rows, tables.weights,
+                                          x.dtype)
+
     tiles = _planned(E, C, x.shape[1], ws[1].shape[-1], act)
 
     def kernel(tiles=tiles):
         return sm.streamed_moe_kernel(xe, *ws, activation=act, tiles=tiles)
     with torch.no_grad():
         t_oh, t_so = device_ms(one_hot)[0], device_ms(sorted_)[0]
+        t_kd = device_ms(kernels)[0]
         t_k = device_ms(kernel)[0]
         t_off = device_ms(lambda: kernel(None))[0]
         combine = moe.dispatch_masks(r, T, E, C)[1]
@@ -1283,7 +1422,9 @@ def _dispatch_times(params, x, r, mcfg, act, C):
                         _peak_bytes(lambda: fn(combine, ye)))
                 for label, fn in _combines().items()}
     text = (f"; dispatch + combine on the device: one-hot {t_oh:.4f} ms, "
-            f"sorted {t_so:.4f} ms ({t_oh / t_so:.1f}x); streamed_moe "
+            f"plain gathers {t_so:.4f} ms ({t_oh / t_so:.1f}x), the "
+            f"moe_dispatch kernels with their tables {t_kd:.4f} ms "
+            f"({t_oh / t_kd:.1f}x); streamed_moe "
             f"{t_k:.4f} ms at the analytic level ({tiles}), {t_off:.4f} ms "
             f"at off (the default); the one-hot combine alone: " + ", ".join(
                 f"{label} {ms:.4f} ms (+{b / 2**20:.1f} MiB at its peak)"
@@ -1583,9 +1724,13 @@ def _launches(eng):
 
 
 def _zero_counts(eng=None):
-    """Set the launch counts to 0 (the graphs' replay counts too)."""
+    """Set the launch counts to 0 (the graphs' replay counts too), and the
+    moe_dispatch kernels' and the MoE calls that kept the one-hot
+    products."""
+    from repro_torch.kernels import moe_dispatch as kmd
     from repro_torch.kernels import streamed_moe as sm
-    sm.LAUNCHES = 0
+    from repro_torch.models import moe
+    sm.LAUNCHES = kmd.LAUNCHES = kmd.CAPTURED = moe.ONE_HOT_CALLS = 0
     if eng is not None:
         for ms in eng._megasteps.values():
             ms.replays = dict.fromkeys(ms.replays, 0)
@@ -2448,27 +2593,32 @@ def phase_forward():
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_dispatch as kmd
     from repro_torch.kernels import ops
     from repro_torch.kernels import streamed_moe as sm
-    from repro_torch.models import api, transformer
+    from repro_torch.models import api, moe, transformer
     cfg = get_config(ARCH)
     params = api.init_params(cfg, seed=0, device="cuda")
     batch = _score_batch(cfg)
     n_attn = sum(1 for m in cfg.layer_kinds() if m == "attn")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa.LAUNCHES = sm.LAUNCHES = 0
+    fa.LAUNCHES = sm.LAUNCHES = kmd.LAUNCHES = kmd.CAPTURED = 0
+    moe.ONE_HOT_CALLS = 0
     t0 = time.perf_counter()
     with torch.no_grad():
         loss, m = api.loss_fn(params, batch, cfg, spec="capacity",
                               use_flash=True)
     loss = loss.item()
     secs = time.perf_counter() - t0
-    launches = {"flash_attention": fa.LAUNCHES, "streamed_moe": sm.LAUNCHES}
+    launches = {"flash_attention": fa.LAUNCHES, "streamed_moe": sm.LAUNCHES,
+                "moe_dispatch": kmd.LAUNCHES}
     peak = torch.cuda.max_memory_allocated()
-    if launches != {"flash_attention": n_attn, "streamed_moe": _n_moe(cfg)}:
-        fail("forward", f"launches {launches}, want {n_attn} flash and "
-                        f"{_n_moe(cfg)} streamed_moe")
+    want = {"flash_attention": n_attn, "streamed_moe": _n_moe(cfg),
+            "moe_dispatch": 2 * _n_moe(cfg)}
+    if launches != want or moe.ONE_HOT_CALLS or kmd.CAPTURED:
+        fail("forward", f"launches {launches}, want {want}; MoE calls that "
+                        f"kept the one-hot products {moe.ONE_HOT_CALLS}")
     if not torch.isfinite(torch.tensor(loss)):
         fail("forward", f"loss {loss}")
     T = SCORE_B * SCORE_S
@@ -2476,9 +2626,11 @@ def phase_forward():
                    f"(MoE C = {cfg.moe.capacity_rows(T)}): loss {loss:.4f} (ce "
                    f"{m['ce'].item():.4f}, aux {m['aux'].item():.4f}) in "
                    f"{secs:.3f}s = {T / secs:.0f} scored tok/s; launches "
-                   f"{launches}; peak memory {peak / 2**30:.2f} GiB")
-    _forward_sorted(params, batch, cfg, loss, n_attn)
-    _combine_cost(params, batch, cfg)
+                   f"{launches} (moe_dispatch: the gather and the combine "
+                   f"of each MoE layer); MoE calls that kept the one-hot "
+                   f"products {moe.ONE_HOT_CALLS}; peak memory "
+                   f"{peak / 2**30:.2f} GiB")
+    _forward_replays(params, batch, cfg, loss, launches)
     del params
     torch.cuda.empty_cache()
 
@@ -2559,70 +2711,47 @@ def _peak_bytes(fn):
     return torch.cuda.max_memory_allocated() - base
 
 
-def _combine_cost(params, batch, cfg):
-    """The cost of the batch-invariant one-hot combine on the default
-    path: the bf16 scoring forward with ``moe.one_hot_combine`` and with
-    the single product patched in its place, run in turn (a, b, b, a
-    after one warm-up each), wall and peak memory of each."""
-    import torch
-    from unittest import mock
-    from repro_torch.models import api, moe
-
-    def score(fn):
-        with mock.patch.object(moe, "one_hot_combine", fn), torch.no_grad():
-            torch.cuda.synchronize()
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            loss, _ = api.loss_fn(params, batch, cfg, spec="capacity",
-                                  use_flash=True)
-            loss.item()
-            return time.perf_counter() - t0, torch.cuda.max_memory_allocated()
-    fns = _combines()
-    for fn in fns.values():
-        score(fn)
-    got = {label: [] for label in fns}
-    for label in list(fns) + list(fns)[::-1]:
-        got[label].append(score(fns[label]))
-    log("forward", "one-hot combine on the bf16 scoring forward (C = "
-                   f"{cfg.moe.capacity_rows(SCORE_B * SCORE_S)}): " + "; ".join(
-                       f"{label} wall {statistics.mean(w for w, _ in runs):.4f}s, "
-                       f"peak memory {max(p for _, p in runs) / 2**30:.3f} GiB"
-                       for label, runs in got.items()))
-
-
-def _forward_sorted(params, batch, cfg, loss_one_hot, n_attn):
-    """The bf16 scoring batch with sorted dispatch: the loss within
-    LOSS_TOL (relative) of the one-hot run's; both timed again, one after
-    the other."""
+def _forward_replays(params, batch, cfg, loss_first, launches):
+    """The bf16 scoring batch scored again, REPLAY_CALLS times, as a
+    scoring loop calls ``loss_fn``: the second call captures a CUDA graph
+    (``models.graphs``) and the later ones replay it.  Each call's loss
+    is the first (eager) call's bits, each counts the first call's
+    launches; their wall times, and the host's time to enqueue one
+    replay."""
     import torch
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_dispatch as kmd
     from repro_torch.kernels import streamed_moe as sm
-    from repro_torch.models import api
-
-    def score(spec):
+    from repro_torch.models import api, graphs
+    captures, replays = graphs.CAPTURES, graphs.REPLAYS
+    walls, losses, counts, enqueue = [], [], [], []
+    for _ in range(REPLAY_CALLS):
+        n = (fa.LAUNCHES, sm.LAUNCHES, kmd.LAUNCHES)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with torch.no_grad():
-            loss, _ = api.loss_fn(params, batch, cfg, spec=spec,
+            loss, _ = api.loss_fn(params, batch, cfg, spec="capacity",
                                   use_flash=True)
-        loss = loss.item()
-        return loss, time.perf_counter() - t0
-
-    fa.LAUNCHES = sm.LAUNCHES = 0
-    loss, secs = score(SORTED_SPEC)
-    launches = {"flash_attention": fa.LAUNCHES, "streamed_moe": sm.LAUNCHES}
-    _, secs_oh = score("capacity")
+        enqueue.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+        walls.append(time.perf_counter() - t0)
+        counts.append(dict(zip(launches, (fa.LAUNCHES - n[0],
+                                          sm.LAUNCHES - n[1],
+                                          kmd.LAUNCHES - n[2]))))
     T = SCORE_B * SCORE_S
-    rel = abs(loss - loss_one_hot) / abs(loss_one_hot)
-    line = (f"sorted dispatch, bf16: loss {loss:.6f} against one-hot's "
-            f"{loss_one_hot:.6f}, rel {rel:.3e} (tol {LOSS_TOL:g}); "
-            f"{secs:.3f}s = {T / secs:.0f} scored tok/s (one-hot timed "
-            f"again right after: {secs_oh:.3f}s = {T / secs_oh:.0f} scored "
-            f"tok/s); launches {launches}")
-    if launches != {"flash_attention": n_attn, "streamed_moe": _n_moe(cfg)}:
-        fail("forward", line)
-    if not rel <= LOSS_TOL:
+    line = (f"{REPLAY_CALLS} more scoring calls: captures "
+            f"{graphs.CAPTURES - captures}, replays "
+            f"{graphs.REPLAYS - replays}; the first call's loss bits in "
+            f"each {all(x == loss_first for x in losses)}; launches a call "
+            f"{counts[-1]} (each as the first call's: "
+            f"{all(c == launches for c in counts)}); the capturing call "
+            f"{walls[0]:.3f}s, a replay {statistics.median(walls[1:]):.4f}s "
+            f"= {T / statistics.median(walls[1:]):.0f} scored tok/s (its "
+            f"host enqueue {1e3 * statistics.median(enqueue[1:]):.2f} ms)")
+    if graphs.CAPTURES - captures != 1 or \
+            graphs.REPLAYS - replays != REPLAY_CALLS or \
+            any(x != loss_first for x in losses) or \
+            any(c != launches for c in counts):
         fail("forward", line)
     log("forward", line)
 
@@ -3146,7 +3275,7 @@ def phase_family_kernels():
                       "forward_internvl2_fp32": flash32}
 
 
-def _serve_family(cfg, phase, prefix=False, check=None):
+def _serve_family(cfg, phase, prefix=False, check=None, rows=None):
     """A model served at full width, bf16, ``capacity``, seed 0, the
     parameters built once and shared by every engine.  The slice (4 x 8 ->
     16 tokens) on the fused engine: a first run that captures, fused ==
@@ -3158,12 +3287,17 @@ def _serve_family(cfg, phase, prefix=False, check=None):
     and no streamed_moe launch); for a model with Mamba-2 layers, a
     prefill chunk step's kernels and the preemption check; with
     ``prefix``, phase 6b's shared-prefix stream unbounded and with
-    preemption + the prefix cache: the same tokens.  -> the warm run's
-    streamed_moe and SSD launches.  ``check(params, cfg)`` runs on the
-    parameters once they are built."""
+    preemption + the prefix cache: the same tokens.  A MoE model's first
+    static run and its warm run keep no one-hot product and make two
+    moe_dispatch launches for each streamed_moe launch, eager and captured
+    (``_rows_check``).  -> the warm run's streamed_moe and SSD launches;
+    ``rows["launches"]`` the warm run's moe_dispatch launches.
+    ``check(params, cfg)`` runs on the parameters once they are built."""
     import torch
     from repro_torch.core.strategy import ExecutionSpec
+    from repro_torch.kernels import moe_dispatch as kmd
     from repro_torch.kernels import ssd
+    from repro_torch.kernels import streamed_moe as sm
     from repro_torch.launch import serve
     from repro_torch.models import api
     from repro_torch.tree import leaves
@@ -3209,8 +3343,12 @@ def _serve_family(cfg, phase, prefix=False, check=None):
         the same tokens, trace and statistics."""
         eng = engine(ExecutionSpec(strategy="capacity", schedule=schedule))
         _zero_counts(eng)
+        captured = sm.CAPTURED
         cold = serve.run(args, engine=eng)
         launches = _launches(eng)
+        if mcfg is not None:
+            _rows_check(phase, f"{schedule} first run",
+                        sm.CAPTURED - captured)
         if launches != n_moe * (4 + eng.stats["iterations"]):
             fail(phase, f"{schedule} first run: {launches} streamed_moe "
                         f"launches")
@@ -3237,6 +3375,12 @@ def _serve_family(cfg, phase, prefix=False, check=None):
     ssd.LAUNCHES = 0
     warm = serve.run(args, engine=eng)
     launches, ssd_launches = _launches(eng), ssd.LAUNCHES
+    if mcfg is not None:
+        _rows_check(phase, "warm slice", 0)
+    if rows is not None:
+        # by graph replays: two for each replayed streamed_moe launch, as
+        # the first run's captures held
+        rows["launches"] = kmd.LAUNCHES + 2 * eng.graph_launches()
     iters = eng.stats["iterations"] - iters0
     syncs = eng.stats["host_syncs"] - syncs0
     outs = list(warm["outs"].values())
@@ -3295,6 +3439,24 @@ def _serve_family(cfg, phase, prefix=False, check=None):
     del params
     torch.cuda.empty_cache()
     return launches, ssd_launches
+
+
+def _rows_check(phase, what, sm_captured):
+    """Since ``_zero_counts``: no MoE call kept the one-hot products, and
+    the moe_dispatch kernels ran twice (the gather and the combine) for
+    each streamed_moe launch, eagerly and into the graphs captured
+    (``sm_captured`` streamed_moe launches)."""
+    from repro_torch.kernels import moe_dispatch as kmd
+    from repro_torch.kernels import streamed_moe as sm
+    from repro_torch.models import moe
+    line = (f"{what}: moe_dispatch launches {kmd.LAUNCHES} eager, "
+            f"{kmd.CAPTURED} captured, against streamed_moe's "
+            f"{sm.LAUNCHES} and {sm_captured}; MoE calls that kept the "
+            f"one-hot products {moe.ONE_HOT_CALLS}")
+    if moe.ONE_HOT_CALLS or kmd.LAUNCHES != 2 * sm.LAUNCHES or \
+            kmd.CAPTURED != 2 * sm_captured:
+        fail(phase, line)
+    log(phase, line)
 
 
 def _prefix_loops(params, cfg, phase):
@@ -3361,10 +3523,13 @@ def phase_deepseek():
     16.88 B parameters, 64 experts top-6 and two shared experts a layer),
     ``_serve_family`` with the shared-prefix loops, and phase dist1's
     decode_fn check (no spec == capacity) on its parameters.  ->
-    streamed_moe launches of the warm slice (the serve_deepseek path)."""
+    streamed_moe and moe_dispatch launches of the warm slice (the
+    serve_deepseek path)."""
     from repro_torch.configs import get_config
-    return _serve_family(get_config(DEEPSEEK), "deepseek", prefix=True,
-                         check=_dist1_decode)[0]
+    rows = {}
+    launches = _serve_family(get_config(DEEPSEEK), "deepseek", prefix=True,
+                             check=_dist1_decode, rows=rows)[0]
+    return launches, rows["launches"]
 
 
 def phase_qwen3():
@@ -4978,11 +5143,16 @@ def phase_examples():
 
 SOURCES = {"streamed_moe": "src/repro/kernels/streamed_moe.py:201",
            "flash_attention": "src/repro/kernels/flash_attention.py:81",
-           "ssd": "src/repro/kernels/ssd.py:51"}
+           "ssd": "src/repro/kernels/ssd.py:51",
+           # no Pallas kernel: XLA's one-hot dispatch and combine einsums
+           "moe_dispatch": "src/repro/models/moe.py:151"}
 
 
 ONLY = {"mesh": lambda: phase_mesh(), "nemotron": lambda: phase_nemotron(),
-        "examples": lambda: phase_examples()}
+        "examples": lambda: phase_examples(),
+        "dispatch": lambda: phase_dispatch(),
+        "forward": lambda: phase_forward(),
+        "deepseek": lambda: phase_deepseek()}
 
 
 def main():
@@ -5004,7 +5174,7 @@ def main():
         os.environ["REPRO_AUTOTUNE_CACHE"] = autotune_cache.name
         phase_build()
         rows = phase_kernels()
-        sorted_row = phase_dispatch()
+        sorted_row, rows["moe_dispatch"] = phase_dispatch()
         rows["streamed_moe"].update(serve_sorted=sorted_row,
                                     serve_prefix=sorted_row)
         phase_tiles()
@@ -5046,7 +5216,8 @@ def main():
         launches["ssd", "serve_prefill"] = phase_mamba_serve()
         (launches["streamed_moe", "serve_jamba"],
          launches["ssd", "serve_prefill_jamba"]) = phase_jamba()
-        launches["streamed_moe", "serve_deepseek"] = phase_deepseek()
+        (launches["streamed_moe", "serve_deepseek"],
+         launches["moe_dispatch", "serve_deepseek"]) = phase_deepseek()
         launches["streamed_moe", "serve_qwen3"] = phase_qwen3()
         (launches["flash_attention", "forward_internvl2"],
          launches["flash_attention", "forward_internvl2_fp32"]) = \

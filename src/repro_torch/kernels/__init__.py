@@ -6,6 +6,9 @@ Three CUDA C++ kernels, one for each Pallas kernel of ``repro.kernels``:
 intra-chunk terms), each wrapped by the module of the same name, with
 its plain PyTorch version and the reference's oracle in ``ref``
 (``flash_ops`` and ``ssd_ops`` are the reference's aliases of ``ops``).
+A fourth source, ``csrc/moe_dispatch.cu``, replaces no Pallas kernel: it
+moves the MoE block's capacity rows in place of the reference's one-hot
+einsums (``moe_dispatch``, its plain versions beside it).
 ``streamed_moe_autotuned`` runs the grouped FFN with the tile planner's
 setting (``core.autotune``).  The dispatch functions named like a kernel
 module (``ops.streamed_moe``, ``ops.flash_attention``) stay in ``ops``:

@@ -21,7 +21,7 @@ from pathlib import Path
 from typing import Dict, List, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("streamed_moe", "flash_attention", "ssd")
+SOURCES = ("streamed_moe", "flash_attention", "ssd", "moe_dispatch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -9,7 +9,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device, torch_dtype
-from . import transformer, whisper
+from . import graphs, transformer, whisper
 from .layers import checkpointed
 
 
@@ -63,7 +63,14 @@ def loss_fn(params, batch, cfg: ModelConfig, *, spec=None, remat=False,
     backward.  The flash kernel has no backward: train with ``use_flash``
     off, as the reference does.  Under a sharding layout (the mesh steps)
     ``params`` are this rank's blocks, gathered as they are used;
-    ``unshard``: ``transformer.forward``'s per-period gather."""
+    ``unshard``: ``transformer.forward``'s per-period gather.  On CUDA,
+    where autograd does not record, the second call of a setting on is
+    replayed from a CUDA graph (``models.graphs``)."""
+    return graphs.call(_loss, params, batch, cfg, spec=spec, remat=remat,
+                       use_flash=use_flash, unshard=unshard)
+
+
+def _loss(params, batch, cfg, *, spec, remat, use_flash, unshard):
     if cfg.is_encoder_decoder:
         params = transformer.gathered(params)
         memory = whisper.encode(params, batch["frames"], cfg, remat=remat)

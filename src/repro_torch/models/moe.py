@@ -10,8 +10,12 @@ oracle), ``capacity`` (dispatch into (E, C, d) rows, the
 in load order, the kernel once on a hot prefix and once on the cold
 tail), or the distributed ``fse_dp``, ``ep``, ``tp`` and ``auto``
 (``core.fse_dp``, ``core.baselines``; ``capacity`` on one device).
-Capacity dispatch and combine are one-hot products by default, or
-gathers under ``use_sorted_dispatch`` (``ExecutionSpec.sorted_dispatch``).
+Capacity dispatch and combine move rows through the gather and combine
+kernels of ``kernels.moe_dispatch`` wherever kernels are on and autograd
+does not record through the call; elsewhere they are the reference's
+one-hot products, or its gathers under ``use_sorted_dispatch``
+(``ExecutionSpec.sorted_dispatch``).  ``ONE_HOT_CALLS`` counts the
+capacity calls made with kernels on that kept the one-hot products.
 """
 from __future__ import annotations
 
@@ -25,7 +29,10 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.core import gating, trajectory
+from repro_torch.kernels import moe_dispatch as kmd
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.moe_dispatch import (gather_dispatch,  # noqa: F401
+                                              scatter_combine)
 from .layers import activation_fn, dense_init
 from .mlp import ffn, ffn_init
 
@@ -116,36 +123,69 @@ def _expert_ffn(params, xe, activation):
                                        activation)
 
 
-def moe_capacity(params, x2d, routing, moe: MoEConfig, activation,
-                 schedule=None):
-    """Capacity dispatch -> grouped expert FFN -> combine.  A dynamic
-    schedule reorders the expert axis for the FFN and restores it before
-    the combine (values unchanged).  Both dispatches return the model
-    dtype: the reference's sorted path returns fp32, which would promote
-    a bf16 residual stream, and the fused segments' buffers keep one
-    dtype."""
-    T, d = x2d.shape
-    E = moe.num_experts
-    C = moe.capacity_rows(T)
-    order = trajectory.resolve_order(
-        schedule, lambda: gating.expert_token_counts(routing), x2d.device)
-    p = params if order is None else _reorder_experts(params, order)
-    if sorted_dispatch_enabled():
+ONE_HOT_CALLS = 0
+
+
+def _rows_by_kernel(params, x2d, routing) -> bool:
+    """Whether a capacity call moves its rows through the kernels of
+    ``kernels.moe_dispatch`` (their plain versions on CPU tensors): with
+    kernels on, unless autograd records through the call.  The kernels
+    have no backward, so training keeps the one-hot products, whose VJP
+    is the reference's."""
+    if not kops.kernels_enabled():
+        return False
+    if not torch.is_grad_enabled():
+        return True
+    return not any(t is not None and t.requires_grad for t in (
+        x2d, routing.weights, params.get("w_gate"), params["w_up"],
+        params["w_down"]))
+
+
+def _capacity_rows(params, x2d, routing, E, C, order, ffn):
+    """Dispatch into (E, C, d) rows in ``order`` (None: canonical) ->
+    ``ffn`` -> canonical order -> combine, in x2d's dtype.  Both
+    dispatches return the model dtype: the reference's sorted path
+    returns fp32, which would promote a bf16 residual stream, and the
+    fused segments' buffers keep one dtype."""
+    global ONE_HOT_CALLS
+    T = x2d.shape[0]
+    kernel = _rows_by_kernel(params, x2d, routing)
+    if kernel or sorted_dispatch_enabled():
         tables = dispatch_tables(routing, T, E, C)
         idx = tables.idx if order is None else tables.idx.index_select(0,
                                                                        order)
-        ye = _expert_ffn(p, gather_dispatch(x2d, idx), activation)
+        gather = kmd.gather_dispatch_kernel if kernel else gather_dispatch
+        ye = ffn(gather(x2d, idx))
         if order is not None:
             ye = trajectory.restore_order(order, ye)
+        if kernel:
+            return kmd.scatter_combine_kernel(ye, tables.rows, tables.weights,
+                                              x2d.dtype)
         return scatter_combine(ye, tables.rows, tables.weights).to(x2d.dtype)
+    if kops.kernels_enabled():
+        ONE_HOT_CALLS += 1
     dispatch, combine = dispatch_masks(routing, T, E, C)
     xe = torch.einsum("tec,td->ecd", dispatch.to(x2d.dtype), x2d)    # (E,C,d)
     if order is not None:
         (xe,) = trajectory.apply_order(order, xe)
-    ye = _expert_ffn(p, xe.contiguous(), activation)                 # fp32
+    ye = ffn(xe.contiguous())                                         # fp32
     if order is not None:
         ye = trajectory.restore_order(order, ye)
     return one_hot_combine(combine, ye).to(x2d.dtype)
+
+
+def moe_capacity(params, x2d, routing, moe: MoEConfig, activation,
+                 schedule=None):
+    """Capacity dispatch -> grouped expert FFN -> combine.  A dynamic
+    schedule reorders the expert axis for the FFN and restores it before
+    the combine (values unchanged)."""
+    T = x2d.shape[0]
+    order = trajectory.resolve_order(
+        schedule, lambda: gating.expert_token_counts(routing), x2d.device)
+    p = params if order is None else _reorder_experts(params, order)
+    return _capacity_rows(params, x2d, routing, moe.num_experts,
+                          moe.capacity_rows(T), order,
+                          lambda xe: _expert_ffn(p, xe, activation))
 
 
 def one_hot_combine(combine, ye):
@@ -207,24 +247,16 @@ def moe_hybrid(params, x2d, routing, moe: MoEConfig, activation, *,
         counts = gating.expert_token_counts(routing)
         order = torch.sort(-counts.to(torch.int64), stable=True).indices
     p = _reorder_experts(params, order)
-    if sorted_dispatch_enabled():
-        tables = dispatch_tables(routing, T, E, C)
-        xe = gather_dispatch(x2d, tables.idx.index_select(0, order))
-        ye = _expert_ffn_tiered(p, xe, activation, hot_experts)
-        ye = trajectory.restore_order(order, ye)
-        return scatter_combine(ye, tables.rows, tables.weights).to(x2d.dtype)
-    dispatch, combine = dispatch_masks(routing, T, E, C)
-    xe = torch.einsum("tec,td->ecd", dispatch.to(x2d.dtype), x2d)    # (E,C,d)
-    (xe,) = trajectory.apply_order(order, xe)
-    ye = _expert_ffn_tiered(p, xe.contiguous(), activation, hot_experts)
-    ye = trajectory.restore_order(order, ye)
-    return one_hot_combine(combine, ye).to(x2d.dtype)
+    return _capacity_rows(
+        params, x2d, routing, E, C, order,
+        lambda xe: _expert_ffn_tiered(p, xe, activation, hot_experts))
 
 
 # ---------------------------------------------------------------------------
 # sorted dispatch: gathers in place of the one-hot products, which cost
-# O(T·E·C·d) operations to move T·k rows.  One-hot stays the default, as
-# in the reference.
+# O(T·E·C·d) operations to move T·k rows.  Where the kernels do not move
+# the rows (kernels off, or autograd recording), one-hot stays the
+# default, as in the reference; the kernels read the same tables.
 # ---------------------------------------------------------------------------
 
 _SORTED = contextvars.ContextVar("repro_torch_sorted_dispatch", default=False)
@@ -280,34 +312,6 @@ def dispatch_tables(routing, T, E, C) -> DispatchTables:
     return DispatchTables(idx.view(E, C + 1)[:, :C],
                           torch.where(keep, experts * C + pos, E * C),
                           torch.where(keep, w, torch.zeros_like(w)))
-
-
-def gather_dispatch(x2d, idx):
-    """x2d: (T, d); idx: (E, C) -> (E, C, d), zero rows for padding (T)."""
-    xpad = torch.cat([x2d, x2d.new_zeros((1, x2d.shape[1]))])
-    return xpad.index_select(0, idx.reshape(-1)).view(*idx.shape, -1)
-
-
-def scatter_combine(ye, rows, weights):
-    """ye: (E, C, d) -> (T, d) fp32: the reference's weighted scatter-add,
-    computed as a gather.  Token t adds ``ye`` at its k ``rows`` times
-    their weights one by one, from zero and in ascending expert order:
-    the order in which the reference's scatter over (e, c) reaches them.
-    With no atomics the sums are the same bits on every run and whoever
-    shares the batch, and only the T·k rows that carry a token are read.
-    An overflowed choice (row E*C) adds 0 whatever ``ye`` holds, as the
-    reference's drop does."""
-    E, C, d = ye.shape
-    T, k = rows.shape
-    drop = rows == E * C
-    g = ye.reshape(E * C, d).index_select(
-        0, rows.clamp(max=E * C - 1).reshape(-1)).view(T, k, d)
-    g = g.float().masked_fill(drop[..., None], 0.0) * \
-        weights.float()[..., None]
-    y = torch.zeros((T, d), dtype=torch.float32, device=ye.device)
-    for i in range(k):
-        y = y + g[:, i]
-    return y
 
 
 def moe_block(params, x, moe: MoEConfig, activation, *, impl=None,

@@ -42,6 +42,7 @@ from repro_torch import bridge
 from repro_torch.configs import reduced_config
 from repro_torch.configs.base import MoEConfig
 from repro_torch.core import autotune, gating, strategy, trajectory
+from repro_torch.kernels import ops as kops
 from repro_torch.models import moe
 from repro_torch.serving import Engine, ServeConfig
 from repro_torch.sim import hardware as hw
@@ -97,7 +98,7 @@ def test_moe_hybrid_matches_reference(dtype, sorted_, host_schedule):
         want = np.asarray(jmoe.moe_hybrid(jp, jx, jr, jcfg, "swiglu",
                                           hot_experts=3, schedule=jsched),
                           np.float32)
-    with moe.use_sorted_dispatch(sorted_):
+    with kops.use_kernels(False), moe.use_sorted_dispatch(sorted_):
         got = moe.moe_hybrid(tp, x, r, cfg, "swiglu", hot_experts=3,
                              schedule=sched)
     err = np.abs(got.float().numpy() - want).max() / np.abs(want).max()
@@ -113,7 +114,7 @@ def test_hybrid_equals_capacity_bitwise(dtype, sorted_):
     _, x, _, tp, _, cfg = _case(dtype, T=40, E=8, seed=3)
     r = gating.route(tp["router"], x, top_k=cfg.top_k)
     counts = gating.expert_token_counts(r).numpy()
-    with moe.use_sorted_dispatch(sorted_):
+    with kops.use_kernels(False), moe.use_sorted_dispatch(sorted_):
         want = moe.moe_capacity(tp, x, r, cfg, "swiglu")
         for H in range(cfg.num_experts + 1):
             for sched in (None, trajectory.build_schedule(counts),

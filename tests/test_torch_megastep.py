@@ -142,13 +142,17 @@ def test_segments_keyed_on_capture_settings(setup):
 def test_fused_matches_eager_sorted_dispatch(setup, schedule, slack):
     """Sorted dispatch through the spec: the fused segments give the eager
     loop's tokens, trace and stats, and the one-hot run's tokens (drop-free
-    capacity, fp32: the two dispatches move the same rows)."""
+    capacity, fp32: the two dispatches move the same rows).  With kernels
+    off, where the spec picks between the two (with kernels on both read
+    the tables)."""
     cfg, params = setup
-    runs = [_run(cfg, params, fused=fused, chunked=True, schedule=schedule,
-                 slack=slack, sorted_dispatch=True) for fused in (False, True)]
-    _assert_same(*runs[0], *runs[1])
-    _, one_hot = _run(cfg, params, fused=True, chunked=True,
-                      schedule=schedule, slack=slack)
+    with ops.use_kernels(False):
+        runs = [_run(cfg, params, fused=fused, chunked=True,
+                     schedule=schedule, slack=slack, sorted_dispatch=True)
+                for fused in (False, True)]
+        _assert_same(*runs[0], *runs[1])
+        _, one_hot = _run(cfg, params, fused=True, chunked=True,
+                          schedule=schedule, slack=slack)
     assert runs[1][1] == one_hot
 
 

@@ -22,6 +22,7 @@ from repro.kernels import ops as jops
 from repro.models import moe as jmoe
 from repro_torch.configs.base import MoEConfig
 from repro_torch.core import gating, policies, strategy, trajectory
+from repro_torch.kernels import ops as kops
 from repro_torch.models import moe
 
 REPO = Path(__file__).resolve().parent.parent
@@ -276,7 +277,7 @@ def test_sorted_moe_capacity_matches_reference(schedule, cf):
     with jops.use_kernels(False), jmoe.use_sorted_dispatch(True):
         want = np.asarray(jmoe.moe_capacity(jp, jnp.asarray(x), jr, jcfg,
                                             "swiglu", schedule=jsched))
-    with moe.use_sorted_dispatch(True):
+    with kops.use_kernels(False), moe.use_sorted_dispatch(True):
         got = moe.moe_capacity(tp, torch.from_numpy(x), r, cfg, "swiglu",
                                schedule=sched)
     np.testing.assert_allclose(got.numpy(), want, rtol=SORTED_TOL,
@@ -286,21 +287,25 @@ def test_sorted_moe_capacity_matches_reference(schedule, cf):
 
 
 def test_sorted_spec_scope_equals_context_toggle():
+    """With kernels off, where the option picks between the gathers and
+    the one-hot products (with kernels on both read the tables)."""
     x, _, tp, _, cfg = _moe_case(T=11, E=8, seed=6)
     xt = torch.from_numpy(x)
-    y_spec = moe.moe_block(tp, xt, cfg, "swiglu", spec=strategy.ExecutionSpec(
-        strategy="capacity", sorted_dispatch=True))
-    with moe.use_sorted_dispatch(True):
-        assert moe.sorted_dispatch_enabled()
-        y_ctx = moe.moe_block(tp, xt, cfg, "swiglu", spec="capacity")
-    assert not moe.sorted_dispatch_enabled()
-    assert torch.equal(y_spec, y_ctx)
-    with moe.use_sorted_dispatch(True):      # an explicit False wins
-        y_off = moe.moe_block(tp, xt, cfg, "swiglu",
-                              spec={"strategy": "capacity",
-                                    "sorted_dispatch": False})
-    assert torch.equal(y_off, moe.moe_block(tp, xt, cfg, "swiglu",
-                                            spec="capacity"))
+    with kops.use_kernels(False):
+        y_spec = moe.moe_block(tp, xt, cfg, "swiglu",
+                               spec=strategy.ExecutionSpec(
+                                   strategy="capacity", sorted_dispatch=True))
+        with moe.use_sorted_dispatch(True):
+            assert moe.sorted_dispatch_enabled()
+            y_ctx = moe.moe_block(tp, xt, cfg, "swiglu", spec="capacity")
+        assert not moe.sorted_dispatch_enabled()
+        assert torch.equal(y_spec, y_ctx)
+        with moe.use_sorted_dispatch(True):      # an explicit False wins
+            y_off = moe.moe_block(tp, xt, cfg, "swiglu",
+                                  spec={"strategy": "capacity",
+                                        "sorted_dispatch": False})
+        assert torch.equal(y_off, moe.moe_block(tp, xt, cfg, "swiglu",
+                                                spec="capacity"))
 
 
 @pytest.mark.parametrize("cf", [1.0, 4.0], ids=["overflow", "drop_free"])
@@ -308,7 +313,9 @@ def test_mesh_sorted_option_matches_reference(cf, monkeypatch):
     """``meshctx.with_opts('sorted')`` switches the dispatch to gathers as
     the reference's does: the tables are built, the bits are
     ``use_sorted_dispatch``'s, the values the reference's under its own
-    option; outside the option the one-hot path runs."""
+    option; outside the option the one-hot path runs.  With kernels off,
+    where the option picks the path (with kernels on the kernels read the
+    tables either way)."""
     from repro.parallel import meshctx as jmeshctx
     from repro_torch.parallel import meshctx
     x, jp, tp, jcfg, cfg = _moe_case(T=13, E=4, k=2, seed=3)
@@ -324,14 +331,15 @@ def test_mesh_sorted_option_matches_reference(cf, monkeypatch):
     tables = moe.dispatch_tables
     monkeypatch.setattr(moe, "dispatch_tables",
                         lambda *a: built.append(1) or tables(*a))
-    with meshctx.with_opts("sorted"):
-        assert moe.sorted_dispatch_enabled()
-        got = moe.moe_capacity(tp, torch.from_numpy(x), r, cfg, "swiglu")
-    assert built == [1] and not moe.sorted_dispatch_enabled()
-    with moe.use_sorted_dispatch(True):
-        assert torch.equal(got, moe.moe_capacity(tp, torch.from_numpy(x), r,
-                                                 cfg, "swiglu"))
-    moe.moe_capacity(tp, torch.from_numpy(x), r, cfg, "swiglu")
+    with kops.use_kernels(False):
+        with meshctx.with_opts("sorted"):
+            assert moe.sorted_dispatch_enabled()
+            got = moe.moe_capacity(tp, torch.from_numpy(x), r, cfg, "swiglu")
+        assert built == [1] and not moe.sorted_dispatch_enabled()
+        with moe.use_sorted_dispatch(True):
+            assert torch.equal(got, moe.moe_capacity(
+                tp, torch.from_numpy(x), r, cfg, "swiglu"))
+        moe.moe_capacity(tp, torch.from_numpy(x), r, cfg, "swiglu")
     assert built == [1, 1]
     np.testing.assert_allclose(got.numpy(), want, rtol=SORTED_TOL,
                                atol=SORTED_TOL)
@@ -344,7 +352,7 @@ def test_sorted_dynamic_equals_static_bitwise(cf):
     xt = torch.from_numpy(x)
     r = gating.route(tp["router"], xt, top_k=cfg.top_k)
     counts = gating.expert_token_counts(r).numpy()
-    with moe.use_sorted_dispatch(True):
+    with kops.use_kernels(False), moe.use_sorted_dispatch(True):
         static = moe.moe_capacity(tp, xt, r, cfg, "swiglu")
         for sched in (trajectory.DYNAMIC, trajectory.build_schedule(counts),
                       trajectory.build_schedule(counts[::-1].copy())):
